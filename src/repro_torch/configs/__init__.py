@@ -1,0 +1,53 @@
+"""Architecture config registry: ``get(arch_id)`` returns the FULL config,
+``get_smoke(arch_id)`` the reduced CPU-sized config of the same family.
+
+Only the architectures whose serving path has been ported have a module
+here; every other id of ``ALIASES`` raises ``NotImplementedError`` naming
+the port slice that brings it.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict
+
+from repro_torch.core.arch import ArchConfig
+
+# canonical dashed ids (CLI --arch) -> module names
+ALIASES: Dict[str, str] = {
+    "internlm2-1.8b": "internlm2_1_8b",
+    "granite-3-8b": "granite_3_8b",
+    "gemma3-4b": "gemma3_4b",
+    "llama3.2-3b": "llama3_2_3b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+    "dbrx-132b": "dbrx_132b",
+    "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b",
+    "zamba2-2.7b": "zamba2_2_7b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
+}
+
+PORTED = ("internlm2_1_8b",)
+
+# the port slice (ROADMAP.md, queue 1) that brings each remaining module
+_LATER: Dict[str, str] = {
+    "gemma3_4b": "slice 3 (sliding-window ring serving)",
+    "zamba2_2_7b": "slice 3 (SSM/hybrid serving)",
+    "falcon_mamba_7b": "slice 3 (SSM/hybrid serving)",
+}
+
+
+def _module(arch_id: str):
+    mod_name = ALIASES.get(arch_id, arch_id.replace("-", "_").replace(".", "_"))
+    if mod_name not in PORTED:
+        later = _LATER.get(mod_name, "slice 6 (the remaining modules)")
+        raise NotImplementedError(
+            f"{arch_id}: not ported yet; it comes with {later}")
+    return importlib.import_module(f"repro_torch.configs.{mod_name}")
+
+
+def get(arch_id: str) -> ArchConfig:
+    return _module(arch_id).FULL
+
+
+def get_smoke(arch_id: str) -> ArchConfig:
+    return _module(arch_id).SMOKE

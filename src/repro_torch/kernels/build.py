@@ -1,0 +1,72 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each source under ``csrc/`` compiles with ``nvcc`` into a shared library
+with a plain C interface, which the kernel's wrapper loads with
+``ctypes``.  Libraries go to ``build/kernels/`` at the root of the
+checkout, named by a hash of their source, and are built at first use.
+Nothing is built when a module is imported: the CPU tests import every
+module and have no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().with_name("csrc")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES: Dict[str, str] = {"flash_decode": "flash_decode.cu"}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(cuda_home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a"
+                           " machine with the CUDA toolkit")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / SOURCES[name]).read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def build(name: str) -> str:
+    """Compile ``name``'s source with ``nvcc``; returns the compiler's log
+    (ptxas' register and shared-memory report).  Raises with the
+    compiler's output on failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = library_path(name)
+    # build under a private name, publish with an atomic rename: two
+    # processes building at once never load a half-written library
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"kernel build failed: {name}: nvcc exited"
+                           f" {proc.returncode}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return proc.stderr
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``name``, built first if it is missing."""
+    if name not in _loaded:
+        path = library_path(name)
+        if not path.exists():
+            build(name)
+        _loaded[name] = ctypes.CDLL(str(path))
+    return _loaded[name]

@@ -1,0 +1,53 @@
+"""Serving driver: ``python -m repro_torch.launch.serve --arch <id>``.
+
+Runs the continuous-batching server over synthetic prompts on the
+selected arch, on the card unless ``--device cpu`` is given: the smoke
+config by default, the full config with ``--full`` (random weights drawn
+from a seeded ``torch.Generator`` on the device; nothing is downloaded).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+import torch
+
+from repro_torch import configs, resolve_device
+from repro_torch.models.params import init_params
+from repro_torch.serve.server import ContinuousBatchServer
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--prefill-chunk", type=int, default=8,
+                    help="chunked pad-free admission: prompt tokens per"
+                         " prefill chunk step (docs/scheduling.md)")
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda)")
+    args = ap.parse_args()
+
+    device = resolve_device(args.device)
+    cfg = configs.get(args.arch) if args.full else configs.get_smoke(args.arch)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    server = ContinuousBatchServer(
+        cfg, params, slots=args.slots, max_prompt=args.prompt_len,
+        prefill_chunk=args.prefill_chunk, max_new_tokens=args.max_new,
+        device=device)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, size=args.prompt_len)
+               .astype(np.int32) for _ in range(args.requests)]
+    server.submit(prompts)
+    metrics = server.run()
+    print(json.dumps(metrics, indent=1))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,25 @@
+"""Model API: the serving entry points of a config's family.
+
+The counterpart of ``repro.models.api.ModelFns`` on this slice: the
+decode and chunk-prefill entry points (one-shot prefill and training come
+with a later slice).
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+from repro_torch.core.arch import ArchConfig
+from repro_torch.models import transformer
+
+
+class ModelFns(NamedTuple):
+    forward_decode: Callable
+    forward_prefill_chunk: Callable
+
+
+def model_fns(cfg: ArchConfig) -> ModelFns:
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder backbone is not ported yet")
+    return ModelFns(transformer.forward_decode,
+                    transformer.forward_prefill_chunk)

@@ -1,0 +1,195 @@
+"""Parameter specs and the model's weights as an ``nn.Module``.
+
+Every backbone weight is declared once as a ``ParamSpec`` (shape and
+initializer), in the layout of ``repro.models.params``: projection
+weights ``(d_in, d_out)`` applied as ``x @ w``, and per-layer leaves
+stacked along a leading ``(L, ...)`` axis.  ``init_params`` draws them
+from a ``torch.Generator`` on the target device; ``params_from_numpy``
+carries a tree of numpy arrays (for example the JAX package's own
+``init_params``) across leaf for leaf.
+
+Both return a ``ParamTree``: an ``nn.Module`` whose leaves are frozen
+``nn.Parameter``s, indexed like the JAX params dict (``p["blocks"]["attn"]
+["wq"]``), so ``state_dict``, ``parameters`` and ``to`` work as usual.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.core.arch import ArchConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    init: str = "normal"          # normal | zeros
+    scale: float = 0.02
+
+    def stack(self, n: int) -> "ParamSpec":
+        return dataclasses.replace(self, shape=(n,) + self.shape)
+
+
+SpecTree = Dict[str, object]  # nested dict of ParamSpec
+
+
+def _norm(d: int) -> ParamSpec:
+    return ParamSpec((d,), init="zeros")
+
+
+def attn_specs(cfg: ArchConfig) -> SpecTree:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    return {"wq": ParamSpec((d, nq)), "wk": ParamSpec((d, nkv)),
+            "wv": ParamSpec((d, nkv)), "wo": ParamSpec((nq, d))}
+
+
+def mlp_specs(cfg: ArchConfig) -> SpecTree:
+    d, f = cfg.d_model, cfg.d_ff
+    return {"w_gate": ParamSpec((d, f)), "w_up": ParamSpec((d, f)),
+            "w_down": ParamSpec((f, d))}
+
+
+def dense_block_specs(cfg: ArchConfig) -> SpecTree:
+    return {"attn_norm": _norm(cfg.d_model), "attn": attn_specs(cfg),
+            "mlp_norm": _norm(cfg.d_model), "mlp": mlp_specs(cfg)}
+
+
+def _stack_tree(tree: SpecTree, n: int) -> SpecTree:
+    return {k: (_stack_tree(v, n) if isinstance(v, dict) else v.stack(n))
+            for k, v in tree.items()}
+
+
+def layer_pattern(cfg: ArchConfig) -> Dict[str, int]:
+    """Static grouping of the layers (as ``repro.models.params``)."""
+    if cfg.family in ("dense", "vlm") and cfg.local_global_ratio > 0:
+        r = cfg.local_global_ratio
+        n_groups = cfg.n_layers // (r + 1)
+        tail = cfg.n_layers - n_groups * (r + 1)
+        return {"kind": "local_global", "ratio": r, "n_groups": n_groups,
+                "tail_local": tail}
+    if cfg.family == "hybrid":
+        k = cfg.attn_every
+        if cfg.n_layers % k:
+            raise ValueError(f"n_layers {cfg.n_layers} % attn_every {k}")
+        return {"kind": "hybrid", "group": k, "n_groups": cfg.n_layers // k}
+    if cfg.family == "ssm":
+        return {"kind": "uniform_ssm", "n_layers": cfg.n_layers}
+    if cfg.is_moe:
+        return {"kind": "uniform_moe", "n_layers": cfg.n_layers}
+    return {"kind": "uniform_dense", "n_layers": cfg.n_layers}
+
+
+def build_specs(cfg: ArchConfig) -> SpecTree:
+    pat = layer_pattern(cfg)
+    if pat["kind"] != "uniform_dense" or cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: layer pattern {pat['kind']!r} is not ported yet"
+            " (this slice ports the uniform dense decoder)")
+    d, vpad = cfg.d_model, cfg.padded_vocab()
+    specs: SpecTree = {"embed": ParamSpec((vpad, d)), "final_norm": _norm(d)}
+    if not cfg.tie_embeddings:
+        specs["unembed"] = ParamSpec((vpad, d))
+    specs["blocks"] = _stack_tree(dense_block_specs(cfg), pat["n_layers"])
+    return specs
+
+
+# ---------------------------------------------------------------------------
+# The weights as a module
+# ---------------------------------------------------------------------------
+class ParamTree(nn.Module):
+    """A nested tree of frozen weights, indexed like a dict."""
+
+    def __init__(self, tree: Dict[str, object]):
+        super().__init__()
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                self.add_module(key, ParamTree(val))
+            else:
+                self.register_parameter(
+                    key, nn.Parameter(val, requires_grad=False))
+        self._per_layer: Optional[List[Dict[str, object]]] = None
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+    def get(self, key: str, default=None):
+        return self[key] if key in self else default
+
+    def unstack(self) -> List[Dict[str, object]]:
+        """Per-layer views of a stacked ``(L, ...)`` subtree, made once:
+        slicing every leaf on every step costs more host time than the
+        layer's kernels take on the card."""
+        if self._per_layer is None:
+            n = next(iter(self.parameters())).shape[0]
+            self._per_layer = [self._slice(i) for i in range(n)]
+        return self._per_layer
+
+    def _apply(self, fn, recurse=True):
+        self._per_layer = None      # moved or cast weights: views are stale
+        return super()._apply(fn, recurse)
+
+    def _slice(self, i: int) -> Dict[str, object]:
+        out: Dict[str, object] = {k: p[i] for k, p in self._parameters.items()}
+        out.update({k: m._slice(i) for k, m in self._modules.items()})
+        return out
+
+
+def _leaf_dtype(ndim: int, dtype: Optional[torch.dtype],
+                default: torch.dtype) -> torch.dtype:
+    # 1-D leaves (norm scales) stay float32, as the JAX package's masters;
+    # matrices take the working dtype
+    return torch.float32 if ndim < 2 else (dtype or default)
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                device: Union[str, torch.device, None] = None,
+                dtype: Optional[torch.dtype] = None) -> ParamTree:
+    """Random weights (scaled normal, norms zero) drawn from ``generator``
+    on ``device`` (``cuda`` unless named; the generator must live on the
+    same device).  Matrices are stored in ``dtype`` (default: the config's
+    activation dtype).  torch's generator cannot reproduce ``jax.random``:
+    parity tests carry the JAX package's weights across with
+    ``params_from_numpy`` instead."""
+    device = resolve_device(device)
+
+    def draw(spec: ParamSpec) -> torch.Tensor:
+        dt = _leaf_dtype(len(spec.shape), dtype, cfg.activation_dtype)
+        if spec.init == "zeros":
+            return torch.zeros(spec.shape, dtype=dt, device=device)
+        x = torch.randn(spec.shape, generator=generator, device=device,
+                        dtype=torch.float32)
+        return x.mul_(spec.scale).to(dt)
+
+    def build(tree: SpecTree) -> Dict[str, object]:
+        # sorted keys: the leaf order of jax.tree.flatten
+        return {k: (build(tree[k]) if isinstance(tree[k], dict)
+                    else draw(tree[k])) for k in sorted(tree)}
+
+    return ParamTree(build(build_specs(cfg)))
+
+
+def params_from_numpy(tree: Dict[str, object],
+                      device: Union[str, torch.device, None] = None,
+                      dtype: Optional[torch.dtype] = None) -> ParamTree:
+    """Carry a nested dict of numpy arrays across as a ``ParamTree`` on
+    ``device`` (``cuda`` unless named).  Matrices go to ``dtype`` (default:
+    kept as given), 1-D leaves to float32."""
+    device = resolve_device(device)
+
+    def conv(x) -> object:
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        t = torch.from_numpy(np.array(x))
+        return t.to(device=device,
+                    dtype=_leaf_dtype(t.ndim, dtype, t.dtype)).contiguous()
+
+    return ParamTree(conv(tree))

@@ -1,0 +1,60 @@
+"""serve_step factories: chunked prefill into one slot, and one-token
+decode over every slot.
+
+The counterparts of ``repro.serve.serve_step``'s slot steps.  Each step
+runs under ``torch.no_grad`` and updates the big slots x capacity cache
+in place.  Greedy next tokens are the argmax over the **padded**
+vocabulary, as in the JAX package.
+
+With pad-free admission a cache row's index equals its entry's absolute
+position, so the decode step derives its write index from ``position``
+and carries only the per-slot fill ``kv_len`` (0 for an idle or
+mid-prefill slot, whose row the step neither reads nor writes).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.arch import ArchConfig
+from repro_torch.models.api import model_fns
+from repro_torch.serve.kvcache import take_slot
+
+
+def make_chunk_prefill_step(cfg: ArchConfig):
+    """Chunked pad-free prefill step into one slot of the big cache:
+    ``step(params, cache, tokens, positions, slot, kv_len) ->
+    (next_tokens (1, C), logits, cache)``.
+
+    tokens/positions: (1, C), the pad tail of a ragged final chunk at
+    position −1; kv_len: (1,) post-write fill ``p + C``.  The chunk runs at
+    batch 1 on views of the slot's row (``take_slot``), so it writes
+    straight into the big cache and costs one slot's attention.
+    """
+    fns = model_fns(cfg)
+
+    @torch.no_grad()
+    def slot_chunk_step(params, cache, tokens, positions, slot: int, kv_len):
+        logits, _ = fns.forward_prefill_chunk(
+            cfg, params, take_slot(cache, slot), tokens, positions,
+            kv_len=kv_len)
+        next_tokens = logits.argmax(dim=-1).to(torch.int32)
+        return next_tokens, logits, cache
+
+    return slot_chunk_step
+
+
+def make_slot_decode_step(cfg: ArchConfig):
+    """Decode step over the slot-addressed cache (continuous batching):
+    ``step(params, cache, token, position, kv_len) -> (next_token (B,),
+    logits, cache)``.  ``kv_len`` (B,) is each slot's exact fill after
+    this step's write (``position + 1``), 0 for an idle slot."""
+    fns = model_fns(cfg)
+
+    @torch.no_grad()
+    def decode_step(params, cache, token, position, kv_len):
+        logits, cache = fns.forward_decode(cfg, params, cache, token,
+                                           position, kv_len=kv_len)
+        next_token = logits.argmax(dim=-1).to(torch.int32)
+        return next_token, logits, cache
+
+    return decode_step

@@ -1,0 +1,91 @@
+"""The port stands alone: ``src/repro_torch`` and ``chip_smoke.py`` import
+neither ``jax`` nor the JAX package ``repro``, and no entry point quietly
+runs on the CPU when no GPU is present.
+"""
+import ast
+import dataclasses
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import configs
+from repro_torch.models.params import init_params, params_from_numpy
+from repro_torch.serve.kvcache import alloc_decode_cache
+from repro_torch.serve.server import ContinuousBatchServer
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def _port_files():
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+        [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, (node.module or "").split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                    "import_module", "__import__"):
+            arg = node.args[0] if node.args else None
+            if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+                yield node.lineno, arg.value.split(".")[0]
+
+
+def test_port_imports_neither_jax_nor_repro():
+    files = _port_files()
+    assert len(files) > 10 and files[-1].exists()
+    bad = [f"{p.relative_to(ROOT)}:{line}: {mod}"
+           for p in files for line, mod in _imported_roots(p)
+           if mod in FORBIDDEN]
+    assert not bad, "port modules import the JAX side:\n" + "\n".join(bad)
+
+
+def test_no_gpu_no_default_device(monkeypatch):
+    """Without a GPU, every entry point raises unless the caller passes
+    device="cpu" itself."""
+    cfg = dataclasses.replace(configs.get_smoke("internlm2-1.8b"),
+                              dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ContinuousBatchServer(cfg, params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        alloc_decode_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_numpy({"embed": params["embed"].numpy()})
+    ContinuousBatchServer(cfg, params, device="cpu")
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """chip_smoke.py in a directory without the rest of the repo exits
+    non-zero and prints no result line."""
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_without_gpu_fails():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: chip_smoke.py would run in full")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout

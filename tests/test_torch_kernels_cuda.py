@@ -1,0 +1,94 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Skipped without a GPU (marker ``cuda``); run there with
+
+    python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+
+This file imports neither JAX nor the JAX package, so it runs on a
+machine that has only PyTorch.  ``chip_smoke.py`` repeats the check at
+the serving path's full shapes.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_decode as tfd
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+
+def _decode_case(rng, b, s, hq, hkv, d, kv_lens, pads):
+    """Row i holds ``kv_lens[i]`` entries (−1 positions beyond), the first
+    ``pads[i]`` of them left-pad (−1); the query sits at the last one."""
+    q = rng.randn(b, 1, hq, d).astype(np.float32)
+    k = rng.randn(b, s, hkv, d).astype(np.float32)
+    v = rng.randn(b, s, hkv, d).astype(np.float32)
+    pos = np.full((b, s), -1, np.int32)
+    for i, (n, pad) in enumerate(zip(kv_lens, pads)):
+        pos[i, pad:n] = np.arange(n - pad)
+    q_pos = np.maximum(np.array(kv_lens) - np.array(pads) - 1, 0) \
+        .astype(np.int32)
+    return q, k, v, q_pos, pos, np.asarray(kv_lens, np.int32)
+
+
+def _chunk_case(rng, b, c, s, hq, hkv, d, fills, reals):
+    """Row i holds ``fills[i]`` live entries at positions 0..fills−1; the
+    chunk's ``reals[i]`` real queries sit at the tail positions, the pad
+    query rows beyond at −1."""
+    q = rng.randn(b, c, hq, d).astype(np.float32)
+    k = rng.randn(b, s, hkv, d).astype(np.float32)
+    v = rng.randn(b, s, hkv, d).astype(np.float32)
+    pos = np.full((b, s), -1, np.int32)
+    qpos = np.full((b, c), -1, np.int32)
+    for i, (n, r) in enumerate(zip(fills, reals)):
+        pos[i, :n] = np.arange(n)
+        qpos[i, :r] = np.arange(n - r, n)
+    return q, k, v, qpos, pos, np.asarray(fills, np.int32)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only there")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 0.0),
+                                        (torch.bfloat16, 2.0 ** -8)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_kernels_match_plain_on_card(cuda_device, dtype, rtol, d):
+    """Both kernels against the plain versions computed in f32 from the
+    same (rounded) inputs, over GQA ratios 1, 2 and 4, capacities 72 and
+    130 (no multiple of the tile), empty slots, left pads, pad query rows
+    and sliding windows: within 1e-5 in f32; in bf16 within 1e-5 plus
+    the output's own rounding, 2^-8 of its size."""
+    rng = np.random.RandomState(4)
+    launches = dict(tfd.LAUNCHES)
+    for hkv, s, window in ((4, 72, 0), (2, 130, 0), (1, 130, 5), (2, 72, 9)):
+        arrays = _decode_case(rng, 4, s, 4, hkv, d, kv_lens=[0, 1, s, 37],
+                              pads=[0, 0, 2, 3])
+        q, k, v, qp, pos, kvl = (torch.from_numpy(a).to(cuda_device)
+                                 for a in arrays)
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        out = tops.decode_attention(q, k, v, qp, pos, window=window,
+                                    kv_len=kvl)
+        want = tref.decode_attention_ref(q.float(), k.float(), v.float(), qp,
+                                         pos, window=window, kv_len=kvl)
+        torch.testing.assert_close(out.float(), want, atol=1e-5, rtol=rtol)
+        assert torch.all(out[0] == 0)
+
+        arrays = _chunk_case(rng, 3, 24, s, 4, hkv, d, fills=[24, s, 40],
+                             reals=[24, 4, 17])
+        q, k, v, qp, pos, kvl = (torch.from_numpy(a).to(cuda_device)
+                                 for a in arrays)
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        out = tops.chunk_attention(q, k, v, qp, pos, window=window,
+                                   kv_len=kvl)
+        want = tref.chunk_attention_ref(q.float(), k.float(), v.float(), qp,
+                                        pos, window=window, kv_len=kvl)
+        torch.testing.assert_close(out.float(), want, atol=1e-5, rtol=rtol)
+        assert torch.all(out[1, 4:] == 0)
+    assert tfd.LAUNCHES["flash_decode"] == launches["flash_decode"] + 4
+    assert tfd.LAUNCHES["flash_chunk_prefill"] == \
+        launches["flash_chunk_prefill"] + 4
