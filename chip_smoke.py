@@ -5,18 +5,33 @@
 
 Phases, each a hard failure (non-zero exit, no result line):
 
-1. Build the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-   and print the build time and ptxas' register/shared-memory report.
+1. Build the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
+   one ``nvcc`` per source, all started together, and print the build time
+   and ptxas' register/shared-memory report.
 2. Hold each kernel against its plain PyTorch version on the card at the
-   serving path's shapes (internlm2-1.8b: Hkv 8, G 2, D 128): decode with
-   4 slots at kv_len {0, 1, 37, S}, chunk prefill of C = 64 with 20 pad
-   rows, at S = 576 and S = 555.  Tolerance, elementwise against the plain
-   version computed in f32 from the same inputs: in bf16, the output's own
-   rounding (2^-8 of its size) plus 1e-5; in f32, 1e-5.  Each kernel's
-   median time over 30 launches (L2 flushed before each, as the serving
-   path finds it), the plain version's, the byte/operation bound and
-   ``F.scaled_dot_product_attention``'s time as a yardstick (the port
-   never calls it).
+   serving path's shapes (internlm2-1.8b: Hkv 8, G 2, D 128):
+   - both attention kernels on the float contiguous cache: decode with 4
+     slots at kv_len {0, 1, 37, S}, chunk prefill of C = 64 with 20 pad
+     rows, at S = 576 and S = 555;
+   - the same cases on the int8 contiguous cache, and on a paged pool
+     (float and int8) with blocks of 64 and of 8 entries, a scrambled
+     block table, and the unmapped blocks poisoned (NaN K/V, or NaN int8
+     scales, and valid-looking positions; every table entry past a slot's
+     live blocks names a poisoned block), so a read outside the live table
+     shows up;
+   - ``int8_matmul`` at M in {4, 64} for each (K, N) of the projections,
+     (2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048), and a ragged
+     case (M 5, K 200, N 300): **bitwise** equal to the plain version.
+   Attention tolerance, elementwise against the plain version computed in
+   f32 from the same inputs (int8 dequantized and rounded as the kernel
+   rounds): in bf16, the output's own rounding (2^-8 of its size) plus
+   1e-5; in f32, 1e-5.  Each kernel's and layout's median time over 30
+   launches (L2 flushed before each, as the serving path finds it), the
+   plain version's, the byte/operation bound and a library yardstick's
+   time: ``F.scaled_dot_product_attention`` on dense bf16 K/V prepared
+   beforehand (dequantized, gathered) for attention, ``torch._int_mm``
+   (the int32 product alone, M padded to 32, the least it takes) for the
+   int8 matmul.  The port never calls either.
 3. Serve eight requests through ``ContinuousBatchServer`` at the full
    width of internlm2-1.8b (24 layers, d_model 2048, 16/8 heads, d_ff 8192,
    vocab 92544 padded to 94208), bf16, random weights from a seeded
@@ -34,12 +49,31 @@ Phases, each a hard failure (non-zero exit, no result line):
    greedy tokens on at least 90% of the compared rows.  The main oracle
    is exact: a small float32 config (head_dim 128) served through the
    kernels must give the same greedy tokens as the plain path on the CPU.
-   Last, a profile of decode and chunk steps says where a step's time goes
+4. A profile of decode and chunk steps says where a step's time goes
    (host wall, device busy, attention, GEMMs).
+5. The int8 paged path: the same model, ``precision="int8"``, through
+   ``PagedBatchServer`` (4 slots, chunk 64, 32 new tokens, max_prompt 512:
+   capacity 576, blocks of 64, 9 table entries) with a pool of 24 blocks,
+   below the 36 the four slots could hold, on eight prompts of which four
+   share a 256-token prefix.  Every request must return 32 tokens; the run
+   must preempt at least once and hit the prefix cache at least once; each
+   kernel's launch count must equal what the step counts imply
+   (``int8_matmul``: 7 x 24 x (decode steps + chunk steps)).  The int8
+   logits are held against the plain path (plain attention and plain int8
+   matmul) on copies of the same pool as in phase 3, at
+   ``INT8_LOGIT_ATOL``, with greedy tokens equal on at least
+   ``INT8_GREEDY_EQUAL_MIN`` of the rows; both paths' noise floor (the
+   plain path with float64 attention) is printed beside them.  The exact
+   oracle again: a small float32 int8 config served through the kernels
+   gives the CPU plain path's tokens, through ``PagedBatchServer`` with
+   blocks of 8 and a pool small enough to preempt, and through
+   ``StaticBatchServer``.  Last, the int8 paged steps' profile.
 
-Prints the kernels' JSON line, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.  Needs one GPU; exits non-zero without
-one, or without the rest of the repository beside it.
+Each main path (phases 3 and 5) runs with every launch count set to 0 just
+before it and read just after.  Prints the kernels' JSON line, the card's
+name and power limit, and last ``{"ok": true, "device": {...}}``.  Needs
+one GPU; exits non-zero without one, or without the rest of the
+repository beside it.
 """
 from __future__ import annotations
 
@@ -49,6 +83,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 from unittest import mock
 
 import numpy as np
@@ -56,10 +91,15 @@ import torch
 import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+            torch.int8: 1979e12}
 REPLACES = {"flash_decode": "src/repro/kernels/flash_decode.py:147",
-            "flash_chunk_prefill": "src/repro/kernels/flash_decode.py:334"}
-SOURCE = "src/repro_torch/kernels/csrc/flash_decode.cu"
+            "flash_chunk_prefill": "src/repro/kernels/flash_decode.py:334",
+            "int8_matmul": "src/repro/kernels/int8_matmul.py:45"}
+SOURCES = {"flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
+           "flash_chunk_prefill":
+               "src/repro_torch/kernels/csrc/flash_decode.cu",
+           "int8_matmul": "src/repro_torch/kernels/csrc/int8_matmul.cu"}
 HKV, G, D = 8, 2, 128
 DEV = "cuda"
 # A bf16 output may differ from the f32 plain value by its own rounding,
@@ -70,6 +110,13 @@ TOL = {torch.bfloat16: (2.0 ** -8, 1e-5), torch.float32: (0.0, 1e-5)}
 # rounded up to a power of two; PERF.md gives the readings.
 LOGIT_ATOL = 0.5
 GREEDY_EQUAL_MIN = 0.9    # share of compared rows (95.2% read)
+# The same rule on the int8 paged path: twice the largest of its 16
+# readings (0.5273), rounded up to a power of two; greedy tokens equal on
+# 83.7% of the rows there, so at least 80% is required.  The per-row
+# activation quantizer amplifies single-ulp attention differences; the
+# plain path run once more in float64 shows the same spread (PERF.md).
+INT8_LOGIT_ATOL = 2.0
+INT8_GREEDY_EQUAL_MIN = 0.8
 GEMM_NAMES = ("gemm", "gemv", "cutlass", "xmma", "cublas", "nvjet")
 
 
@@ -137,39 +184,6 @@ def tol_ratio(out: torch.Tensor, want: torch.Tensor) -> float:
     return float(((out.float() - want).abs() / lim).max())
 
 
-def make_case(gen, b, c, s, fills, reals, dtype):
-    """Slot i holds ``fills[i]`` entries at positions 0.., the rest −1;
-    its ``reals[i]`` queries sit at the last positions, pad rows at −1."""
-    dev = DEV
-    q = torch.randn(b, c, HKV * G, D, generator=gen, device=dev).to(dtype)
-    k = torch.randn(b, s, HKV, D, generator=gen, device=dev).to(dtype)
-    v = torch.randn(b, s, HKV, D, generator=gen, device=dev).to(dtype)
-    pos = torch.full((b, s), -1, dtype=torch.int32, device=dev)
-    qpos = torch.full((b, c), -1, dtype=torch.int32, device=dev)
-    for i, (n, r) in enumerate(zip(fills, reals)):
-        pos[i, :n] = torch.arange(n, dtype=torch.int32, device=dev)
-        qpos[i, :r] = torch.arange(n - r, n, dtype=torch.int32, device=dev)
-    kvl = torch.tensor(fills, dtype=torch.int32, device=dev)
-    return q, k, v, qpos, pos, kvl
-
-
-def bound_ms(q, k, qpos, pos, kvl) -> tuple:
-    """Least time for this call: each input read once (the live K/V rows,
-    their positions, q and the query positions), the output written once;
-    operations: 4·D per (query row, valid entry, head) pair."""
-    esize = k.element_size()
-    live = int(kvl.clamp(max=k.shape[1]).sum())
-    nbytes = (2 * live * HKV * D * esize + live * 4 + 2 * q.numel() * esize
-              + qpos.numel() * 4 + kvl.numel() * 4)
-    idx = torch.arange(k.shape[1], device=k.device)
-    valid = ((pos[:, None, :] >= 0) & (pos[:, None, :] <= qpos[:, :, None])
-             & (idx[None, None, :] < kvl[:, None, None]))
-    ops = 4 * D * int(valid.sum()) * HKV * G
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[q.dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def sdpa_call(q, k, v, qpos, pos, kvl):
     """One F.scaled_dot_product_attention call over the same function,
     inputs laid out as it wants them beforehand."""
@@ -183,72 +197,272 @@ def sdpa_call(q, k, v, qpos, pos, kvl):
                                                   enable_gqa=True)
 
 
-def check_kernels(ops, ref):
-    """Both kernels against the plain versions; returns the timed rows."""
+def dequant_rounded(kv, dtype) -> torch.Tensor:
+    """The kernels' int8 dequant, value * scale in f32 rounded once to the
+    working dtype, as f32."""
+    return (kv.q.float() * kv.scale[..., None]).to(dtype).float()
+
+
+def f32_inputs(q, k, v):
+    """q, K and V in f32 as the kernels compute with them: float K/V
+    widened, int8 K/V dequantized and rounded once to q's dtype."""
+    if isinstance(k, tuple):
+        return q.float(), dequant_rounded(k, q.dtype), \
+            dequant_rounded(v, q.dtype)
+    return q.float(), k.float(), v.float()
+
+
+def plain_attention(ref, kind, q, k, v, qpos, pos, kv_len=None,
+                    block_table=None, window=0):
+    """The plain version of either attention kernel in any layout: an
+    ``Int8KV`` cache goes in as values and scales, a paged pool through
+    its block table."""
+    ks = vs = None
+    if isinstance(k, tuple):
+        (k, ks), (v, vs) = k, v
+    if block_table is not None:
+        return getattr(ref, f"paged_{kind}_attention_ref")(
+            q, k, v, qpos, pos, block_table, kv_len, window=window,
+            k_scale=ks, v_scale=vs)
+    return getattr(ref, f"{kind}_attention_ref")(
+        q, k, v, qpos, pos, window=window, kv_len=kv_len, k_scale=ks,
+        v_scale=vs)
+
+
+def make_layout_case(gen, Int8KV, int8, bs, b, c, s, fills, reals, dtype):
+    """A cache of S entries per slot in one layout.  Contiguous (``bs``
+    None): slot i holds ``fills[i]`` entries at positions 0.., the rest −1.
+    Paged: the slots' live blocks are a scrambled set of pool blocks; the
+    unmapped blocks hold NaN K/V (int8: NaN scales) and valid-looking
+    positions, and every table entry past a slot's live blocks names one
+    of them.  Int8 values carry scales amax/127 of about unit size.
+    Returns q, k, v (tensors or ``Int8KV``), query positions, positions,
+    kv_len and the block table (None when contiguous)."""
+    dev = DEV
+    q = torch.randn(b, c, HKV * G, D, generator=gen, device=dev).to(dtype)
+    qpos = torch.full((b, c), -1, dtype=torch.int32, device=dev)
+    for i, (n, r) in enumerate(zip(fills, reals)):
+        qpos[i, :r] = torch.arange(n - r, n, dtype=torch.int32, device=dev)
+    kvl = torch.tensor(fills, dtype=torch.int32, device=dev)
+    table, poisoned = None, []
+    if bs is None:
+        outer, rows = b, s
+        idx = torch.arange(s, device=dev, dtype=torch.int32)
+        pos = torch.where(idx[None] < kvl[:, None], idx[None], -1) \
+            .to(torch.int32)
+    else:
+        need = [-(-f // bs) for f in fills]
+        outer, rows = sum(need) + 2, bs
+        order = torch.randperm(outer, generator=gen, device=dev).tolist()
+        pos = torch.randint(0, 3, (outer, bs), generator=gen, device=dev,
+                            dtype=torch.int32)
+        table = torch.full((b, s // bs), order[-1], dtype=torch.int32,
+                           device=dev)
+        nxt = 0
+        for i, f in enumerate(fills):
+            for j in range(need[i]):
+                blk = order[nxt]
+                nxt += 1
+                table[i, j] = blk
+                n = min(bs, f - j * bs)
+                pos[blk] = -1
+                pos[blk, :n] = torch.arange(j * bs, j * bs + n,
+                                            dtype=torch.int32, device=dev)
+        poisoned = order[nxt:]
+    shape = (outer, rows, HKV, D)
+    if int8:
+        def leaf():
+            scale = torch.rand(shape[:-1], generator=gen, device=dev) \
+                * (1.5 / 127) + 0.5 / 127
+            scale[poisoned] = float("nan")
+            return Int8KV(torch.randint(-127, 128, shape, generator=gen,
+                                        device=dev, dtype=torch.int8), scale)
+    else:
+        def leaf():
+            x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            x[poisoned] = float("nan")
+            return x
+    return q, leaf(), leaf(), qpos, pos, kvl, table
+
+
+def layout_bound_ms(q, k, qpos, pos, kvl, table) -> tuple:
+    """Least time for one call: each input read once (the live K/V rows and
+    their int8 scales, their positions, the block-table entries, q and the
+    query positions), the output written once; operations 4·D per (query
+    row, valid entry, head)."""
+    int8 = isinstance(k, tuple)
+    s = pos.shape[1] if table is None else table.shape[1] * pos.shape[1]
+    live = int(kvl.clamp(max=s).sum())
+    per_entry = HKV * (2 * D * (1 if int8 else k.element_size())
+                       + (8 if int8 else 0)) + 4
+    nbytes = (live * per_entry + 2 * q.numel() * q.element_size()
+              + qpos.numel() * 4 + kvl.numel() * 4
+              + (table.numel() * 4 if table is not None else 0))
+    # the valid (row, entry) pairs are those of the slots' logical caches
+    idx = torch.arange(s, device=q.device)
+    lpos = pos if table is None else \
+        pos[table.long()].reshape(table.shape[0], -1)
+    valid = ((lpos[:, None, :] >= 0) & (lpos[:, None, :] <= qpos[:, :, None])
+             & (idx[None, None, :] < kvl[:, None, None]))
+    ops = 4 * D * int(valid.sum()) * HKV * G
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[q.dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def dense_inputs(q, k, v, pos, table):
+    """The layout's K/V and positions as one dense bf16/f32 slot cache
+    (dequantized, gathered through the table, poison zeroed), made before
+    the library call is timed."""
+    _, kf, vf = f32_inputs(q, k, v)
+    if table is not None:
+        b = table.shape[0]
+        kf, vf, pos = (t[table.long()].reshape((b, -1) + t.shape[2:])
+                       for t in (kf, vf, pos))
+    return (torch.nan_to_num(kf).to(q.dtype),
+            torch.nan_to_num(vf).to(q.dtype), pos)
+
+
+# layout: (int8 K/V, pool block size or None for the contiguous cache)
+LAYOUTS = {"float": (False, None), "int8": (True, None),
+           "paged_bs64": (False, 64), "int8_paged_bs64": (True, 64),
+           "int8_paged_bs8": (True, 8)}
+
+
+def check_layouts(ops, ref, Int8KV):
+    """Both attention kernels in every layout against their plain
+    versions; returns each kernel's timed rows by layout."""
     gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = {"flash_decode": {}, "flash_chunk_prefill": {}}
+    for layout, (int8, bs) in LAYOUTS.items():
+        for s in ((576, 555) if bs is None else (576,)):
+            for dtype in (torch.bfloat16, torch.float32):
+                cases = {
+                    "flash_decode": ("decode", make_layout_case(
+                        gen, Int8KV, int8, bs, 4, 1, s, [0, 1, 37, s],
+                        [0, 1, 1, 1], dtype), ops.decode_attention),
+                    "flash_chunk_prefill": ("chunk", make_layout_case(
+                        gen, Int8KV, int8, bs, 1, 64, s, [448], [44], dtype),
+                        ops.chunk_attention),
+                }
+                for name, (kind, case, kern) in cases.items():
+                    q, k, v, qpos, pos, kvl, table = case
+                    qp = qpos[:, 0] if kind == "decode" else qpos
+                    out = kern(q, k, v, qp, pos, kv_len=kvl,
+                               block_table=table)
+                    torch.cuda.synchronize()
+                    want = plain_attention(ref, kind, *f32_inputs(q, k, v),
+                                           qp, pos, kv_len=kvl,
+                                           block_table=table)
+                    err = float((out.float() - want).abs().max())
+                    ratio = tol_ratio(out, want)
+                    print(f"  {name:20s} {layout:16s} S={s}"
+                          f" {str(dtype):15s} max|err| {err:.3g},"
+                          f" {ratio:.3f} of the limit")
+                    check(out.dtype == dtype and bool(out.isfinite().all()),
+                          f"{name} {layout}: non-finite or wrong dtype")
+                    check(ratio <= 1, f"{name} disagrees with its plain"
+                          f" version, {layout} S={s} {dtype}: {ratio} of the"
+                          " limit")
+                    zero = out[0] if kind == "decode" else out[0, 44:]
+                    check(bool((zero == 0).all()),
+                          f"{name} {layout}: empty slot or pad rows not zero")
+                    if s != 576 or dtype != torch.bfloat16:
+                        continue
+                    ms = time_ms(lambda: kern(q, k, v, qp, pos, kv_len=kvl,
+                                              block_table=table))
+                    plain_ms = time_ms(lambda: plain_attention(
+                        ref, kind, q, k, v, qp, pos, kv_len=kvl,
+                        block_table=table))
+                    kd, vd, pd = dense_inputs(q, k, v, pos, table)
+                    lib_ms = time_ms(sdpa_call(q, kd, vd, qpos, pd, kvl))
+                    b_ms, b_by = layout_bound_ms(q, k, qpos, pos, kvl, table)
+                    rows[name][layout] = {
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": lib_ms}
+                    print(f"  {name:20s} {layout:16s} kernel {ms:.4f} ms"
+                          f"  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms"
+                          f"  bound {b_ms:.5f} ms ({b_by})")
+    return rows
+
+
+MATMUL_SHAPES = ((2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048))
+
+
+def check_int8_matmul(ops, ref):
+    """``int8_matmul`` against its plain version, bitwise, at the serving
+    shapes (M = 4 slots at decode, M = 64 in a chunk) and a ragged case;
+    returns the timed rows by shape."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
     rows = {}
-    for s in (576, 555):
-        for dtype in (torch.bfloat16, torch.float32):
-            cases = {
-                "flash_decode": (make_case(gen, 4, 1, s, [0, 1, 37, s],
-                                           [0, 1, 1, 1], dtype),
-                                 ops.decode_attention,
-                                 ref.decode_attention_ref),
-                "flash_chunk_prefill": (make_case(gen, 1, 64, s, [448], [44],
-                                                  dtype),
-                                        ops.chunk_attention,
-                                        ref.chunk_attention_ref),
-            }
-            for name, (case, kern, plain) in cases.items():
-                q, k, v, qpos, pos, kvl = case
-                qp = qpos[:, 0] if name == "flash_decode" else qpos
-                out = kern(q, k, v, qp, pos, kv_len=kvl)
-                torch.cuda.synchronize()
-                want = plain(q.float(), k.float(), v.float(), qp, pos,
-                             kv_len=kvl)
-                err = float((out.float() - want).abs().max())
-                ratio = tol_ratio(out, want)
-                rtol, atol = TOL[dtype]
-                print(f"  {name:20s} S={s} {str(dtype):15s} max|err| {err:.3g}"
-                      f", {ratio:.3f} of the limit (rtol {rtol:g}, atol"
-                      f" {atol:g})")
-                check(ratio <= 1, f"{name} disagrees with its plain version"
-                      f" at S={s}, {dtype}: {ratio} of the limit")
-                if name == "flash_decode":
-                    check(bool((out[0] == 0).all()), "empty slot not zero")
-                else:
-                    check(bool((out[0, 44:] == 0).all()), "pad rows not zero")
-                if s != 576 or dtype != torch.bfloat16:
-                    continue
-                ms = time_ms(lambda: kern(q, k, v, qp, pos, kv_len=kvl))
-                plain_ms = time_ms(lambda: plain(q, k, v, qp, pos,
-                                                 kv_len=kvl))
-                lib_ms = time_ms(sdpa_call(q, k, v, qpos, pos, kvl))
-                b_ms, b_by = bound_ms(q, k, qpos, pos, kvl)
-                rows[name] = {"max_abs_err": err, "ms": ms,
-                              "plain_ms": plain_ms, "bound_ms": b_ms,
-                              "bound_by": b_by, "library_ms": lib_ms}
-                print(f"  {name:20s} kernel {ms:.4f} ms  plain {plain_ms:.4f}"
-                      f" ms  sdpa {lib_ms:.4f} ms  bound {b_ms:.5f} ms"
-                      f" ({b_by})")
+    shapes = [(m, k, n) for k, n in MATMUL_SHAPES for m in (4, 64)]
+    for m, k, n in shapes + [(5, 200, 300)]:
+        x = torch.randint(-127, 128, (m, k), generator=gen, device=DEV,
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=gen, device=DEV,
+                          dtype=torch.int8)
+        xs = torch.rand(m, generator=gen, device=DEV) * 0.05 + 1e-4
+        ws = torch.rand(n, generator=gen, device=DEV) * 0.05 + 1e-4
+        out = ops.int8_matmul(x, w, xs, ws)
+        torch.cuda.synchronize()
+        want = ref.int8_matmul_ref(x, w, xs, ws)
+        same = torch.equal(out, want)
+        print(f"  int8_matmul M={m} K={k} N={n}: bitwise equal {same}")
+        check(same, f"int8_matmul differs from its plain version at"
+              f" {(m, k, n)}: max |err| {float((out - want).abs().max())}")
+        if (m, k, n) not in shapes:
+            continue
+        ms = time_ms(lambda: ops.int8_matmul(x, w, xs, ws))
+        plain_ms = time_ms(lambda: ref.int8_matmul_ref(x, w, xs, ws))
+        # torch._int_mm takes M > 16 only: M is padded to 32 for it
+        xp = torch.zeros((max(m, 32), k), dtype=torch.int8, device=DEV)
+        xp[:m] = x
+        wt = w.t()
+        lib_ms = time_ms(lambda: torch._int_mm(xp, wt))
+        nbytes = m * k + n * k + 4 * (m + n) + 4 * m * n
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * m * n * k / PEAK_OPS[torch.int8] * 1e3
+        rows[f"M{m}_K{k}_N{n}"] = {
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms}
+        print(f"  int8_matmul M={m} K={k} N={n}: kernel {ms:.4f} ms  plain"
+              f" {plain_ms:.4f} ms  _int_mm (M {max(m, 32)}) {lib_ms:.4f} ms"
+              f"  bound {max(t_bytes, t_ops):.5f} ms")
     return rows
 
 
 # ---------------------------------------------------------------------------
 # Phase 3: full-width serving
 # ---------------------------------------------------------------------------
-def serve_full(configs, init_params, server_mod, fd):
-    cfg = configs.get("internlm2-1.8b")
+def reset_counts(port) -> None:
+    port.fd.reset_launches()
+    port.im.reset_launches()
+
+
+def read_counts(port) -> dict:
+    return {**port.fd.LAUNCHES, **port.im.LAUNCHES}
+
+
+def full_config(port):
+    cfg = port.configs.get("internlm2-1.8b")
     check(cfg.n_layers == 24 and cfg.d_model == 2048
           and cfg.padded_vocab() == 94208, f"unexpected config {cfg}")
+    return cfg
+
+
+def serve_full(port, cfg):
     t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    params = port.init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                              DEV)
     torch.cuda.synchronize()
     print(f"  weights: {sum(p.numel() for p in params.parameters())} params"
           f" in {time.perf_counter() - t0:.1f} s")
     kw = dict(slots=4, prefill_chunk=64, max_new_tokens=32, max_prompt=512,
               device=DEV)
-    warm = server_mod.ContinuousBatchServer(cfg, params, **kw)
+    warm = port.server.ContinuousBatchServer(cfg, params, **kw)
     warm.submit([np.arange(9, dtype=np.int32)], max_new_tokens=2)
     warm.run()
     del warm
@@ -257,44 +471,50 @@ def serve_full(configs, init_params, server_mod, fd):
     lens = [9, 37, 64, 128, 200, 301, 450, 512]
     prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
                for n in lens]
-    srv = server_mod.ContinuousBatchServer(cfg, params, **kw)
+    srv = port.server.ContinuousBatchServer(cfg, params, **kw)
     check(srv.capacity == 576, f"capacity {srv.capacity} != 576")
     reqs = srv.submit(prompts)
-    fd.reset_launches()
+    reset_counts(port)
     torch.cuda.synchronize()
     metrics = srv.run()
     torch.cuda.synchronize()
-    launches = dict(fd.LAUNCHES)
+    launches = read_counts(port)
     vpad = cfg.padded_vocab()
     for r in reqs:
         check(len(r.tokens) == 32, f"request {r.rid}: {len(r.tokens)} tokens")
         check(all(0 <= t < vpad for t in r.tokens),
               f"request {r.rid}: token out of [0, {vpad})")
     want = {"flash_decode": cfg.n_layers * metrics["decode_steps"],
-            "flash_chunk_prefill": cfg.n_layers * metrics["prefill_chunks"]}
+            "flash_chunk_prefill": cfg.n_layers * metrics["prefill_chunks"],
+            "int8_matmul": 0}
     check(launches == want, f"launches {launches} != layers x steps {want}")
     print(f"  launches {launches} = 24 x (decode steps, chunk steps)")
     print("  metrics " + json.dumps(metrics))
-    return cfg, params, launches, metrics
+    return params, launches, metrics
 
 
-def serve_small_vs_cpu(configs, init_params, server_mod):
-    """The repo's token-exactness oracle on a small input: a float32
-    internlm2-shaped config (2 layers, d_model 256, 2/1 heads of 128, the
-    narrowest the kernels take) served through the kernels on the card
-    gives the same greedy tokens as the plain path on the CPU, on the
-    prompts and budgets of the CPU parity test."""
-    cfg = dataclasses.replace(configs.get_smoke("internlm2-1.8b"),
-                              d_model=256, n_heads=2, n_kv_heads=1,
-                              dtype="float32")
+def small_config(port):
+    """A float32 internlm2-shaped config at the narrowest widths the
+    kernels take: 2 layers, d_model 256, 2/1 heads of 128."""
+    return dataclasses.replace(port.configs.get_smoke("internlm2-1.8b"),
+                               d_model=256, n_heads=2, n_kv_heads=1,
+                               dtype="float32")
+
+
+def serve_small_vs_cpu(port):
+    """The repo's token-exactness oracle on a small input: the small
+    float32 config served through the kernels on the card gives the same
+    greedy tokens as the plain path on the CPU, on the prompts and budgets
+    of the CPU parity test."""
+    cfg = small_config(port)
     rng = np.random.RandomState(2)
     prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
                for n in (3, 11, 7, 16)]
     budgets = [5, 4, 6, 3]
-    host = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    host = port.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     tokens = {}
     for dev in ("cpu", DEV):
-        srv = server_mod.ContinuousBatchServer(
+        srv = port.server.ContinuousBatchServer(
             cfg, host.to(dev), slots=2, max_prompt=16, prefill_chunk=4,
             max_new_tokens=8, device=dev)
         reqs = srv.submit(prompts, max_new_tokens=budgets)
@@ -305,30 +525,122 @@ def serve_small_vs_cpu(configs, init_params, server_mod):
     print(f"  small float32 serving, card == cpu tokens: {tokens[DEV]}")
 
 
-def rounded_once(plain):
-    """The plain attention in f32 from the same (bf16) inputs, rounded once
-    to the working dtype, as the kernels compute it."""
+def serve_small_int8_vs_cpu(port):
+    """The exact oracle at int8: the small float32 config, int8 weights,
+    activations and KV cache, served through the kernels on the card gives
+    the CPU plain path's tokens, through ``PagedBatchServer`` with blocks
+    of 8 and a pool of 8 blocks for 3 slots (it preempts), and through
+    ``StaticBatchServer``; three of the six prompts share a 16-token
+    prefix, as in the CPU parity test."""
+    cfg = small_config(port)
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (14, 15, 13)]
+    base = rng.randint(0, cfg.vocab_size, 16).astype(np.int32)
+    prompts += [np.concatenate([base, rng.randint(0, cfg.vocab_size, n)
+                                .astype(np.int32)]) for n in (1, 3, 2)]
+    budgets = [12, 10, 12, 5, 6, 4]
+    host = port.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    engines = {
+        "paged": (port.server.PagedBatchServer,
+                  dict(slots=3, max_prompt=20, prefill_chunk=4,
+                       max_new_tokens=12, block_size=8, pool_blocks=8)),
+        "static": (port.server.StaticBatchServer,
+                   dict(batch_size=2, max_prompt=20, prefill_chunk=4,
+                        max_new_tokens=12)),
+    }
+    for name, (engine, kw) in engines.items():
+        tokens, metrics = {}, {}
+        for dev in ("cpu", DEV):
+            srv = engine(cfg, host.to(dev), precision="int8", device=dev,
+                         **kw)
+            reqs = srv.submit(prompts, max_new_tokens=budgets)
+            metrics[dev] = srv.run()
+            tokens[dev] = [r.tokens for r in reqs]
+        check(tokens[DEV] == tokens["cpu"],
+              f"small int8 {name} serving: card {tokens[DEV]} != cpu"
+              f" {tokens['cpu']}")
+        if name == "paged":
+            check(metrics[DEV]["preemptions"] >= 1
+                  and metrics[DEV]["prefix_hit_blocks"] >= 1,
+                  f"small int8 paged serving did not preempt and hit:"
+                  f" {metrics[DEV]}")
+            print(f"  small int8 paged serving: preemptions"
+                  f" {metrics[DEV]['preemptions']}, prefix-hit blocks"
+                  f" {metrics[DEV]['prefix_hit_blocks']}")
+        print(f"  small int8 {name} serving, card == cpu tokens:"
+              f" {tokens[DEV]}")
+
+
+class Steps:
+    """The serving path's chunk and decode steps on one 4-slot cache of
+    576 entries: contiguous, or (``paged``) a pool of 36 blocks of 64
+    entries in a scrambled block table; under ``policy``."""
+
+    def __init__(self, port, cfg, params, policy, paged: bool, seed: int):
+        ss, kc = port.serve_step, port.kvcache
+        self.params, self.paged = params, paged
+        if paged:
+            self._chunk = ss.make_paged_chunk_prefill_step(cfg, policy)
+            self._decode = ss.make_paged_decode_step(cfg, policy)
+            self.cache = kc.alloc_paged_cache(cfg, 4, 576, 36, DEV, policy,
+                                              64)
+            gen = torch.Generator(device=DEV).manual_seed(seed)
+            self.table = torch.randperm(36, generator=gen, device=DEV) \
+                .to(torch.int32).reshape(4, 9)
+            self.pos_key = "pool_pos"
+        else:
+            self._chunk = ss.make_chunk_prefill_step(cfg, policy)
+            self._decode = ss.make_slot_decode_step(cfg, policy)
+            self.cache = kc.alloc_decode_cache(cfg, 4, 576, DEV, policy)
+            self.pos_key = "full_pos"
+
+    def chunk(self, cache, slot, toks, poss, kvl):
+        if self.paged:
+            return self._chunk(self.params, cache, toks, poss, kvl,
+                               self.table[slot:slot + 1])
+        return self._chunk(self.params, cache, toks, poss, slot, kvl)
+
+    def decode(self, cache, tok, pos, kvl):
+        if self.paged:
+            return self._decode(self.params, cache, tok, pos, kvl,
+                                self.table)
+        return self._decode(self.params, cache, tok, pos, kvl)
+
+    @staticmethod
+    def copy(cache):
+        return {key: (type(leaf)(*(t.clone() for t in leaf))
+                      if isinstance(leaf, tuple) else leaf.clone())
+                for key, leaf in cache.items()}
+
+
+def rounded_once(ref, kind, dtype=torch.float32):
+    """The plain attention in f32 (or ``dtype``) from the same inputs (int8
+    dequantized and rounded as the kernels do), rounded once to the
+    working dtype, as the kernels compute it."""
     def call(q, k, v, *args, **kw):
-        return plain(q.float(), k.float(), v.float(), *args, **kw).to(q.dtype)
+        inputs = (t.to(dtype) for t in f32_inputs(q, k, v))
+        return plain_attention(ref, kind, *inputs, *args, **kw).to(q.dtype)
     return call
 
 
-def checked(kern, plain, worst, name):
+def checked(kern, ref, kind, worst, name):
     """``kern``, with each call's output held against the plain version on
     the same inputs (f32) at the kernel tolerance; the worst ratio to the
     limit goes to ``worst[name]``."""
     def call(q, k, v, *args, **kw):
         out = kern(q, k, v, *args, **kw)
-        want = plain(q.float(), k.float(), v.float(), *args, **kw)
+        want = plain_attention(ref, kind, *f32_inputs(q, k, v), *args, **kw)
         worst[name] = max(worst.get(name, 0.0), tol_ratio(out, want))
         return out
     return call
 
 
-def logits_vs_plain(cfg, params, kvcache, serve_step, layers, ops, ref,
-                    seeds=(1, 2, 3, 4)):
+def logits_vs_plain(port, cfg, params, atol, greedy_min, policy=None,
+                    paged=False, seeds=(1, 2, 3, 4)):
     """Serving steps through the kernels against the same steps through
-    the plain attention (``rounded_once``) on a copy of the same cache.
+    the plain path (attention ``rounded_once``, the plain int8 matmul) on
+    a copy of the same cache.
 
     For each seed: slots 1 and 3 are filled with 1..5 chunks, then a full
     chunk step (slot 1), a ragged chunk step (slot 3, 1..63 real rows) and
@@ -337,21 +649,27 @@ def logits_vs_plain(cfg, params, kvcache, serve_step, layers, ops, ref,
     layer is also held against the plain version on its own inputs, at
     the kernel tolerance: that check sees each layer's cache slice, rows
     and positions without the 24 layers' amplification of rounding.  The
-    logits must agree at ``LOGIT_ATOL``, and the greedy tokens on at least
-    ``GREEDY_EQUAL_MIN`` of the compared rows."""
-    chunk = serve_step.make_chunk_prefill_step(cfg)
-    decode = serve_step.make_slot_decode_step(cfg)
+    logits must agree at ``atol``, and the greedy tokens on at least
+    ``greedy_min`` of the compared rows.  The same steps through the plain
+    path with its attention in float64 (rounded once) give the noise
+    floor of both measures: what a difference of summation order alone
+    does to the logits."""
+    layers, ops, ref = port.layers, port.ops, port.ref
     wiring = {}
     kernel_path = mock.patch.multiple(
         layers,
-        decode_attention=checked(ops.decode_attention,
-                                 ref.decode_attention_ref, wiring,
-                                 "flash_decode"),
-        chunk_attention=checked(ops.chunk_attention, ref.chunk_attention_ref,
-                                wiring, "flash_chunk_prefill"))
+        decode_attention=checked(ops.decode_attention, ref, "decode",
+                                 wiring, "flash_decode"),
+        chunk_attention=checked(ops.chunk_attention, ref, "chunk", wiring,
+                                "flash_chunk_prefill"))
     plain_path = mock.patch.multiple(
-        layers, decode_attention=rounded_once(ref.decode_attention_ref),
-        chunk_attention=rounded_once(ref.chunk_attention_ref))
+        layers, decode_attention=rounded_once(ref, "decode"),
+        chunk_attention=rounded_once(ref, "chunk"))
+    plain64_path = mock.patch.multiple(
+        layers, decode_attention=rounded_once(ref, "decode", torch.float64),
+        chunk_attention=rounded_once(ref, "chunk", torch.float64))
+    plain_matmul = mock.patch.object(ops, "int8_matmul",
+                                     ref.int8_matmul_ref)
 
     def ints(a):
         return torch.as_tensor(np.asarray(a, np.int32), device=DEV)
@@ -359,7 +677,8 @@ def logits_vs_plain(cfg, params, kvcache, serve_step, layers, ops, ref,
     readings = []
     for seed in seeds:
         rng = np.random.RandomState(seed)
-        cache = kvcache.alloc_decode_cache(cfg, 4, 576, DEV)
+        steps = Steps(port, cfg, params, policy, paged, seed)
+        cache = steps.cache
         fill = {0: 0, 1: 0, 2: 0, 3: 0}
 
         def chunk_run(slot, n_real):
@@ -367,9 +686,9 @@ def logits_vs_plain(cfg, params, kvcache, serve_step, layers, ops, ref,
             poss = np.full((1, 64), -1, np.int32)
             toks[0, :n_real] = rng.randint(0, cfg.vocab_size, n_real)
             poss[0, :n_real] = np.arange(fill[slot], fill[slot] + n_real)
-            args = (ints(toks), ints(poss), slot, ints([fill[slot] + 64]))
+            args = (ints(toks), ints(poss), ints([fill[slot] + 64]))
             fill[slot] += n_real
-            return lambda c: chunk(params, c, *args)[1][0, :n_real]
+            return lambda c: steps.chunk(c, slot, *args)[1][0, :n_real]
 
         def decode_run():
             live = [1, 3]
@@ -379,44 +698,53 @@ def logits_vs_plain(cfg, params, kvcache, serve_step, layers, ops, ref,
             kvl = ints([fill[i] + 1 if i in live else 0 for i in range(4)])
             for i in live:
                 fill[i] += 1
-            return lambda c: decode(params, c, tok, pos, kvl)[1][live]
+            return lambda c: steps.decode(c, tok, pos, kvl)[1][live]
 
         with kernel_path:
             for slot in (1, 3):
                 for _ in range(rng.randint(1, 6)):
                     chunk_run(slot, 64)(cache)
-        steps = [("chunk", lambda: chunk_run(1, 64)),
-                 ("chunk_ragged", lambda: chunk_run(3, rng.randint(1, 64))),
-                 ("decode", decode_run), ("decode", decode_run)]
-        for name, make in steps:
+        runs = [("chunk", lambda: chunk_run(1, 64)),
+                ("chunk_ragged", lambda: chunk_run(3, rng.randint(1, 64))),
+                ("decode", decode_run), ("decode", decode_run)]
+        for name, make in runs:
             run = make()
-            copy = {key: t.clone() for key, t in cache.items()}
+            copy, copy64 = Steps.copy(cache), Steps.copy(cache)
             with kernel_path:
                 got = run(cache).float()
-            with plain_path:
+            with plain_path, plain_matmul:
                 want = run(copy).float()
-            check(torch.equal(cache["full_pos"], copy["full_pos"]),
+            with plain64_path, plain_matmul:
+                alt = run(copy64).float()
+            check(torch.equal(cache[steps.pos_key], copy[steps.pos_key]),
                   f"{name}: stored positions differ")
             same = got.argmax(-1) == want.argmax(-1)
             readings.append(dict(
                 seed=seed, step=name, rows=int(got.shape[0]),
                 fill=[fill[1], fill[3]],
                 max_abs_gap=float((got - want).abs().max()),
-                logit_std=float(want.std()), argmax_equal=int(same.sum())))
+                logit_std=float(want.std()), argmax_equal=int(same.sum()),
+                f64_gap=float((alt - want).abs().max()),
+                f64_argmax_equal=int((alt.argmax(-1) == want.argmax(-1))
+                                     .sum())))
             print("  logits " + json.dumps(readings[-1]))
     worst_gap = max(r["max_abs_gap"] for r in readings)
     equal = sum(r["argmax_equal"] for r in readings)
     rows = sum(r["rows"] for r in readings)
     print(f"  serving logits: largest gap {worst_gap:.4g} over"
-          f" {len(readings)} steps (atol {LOGIT_ATOL}); greedy tokens equal"
+          f" {len(readings)} steps (atol {atol}); greedy tokens equal"
           f" on {equal} of {rows} rows; every layer's attention within"
           f" {json.dumps(wiring)} of the kernel limit")
+    print(f"  noise floor, plain f32 vs plain f64 attention: largest gap"
+          f" {max(r['f64_gap'] for r in readings):.4g}, greedy tokens equal"
+          f" on {sum(r['f64_argmax_equal'] for r in readings)} of {rows}"
+          " rows")
     check(set(wiring) == {"flash_decode", "flash_chunk_prefill"}
           and max(wiring.values()) <= 1,
           f"an attention call of the serving path disagrees with its plain"
           f" version: {wiring}")
-    check(worst_gap <= LOGIT_ATOL, f"serving logits disagree: {worst_gap}")
-    check(equal >= GREEDY_EQUAL_MIN * rows,
+    check(worst_gap <= atol, f"serving logits disagree: {worst_gap}")
+    check(equal >= greedy_min * rows,
           f"greedy tokens equal on only {equal} of {rows} rows")
     return readings
 
@@ -435,32 +763,30 @@ def _merged_us(spans) -> float:
     return total
 
 
-def profile_steps(cfg, params, kvcache, serve_step):
+def profile_steps(port, cfg, params, policy=None, paged=False):
     """Host wall time of decode steps (4 slots at fill 257..264) and chunk
     steps (64 tokens into slot 0 at fill 384..512), each ending in a host
     read of its tokens as in the server; then one ``torch.profiler`` pass
     over the same steps for device time by kernel family."""
-    chunk = serve_step.make_chunk_prefill_step(cfg)
-    decode = serve_step.make_slot_decode_step(cfg)
-    cache = kvcache.alloc_decode_cache(cfg, 4, 576, DEV)
+    steps = Steps(port, cfg, params, policy, paged, 0)
+    cache = steps.cache
     rng = np.random.RandomState(2)
 
     def ints(a):
         return torch.as_tensor(np.asarray(a, np.int32), device=DEV)
 
     def chunk_at(slot, c0):
-        return chunk(params, cache, ints(rng.randint(0, cfg.vocab_size,
-                                                     (1, 64))),
-                     ints(np.arange(c0, c0 + 64)[None]), slot, ints([c0 + 64]))
+        return steps.chunk(cache, slot,
+                           ints(rng.randint(0, cfg.vocab_size, (1, 64))),
+                           ints(np.arange(c0, c0 + 64)[None]), ints([c0 + 64]))
 
     for slot in range(4):
         for c0 in range(0, 256, 64):
             chunk_at(slot, c0)
-    steps = {
-        "decode": (lambda i: decode(params, cache,
-                                    ints(rng.randint(0, cfg.vocab_size, 4)),
-                                    ints([256 + i] * 4), ints([257 + i] * 4)),
-                   8),
+    runs = {
+        "decode": (lambda i: steps.decode(
+            cache, ints(rng.randint(0, cfg.vocab_size, 4)),
+            ints([256 + i] * 4), ints([257 + i] * 4)), 8),
         "chunk": (lambda i: chunk_at(0, 320 + 64 * (i % 3)), 3),
     }
     trace = Path(__file__).resolve().parent / "build" / "profile.json"
@@ -468,7 +794,7 @@ def profile_steps(cfg, params, kvcache, serve_step):
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     out = {}
-    for name, (step, n) in steps.items():
+    for name, (step, n) in runs.items():
         step(0)[0].cpu()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -482,11 +808,13 @@ def profile_steps(cfg, params, kvcache, serve_step):
         kernels = [e for e in json.loads(trace.read_text())["traceEvents"]
                    if e.get("cat") == "kernel"]
         trace.unlink()
-        fam = {"attention": 0.0, "gemm": 0.0, "other": 0.0}
+        fam = {"attention": 0.0, "int8_matmul": 0.0, "gemm": 0.0,
+               "other": 0.0}
         by_name = {}
         for e in kernels:
             low = e["name"].lower()
             key = ("attention" if "attn_kernel" in low else
+                   "int8_matmul" if "int8_mm_kernel" in low else
                    "gemm" if any(w in low for w in GEMM_NAMES) else "other")
             fam[key] += e["dur"] / 1e3 / n
             by_name[e["name"][:60]] = by_name.get(e["name"][:60], 0.0) \
@@ -502,6 +830,61 @@ def profile_steps(cfg, params, kvcache, serve_step):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the int8 paged path
+# ---------------------------------------------------------------------------
+def serve_int8_paged(port, cfg, params):
+    """Full-width int8 serving through ``PagedBatchServer`` with a pool
+    that preempts and prompts that share a prefix; returns the server (its
+    quantized weights serve the later checks), its launches and metrics."""
+    kw = dict(slots=4, prefill_chunk=64, max_new_tokens=32, max_prompt=512,
+              precision="int8", device=DEV)
+    warm = port.server.PagedBatchServer(cfg, params, **kw)
+    warm.submit([np.arange(9, dtype=np.int32)], max_new_tokens=2)
+    warm.run()
+    del warm
+
+    rng = np.random.RandomState(0)
+    prefix = rng.randint(0, cfg.vocab_size, 256).astype(np.int32)
+    spec = [(True, 44), (False, 450), (False, 512), (False, 200),
+            (True, 100), (True, 37), (True, 150), (False, 64)]
+    prompts = [np.concatenate([prefix, rng.randint(0, cfg.vocab_size, n)
+                               .astype(np.int32)]) if shared
+               else rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for shared, n in spec]
+    srv = port.server.PagedBatchServer(cfg, params, pool_blocks=16, **kw)
+    check((srv.capacity, srv.block_size, srv.n_table) == (576, 64, 9),
+          f"capacity/block/table {srv.capacity}/{srv.block_size}/"
+          f"{srv.n_table} != 576/64/9")
+    reqs = srv.submit(prompts)
+    reset_counts(port)
+    torch.cuda.synchronize()
+    metrics = srv.run()
+    torch.cuda.synchronize()
+    launches = read_counts(port)
+    vpad = cfg.padded_vocab()
+    for r in reqs:
+        check(len(r.tokens) == 32, f"request {r.rid}: {len(r.tokens)} tokens")
+        check(all(0 <= t < vpad for t in r.tokens),
+              f"request {r.rid}: token out of [0, {vpad})")
+    check(metrics["preemptions"] >= 1, f"no preemption: {metrics}")
+    check(metrics["prefix_hit_blocks"] >= 1, f"no prefix hit: {metrics}")
+    steps = metrics["decode_steps"] + metrics["prefill_chunks"]
+    want = {"flash_decode": cfg.n_layers * metrics["decode_steps"],
+            "flash_chunk_prefill": cfg.n_layers * metrics["prefill_chunks"],
+            "int8_matmul": 7 * cfg.n_layers * steps}
+    check(launches == want, f"launches {launches} != step counts {want}")
+    print(f"  launches {launches} = 24 x (decode steps, chunk steps),"
+          f" 7 x 24 x all steps")
+    kvb = {prec: port.kvcache.kv_cache_bytes(cfg, 4, 576, precision=prec)
+           for prec in ("float", "int8")}
+    print(f"  kv_cache_bytes of the 4 x 576 rectangle by the formula: int8"
+          f" {kvb['int8']}, bf16 {kvb['float']}; the int8 pool of 16 blocks"
+          f" holds {metrics['kv_cache_bytes']}")
+    print("  metrics " + json.dumps(metrics))
+    return srv, launches, metrics
+
+
 def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -510,17 +893,27 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def load_port():
+    """The port's modules, imported from the checkout beside this file."""
+    import_port()
+    from repro_torch import configs
+    from repro_torch.core import quantize
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import int8_matmul as im
+    from repro_torch.models import layers
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import kvcache, serve_step, server
+    return SimpleNamespace(configs=configs, quantize=quantize, build=build,
+                           ops=ops, ref=ref, fd=fd, im=im, layers=layers,
+                           init_params=init_params, kvcache=kvcache,
+                           serve_step=serve_step, server=server)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: the port's smoke run needs one GPU")
-    import_port()
-    from repro_torch import configs
-    from repro_torch.kernels import build, ops, ref
-    from repro_torch.kernels import flash_decode as fd
-    from repro_torch.models import layers
-    from repro_torch.models.params import init_params
-    from repro_torch.serve import kvcache, serve_step
-    from repro_torch.serve import server as server_mod
+    port = load_port()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -528,39 +921,66 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
 
-    print("phase 1: build")
+    print("phase 1: build (one nvcc per source, all at once)")
     t0 = time.perf_counter()
-    for name in build.SOURCES:
-        t1 = time.perf_counter()
-        log = build.build(name)
-        print(f"  {name}: built in {time.perf_counter() - t1:.1f} s")
+    logs = port.build.build_all()
+    for name, log in logs.items():
+        print(f"  {name}:")
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 print("   " + line.strip()[:110])
             elif "registers" in line or "spill" in line:
                 print("   " + line.strip())
-    fd._lib()
+    port.fd._lib()
+    port.im._lib()
     print(f"  build phase {time.perf_counter() - t0:.1f} s")
 
     print("phase 2: kernels against their plain versions")
-    rows = check_kernels(ops, ref)
+    layout_rows = check_layouts(port.ops, port.ref, port.quantize.Int8KV)
+    mm_rows = check_int8_matmul(port.ops, port.ref)
 
     print("phase 3: full-width serving, internlm2-1.8b bf16")
-    cfg, params, launches, metrics = serve_full(configs, init_params,
-                                                server_mod, fd)
-    logits_vs_plain(cfg, params, kvcache, serve_step, layers, ops, ref)
-    serve_small_vs_cpu(configs, init_params, server_mod)
+    cfg = full_config(port)
+    params, launches, metrics = serve_full(port, cfg)
+    logits_vs_plain(port, cfg, params, LOGIT_ATOL, GREEDY_EQUAL_MIN)
+    serve_small_vs_cpu(port)
     print("phase 4: where a step's time goes")
-    profile_steps(cfg, params, kvcache, serve_step)
+    profile_steps(port, cfg, params)
     print(f"  tokens_per_s {metrics['tokens_per_s']:.2f}  ttft_p50_s "
           f"{metrics['ttft_p50_s']:.4f}  ttft_p95_s {metrics['ttft_p95_s']:.4f}"
           f"  kv_cache_bytes {metrics['kv_cache_bytes']}")
+
+    print("phase 5: full-width int8 paged serving, internlm2-1.8b bf16")
+    srv, launches8, metrics8 = serve_int8_paged(port, cfg, params)
+    int8 = port.quantize.INT8
+    logits_vs_plain(port, cfg, srv.params, INT8_LOGIT_ATOL,
+                    INT8_GREEDY_EQUAL_MIN, int8, True)
+    serve_small_int8_vs_cpu(port)
+    profile_steps(port, cfg, srv.params, int8, True)
+    print(f"  int8 paged tokens_per_s {metrics8['tokens_per_s']:.2f}"
+          f"  ttft_p50_s {metrics8['ttft_p50_s']:.4f}  ttft_p95_s"
+          f" {metrics8['ttft_p95_s']:.4f}  kv_cache_bytes"
+          f" {metrics8['kv_cache_bytes']}  preemptions"
+          f" {metrics8['preemptions']}  prefix_hit_blocks"
+          f" {metrics8['prefix_hit_blocks']}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
-    kernels = [dict(name=name, route="cuda", source=SOURCE,
-                    replaces=REPLACES[name], launches=launches[name],
-                    **rows[name]) for name in ("flash_decode",
-                                               "flash_chunk_prefill")]
+    by_path = {name: {"float_continuous": launches[name],
+                      "int8_paged": launches8[name]}
+               for name in REPLACES}
+    kernels = []
+    for name in ("flash_decode", "flash_chunk_prefill"):
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCES[name],
+            replaces=REPLACES[name],
+            launches=launches[name] + launches8[name],
+            launches_by_path=by_path[name], **layout_rows[name]["float"],
+            layouts=layout_rows[name]))
+    kernels.append(dict(
+        name="int8_matmul", route="cuda", source=SOURCES["int8_matmul"],
+        replaces=REPLACES["int8_matmul"], launches=launches8["int8_matmul"],
+        launches_by_path=by_path["int8_matmul"],
+        **mm_rows["M4_K2048_N8192"], shapes=mm_rows))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 Each source under ``csrc/`` compiles with ``nvcc`` into a shared library
 with a plain C interface, which the kernel's wrapper loads with
 ``ctypes``.  Libraries go to ``build/kernels/`` at the root of the
-checkout, named by a hash of their source, and are built at first use.
+checkout, named by a hash of their source, and are built at first use;
+``build_all`` starts one ``nvcc`` per source, all at once.
 Nothing is built when a module is imported: the CPU tests import every
 module and have no ``nvcc``.
 """
@@ -15,11 +16,12 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES: Dict[str, str] = {"flash_decode": "flash_decode.cu"}
+SOURCES: Dict[str, str] = {"flash_decode": "flash_decode.cu",
+                           "int8_matmul": "int8_matmul.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,22 +46,49 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
-def build(name: str) -> str:
-    """Compile ``name``'s source with ``nvcc``; returns the compiler's log
-    (ptxas' register and shared-memory report).  Raises with the
-    compiler's output on failure."""
+def _start(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = library_path(name)
     # build under a private name, publish with an atomic rename: two
     # processes building at once never load a half-written library
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, job) -> str:
+    proc, tmp, out = job
+    stdout, stderr = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"kernel build failed: {name}: nvcc exited"
-                           f" {proc.returncode}\n{proc.stdout}{proc.stderr}")
+                           f" {proc.returncode}\n{stdout}{stderr}")
     os.replace(tmp, out)
-    return proc.stderr
+    return stderr
+
+
+def build_all(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, str]:
+    """Compile every named source with ``nvcc``, one process per source,
+    all started together; returns each compiler's log (ptxas' register
+    and shared-memory report).  Once every process has ended, raises
+    with the output of each one that failed."""
+    jobs = {name: _start(name) for name in names}
+    logs, errors = {}, []
+    for name, job in jobs.items():
+        try:
+            logs[name] = _finish(name, job)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return logs
+
+
+def build(name: str) -> str:
+    """Compile ``name``'s source with ``nvcc``; returns the compiler's
+    log.  Raises with the compiler's output on failure."""
+    return _finish(name, _start(name))
 
 
 def load(name: str) -> ctypes.CDLL:

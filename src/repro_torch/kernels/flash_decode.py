@@ -1,21 +1,25 @@
-"""Flash-decode and chunk-prefill attention over the slot-addressed KV
-cache: wrappers of the hand-written CUDA kernels in
-``csrc/flash_decode.cu``.
+"""Flash-decode and chunk-prefill attention over the slot-addressed or
+paged KV cache, float or int8: wrappers of the hand-written CUDA kernels
+in ``csrc/flash_decode.cu``.
 
 ``flash_decode`` replaces ``repro/kernels/flash_decode.py:147`` and
-``flash_chunk_prefill`` replaces ``:334``, on the contiguous float
-layout.  Each wrapper checks device, dtype, shape and strides, launches
-its kernel on PyTorch's current stream and counts the launch in
-``LAUNCHES``.  They take CUDA tensors only: ``kernels/ops.py`` sends CPU
-tensors to the plain versions in ``kernels/ref.py``.
+``flash_chunk_prefill`` replaces ``:334``, in all four layouts of the TPU
+kernels: K/V float or int8 (``k_scale``/``v_scale`` given), each
+contiguous or paged (``block_table`` given).  Each wrapper checks device,
+dtype, shape, strides and alignment, launches its kernel on PyTorch's
+current stream and counts the launch in ``LAUNCHES``.  They take CUDA
+tensors only: ``kernels/ops.py`` sends CPU tensors to the plain versions
+in ``kernels/ref.py``.
 
-K/V may be per-layer slices of the stacked ``(L, B, S, Hkv, D)`` cache or
-one slot's row of it: any batch stride is taken, the ``(S, Hkv, D)``
-inner layout must be dense.  Nothing here copies the cache.
+K/V (and their scales) may be per-layer slices of the stacked cache or
+one slot's row of it: any stride of the outer (slot or pool-block) axis
+is taken, the inner ``(S, Hkv, D)`` layout must be dense.  Nothing here
+copies, gathers or dequantizes the cache.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -26,8 +30,8 @@ LAUNCHES = {"flash_decode": 0, "flash_chunk_prefill": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-             + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+             + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p])
 
 
 def kv_block_size(capacity: int, block_k: int = 128) -> int:
@@ -56,55 +60,101 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(q, k, v, q_pos, cache_pos, kv_len, q_pos_shape):
+def _check(q, k, v, q_pos, cache_pos, kv_len, q_pos_shape, k_scale,
+           v_scale, block_table) -> int:
+    """Raise on anything the kernel does not take; returns the logical
+    per-slot capacity S (``n_tbl * BS`` for a paged pool)."""
     b, hkv, r, d = q.shape
-    s = k.shape[1]
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel given a tensor on {dev}")
-    for name, t in (("k", k), ("v", v), ("q_pos", q_pos),
-                    ("cache_pos", cache_pos), ("kv_len", kv_len)):
+    int8 = k_scale is not None
+    if int8 != (v_scale is not None):
+        raise ValueError("k_scale and v_scale come together")
+    named = [("k", k), ("v", v), ("q_pos", q_pos), ("cache_pos", cache_pos),
+             ("kv_len", kv_len)]
+    if int8:
+        named += [("k_scale", k_scale), ("v_scale", v_scale)]
+    if block_table is not None:
+        named.append(("block_table", block_table))
+    for name, t in named:
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, q on {dev}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: "
-                        "expected one of float32, bfloat16")
+    kv_dtype = torch.int8 if int8 else q.dtype
+    if q.dtype not in _DTYPES or k.dtype != kv_dtype or v.dtype != kv_dtype:
+        raise TypeError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: q"
+                        " float32 or bfloat16, K/V of q's dtype, or int8"
+                        " with scales")
     if d not in _HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {_HEAD_DIMS}")
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
-    vec = 16 // q.element_size()
+    outer, rows = k.shape[0], k.shape[1]
+    if block_table is None:
+        if outer != b:
+            raise ValueError(f"k has {outer} slots, q {b}")
+        s = rows
+    else:
+        if block_table.dtype != torch.int32 or block_table.dim() != 2 \
+                or block_table.shape[0] != b \
+                or not block_table.is_contiguous():
+            raise ValueError("block_table must be contiguous int32"
+                             f" ({b}, n_blocks)")
+        if rows < 8:
+            raise ValueError(f"pool block of {rows} entries: at least 8")
+        s = block_table.shape[1] * rows
     for name, t in (("k", k), ("v", v)):
-        if tuple(t.shape) != (b, s, hkv, d):
+        if tuple(t.shape) != (outer, rows, hkv, d):
             raise ValueError(f"{name} shape {tuple(t.shape)} != "
-                             f"{(b, s, hkv, d)}")
+                             f"{(outer, rows, hkv, d)}")
         if t.stride()[1:] != (hkv * d, d, 1):
-            raise ValueError(f"{name} strides {t.stride()}: the (S, Hkv, D)"
-                             " inner layout must be dense")
-        if t.stride(0) % vec or t.data_ptr() % 16:
-            raise ValueError(f"{name} is not 16-byte aligned per slot")
+            raise ValueError(f"{name} strides {t.stride()}: the inner"
+                             " (S, Hkv, D) layout must be dense")
+        if (t.stride(0) * t.element_size()) % 16 or t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned per slot or"
+                             " block")
+    if int8:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.dtype != torch.float32 \
+                    or tuple(t.shape) != (outer, rows, hkv) \
+                    or t.stride()[1:] != (hkv, 1):
+                raise ValueError(f"{name} must be float32 {(outer, rows, hkv)}"
+                                 " with a dense (S, Hkv) inner layout")
     for name, t, shape in (("q_pos", q_pos, q_pos_shape),
                            ("kv_len", kv_len, (b,))):
         if t.dtype != torch.int32 or tuple(t.shape) != shape \
                 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous int32 {shape}")
-    if cache_pos.dtype != torch.int32 or tuple(cache_pos.shape) != (b, s) \
+    if cache_pos.dtype != torch.int32 \
+            or tuple(cache_pos.shape) != (outer, rows) \
             or cache_pos.stride(1) != 1:
-        raise ValueError(f"cache_pos must be int32 {(b, s)} with unit"
-                         " stride along S")
+        raise ValueError(f"cache_pos must be int32 {(outer, rows)} with unit"
+                         " stride along its entries")
+    return s
 
 
-def _launch(entry: str, q, k, v, q_pos, cache_pos, kv_len, window: int):
+def _launch(entry: str, q, k, v, q_pos, cache_pos, kv_len, window: int,
+            k_scale, v_scale, block_table):
+    q_pos_shape = ((q.shape[0],) if entry == "flash_decode"
+                   else (q.shape[0], q.shape[2]))
+    s = _check(q, k, v, q_pos, cache_pos, kv_len, q_pos_shape, k_scale,
+               v_scale, block_table)
     b, hkv, r, d = q.shape
     out = torch.empty_like(q)
     if b == 0:
         return out
     fn = getattr(_lib(), entry)
+    int8 = k_scale is not None
+    paged = block_table is not None
     rc = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            q_pos.data_ptr(), cache_pos.data_ptr(), kv_len.data_ptr(),
-            out.data_ptr(), b, k.shape[1], hkv, r, d, k.stride(0),
-            v.stride(0), cache_pos.stride(0), int(window),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            k_scale.data_ptr() if int8 else None,
+            v_scale.data_ptr() if int8 else None, q_pos.data_ptr(),
+            cache_pos.data_ptr(), kv_len.data_ptr(),
+            block_table.data_ptr() if paged else None, out.data_ptr(),
+            b, s, hkv, r, d, block_table.shape[1] if paged else 0,
+            k.shape[1] if paged else 0, k.stride(0), v.stride(0),
+            k_scale.stride(0) if int8 else 0, cache_pos.stride(0),
+            int(window), torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
     LAUNCHES[entry] += 1
@@ -113,29 +163,41 @@ def _launch(entry: str, q, k, v, q_pos, cache_pos, kv_len, window: int):
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  q_pos: torch.Tensor, cache_pos: torch.Tensor,
-                 kv_len: torch.Tensor, *, window: int = 0) -> torch.Tensor:
+                 kv_len: torch.Tensor, *,
+                 k_scale: Optional[torch.Tensor] = None,
+                 v_scale: Optional[torch.Tensor] = None,
+                 block_table: Optional[torch.Tensor] = None,
+                 window: int = 0) -> torch.Tensor:
     """One-token GQA decode attention on the card.
 
-    q: (B, Hkv, G, D) grouped queries; k/v: (B, S, Hkv, D); q_pos: (B,)
-    int32; cache_pos: (B, S) int32 stored positions (−1 invalid); kv_len:
-    (B,) int32 per-slot fill (S scans everything).  Returns (B, Hkv, G, D)
-    in q.dtype; a slot with kv_len 0 gives exact zeros.
+    q: (B, Hkv, G, D) grouped queries; q_pos: (B,) int32; kv_len: (B,)
+    int32 per-slot fill (the logical capacity scans everything).
+
+    Contiguous layout (``block_table`` None): k/v (B, S, Hkv, D);
+    cache_pos (B, S) int32 stored positions (−1 invalid).  Paged layout:
+    k/v a pool (NB, BS, Hkv, D); cache_pos (NB, BS); ``block_table``
+    (B, n) int32, slot b's logical block j in pool block
+    ``block_table[b, j]``.  K/V are of q's dtype, or int8 with
+    ``k_scale``/``v_scale`` f32 of K/V's shape without D.  Returns
+    (B, Hkv, G, D) in q.dtype; a slot with kv_len 0 gives exact zeros.
     """
-    _check(q, k, v, q_pos, cache_pos, kv_len, (q.shape[0],))
-    return _launch("flash_decode", q, k, v, q_pos, cache_pos, kv_len, window)
+    return _launch("flash_decode", q, k, v, q_pos, cache_pos, kv_len,
+                   window, k_scale, v_scale, block_table)
 
 
 def flash_chunk_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         q_pos: torch.Tensor, cache_pos: torch.Tensor,
-                        kv_len: torch.Tensor, *, window: int = 0
-                        ) -> torch.Tensor:
+                        kv_len: torch.Tensor, *,
+                        k_scale: Optional[torch.Tensor] = None,
+                        v_scale: Optional[torch.Tensor] = None,
+                        block_table: Optional[torch.Tensor] = None,
+                        window: int = 0) -> torch.Tensor:
     """Chunk-prefill attention on the card.
 
     q: (B, Hkv, R, D) with R = C·G rows ordered (query, group); q_pos:
     (B, R) int32 per-row positions, −1 for a pad row (exact zeros); the
-    rest as in ``flash_decode``.  The chunk's own K/V must already be in
-    the cache: in-chunk causality is ``pos <= q_pos``.
+    cache layouts as in ``flash_decode``.  The chunk's own K/V must
+    already be in the cache: in-chunk causality is ``pos <= q_pos``.
     """
-    _check(q, k, v, q_pos, cache_pos, kv_len, (q.shape[0], q.shape[2]))
     return _launch("flash_chunk_prefill", q, k, v, q_pos, cache_pos, kv_len,
-                   window)
+                   window, k_scale, v_scale, block_table)

@@ -6,9 +6,12 @@ tensor lies and from nothing else: a CUDA tensor launches the kernel (or
 the wrapper raises), a CPU tensor takes ``kernels/ref.py``.  There is no
 fallback and no switch.
 
-``quant_matmul`` is the matmul every projection goes through.  On this
-slice it is the float path, ``x @ w``, left to ``torch.matmul`` as the
-JAX package leaves it to XLA.
+``quant_matmul`` is the matmul every projection goes through: a float
+weight is ``x @ w``, left to ``torch.matmul`` as the JAX package leaves
+it to XLA; a ``QTensor`` weight takes the dynamic-activation int8 path
+through ``int8_matmul`` (or its fake-quant float simulation).  The
+attention wrappers take the cache as float tensors or ``Int8KV`` pairs,
+contiguous or paged (``block_table``).
 """
 from __future__ import annotations
 
@@ -16,7 +19,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.quantize import (Int8KV, PrecisionPolicy, QTensor,
+                                       quant_dynamic)
 from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import int8_matmul as im
 from repro_torch.kernels import ref
 
 
@@ -25,74 +31,131 @@ def _on_card(x: torch.Tensor) -> bool:
         return True
     if x.device.type == "cpu":
         return False
-    raise ValueError(f"no attention path for a tensor on {x.device}")
+    raise ValueError(f"no kernel path for a tensor on {x.device}")
 
 
-def quant_matmul(x: torch.Tensor, w) -> torch.Tensor:
-    """``x (..., K) @ w (K, N)`` for a float weight.  Quantized (``QTensor``)
-    weights come with the int8 port slice."""
-    if not isinstance(w, torch.Tensor):
-        raise NotImplementedError(
-            f"quant_matmul on {type(w).__name__} weights: int8 serving comes"
-            " with port slice 2")
-    return x @ w.to(x.dtype)
+def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
+                w_scale: torch.Tensor) -> torch.Tensor:
+    """``(M, K) int8 · (N, K) int8ᵀ`` → exact int32 sum → ``× x_scale[m] ×
+    w_scale[n]`` → (M, N) f32."""
+    if not _on_card(x_q):
+        return ref.int8_matmul_ref(x_q, w_q, x_scale, w_scale)
+    return im.int8_matmul(x_q, w_q, x_scale, w_scale)
 
 
-def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, q_position: torch.Tensor,
-                     cache_positions: torch.Tensor, *, window: int = 0,
-                     kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One-token decode attention against a slot-addressed KV cache.
+def quant_matmul(x: torch.Tensor, w, *,
+                 policy: Optional[PrecisionPolicy] = None) -> torch.Tensor:
+    """Precision-aware matmul: ``x (..., K) @ w``.
 
-    q: (B, 1, Hq, D); k/v caches: (B, S, Hkv, D); q_position: (B,);
-    cache_positions: (B, S), −1 marking invalid entries.  ``kv_len`` (B,)
-    is the per-slot fill: entries at index >= kv_len are not read (None
-    reads all S).
+    A float ``w`` (K, N) is ``x @ w``.  A ``QTensor`` (values (N, K)) takes
+    the int8 path: the rows of x are quantized dynamically, the int8
+    kernel runs with the dequant in its epilogue, and the f32 result is
+    cast back to x's dtype.  With ``policy.compute == "fake_quant"`` the
+    same quantization decisions run in float: the integer-valued f32
+    product with the scales applied once afterwards, the kernel's
+    accumulate-then-scale order (exact while every partial sum stays below
+    2^24), as the JAX package's oracle does.
     """
+    if not isinstance(w, QTensor):
+        return x @ w.to(x.dtype)
+    lead, kdim = x.shape[:-1], x.shape[-1]
+    xq, xs = quant_dynamic(x.reshape(-1, kdim))
+    if policy is not None and policy.compute == "fake_quant":
+        acc = xq.float() @ w.q.float().t()
+        out = acc * (xs[:, None] * w.scale[None, :])
+    else:
+        out = int8_matmul(xq, w.q, xs, w.scale)
+    return out.reshape(*lead, w.q.shape[0]).to(x.dtype)
+
+
+def _split(cache):
+    """(values, scales) of a float cache tensor or an ``Int8KV``."""
+    if isinstance(cache, Int8KV):
+        return cache.q, cache.scale
+    return cache, None
+
+
+def decode_attention(q: torch.Tensor, k_cache, v_cache,
+                     q_position: torch.Tensor, cache_positions: torch.Tensor,
+                     *, window: int = 0,
+                     kv_len: Optional[torch.Tensor] = None,
+                     block_table: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """One-token decode attention against the KV cache.
+
+    q: (B, 1, Hq, D); k/v caches: (B, S, Hkv, D) float tensors or
+    ``Int8KV`` pairs; q_position: (B,); cache_positions: (B, S), −1
+    marking invalid entries.  ``kv_len`` (B,) is the per-slot fill:
+    entries at index >= kv_len are not read (None reads all S).
+
+    ``block_table`` (B, n) int32 selects the paged layout: the caches are
+    (NB, BS, Hkv, D) pools, ``cache_positions`` is (NB, BS), and slot b's
+    logical block j is pool block ``block_table[b, j]``.  ``kv_len`` is
+    then required.
+    """
+    k, k_scale = _split(k_cache)
+    v, v_scale = _split(v_cache)
+    if block_table is not None and kv_len is None:
+        raise ValueError("paged decode_attention requires kv_len")
     if not _on_card(q):
-        return ref.decode_attention_ref(q, k_cache, v_cache, q_position,
-                                        cache_positions, window=window,
-                                        kv_len=kv_len)
+        if block_table is not None:
+            return ref.paged_decode_attention_ref(
+                q, k, v, q_position, cache_positions, block_table, kv_len,
+                window=window, k_scale=k_scale, v_scale=v_scale)
+        return ref.decode_attention_ref(
+            q, k, v, q_position, cache_positions, window=window,
+            kv_len=kv_len, k_scale=k_scale, v_scale=v_scale)
     b, _, hq, d = q.shape
-    hkv = k_cache.shape[2]
+    hkv = k.shape[2]
     if kv_len is None:
-        kv_len = torch.full((b,), k_cache.shape[1], dtype=torch.int32,
+        kv_len = torch.full((b,), k.shape[1], dtype=torch.int32,
                             device=q.device)
     out = fd.flash_decode(
-        q.reshape(b, hkv, hq // hkv, d).contiguous(), k_cache, v_cache,
+        q.reshape(b, hkv, hq // hkv, d).contiguous(), k, v,
         q_position.to(torch.int32).contiguous(), cache_positions,
-        kv_len.to(torch.int32).contiguous(), window=window)
+        kv_len.to(torch.int32).contiguous(), k_scale=k_scale,
+        v_scale=v_scale, block_table=block_table, window=window)
     return out.reshape(b, 1, hq, d)
 
 
-def chunk_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                    v_cache: torch.Tensor, q_positions: torch.Tensor,
-                    cache_positions: torch.Tensor, *, window: int = 0,
-                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+def chunk_attention(q: torch.Tensor, k_cache, v_cache,
+                    q_positions: torch.Tensor, cache_positions: torch.Tensor,
+                    *, window: int = 0,
+                    kv_len: Optional[torch.Tensor] = None,
+                    block_table: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """Chunk-prefill attention: C queries per slot against its cache.
 
     q: (B, C, Hq, D); q_positions: (B, C), −1 marking pad queries (exact
     zeros out); the rest as in ``decode_attention``.  The chunk's own K/V
     must already be in the cache; ``kv_len`` is the post-write fill.
     """
+    k, k_scale = _split(k_cache)
+    v, v_scale = _split(v_cache)
+    if block_table is not None and kv_len is None:
+        raise ValueError("paged chunk_attention requires kv_len")
     if not _on_card(q):
-        return ref.chunk_attention_ref(q, k_cache, v_cache, q_positions,
-                                       cache_positions, window=window,
-                                       kv_len=kv_len)
+        if block_table is not None:
+            return ref.paged_chunk_attention_ref(
+                q, k, v, q_positions, cache_positions, block_table, kv_len,
+                window=window, k_scale=k_scale, v_scale=v_scale)
+        return ref.chunk_attention_ref(
+            q, k, v, q_positions, cache_positions, window=window,
+            kv_len=kv_len, k_scale=k_scale, v_scale=v_scale)
     b, c, hq, d = q.shape
-    hkv = k_cache.shape[2]
+    hkv = k.shape[2]
     g = hq // hkv
     if kv_len is None:
-        kv_len = torch.full((b,), k_cache.shape[1], dtype=torch.int32,
+        kv_len = torch.full((b,), k.shape[1], dtype=torch.int32,
                             device=q.device)
     # grouped rows ordered (query, group): row c*G + g shares KV head h
     qg = q.reshape(b, c, hkv, g, d).permute(0, 2, 1, 3, 4) \
         .reshape(b, hkv, c * g, d).contiguous()
     qp_rows = q_positions.to(torch.int32)[:, :, None].expand(b, c, g) \
         .reshape(b, c * g).contiguous()
-    out = fd.flash_chunk_prefill(qg, k_cache, v_cache, qp_rows,
-                                 cache_positions,
-                                 kv_len.to(torch.int32).contiguous(),
-                                 window=window)
+    out = fd.flash_chunk_prefill(
+        qg, k, v, qp_rows, cache_positions,
+        kv_len.to(torch.int32).contiguous(), k_scale=k_scale,
+        v_scale=v_scale, block_table=block_table, window=window)
     return out.reshape(b, hkv, c, g, d).permute(0, 2, 1, 3, 4) \
         .reshape(b, c, hq, d)

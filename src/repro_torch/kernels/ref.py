@@ -1,10 +1,10 @@
-"""Plain PyTorch versions of the attention kernels (the correctness
-contracts).
+"""Plain PyTorch versions of the kernels (the correctness contracts).
 
 Each function is the definition its CUDA kernel must reproduce: the CPU
 path of ``kernels/ops.py`` runs it, and ``chip_smoke.py`` holds each
 kernel against it on the card.  Semantics are those of
-``repro.kernels.ref``; this slice ports the float layouts only.
+``repro.kernels.ref``: the int8 matmul, and attention over the
+contiguous or paged KV cache in float or int8 (``Int8KV``) form.
 """
 from __future__ import annotations
 
@@ -15,38 +15,83 @@ import torch
 NEG_INF = -1e30
 
 
+# ---------------------------------------------------------------------------
+# int8 matmul with per-channel dequant (paper C5: full int8 inference)
+# ---------------------------------------------------------------------------
+def int8_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor,
+                    x_scale: torch.Tensor, w_scale: torch.Tensor
+                    ) -> torch.Tensor:
+    """x_q: (M, K) int8; w_q: (N, K) int8 (output channel first, the
+    port's ``QTensor`` layout); x_scale: (M,) f32 per row; w_scale: (N,)
+    f32 per output channel.  Returns f32 (M, N):
+    ``float(acc) * (x_scale[m] * w_scale[n])`` with ``acc`` the exact
+    int32 dot product.
+
+    The sum is exact on either device: int32 on the CPU; on the card,
+    where ``torch.matmul`` has no integer path, float64, which holds every
+    sum of K <= 8192 int8 products (|sum| < 2^27) exactly."""
+    if x_q.device.type == "cpu":
+        acc = x_q.to(torch.int32) @ w_q.to(torch.int32).t()
+    else:
+        if x_q.shape[1] > 8192:
+            raise ValueError(f"K {x_q.shape[1]} > 8192: the float64 sum"
+                             " is exact only up to K = 8192 here")
+        acc = x_q.double() @ w_q.double().t()
+    scale = x_scale[:, None] * w_scale[None, :]
+    return acc.float() * scale
+
+
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          q_position: torch.Tensor,
                          cache_positions: torch.Tensor, *, window: int = 0,
-                         kv_len: Optional[torch.Tensor] = None
+                         kv_len: Optional[torch.Tensor] = None,
+                         k_scale: Optional[torch.Tensor] = None,
+                         v_scale: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """One-token decode against a KV cache: the C == 1 case of
     ``chunk_attention_ref``.
 
-    q: (B, 1, Hq, D); k/v: (B, S, Hkv, D); q_position: (B,);
+    q: (B, 1, Hq, D); k/v: (B, S, Hkv, D) float, or int8 with
+    ``k_scale``/``v_scale`` (B, S, Hkv) f32; q_position: (B,);
     cache_positions: (B, S), −1 marking invalid entries; ``kv_len`` (B,)
     optionally bounds each slot's valid region by index.  A slot with no
     valid entry returns exact zeros.
     """
     return chunk_attention_ref(q, k, v, q_position[:, None], cache_positions,
-                               window=window, kv_len=kv_len)
+                               window=window, kv_len=kv_len, k_scale=k_scale,
+                               v_scale=v_scale)
 
 
 def chunk_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         q_positions: torch.Tensor,
                         cache_positions: torch.Tensor, *, window: int = 0,
-                        kv_len: Optional[torch.Tensor] = None
+                        kv_len: Optional[torch.Tensor] = None,
+                        k_scale: Optional[torch.Tensor] = None,
+                        v_scale: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """Chunk-prefill attention: C queries per slot against the slot's cache.
 
-    q: (B, C, Hq, D); k/v: (B, S, Hkv, D); q_positions: (B, C) absolute
-    positions (−1 marks a pad query, whose row is exact zeros);
-    cache_positions: (B, S) stored positions (−1 invalid); ``kv_len`` (B,)
-    optionally bounds the live region by index.  An entry is valid when
-    ``pos >= 0``, ``pos <= q_pos``, ``idx < kv_len`` and, with a window,
-    ``pos > q_pos - window``.  Grouped-query GQA: the KV heads are never
-    repeated.  Scores and softmax in float32; output in ``v.dtype``.
+    q: (B, C, Hq, D); k/v: (B, S, Hkv, D) float, or int8 values with
+    ``k_scale``/``v_scale`` (B, S, Hkv) f32 per-(entry, head) scales,
+    dequantized to q's dtype (``value * scale`` in f32, rounded once);
+    q_positions: (B, C) absolute positions (−1 marks a pad query, whose
+    row is exact zeros); cache_positions: (B, S) stored positions (−1
+    invalid); ``kv_len`` (B,) optionally bounds the live region by index.
+    An entry is valid when ``pos >= 0``, ``pos <= q_pos``, ``idx < kv_len``
+    and, with a window, ``pos > q_pos - window``.  Grouped-query GQA: the
+    KV heads are never repeated.  Scores and softmax in float32; output in
+    ``v.dtype`` (q's dtype for an int8 cache).
     """
+    if k_scale is not None:
+        k = (k.float() * k_scale[..., None]).to(q.dtype)
+        v = (v.float() * v_scale[..., None]).to(q.dtype)
+    if kv_len is not None:
+        # entries past kv_len are not read (the kernels never load them):
+        # whatever a recycled or unmapped row holds stays out of P·V
+        live = torch.arange(k.shape[1], device=k.device)[None, :] \
+            < kv_len[:, None].to(torch.int64)
+        k = torch.where(live[:, :, None, None], k, 0)
+        v = torch.where(live[:, :, None, None], v, 0)
     b, c, hq, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -72,3 +117,60 @@ def chunk_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = p / torch.where(l == 0.0, 1.0, l)
     o = torch.einsum("bchgk,bkhd->bchgd", p.to(v.dtype), v)
     return o.reshape(b, c, hq, d)
+
+
+# ---------------------------------------------------------------------------
+# Paged KV pool (block-table indirection)
+# ---------------------------------------------------------------------------
+def gather_kv_pages(pool: torch.Tensor, block_table: torch.Tensor
+                    ) -> torch.Tensor:
+    """A slot-contiguous copy of a paged pool.
+
+    pool: (NB, BS, ...); block_table: (B, n) int32, slot ``b``'s logical
+    block ``j`` in physical block ``block_table[b, j]``.  Returns
+    (B, n * BS, ...): logical entry ``i`` of slot ``b`` is
+    ``pool[table[b, i // BS], i % BS]``.  Entries past a slot's kv_len
+    come from whatever block the table names there; the caller's kv_len
+    masks them, as in the kernel."""
+    b, n = block_table.shape
+    pages = pool[block_table.long()]                 # (B, n, BS, ...)
+    return pages.reshape((b, n * pool.shape[1]) + tuple(pool.shape[2:]))
+
+
+def paged_chunk_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                              v_pool: torch.Tensor,
+                              q_positions: torch.Tensor,
+                              pool_positions: torch.Tensor,
+                              block_table: torch.Tensor,
+                              kv_len: torch.Tensor, *, window: int = 0,
+                              k_scale: Optional[torch.Tensor] = None,
+                              v_scale: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """``chunk_attention_ref`` over a paged pool: gather each operand
+    through the block table, then delegate.  ``kv_len`` is mandatory: it
+    is what fences a slot off from the blocks its table tail names."""
+    k = gather_kv_pages(k_pool, block_table)
+    v = gather_kv_pages(v_pool, block_table)
+    cache_positions = gather_kv_pages(pool_positions, block_table)
+    if k_scale is not None:
+        k_scale = gather_kv_pages(k_scale, block_table)
+        v_scale = gather_kv_pages(v_scale, block_table)
+    return chunk_attention_ref(
+        q, k, v, q_positions, cache_positions, window=window,
+        kv_len=kv_len, k_scale=k_scale, v_scale=v_scale)
+
+
+def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor,
+                               q_position: torch.Tensor,
+                               pool_positions: torch.Tensor,
+                               block_table: torch.Tensor,
+                               kv_len: torch.Tensor, *, window: int = 0,
+                               k_scale: Optional[torch.Tensor] = None,
+                               v_scale: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """Decode (C == 1) case of ``paged_chunk_attention_ref``."""
+    return paged_chunk_attention_ref(
+        q, k_pool, v_pool, q_position[:, None], pool_positions,
+        block_table, kv_len, window=window, k_scale=k_scale,
+        v_scale=v_scale)

@@ -1,9 +1,13 @@
 """Serving driver: ``python -m repro_torch.launch.serve --arch <id>``.
 
-Runs the continuous-batching server over synthetic prompts on the
-selected arch, on the card unless ``--device cpu`` is given: the smoke
-config by default, the full config with ``--full`` (random weights drawn
-from a seeded ``torch.Generator`` on the device; nothing is downloaded).
+Runs a serving engine over synthetic prompts on the selected arch, on
+the card unless ``--device cpu`` is given: the smoke config by default,
+the full config with ``--full`` (random weights drawn from a seeded
+``torch.Generator`` on the device; nothing is downloaded).
+``--engine static`` selects the static-batching baseline, ``--engine
+paged`` the paged-KV-pool engine (``--pool-blocks`` sizes the pool below
+the contiguous rectangle, so it may preempt), and ``--precision int8``
+serves int8 weights, activations and KV cache.
 """
 from __future__ import annotations
 
@@ -15,19 +19,29 @@ import torch
 
 from repro_torch import configs, resolve_device
 from repro_torch.models.params import init_params
-from repro_torch.serve.server import ContinuousBatchServer
+from repro_torch.serve.server import (ContinuousBatchServer, PagedBatchServer,
+                                      StaticBatchServer)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--engine", choices=("continuous", "static", "paged"),
+                    default="continuous")
+    ap.add_argument("--pool-blocks", type=int, default=None,
+                    help="paged engine: KV blocks in the pool (default:"
+                         " the contiguous rectangle's count)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--prefill-chunk", type=int, default=8,
                     help="chunked pad-free admission: prompt tokens per"
-                         " prefill chunk step (docs/scheduling.md)")
+                         " prefill chunk step")
     ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--precision", choices=("float", "int8"),
+                    default="float",
+                    help="int8: QTensor weights, dynamic activation quant"
+                         " and an Int8KV cache")
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
@@ -37,10 +51,19 @@ def main() -> None:
     cfg = configs.get(args.arch) if args.full else configs.get_smoke(args.arch)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
                          device)
-    server = ContinuousBatchServer(
-        cfg, params, slots=args.slots, max_prompt=args.prompt_len,
-        prefill_chunk=args.prefill_chunk, max_new_tokens=args.max_new,
-        device=device)
+    common = dict(max_prompt=args.prompt_len,
+                  prefill_chunk=args.prefill_chunk,
+                  max_new_tokens=args.max_new, precision=args.precision,
+                  device=device)
+    if args.engine == "static":
+        server = StaticBatchServer(cfg, params, batch_size=args.slots,
+                                   **common)
+    elif args.engine == "paged":
+        server = PagedBatchServer(cfg, params, slots=args.slots,
+                                  pool_blocks=args.pool_blocks, **common)
+    else:
+        server = ContinuousBatchServer(cfg, params, slots=args.slots,
+                                       **common)
     rng = np.random.RandomState(0)
     prompts = [rng.randint(0, cfg.vocab_size, size=args.prompt_len)
                .astype(np.int32) for _ in range(args.requests)]

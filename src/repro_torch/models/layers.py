@@ -9,7 +9,10 @@ Unlike the JAX package, whose arrays are immutable, the cache layers
 write this step's K/V rows **in place** into the cache tensors they are
 given.  Those are views (one layer of the stacked cache, or one slot's
 row of it), so the write lands in the big cache and nothing is copied.
-This slice ports the contiguous, non-ring, non-cross branches.
+A cache is float or ``Int8KV`` (the rows are quantized as they are
+written), contiguous ``(B, S, Hkv, D)`` or a paged pool ``(NB, BS, Hkv,
+D)`` addressed through a block table.  The ring (sliding-window) and
+cross-attention branches come with later slices.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.quantize import (Int8KV, PrecisionPolicy, dequant_kv,
+                                       is_int8_kv_fakequant, quant_kv)
 from repro_torch.kernels.ops import (chunk_attention, decode_attention,
                                      quant_matmul)
 
@@ -89,47 +94,113 @@ def write_rows(cache: torch.Tensor, new: torch.Tensor, start: torch.Tensor,
     cache[bi, rows] = new
 
 
+def write_pages(pool: torch.Tensor, new: torch.Tensor, blk: torch.Tensor,
+                off: torch.Tensor, active: Optional[torch.Tensor] = None
+                ) -> None:
+    """In place: ``pool[blk[b, i], off[b, i]] = new[b, i]``.
+
+    pool: (NB, BS, ...); new: (B, C, ...); blk/off: (B, C) pool addresses
+    (unique among the active rows: a written block has one owner).  Rows
+    with ``active[b] == False`` write nothing: each repeats the write of
+    the first active row (the same address, the same value), and with no
+    active row at all, row 0's address is rewritten with what it holds.
+    No host sync is needed to drop them.
+    """
+    new = new.to(pool.dtype)
+    if active is not None:
+        b = active.shape[0]
+        first = torch.argmax(active.to(torch.int32))
+        src = torch.where(active, torch.arange(b, device=active.device),
+                          first)
+        blk, off, new = blk[src], off[src], new[src]
+        new = torch.where(active[first], new, pool[blk, off])
+    pool[blk, off] = new
+
+
+def _write_kv(cache, new: torch.Tensor, write) -> None:
+    """Write K or V rows ``new`` (B, C, Hkv, D) into ``cache`` in place,
+    quantized per (entry, head) when the cache is ``Int8KV``.  ``write``
+    is a function ``(tensor, rows) -> None`` addressing the layout."""
+    if isinstance(cache, Int8KV):
+        qn = quant_kv(new)
+        write(cache.q, qn.q)
+        write(cache.scale, qn.scale)
+    else:
+        write(cache, new)
+
+
+def _fake_quant_kv(policy, k, v):
+    """Under a fake-quant int8 policy a float cache stores the K/V rows'
+    quantize-dequantize round trip, the int8 cache's numerics in float."""
+    if is_int8_kv_fakequant(policy):
+        return dequant_kv(quant_kv(k), k.dtype), dequant_kv(quant_kv(v),
+                                                            v.dtype)
+    return k, v
+
+
 # ---------------------------------------------------------------------------
-# Attention against the slot-addressed KV cache
+# Attention against the slot-addressed or paged KV cache
 # ---------------------------------------------------------------------------
 def attention_decode_layer(p: dict, x: torch.Tensor, position: torch.Tensor,
-                           cache_k: torch.Tensor, cache_v: torch.Tensor,
-                           cache_positions: torch.Tensor,
+                           cache_k, cache_v, cache_positions: torch.Tensor,
                            write_idx: torch.Tensor, *, n_heads: int,
                            n_kv_heads: int, head_dim: int, rope_variant: str,
                            rope_theta: float,
+                           policy: Optional[PrecisionPolicy] = None,
                            kv_len: Optional[torch.Tensor] = None,
-                           active: Optional[torch.Tensor] = None
+                           active: Optional[torch.Tensor] = None,
+                           block_table: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """One decode step.  x: (B, 1, d); position: (B,) absolute position;
     write_idx: (B,) cache row this token's K/V is written to.
 
-    ``cache_k``/``cache_v`` (B, S, Hkv, D) are written in place;
-    ``cache_positions`` (B, S) must already carry this step's position
-    stamp (``transformer.forward_decode`` writes it once for all layers).
-    ``kv_len`` (B,) bounds each row's live region by index; rows with
-    ``active == False`` are not written.  Returns the layer output
-    (B, 1, d).
+    ``cache_k``/``cache_v`` (B, S, Hkv, D), float or ``Int8KV``, are
+    written in place; ``cache_positions`` (B, S) must already carry this
+    step's position stamp (``transformer.forward_decode`` writes it once
+    for all layers).  ``kv_len`` (B,) bounds each row's live region by
+    index; rows with ``active == False`` are not written.
+
+    ``block_table`` (B, n) selects the paged layout: the caches are
+    (NB, BS, Hkv, D) pools, ``cache_positions`` the (NB, BS) position
+    pool, and the token's row is ``(block_table[b, write_idx // BS],
+    write_idx % BS)``.  Returns the layer output (B, 1, d).
     """
     b = x.shape[0]
-    q = quant_matmul(x, p["wq"]).reshape(b, 1, n_heads, head_dim)
-    k = quant_matmul(x, p["wk"]).reshape(b, 1, n_kv_heads, head_dim)
-    v = quant_matmul(x, p["wv"]).reshape(b, 1, n_kv_heads, head_dim)
+    q = quant_matmul(x, p["wq"], policy=policy).reshape(
+        b, 1, n_heads, head_dim)
+    k = quant_matmul(x, p["wk"], policy=policy).reshape(
+        b, 1, n_kv_heads, head_dim)
+    v = quant_matmul(x, p["wv"], policy=policy).reshape(
+        b, 1, n_kv_heads, head_dim)
     q, k = _rope_qk(q, k, position[:, None], rope_variant, rope_theta)
-    write_rows(cache_k, k, write_idx, active)
-    write_rows(cache_v, v, write_idx, active)
+    if not isinstance(cache_k, Int8KV):
+        k, v = _fake_quant_kv(policy, k, v)
+    if block_table is not None:
+        bs = cache_positions.shape[1]
+        blk = block_table.gather(1, (write_idx // bs)[:, None].long()).long()
+        off = (write_idx % bs)[:, None].long()
+
+        def write(t, rows):
+            write_pages(t, rows, blk, off, active)
+    else:
+        def write(t, rows):
+            write_rows(t, rows, write_idx, active)
+    _write_kv(cache_k, k, write)
+    _write_kv(cache_v, v, write)
     o = decode_attention(q, cache_k, cache_v, position, cache_positions,
-                         kv_len=kv_len)
-    return quant_matmul(o.reshape(b, 1, n_heads * head_dim), p["wo"])
+                         kv_len=kv_len, block_table=block_table)
+    return quant_matmul(o.reshape(b, 1, n_heads * head_dim), p["wo"],
+                        policy=policy)
 
 
 def attention_chunk_layer(p: dict, x: torch.Tensor, positions: torch.Tensor,
-                          cache_k: torch.Tensor, cache_v: torch.Tensor,
-                          cache_positions: torch.Tensor,
+                          cache_k, cache_v, cache_positions: torch.Tensor,
                           write_idx: torch.Tensor, *, n_heads: int,
                           n_kv_heads: int, head_dim: int, rope_variant: str,
                           rope_theta: float,
-                          kv_len: Optional[torch.Tensor] = None
+                          policy: Optional[PrecisionPolicy] = None,
+                          kv_len: Optional[torch.Tensor] = None,
+                          block_table: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """One chunk-prefill step: C tokens written unpadded into the slot's
     cache rows ``[write_idx, write_idx + C)`` first, then attending the
@@ -138,27 +209,49 @@ def attention_chunk_layer(p: dict, x: torch.Tensor, positions: torch.Tensor,
     x: (B, C, d); positions: (B, C), −1 marking the pad tail of a ragged
     final chunk (its rows are written, stamped −1 by the caller, and its
     outputs are ignored).  ``kv_len`` is the post-write fill.  The K/V
-    writes are in place, as in ``attention_decode_layer``.  Returns
-    (B, C, d).
+    writes are in place, as in ``attention_decode_layer``, into a float
+    or ``Int8KV`` cache, contiguous or (``block_table``) paged: row
+    ``write_idx + i`` lands at ``(block_table[b, (write_idx + i) // BS],
+    (write_idx + i) % BS)``, pad-tail rows included.  Returns (B, C, d).
     """
     b, c, _ = x.shape
-    q = quant_matmul(x, p["wq"]).reshape(b, c, n_heads, head_dim)
-    k = quant_matmul(x, p["wk"]).reshape(b, c, n_kv_heads, head_dim)
-    v = quant_matmul(x, p["wv"]).reshape(b, c, n_kv_heads, head_dim)
+    q = quant_matmul(x, p["wq"], policy=policy).reshape(
+        b, c, n_heads, head_dim)
+    k = quant_matmul(x, p["wk"], policy=policy).reshape(
+        b, c, n_kv_heads, head_dim)
+    v = quant_matmul(x, p["wv"], policy=policy).reshape(
+        b, c, n_kv_heads, head_dim)
     q, k = _rope_qk(q, k, positions, rope_variant, rope_theta)
-    write_rows(cache_k, k, write_idx)
-    write_rows(cache_v, v, write_idx)
-    s_kv = cache_positions.shape[1]
-    bound = None if kv_len is None else kv_len.clamp(0, s_kv)
+    if not isinstance(cache_k, Int8KV):
+        k, v = _fake_quant_kv(policy, k, v)
+    if block_table is not None:
+        bs = cache_positions.shape[1]
+        tgt = (write_idx[:, None]
+               + torch.arange(c, device=x.device)[None]).long()
+        blk = block_table.gather(1, tgt // bs).long()
+        off = tgt % bs
+
+        def write(t, rows):
+            write_pages(t, rows, blk, off)
+        bound = kv_len
+    else:
+        def write(t, rows):
+            write_rows(t, rows, write_idx)
+        s_kv = cache_positions.shape[1]
+        bound = None if kv_len is None else kv_len.clamp(0, s_kv)
+    _write_kv(cache_k, k, write)
+    _write_kv(cache_v, v, write)
     o = chunk_attention(q, cache_k, cache_v, positions, cache_positions,
-                        kv_len=bound)
-    return quant_matmul(o.reshape(b, c, n_heads * head_dim), p["wo"])
+                        kv_len=bound, block_table=block_table)
+    return quant_matmul(o.reshape(b, c, n_heads * head_dim), p["wo"],
+                        policy=policy)
 
 
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
-def swiglu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    gate = quant_matmul(x, p["w_gate"])
-    up = quant_matmul(x, p["w_up"])
-    return quant_matmul(F.silu(gate) * up, p["w_down"])
+def swiglu_mlp(p: dict, x: torch.Tensor,
+               policy: Optional[PrecisionPolicy] = None) -> torch.Tensor:
+    gate = quant_matmul(x, p["w_gate"], policy=policy)
+    up = quant_matmul(x, p["w_up"], policy=policy)
+    return quant_matmul(F.silu(gate) * up, p["w_down"], policy=policy)

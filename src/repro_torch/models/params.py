@@ -10,7 +10,10 @@ carries a tree of numpy arrays (for example the JAX package's own
 
 Both return a ``ParamTree``: an ``nn.Module`` whose leaves are frozen
 ``nn.Parameter``s, indexed like the JAX params dict (``p["blocks"]["attn"]
-["wq"]``), so ``state_dict``, ``parameters`` and ``to`` work as usual.
+["wq"]``), so ``state_dict``, ``parameters`` and ``to`` work as usual.  An
+int8 projection weight is a ``QTensor`` leaf (``core/quantize.py``): its
+values and scales are held by a ``QLeaf`` module, and indexing returns
+the ``QTensor``.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.core.arch import ArchConfig
+from repro_torch.core.quantize import QTensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +106,18 @@ def build_specs(cfg: ArchConfig) -> SpecTree:
 # ---------------------------------------------------------------------------
 # The weights as a module
 # ---------------------------------------------------------------------------
+class QLeaf(nn.Module):
+    """The two frozen tensors of a ``QTensor`` leaf."""
+
+    def __init__(self, qt: QTensor):
+        super().__init__()
+        self.q = nn.Parameter(qt.q, requires_grad=False)
+        self.scale = nn.Parameter(qt.scale, requires_grad=False)
+
+    def qtensor(self) -> QTensor:
+        return QTensor(self.q, self.scale)
+
+
 class ParamTree(nn.Module):
     """A nested tree of frozen weights, indexed like a dict."""
 
@@ -110,13 +126,24 @@ class ParamTree(nn.Module):
         for key, val in tree.items():
             if isinstance(val, dict):
                 self.add_module(key, ParamTree(val))
+            elif isinstance(val, QTensor):
+                self.add_module(key, QLeaf(val))
             else:
                 self.register_parameter(
                     key, nn.Parameter(val, requires_grad=False))
         self._per_layer: Optional[List[Dict[str, object]]] = None
 
     def __getitem__(self, key: str):
-        return getattr(self, key)
+        val = getattr(self, key)
+        return val.qtensor() if isinstance(val, QLeaf) else val
+
+    def tree(self) -> Dict[str, object]:
+        """The weights as a nested dict of tensors and ``QTensor``s."""
+        out: Dict[str, object] = dict(self._parameters)
+        for key, mod in self._modules.items():
+            out[key] = mod.qtensor() if isinstance(mod, QLeaf) \
+                else mod.tree()
+        return out
 
     def __contains__(self, key: str) -> bool:
         return key in self._parameters or key in self._modules
@@ -139,7 +166,9 @@ class ParamTree(nn.Module):
 
     def _slice(self, i: int) -> Dict[str, object]:
         out: Dict[str, object] = {k: p[i] for k, p in self._parameters.items()}
-        out.update({k: m._slice(i) for k, m in self._modules.items()})
+        for k, m in self._modules.items():
+            out[k] = QTensor(m.q[i], m.scale[i]) if isinstance(m, QLeaf) \
+                else m._slice(i)
         return out
 
 
@@ -182,12 +211,24 @@ def params_from_numpy(tree: Dict[str, object],
                       dtype: Optional[torch.dtype] = None) -> ParamTree:
     """Carry a nested dict of numpy arrays across as a ``ParamTree`` on
     ``device`` (``cuda`` unless named).  Matrices go to ``dtype`` (default:
-    kept as given), 1-D leaves to float32."""
+    kept as given), 1-D leaves to float32.
+
+    A quantized leaf (any object with ``q`` (..., K, N) int8 and ``scale``
+    (..., N) arrays, such as the JAX package's ``QTensor`` mapped to
+    numpy) becomes a ``QTensor`` with its values transposed to the port's
+    (..., N, K) layout, bit for bit."""
     device = resolve_device(device)
 
     def conv(x) -> object:
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
+        if hasattr(x, "q") and hasattr(x, "scale"):
+            q = torch.from_numpy(np.array(x.q))
+            if q.dtype != torch.int8:
+                raise TypeError(f"quantized leaf of {q.dtype}, not int8")
+            return QTensor(
+                q.transpose(-1, -2).contiguous().to(device),
+                torch.from_numpy(np.array(x.scale, np.float32)).to(device))
         t = torch.from_numpy(np.array(x))
         return t.to(device=device,
                     dtype=_leaf_dtype(t.ndim, dtype, t.dtype)).contiguous()

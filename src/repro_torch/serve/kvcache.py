@@ -1,13 +1,14 @@
-"""KV-cache utilities: sizing arithmetic and the slot API the
-continuous-batching engine is built on.
+"""KV-cache utilities: sizing arithmetic, the slot API the continuous and
+static engines are built on, and the **paged KV pool** (block table +
+``BlockManager``) the paged engine is built on.
 
-The counterpart of ``repro.serve.kvcache`` on this slice (contiguous
-float cache):
+The counterpart of ``repro.serve.kvcache`` for the uniform dense decoder:
 
 * ``kv_cache_bytes``      — footprint arithmetic.
 * ``alloc_decode_cache``  — zero-filled ``slots`` x ``capacity`` decode
                             cache, positions −1 (invalid), built directly
-                            from the config's shapes.
+                            from the config's shapes; with an int8 policy
+                            the K/V leaves are ``Int8KV`` pairs.
 * ``take_slot`` / ``put_slot`` / ``release_slot`` — the slot API.  Where the
   JAX package slices and splices immutable arrays, ``take_slot`` returns
   **views** of one slot's row, so a chunk step run on them writes straight
@@ -15,21 +16,35 @@ float cache):
   admission reset) and ``release_slot`` invalidates a row's positions, both
   in place.
 * ``decode_cache_nbytes`` — device bytes of a cache.
+* ``alloc_paged_cache`` / ``abstract_paged_cache`` / ``kv_pool_block_bytes``
+  — the paged layout: K/V leaves (L, NB, BS, Hkv, D) pools of fixed-size
+  blocks and an (NB, BS) ``pool_pos`` position pool, addressed through a
+  per-slot block table (B, capacity // BS).  The abstract cache lies on
+  the ``meta`` device: shapes and dtypes, no memory.
+* ``BlockManager``        — host-side pool allocator: free list, refcounts,
+                            hash-chain prefix caching, LRU reclaim.
 
 Validity is decided by stored positions (−1 = empty) plus the scheduler's
-per-slot ``kv_len`` bound, so a row is recycled without touching its K/V.
+per-slot ``kv_len`` bound, so a row is recycled without touching its K/V,
+and a pool block is handed to a new tenant without being scrubbed (the
+new tenant's writes precede its ``kv_len``).
 """
 from __future__ import annotations
 
-from typing import Dict, Union
+import hashlib
+from collections import OrderedDict, deque
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.arch import ArchConfig
+from repro_torch.core.quantize import Int8KV, PrecisionPolicy
+from repro_torch.kernels.flash_decode import kv_block_size
 from repro_torch.models.params import layer_pattern
 
-Cache = Dict[str, torch.Tensor]
+Cache = Dict[str, object]
 
 # slot (batch) axis of each leaf of the uniform dense decode cache
 SLOT_AXES = {"k": 1, "v": 1, "full_pos": 0}
@@ -78,37 +93,61 @@ def kv_cache_bytes(cfg: ArchConfig, batch: int, seq_len: int,
 
 
 # ---------------------------------------------------------------------------
-# Slot-addressed decode cache (continuous batching)
+# Slot-addressed decode cache (continuous and static batching)
 # ---------------------------------------------------------------------------
-def alloc_decode_cache(cfg: ArchConfig, slots: int, capacity: int,
-                       device: Union[str, torch.device, None] = None
-                       ) -> Cache:
-    """All-empty decode cache on ``device`` (``cuda`` unless named): K/V
-    zeros (L, slots, capacity, Hkv, D) in the activation dtype, positions
-    (slots, capacity) int32 at −1."""
+def _check_uniform_dense(cfg: ArchConfig) -> None:
     kind = layer_pattern(cfg)["kind"]
     if kind != "uniform_dense":
         raise NotImplementedError(
             f"{cfg.name}: decode cache of layer pattern {kind!r} is not"
             " ported yet")
+
+
+def _kv_leaf(shape, cfg: ArchConfig, device, policy) -> object:
+    """Zero K or V leaf of ``shape`` (..., Hkv, D): the activation dtype,
+    or an ``Int8KV`` pair under an int8 KV policy."""
+    if policy is not None and policy.kv_cache == "int8" \
+            and policy.compute == "native":
+        return Int8KV(torch.zeros(shape, dtype=torch.int8, device=device),
+                      torch.zeros(shape[:-1], dtype=torch.float32,
+                                  device=device))
+    return torch.zeros(shape, dtype=cfg.activation_dtype, device=device)
+
+
+def alloc_decode_cache(cfg: ArchConfig, slots: int, capacity: int,
+                       device: Union[str, torch.device, None] = None,
+                       policy: Optional[PrecisionPolicy] = None) -> Cache:
+    """All-empty decode cache on ``device`` (``cuda`` unless named): K/V
+    zeros (L, slots, capacity, Hkv, D) in the activation dtype (``Int8KV``
+    under a native int8 KV ``policy``), positions (slots, capacity) int32
+    at −1."""
+    _check_uniform_dense(cfg)
     device = resolve_device(device)
     kv_shape = (cfg.n_layers, slots, capacity, cfg.n_kv_heads,
                 cfg.resolved_head_dim)
     return {
-        "k": torch.zeros(kv_shape, dtype=cfg.activation_dtype, device=device),
-        "v": torch.zeros(kv_shape, dtype=cfg.activation_dtype, device=device),
+        "k": _kv_leaf(kv_shape, cfg, device, policy),
+        "v": _kv_leaf(kv_shape, cfg, device, policy),
         "full_pos": torch.full((slots, capacity), -1, dtype=torch.int32,
                                device=device),
     }
 
 
+def _tensors(leaf) -> Tuple[torch.Tensor, ...]:
+    return tuple(leaf) if isinstance(leaf, Int8KV) else (leaf,)
+
+
 def decode_cache_nbytes(cache: Cache) -> int:
-    """Device bytes of a decode cache: K/V values and position leaves."""
-    return sum(t.numel() * t.element_size() for t in cache.values())
+    """Device bytes of a decode cache: K/V values, Int8KV scales and
+    position leaves."""
+    return sum(t.numel() * t.element_size() for leaf in cache.values()
+               for t in _tensors(leaf))
 
 
-def _row(t: torch.Tensor, axis: int, slot: int) -> torch.Tensor:
-    return t.narrow(axis, slot, 1)
+def _row(leaf, axis: int, slot: int):
+    if isinstance(leaf, Int8KV):
+        return Int8KV(*(t.narrow(axis, slot, 1) for t in leaf))
+    return leaf.narrow(axis, slot, 1)
 
 
 def take_slot(big_cache: Cache, slot: int) -> Cache:
@@ -120,15 +159,251 @@ def take_slot(big_cache: Cache, slot: int) -> Cache:
 def put_slot(big_cache: Cache, small_cache: Cache, slot: int) -> Cache:
     """Copy a batch-1 cache into row ``slot``, in place.  Putting a fresh
     ``alloc_decode_cache(cfg, 1, ...)`` resets the slot for admission."""
-    for key, t in big_cache.items():
-        _row(t, SLOT_AXES[key], slot).copy_(small_cache[key])
+    for key, leaf in big_cache.items():
+        rows = _tensors(_row(leaf, SLOT_AXES[key], slot))
+        for dst, src in zip(rows, _tensors(small_cache[key])):
+            dst.copy_(src)
     return big_cache
 
 
 def release_slot(big_cache: Cache, slot: int) -> Cache:
     """Invalidate a slot row in place: its positions become −1.  K/V bytes
     stay; no position marks them, so they are never attended."""
-    for key, t in big_cache.items():
-        if key.endswith("_pos"):
-            t[slot].fill_(-1)
+    big_cache["full_pos"][slot].fill_(-1)
     return big_cache
+
+
+# ---------------------------------------------------------------------------
+# Paged KV pool (block table + BlockManager)
+# ---------------------------------------------------------------------------
+def paged_cache_keys(cfg: ArchConfig) -> Tuple[str, ...]:
+    """Cache keys that live in the paged pool: the full-attention K/V
+    leaves, ``k`` and ``v`` of the uniform dense decoder.  The ring and
+    SSM families of the JAX package come with port slice 3."""
+    kind = layer_pattern(cfg)["kind"]
+    if kind != "uniform_dense":
+        raise NotImplementedError(
+            f"{cfg.name}: paged cache of layer pattern {kind!r} comes with"
+            " port slice 3")
+    return ("k", "v")
+
+
+def alloc_paged_cache(cfg: ArchConfig, slots: int, capacity: int,
+                      num_blocks: int,
+                      device: Union[str, torch.device, None] = None,
+                      policy: Optional[PrecisionPolicy] = None,
+                      block_size: Optional[int] = None) -> Cache:
+    """All-empty paged decode cache: K/V pools (L, num_blocks, BS, Hkv, D)
+    (``Int8KV`` under a native int8 KV policy) and a (num_blocks, BS)
+    ``pool_pos`` pool at −1.  BS defaults to ``kv_block_size(capacity)``
+    and may be any divisor of ``capacity`` that is at least 8.  ``slots``
+    sizes nothing here (the uniform dense decoder has no slot-addressed
+    leaf); the block table is host state of the server."""
+    paged_cache_keys(cfg)
+    bs = block_size or kv_block_size(capacity)
+    if capacity % bs or bs < 8:
+        raise ValueError(f"block size {bs} must divide capacity {capacity}"
+                         " and be >= 8")
+    pool = alloc_decode_cache(cfg, num_blocks, bs, device, policy)
+    return {"k": pool["k"], "v": pool["v"], "pool_pos": pool["full_pos"]}
+
+
+def abstract_paged_cache(cfg: ArchConfig, slots: int, capacity: int,
+                         num_blocks: int,
+                         policy: Optional[PrecisionPolicy] = None,
+                         block_size: Optional[int] = None) -> Cache:
+    """The paged cache's shapes and dtypes, as tensors on the ``meta``
+    device (no memory)."""
+    return alloc_paged_cache(cfg, slots, capacity, num_blocks, "meta",
+                             policy, block_size)
+
+
+def kv_pool_block_bytes(cfg: ArchConfig, capacity: int,
+                        policy: Optional[PrecisionPolicy] = None,
+                        block_size: Optional[int] = None) -> int:
+    """Device bytes one physical KV block occupies across the pool leaves
+    (K/V values, Int8KV scales and its ``pool_pos`` row)."""
+    bs = block_size or kv_block_size(capacity)
+    return decode_cache_nbytes(abstract_paged_cache(cfg, 1, bs, 1, policy,
+                                                    bs))
+
+
+class PoolExhausted(RuntimeError):
+    """Raised by ``BlockManager.alloc`` when the pool cannot satisfy an
+    allocation even after reclaiming cached blocks: the server's cue to
+    preempt (or, at admission, to keep the request queued)."""
+
+
+class BlockManager:
+    """Host-side allocator for the paged KV pool.
+
+    * **Free-list allocation** — O(1) alloc/free of fixed-size physical
+      blocks; every live block has refcount ≥ 1.
+    * **Prefix caching** — finished prefills register their full prompt
+      blocks under a chain hash (``h_i = hash((h_{i-1}, tokens of block
+      i))``); a later request whose prompt starts with the same token
+      blocks shares the physical blocks (refcount++), skipping both the
+      device memory and the prefill compute for the shared prefix.  The
+      registry holds one reference per cached block, so cached blocks
+      survive their writer's release and are reclaimed LRU only under
+      pool pressure.  Shared blocks are never written: the engine starts
+      chunked prefill at the shared boundary and decode writes land past
+      the prompt, which is what makes block-granular sharing safe
+      without copy-on-write copies (docs/paged_kv.md).
+    * **Accounting** — ``live_blocks``/``free_blocks`` and hit/reclaim
+      counters feed the paged server's pool metrics.
+
+    The device never sees this object: it only materializes as the
+    (slots, n_blocks) int32 block table the attention kernels read.  It
+    is a copy of the JAX package's allocator (numpy and hashlib only), so
+    the same calls give the same block ids, refcounts and hashes.
+    """
+
+    def __init__(self, num_blocks: int, block_size: int, *,
+                 prefix_cache: bool = True):
+        assert num_blocks > 0 and block_size > 0
+        self.num_blocks = int(num_blocks)
+        self.block_size = int(block_size)
+        self.prefix_cache = prefix_cache
+        self.refcount = np.zeros(self.num_blocks, np.int32)
+        self._free: deque = deque(range(self.num_blocks))
+        self._cached: "OrderedDict[bytes, int]" = OrderedDict()  # digest→blk
+        self._hash_of: Dict[int, bytes] = {}                     # blk→digest
+        self.stats: Dict[str, int] = {
+            "allocated": 0, "freed": 0, "reclaimed": 0,
+            "prefix_queries": 0, "prefix_hit_blocks": 0,
+        }
+
+    # -- accounting -----------------------------------------------------
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def live_blocks(self) -> int:
+        """Blocks referenced by at least one slot or the prefix cache."""
+        return self.num_blocks - len(self._free)
+
+    def _reclaimable(self) -> int:
+        return sum(1 for b in self._cached.values()
+                   if self.refcount[b] == 1)
+
+    def can_alloc(self, n: int) -> bool:
+        return self.free_blocks + self._reclaimable() >= n
+
+    # -- alloc / free ---------------------------------------------------
+    def alloc(self, n: int) -> List[int]:
+        """Take ``n`` blocks (refcount 1 each); reclaims LRU cached
+        blocks under pressure; raises ``PoolExhausted`` if the pool
+        genuinely cannot cover the request."""
+        if n == 0:
+            return []
+        while self.free_blocks < n and self._reclaim_one():
+            pass
+        if self.free_blocks < n:
+            raise PoolExhausted(
+                f"need {n} KV blocks, {self.free_blocks} free of "
+                f"{self.num_blocks} (live {self.live_blocks})")
+        out = [self._free.popleft() for _ in range(n)]
+        for b in out:
+            self.refcount[b] = 1
+        self.stats["allocated"] += n
+        return out
+
+    def free(self, blocks: Sequence[int]) -> None:
+        """Drop one reference per block; a block returns to the free
+        list when nothing references it (prefix-cache entries hold their
+        own reference, so cached blocks survive their writer)."""
+        for b in blocks:
+            assert self.refcount[b] > 0, f"double free of block {b}"
+            self.refcount[b] -= 1
+            if self.refcount[b] == 0:
+                self._free.append(b)
+                self.stats["freed"] += 1
+
+    def _reclaim_one(self) -> bool:
+        for h, b in self._cached.items():
+            if self.refcount[b] == 1:       # only the cache holds it
+                del self._cached[h]
+                del self._hash_of[b]
+                self.refcount[b] = 0
+                self._free.append(b)
+                self.stats["reclaimed"] += 1
+                return True
+        return False
+
+    # -- prefix caching -------------------------------------------------
+    def block_hashes(self, tokens: np.ndarray) -> List[bytes]:
+        """Chain digests of the token blocks fully covered by ``tokens``
+        — ``h_i`` commits to the whole prefix through block ``i``, so a
+        single-digest match implies the entire chain matches.  SHA-256
+        over (parent digest ‖ canonical int64 token bytes): a match IS
+        the content check — Python's randomized 64-bit ``hash()`` would
+        make a silent cross-request KV collision merely improbable and
+        unreproducible, not impossible."""
+        bs = self.block_size
+        h = b""
+        out: List[bytes] = []
+        toks = np.asarray(tokens, np.int64)
+        for i in range(len(toks) // bs):
+            h = hashlib.sha256(h + toks[i * bs:(i + 1) * bs].tobytes()) \
+                .digest()
+            out.append(h)
+        return out
+
+    def match_prefix(self, tokens: np.ndarray) -> List[int]:
+        """Longest cached chain matching the prompt's leading full
+        blocks, **capped at len(tokens) − 1** (the last prompt token
+        must be recomputed — its logits seed generation).  Matched
+        blocks come back refcounted for the caller; a caller that ends
+        up not using some or all of them must hand those back through
+        ``unmatch`` so references AND hit accounting stay exact."""
+        self.stats["prefix_queries"] += 1
+        if not self.prefix_cache:
+            return []
+        usable = (len(tokens) - 1) // self.block_size
+        out: List[int] = []
+        for h in self.block_hashes(tokens)[:usable]:
+            b = self._cached.get(h)
+            if b is None:
+                break
+            out.append(b)
+            self._cached.move_to_end(h)     # LRU touch
+        for b in out:
+            self.refcount[b] += 1
+        self.stats["prefix_hit_blocks"] += len(out)
+        return out
+
+    def unmatch(self, blocks: Sequence[int], *,
+                whole_query: bool = False) -> None:
+        """Exactly reverse (part of) a ``match_prefix`` the caller did
+        not use: drop the references and the hit accounting, and with
+        ``whole_query`` the query count too (the match never led to an
+        admission).  Keeps the stat/refcount invariant inside the
+        manager instead of making callers hand-reverse counters."""
+        self.free(blocks)
+        self.stats["prefix_hit_blocks"] -= len(blocks)
+        if whole_query:
+            self.stats["prefix_queries"] -= 1
+
+    def registry_size(self) -> int:
+        """Number of cached prefix blocks — with ``free_blocks``/
+        ``live_blocks`` this fingerprints every state a repeated
+        ``match_prefix`` could answer differently from."""
+        return len(self._cached)
+
+    def register_prefix(self, tokens: np.ndarray,
+                        blocks: Sequence[int]) -> None:
+        """Publish a *fully prefilled* prompt's full blocks to the
+        prefix cache (one cache reference each).  Must only be called
+        once the blocks' contents are final — the engine calls it when a
+        prefill completes, never mid-flight, so a shared block can never
+        be half-written."""
+        if not self.prefix_cache:
+            return
+        for h, b in zip(self.block_hashes(tokens), blocks):
+            if h in self._cached or b in self._hash_of:
+                continue                     # first writer wins
+            self._cached[h] = b
+            self._hash_of[b] = h
+            self.refcount[b] += 1

@@ -1,17 +1,32 @@
-"""Serving engine: continuous batching with chunked pad-free prefill.
+"""Serving engines: continuous, static and paged batching with chunked
+pad-free prefill, on the card.
 
-The counterpart of ``repro.serve.server.ContinuousBatchServer``, on the
-card.  A fixed set of KV-cache slots, FCFS admission, per-request
-generation budgets honored in-step, and slot recycling *between decode
-steps*.  A prompt of length S is consumed in ceil(S / C) fixed-size chunk
-steps interleaved with decode under a per-step token budget, each chunk
-written unpadded into its slot's cache rows ``[p, p + C)``.  The decode
-step carries each slot's exact fill as ``kv_len``, so the flash-decode
-kernel reads only the live prefix of every slot.
+The counterparts of ``repro.serve.server``'s three engines:
+
+* ``ContinuousBatchServer`` — a fixed set of KV-cache slots, FCFS
+  admission, per-request generation budgets honored in-step, and slot
+  recycling *between decode steps*.  A prompt of length S is consumed in
+  ceil(S / C) fixed-size chunk steps interleaved with decode under a
+  per-step token budget, each chunk written unpadded into its slot's cache
+  rows ``[p, p + C)``.
+* ``StaticBatchServer`` — the baseline: a batch is formed once,
+  prefilled to completion through the same chunk steps, and decodes until
+  its slowest member finishes.
+* ``PagedBatchServer`` — continuous batching over a **paged KV pool**:
+  fixed-size blocks addressed through per-slot block tables, admission by
+  the free-block watermark, hash-chain prefix sharing, and
+  preempt-and-recompute when the pool runs dry.
+
+Every engine takes ``precision="float" | "int8" | "int8_fakequant"``:
+int8 wraps the projection weights in ``QTensor`` once at construction,
+serves through the int8 matmul kernel, and keeps the decode cache as
+``Int8KV``, dequantized inside the attention kernels' tiles.  The decode
+step carries each slot's exact fill as ``kv_len``, so the attention
+kernels read only the live prefix of every slot.
 
 Prompts that cannot fit a slot's capacity are rejected at ``submit``;
-nothing is silently truncated.  This slice serves ``precision="float"``;
-int8, the static and paged engines and the AOT artifact come later.
+nothing is silently truncated.  The AOT decode artifact of the JAX
+package (``use_artifact``) comes with port slice 6.
 """
 from __future__ import annotations
 
@@ -24,11 +39,16 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.arch import ArchConfig
-from repro_torch.serve.kvcache import (alloc_decode_cache,
-                                       decode_cache_nbytes, put_slot,
-                                       release_slot)
-from repro_torch.serve.scheduler import SlotScheduler
+from repro_torch.core.quantize import policy_for, quantize_model_params
+from repro_torch.serve.kvcache import (BlockManager, PoolExhausted,
+                                       alloc_decode_cache, alloc_paged_cache,
+                                       decode_cache_nbytes, kv_block_size,
+                                       kv_pool_block_bytes, paged_cache_keys,
+                                       put_slot, release_slot)
+from repro_torch.serve.scheduler import Slot, SlotScheduler
 from repro_torch.serve.serve_step import (make_chunk_prefill_step,
+                                          make_paged_chunk_prefill_step,
+                                          make_paged_decode_step,
                                           make_slot_decode_step)
 
 # Decode-cache capacity granularity (the JAX package's flash-decode KV
@@ -48,6 +68,7 @@ class Request:
     finished_at: Optional[float] = None
     admitted_step: Optional[int] = None   # decode-step clock at admission
     finished_step: Optional[int] = None
+    preemptions: int = 0            # paged engine: times evicted/recomputed
 
 
 def _check_supported(cfg: ArchConfig) -> None:
@@ -89,14 +110,17 @@ def _summarize(served: List[Request], wall: float, *, engine: str,
     return m
 
 
+def _no_artifact(use_artifact: bool) -> None:
+    if use_artifact:
+        raise NotImplementedError(
+            "use_artifact=True: the AOT decode artifact comes with port"
+            " slice 6")
+
+
 class _ServerBase:
     def __init__(self, cfg: ArchConfig, params, precision: str = "float",
                  device: Union[str, torch.device, None] = None):
         _check_supported(cfg)
-        if precision != "float":
-            raise NotImplementedError(
-                f"precision={precision!r}: int8 serving comes with port"
-                " slice 2")
         self.device = resolve_device(device)
         weights_on = params["embed"].device
         if weights_on != self.device:
@@ -104,7 +128,10 @@ class _ServerBase:
                              f" on {self.device}")
         self.cfg = cfg
         self.precision = precision
-        self.params = params
+        self.prec = policy_for(precision)
+        # int8: projection weights become QTensor leaves once, up front;
+        # the serving loop never sees a float projection weight again
+        self.params = quantize_model_params(params, self.prec)
         self._next_rid = 0
         self.requests: Dict[int, Request] = {}
         self.metrics: Dict[str, float] = {}
@@ -122,11 +149,11 @@ class _ServerBase:
         return -(-need // KV_BLOCK) * KV_BLOCK
 
     def _init_slot_steps(self, n_slots: int) -> None:
-        self._chunk_step = make_chunk_prefill_step(self.cfg)
+        self._chunk_step = make_chunk_prefill_step(self.cfg, self.prec)
         self._empty_row = alloc_decode_cache(self.cfg, 1, self.capacity,
-                                             self.device)
+                                             self.device, self.prec)
         self.cache = alloc_decode_cache(self.cfg, n_slots, self.capacity,
-                                        self.device)
+                                        self.device, self.prec)
         # host mirror of the last emitted token per slot (decode feed)
         self._cur = np.zeros((n_slots,), np.int32)
 
@@ -171,13 +198,25 @@ class _ServerBase:
             reqs.append(r)
         return reqs
 
+    def _chunk_call(self, slot, toks, poss, kvl):
+        """Run one chunk step for ``slot`` (the paged engine passes the
+        slot's block-table row instead of its index)."""
+        return self._chunk_step(self.params, self.cache, toks, poss,
+                                slot.index, kvl)
+
+    def _register_prefill(self, slot, prompt) -> None:
+        """Hook at prefill completion (paged: publish prefix blocks)."""
+
     def _release_finished(self, slot) -> None:
+        """Free a slot whose request finished (paged: refcount blocks)."""
         release_slot(self.cache, slot.index)
         slot.release()
 
     def _run_chunk(self, slot, step_clock: int) -> None:
         """One prefill chunk for ``slot``; flips it ACTIVE (and emits the
-        first token) when the prompt is exhausted."""
+        next token) when the prompt is exhausted.  For a fresh request
+        that token is its first; for a preempted request re-prefilling
+        ``prompt ++ generated`` (paged engine) it is a continuation."""
         c = self.chunk
         prompt = slot.prompt
         p = slot.chunk_pos
@@ -187,14 +226,14 @@ class _ServerBase:
         toks[0, :r] = prompt[p:p + r]
         poss[0, :r] = np.arange(p, p + r, dtype=np.int32)
         kvl = np.asarray([p + c], np.int32)
-        ntok, _, self.cache = self._chunk_step(
-            self.params, self.cache, self._tensor(toks), self._tensor(poss),
-            slot.index, self._tensor(kvl))
+        ntok, _, self.cache = self._chunk_call(
+            slot, self._tensor(toks), self._tensor(poss), self._tensor(kvl))
         slot.chunk_pos += r
         if slot.chunk_pos < len(prompt):
             return
         # final chunk: its last real row's logits are the next token
         req = self.requests[slot.rid]
+        self._register_prefill(slot, prompt)
         tok0 = int(ntok[0, r - 1].item())
         req.tokens.append(tok0)
         if req.first_token_at is None:
@@ -213,6 +252,12 @@ class _ServerBase:
         req.finished_step = step_clock
         self._served.append(req)
 
+    def _base_metrics(self, served, wall, **kw) -> None:
+        self.metrics = _summarize(served, wall, **kw)
+        self.metrics["precision"] = self.precision
+        self.metrics["prefill_chunk"] = self.chunk
+        self.metrics["kv_cache_bytes"] = decode_cache_nbytes(self.cache)
+
 
 class ContinuousBatchServer(_ServerBase):
     """Continuous batching: slot recycling between decode steps, with
@@ -227,6 +272,8 @@ class ContinuousBatchServer(_ServerBase):
     must live there.
     """
 
+    engine = "continuous"
+
     def __init__(self, cfg: ArchConfig, params, *,
                  slots: Optional[int] = None,
                  max_prompt: Optional[int] = None,
@@ -238,24 +285,25 @@ class ContinuousBatchServer(_ServerBase):
                  use_artifact: bool = False,
                  precision: str = "float",
                  device: Union[str, torch.device, None] = None):
-        if use_artifact:
-            raise NotImplementedError(
-                "use_artifact=True: the AOT decode artifact is not ported yet")
+        _no_artifact(use_artifact)
         super().__init__(cfg, params, precision, device)
         self.n_slots = int(slots or 4)
         self.max_prompt = int(max_prompt or 32)
         self.chunk = int(prefill_chunk)
         # fairness knob: prefill tokens spent per decode step once any
         # slot is actively decoding (floored at one chunk so admission
-        # always progresses); see docs/scheduling.md for the trade-off.
+        # always progresses)
         self.prefill_budget = int(prefill_token_budget or self.chunk)
         self.max_new = int(max_new_tokens)
         self.max_new_cap = int(max_new_cap or max(self.max_new, 1))
         self.capacity = self._slot_capacity()
         self.eos_id = eos_id
         self.sched = SlotScheduler(self.n_slots)
+        self._init_steps()
+
+    def _init_steps(self) -> None:
         self._init_slot_steps(self.n_slots)
-        self.decode = make_slot_decode_step(cfg)
+        self.decode = make_slot_decode_step(self.cfg, self.prec)
 
     # ------------------------------------------------------------------
     def submit(self, prompts: List[np.ndarray],
@@ -265,6 +313,24 @@ class ContinuousBatchServer(_ServerBase):
         for r in reqs:
             self.sched.enqueue(r)
         return reqs
+
+    # -- hooks the paged engine overrides -------------------------------
+    def _admit(self, decode_steps: int) -> None:
+        """Freed slots pick up waiting requests *now*, not at the end of a
+        batch (one in-place slot-row reset each)."""
+        for slot, req in self.sched.admissions():
+            put_slot(self.cache, self._empty_row, slot.index)
+            slot.occupy(req.rid, req.prompt, req.max_new_tokens)
+            req.admitted_step = decode_steps
+
+    def _decodable(self, active: List[Slot]) -> List[Slot]:
+        return active
+
+    def _decode_call(self, tok, pos, kvl):
+        return self.decode(self.params, self.cache, tok, pos, kvl)
+
+    def _after_decode(self) -> None:
+        pass
 
     # ------------------------------------------------------------------
     def run(self) -> Dict[str, float]:
@@ -277,12 +343,7 @@ class ContinuousBatchServer(_ServerBase):
         kv_raw: List[int] = []    # Σ kv_len per decode step (exact fill)
 
         while self.sched.busy:
-            # Admission: freed slots pick up waiting requests *now*, not
-            # at the end of a batch (one in-place slot-row reset each).
-            for slot, req in self.sched.admissions():
-                put_slot(self.cache, self._empty_row, slot.index)
-                slot.occupy(req.rid, req.prompt, req.max_new_tokens)
-                req.admitted_step = decode_steps
+            self._admit(decode_steps)
 
             # Budgeted chunk prefill, oldest request first: at most
             # prefill_budget prompt tokens per decode step (always at
@@ -298,7 +359,7 @@ class ContinuousBatchServer(_ServerBase):
                 if spent >= self.prefill_budget:
                     break
 
-            active = self.sched.active_slots()
+            active = self._decodable(self.sched.active_slots())
             if not active:
                 continue
 
@@ -310,12 +371,13 @@ class ContinuousBatchServer(_ServerBase):
             for s in active:
                 pos[s.index] = s.position
                 kvl[s.index] = s.position + 1
-            ntok, _, self.cache = self.decode(
-                self.params, self.cache, self._tensor(self._cur.copy()),
-                self._tensor(pos), self._tensor(kvl))
+            ntok, _, self.cache = self._decode_call(
+                self._tensor(self._cur.copy()), self._tensor(pos),
+                self._tensor(kvl))
             decode_steps += 1
             occupancy.append(len(active))
             kv_raw.append(int(kvl.sum()))
+            self._after_decode()
             ntok_h = ntok.cpu().numpy()
 
             for s in active:
@@ -328,16 +390,10 @@ class ContinuousBatchServer(_ServerBase):
                     self._finish(req, decode_steps)
                     self._release_finished(s)
 
-        served = self._served
-        wall = time.perf_counter() - t0
-        self.metrics = _summarize(served, wall, engine="continuous",
-                                  decode_steps=decode_steps,
-                                  prefills=prefill_chunks,
-                                  occupancy=occupancy,
-                                  n_slots=self.n_slots)
-        self.metrics["precision"] = self.precision
-        self.metrics["prefill_chunk"] = self.chunk
-        self.metrics["kv_cache_bytes"] = decode_cache_nbytes(self.cache)
+        self._base_metrics(self._served, time.perf_counter() - t0,
+                           engine=self.engine, decode_steps=decode_steps,
+                           prefills=prefill_chunks, occupancy=occupancy,
+                           n_slots=self.n_slots)
         if kv_raw:
             # exact live fill (entries) as a fraction of the slots x
             # capacity rectangle: the share of it the decode kernel reads
@@ -345,3 +401,310 @@ class ContinuousBatchServer(_ServerBase):
             self.metrics["kv_fill_frac"] = float(np.mean(kv_raw) / denom)
         return self.metrics
 
+
+class StaticBatchServer(_ServerBase):
+    """Static batching baseline: the queue is drained in fixed batches and
+    every batch decodes until its *slowest* member finishes; slots are
+    never recycled mid-flight.  Prefill uses the same pad-free chunk
+    steps as the continuous engine (run to completion up front, no
+    interleaving), so token for token the engines match; only scheduling
+    differs.
+    """
+
+    def __init__(self, cfg: ArchConfig, params, *, batch_size: int = 4,
+                 max_prompt: Optional[int] = None,
+                 prefill_chunk: int = 8,
+                 max_new_tokens: int = 16,
+                 precision: str = "float",
+                 device: Union[str, torch.device, None] = None):
+        super().__init__(cfg, params, precision, device)
+        self.batch_size = int(batch_size)
+        self.max_prompt = int(max_prompt or 32)
+        self.chunk = int(prefill_chunk)
+        self.max_new = int(max_new_tokens)
+        self.max_new_cap = self.max_new
+        self.eos_id = None
+        self.capacity = self._slot_capacity()
+        self.queue: List[Request] = []
+        self._init_slot_steps(self.batch_size)
+        self.decode = make_slot_decode_step(cfg, self.prec)
+
+    def submit(self, prompts: List[np.ndarray],
+               max_new_tokens: Union[int, Sequence[int], None] = None
+               ) -> List[Request]:
+        reqs = self._make_requests(prompts, max_new_tokens)
+        self.queue.extend(reqs)
+        return reqs
+
+    def run(self) -> Dict[str, float]:
+        t0 = time.perf_counter()
+        self._served: List[Request] = []
+        decode_steps = 0
+        prefill_chunks = 0
+        while self.queue:
+            batch = self.queue[:self.batch_size]
+            self.queue = self.queue[self.batch_size:]
+            slots = []
+            for i, r in enumerate(batch):
+                put_slot(self.cache, self._empty_row, i)
+                slot = Slot(i)
+                slot.occupy(r.rid, r.prompt, r.max_new_tokens)
+                r.admitted_step = decode_steps
+                while slot.prefilling:      # full prefill, no interleave
+                    self._run_chunk(slot, decode_steps)
+                    prefill_chunks += 1
+                slots.append(slot)
+            horizon = max(r.max_new_tokens for r in batch) - 1
+            # the batch decodes as one unit until its slowest member
+            # drains; finished rows keep stepping (outputs discarded)
+            for _ in range(horizon):
+                if not any(s.active for s in slots):
+                    break
+                pos = np.zeros((self.batch_size,), np.int32)
+                kvl = np.zeros((self.batch_size,), np.int32)
+                for s in slots:
+                    if s.active:
+                        pos[s.index] = s.position
+                        kvl[s.index] = s.position + 1
+                ntok, _, self.cache = self.decode(
+                    self.params, self.cache, self._tensor(self._cur.copy()),
+                    self._tensor(pos), self._tensor(kvl))
+                decode_steps += 1
+                ntok_h = ntok.cpu().numpy()
+                for s in slots:
+                    if not s.active:
+                        continue
+                    r = self.requests[s.rid]
+                    t = int(ntok_h[s.index])
+                    s.advance()
+                    self._cur[s.index] = t
+                    if not r.done:
+                        r.tokens.append(t)
+                        if len(r.tokens) >= r.max_new_tokens:
+                            self._finish(r, decode_steps)
+
+        self._base_metrics(self._served, time.perf_counter() - t0,
+                           engine="static", decode_steps=decode_steps,
+                           prefills=prefill_chunks)
+        return self.metrics
+
+
+class PagedBatchServer(ContinuousBatchServer):
+    """Continuous batching over a **paged KV pool**.
+
+    The contiguous engine holds a ``slots x capacity`` rectangle: the dead
+    tail is never *read*, but it is *held* in device memory.  Here the K/V
+    live in a pool of ``pool_blocks`` fixed-size blocks of ``block_size``
+    entries (any divisor of the capacity >= 8; default
+    ``kv_block_size(capacity)``); each slot maps its logical KV positions
+    to blocks through a **block table** that the attention kernels read,
+    and a host-side ``BlockManager`` owns the pool:
+
+    * admission gates on the free-block watermark (the prompt's blocks
+      must be coverable), not merely on a free slot;
+    * identical prompt prefixes **share blocks** at block granularity via
+      hash-chain prefix caching (``prefix_cache``; refcounted, never
+      written: chunked prefill starts at the shared boundary);
+    * when the pool runs dry mid-decode the youngest slot is
+      **preempted**: its blocks freed, its request re-queued at the FCFS
+      front and re-prefilled over ``prompt ++ generated``
+      (preempt-and-recompute; greedy decoding makes it token-exact).
+
+    The other options are those of ``ContinuousBatchServer``.
+    """
+
+    engine = "paged"
+
+    def __init__(self, cfg: ArchConfig, params, *,
+                 pool_blocks: Optional[int] = None,
+                 block_size: Optional[int] = None,
+                 prefix_cache: bool = True, **kw):
+        self._pool_opts = (pool_blocks, block_size, prefix_cache)
+        super().__init__(cfg, params, **kw)
+
+    def _init_steps(self) -> None:
+        pool_blocks, block_size, prefix_cache = self._pool_opts
+        paged_cache_keys(self.cfg)       # raises for an unported family
+        self.block_size = int(block_size or kv_block_size(self.capacity))
+        if self.capacity % self.block_size or self.block_size < 8:
+            raise ValueError(
+                f"block_size {self.block_size} must divide capacity "
+                f"{self.capacity} and be >= 8")
+        if self.capacity % self.chunk:
+            raise ValueError(
+                f"prefill_chunk {self.chunk} must divide the rounded "
+                f"capacity {self.capacity} (paged blocks may not "
+                f"overflow the table)")
+        self.n_table = self.capacity // self.block_size
+        # default pool == the contiguous rectangle's block count (no
+        # preemption possible); a smaller pool trades device memory for
+        # occasional preempt-and-recompute
+        self.pool_blocks = int(pool_blocks or self.n_slots * self.n_table)
+        if self.pool_blocks < 1:
+            raise ValueError("pool_blocks must be >= 1")
+        self.manager = BlockManager(self.pool_blocks, self.block_size,
+                                    prefix_cache=prefix_cache)
+        self._block_bytes = kv_pool_block_bytes(
+            self.cfg, self.capacity, self.prec, self.block_size)
+        self._chunk_step = make_paged_chunk_prefill_step(self.cfg, self.prec)
+        self.decode = make_paged_decode_step(self.cfg, self.prec)
+        self.cache = alloc_paged_cache(
+            self.cfg, self.n_slots, self.capacity, self.pool_blocks,
+            self.device, self.prec, self.block_size)
+        self._cur = np.zeros((self.n_slots,), np.int32)
+        # host mirror of the block table (0 = unmapped: always a valid
+        # block id; dead entries are fenced by kv_len, not by the table)
+        self.block_table = np.zeros((self.n_slots, self.n_table), np.int32)
+        self.preemptions = 0
+        self._prompt_blocks_seen = 0
+        # (rid, pool fingerprint) of the last admission that failed the
+        # free-block watermark: suppresses per-step re-matching
+        self._blocked_state = None
+        self._live_hist: List[int] = []
+
+    # ------------------------------------------------------------------
+    def _set_table_row(self, slot) -> None:
+        self.block_table[slot.index, :] = 0
+        if slot.blocks:
+            self.block_table[slot.index, :len(slot.blocks)] = slot.blocks
+
+    def _free_slot(self, slot) -> None:
+        """FREE path: return block references (prefix-cached blocks
+        survive via the registry's own reference); no device-side scrub:
+        kv_len == 0 fences the slot until re-admission."""
+        self.manager.free(slot.blocks)
+        slot.release()
+        self._set_table_row(slot)
+
+    def _preempt(self, slot) -> None:
+        """Evict ``slot`` and re-queue its request at the FCFS front;
+        re-admission re-prefills ``prompt ++ generated`` (the request keeps
+        every token already emitted)."""
+        req = self.requests[slot.rid]
+        self._free_slot(slot)
+        req.preemptions += 1
+        self.preemptions += 1
+        self.sched.requeue_front(req)
+
+    def _admit(self, decode_steps: int) -> None:
+        """Admission by free-block watermark, FCFS: the queue head is
+        admitted when a slot is free AND the pool covers its prefill rows
+        beyond any prefix-cache hit; otherwise it (and everything behind
+        it) waits."""
+        while self.sched.waiting:
+            free = self.sched.free_slots()
+            if not free:
+                return
+            req = self.sched.waiting[0]
+            seq = (np.concatenate([req.prompt,
+                                   np.asarray(req.tokens, np.int32)])
+                   if req.tokens else req.prompt)
+            # a blocked head request is retried every scheduler
+            # iteration: skip the (hashing + LRU-touching) prefix match
+            # unless the pool or registry changed since it last failed
+            state = (req.rid, self.manager.free_blocks,
+                     self.manager.live_blocks, self.manager.registry_size())
+            if state == self._blocked_state:
+                return
+            shared = self.manager.match_prefix(seq)
+            start = len(shared) * self.block_size
+            # chunk-rounded prefill rows must fit the table; drop shared
+            # blocks if a misaligned chunk boundary overflows (dropped
+            # blocks are not used, so not hits)
+            while shared and (start + _chunk_rows(len(seq) - start,
+                                                  self.chunk)
+                              > self.capacity):
+                self.manager.unmatch(shared[-1:])
+                shared = shared[:-1]
+                start -= self.block_size
+            rows = start + _chunk_rows(len(seq) - start, self.chunk)
+            need = -(-rows // self.block_size) - len(shared)
+            if not self.manager.can_alloc(need):
+                # undo the match exactly (refcounts and accounting):
+                # nothing was admitted, so nothing is counted
+                self.manager.unmatch(shared, whole_query=True)
+                if all(s.free for s in self.sched.slots):
+                    # nothing running could ever free blocks: this
+                    # request is individually unservable
+                    raise PoolExhausted(
+                        f"request rid={req.rid} needs {need} KV blocks of"
+                        f" {self.block_size} but the pool holds only"
+                        f" {self.pool_blocks}")
+                self._blocked_state = state
+                return
+            self._prompt_blocks_seen += max(
+                (len(seq) - 1) // self.block_size, 0)
+            self._blocked_state = None
+            slot = free[0]
+            self.sched.waiting.popleft()
+            blocks = shared + self.manager.alloc(need)
+            slot.occupy(req.rid, seq, req.max_new_tokens)
+            slot.blocks = blocks
+            slot.chunk_pos = start          # prefill starts past the hit
+            self._set_table_row(slot)
+            if req.admitted_step is None:
+                req.admitted_step = decode_steps
+
+    def _chunk_call(self, slot, toks, poss, kvl):
+        row = self._tensor(self.block_table[slot.index:slot.index + 1])
+        return self._chunk_step(self.params, self.cache, toks, poss, kvl,
+                                row)
+
+    def _register_prefill(self, slot, prompt) -> None:
+        """Publish the fully written prompt blocks to the prefix cache."""
+        self.manager.register_prefix(prompt, slot.blocks)
+
+    def _release_finished(self, slot) -> None:
+        self._free_slot(slot)
+
+    def _decodable(self, active: List[Slot]) -> List[Slot]:
+        """Ensure every active slot owns the block this step's write lands
+        in, preempting the youngest occupied slot (LIFO) whenever the pool
+        runs dry.  Oldest slots grow first, so under pressure service
+        order degenerates gracefully to FCFS."""
+        for s in sorted(active, key=lambda x: x.rid):
+            while not s.free and s.position // self.block_size \
+                    >= len(s.blocks):
+                try:
+                    s.blocks.extend(self.manager.alloc(1))
+                except PoolExhausted:
+                    victim = self.sched.preemption_victim()
+                    self._preempt(victim)
+                    if victim is s:
+                        break
+                    continue
+                self.block_table[s.index, len(s.blocks) - 1] = s.blocks[-1]
+        return [s for s in active if s.active]
+
+    def _decode_call(self, tok, pos, kvl):
+        return self.decode(self.params, self.cache, tok, pos, kvl,
+                           self._tensor(self.block_table))
+
+    def _after_decode(self) -> None:
+        self._live_hist.append(self.manager.live_blocks)
+
+    # ------------------------------------------------------------------
+    def run(self) -> Dict[str, float]:
+        """Serve until queue and slots drain; returns latency metrics plus
+        pool accounting (utilization, prefix hits, preemptions)."""
+        self._live_hist = []
+        super().run()
+        m = self.metrics
+        m["kv_block_bytes"] = self._block_bytes
+        m["block_size"] = self.block_size
+        m["pool_blocks"] = self.pool_blocks
+        m["preemptions"] = self.preemptions
+        st = self.manager.stats
+        m["prefix_hit_blocks"] = st["prefix_hit_blocks"]
+        m["prefix_hit_rate"] = (st["prefix_hit_blocks"]
+                                / self._prompt_blocks_seen
+                                if self._prompt_blocks_seen else 0.0)
+        live = self._live_hist
+        if live:
+            m["pool_live_blocks_mean"] = float(np.mean(live))
+            m["pool_live_blocks_peak"] = int(np.max(live))
+            m["pool_utilization"] = float(np.mean(live)) / self.pool_blocks
+            m["kv_live_bytes_peak"] = int(np.max(live)) * self._block_bytes
+            m["kv_live_bytes_mean"] = float(np.mean(live)) \
+                * self._block_bytes
+        return m

@@ -27,7 +27,7 @@ from repro.kernels import ops as jops
 from repro_torch.kernels import flash_decode as tfd
 from repro_torch.kernels import ops as tops
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 ATOL = 1e-5
 

@@ -1,7 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card.  Skipped without a GPU (marker ``cuda``); run there with
+card: both attention kernels on the contiguous cache (float or int8 K/V)
+and the int8 matmul, bitwise; the paged layouts are in
+``tests/test_torch_paged_cuda.py``.  Skipped without a GPU (marker
+``cuda``); run there with
 
-    python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+    python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py \
+        tests/test_torch_paged_cuda.py
 
 This file imports neither JAX nor the JAX package, so it runs on a
 machine that has only PyTorch.  ``chip_smoke.py`` repeats the check at
@@ -11,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import quantize as tq
 from repro_torch.kernels import flash_decode as tfd
+from repro_torch.kernels import int8_matmul as tim
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -92,3 +98,76 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, rtol, d):
     assert tfd.LAUNCHES["flash_decode"] == launches["flash_decode"] + 4
     assert tfd.LAUNCHES["flash_chunk_prefill"] == \
         launches["flash_chunk_prefill"] + 4
+
+
+def _dequant_rounded(kq, ks, dtype):
+    """The kernel's int8 dequant: value * scale in f32, rounded once to
+    the working dtype, as f32."""
+    return (kq.float() * ks[..., None]).to(dtype).float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(4, 2048, 2048), (64, 2048, 1024),
+                                   (4, 8192, 2048), (5, 200, 300),
+                                   (1, 7, 1), (33, 1040, 65)])
+def test_int8_matmul_bitwise_on_card(cuda_device, m, k, n):
+    """int8_matmul against its plain version (exact float64 sum on the
+    card): bitwise equal, ragged M, K and N included."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m * k + n)
+    x = torch.randint(-127, 128, (m, k), generator=gen, device=cuda_device,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=gen, device=cuda_device,
+                      dtype=torch.int8)
+    xs = torch.rand(m, generator=gen, device=cuda_device) * 0.1 + 1e-3
+    ws = torch.rand(n, generator=gen, device=cuda_device) * 0.1 + 1e-3
+    before = tim.LAUNCHES["int8_matmul"]
+    out = tops.int8_matmul(x, w, xs, ws)
+    assert tim.LAUNCHES["int8_matmul"] == before + 1
+    want = tref.int8_matmul_ref(x, w, xs, ws)
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 0.0),
+                                        (torch.bfloat16, 2.0 ** -8)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_int8_kernels_match_plain_on_card(cuda_device, dtype, rtol, d):
+    """Both kernels on a contiguous int8 cache (a layer slice of a stacked
+    (L, B, S, Hkv, D) cache, so the slot stride is not the dense one)
+    against the plain version in f32 on the kernel's dequantized values,
+    at capacities 576 and 555, kv_len {0, 1, 37, S} and 20 pad rows."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    for s in (576, 555):
+        kq = torch.randint(-127, 128, (2, 4, s, 2, d), generator=gen,
+                           device=cuda_device, dtype=torch.int8)[1]
+        vq = torch.randint(-127, 128, (2, 4, s, 2, d), generator=gen,
+                           device=cuda_device, dtype=torch.int8)[0]
+        ks = torch.rand(4, s, 2, generator=gen, device=cuda_device) * 0.02
+        vs = torch.rand(4, s, 2, generator=gen, device=cuda_device) * 0.02
+        kc, vc = tq.Int8KV(kq, ks), tq.Int8KV(vq, vs)
+        kf, vf = _dequant_rounded(kq, ks, dtype), _dequant_rounded(vq, vs,
+                                                                   dtype)
+        pos = torch.arange(s, dtype=torch.int32,
+                           device=cuda_device).repeat(4, 1)
+        kvl = torch.tensor([0, 1, 37, s], dtype=torch.int32,
+                           device=cuda_device)
+        q = torch.randn(4, 1, 4, d, generator=gen,
+                        device=cuda_device).to(dtype)
+        qp = (kvl - 1).clamp(min=0)
+        out = tops.decode_attention(q, kc, vc, qp, pos, kv_len=kvl)
+        want = tref.decode_attention_ref(q.float(), kf, vf, qp, pos,
+                                         kv_len=kvl)
+        torch.testing.assert_close(out.float(), want, atol=1e-5, rtol=rtol)
+        assert torch.all(out[0] == 0)
+        qc = torch.randn(4, 64, 4, d, generator=gen,
+                         device=cuda_device).to(dtype)
+        qpc = torch.full((4, 64), -1, dtype=torch.int32, device=cuda_device)
+        qpc[:, :44] = torch.arange(44, dtype=torch.int32,
+                                   device=cuda_device) + 300
+        out = tops.chunk_attention(qc, kc, vc, qpc, pos,
+                                   kv_len=torch.full_like(kvl, 364))
+        want = tref.chunk_attention_ref(qc.float(), kf, vf, qpc, pos,
+                                        kv_len=torch.full_like(kvl, 364))
+        torch.testing.assert_close(out.float(), want, atol=1e-5, rtol=rtol)
+        assert torch.all(out[:, 44:] == 0)

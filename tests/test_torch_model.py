@@ -17,17 +17,19 @@ import pytest
 import torch
 
 from repro import configs as jconfigs
+from repro.core import quantize as jq
 from repro.models import params as jparams
 from repro.models import transformer as jtr
 from repro.models.params import init_params as jinit
 from repro.serve import kvcache as jkv
 from repro_torch import configs as tconfigs
+from repro_torch.core import quantize as tq
 from repro_torch.models import transformer as ttr
 from repro_torch.models.params import init_params as tinit
 from repro_torch.models.params import params_from_numpy
 from repro_torch.serve import kvcache as tkv
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 ARCH = "internlm2-1.8b"
 ATOL = 1e-4
@@ -178,3 +180,66 @@ def test_slot_view_writes_in_place(setup):
                         tkv.release_slot(tbig, 1))
     tkv.put_slot(tbig, tkv.alloc_decode_cache(tcfg, 1, 16, "cpu"), 1)
     assert not tbig["k"].any() and bool((tbig["full_pos"] == -1).all())
+
+
+@pytest.mark.parametrize("precision,paged", [("int8", False),
+                                             ("float", True),
+                                             ("int8", True),
+                                             ("int8_fakequant", True)])
+def test_forward_int8_and_paged_match_jax(setup, precision, paged):
+    """The chunk and decode entry points under an int8 policy (QTensor
+    weights, Int8KV or fake-quant cache) and on the paged pool (a
+    scrambled block table of 8-entry blocks over three rows): the same
+    two chunks and two decode steps as above give JAX's logits, and the
+    same stored positions, after every step."""
+    jcfg, tcfg, jp, tp = setup
+    jpol, tpol = jq.policy_for(precision), tq.policy_for(precision)
+    jp, tp = jq.quantize_model_params(jp, jpol), \
+        tq.quantize_model_params(tp, tpol)
+    b, cap, c, bs = 3, 40, 8, 8
+    rng = np.random.RandomState(1)
+    if paged:
+        table = rng.permutation(16)[:b * cap // bs].reshape(b, -1) \
+            .astype(np.int32)
+        jcache = jkv.alloc_paged_cache(jcfg, b, cap, 16, jpol, bs)
+        tcache = tkv.alloc_paged_cache(tcfg, b, cap, 16, "cpu", tpol, bs)
+        jt, tt, pos_key = (jnp.asarray(table), torch.from_numpy(table),
+                           "pool_pos")
+    else:
+        jcache = jkv.alloc_decode_cache(jcfg, b, cap, jpol)
+        tcache = tkv.alloc_decode_cache(tcfg, b, cap, "cpu", tpol)
+        jt, tt, pos_key = None, None, "full_pos"
+
+    def same(jl, tl):
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+        np.testing.assert_array_equal(tcache[pos_key].numpy(),
+                                      np.asarray(jcache[pos_key]))
+
+    start = np.zeros(b, np.int32)
+    for chunk_reals in [(8, 8, 3), (8, 5, 1)]:
+        toks = rng.randint(0, tcfg.vocab_size, (b, c)).astype(np.int32)
+        pos = np.full((b, c), -1, np.int32)
+        for i, r in enumerate(chunk_reals):
+            pos[i, :r] = start[i] + np.arange(r)
+        kvl = (start + c).astype(np.int32)
+        jl, jcache = jtr.forward_prefill_chunk(
+            jcfg, jp, jcache, jnp.asarray(toks), jnp.asarray(pos),
+            policy=jpol, kv_len=jnp.asarray(kvl), block_table=jt)
+        tl, tcache = ttr.forward_prefill_chunk(
+            tcfg, tp, tcache, torch.from_numpy(toks), torch.from_numpy(pos),
+            policy=tpol, kv_len=torch.from_numpy(kvl), block_table=tt)
+        same(jl, tl)
+        start += np.array(chunk_reals, np.int32)
+    position = start.copy()
+    for _ in range(2):
+        tok = rng.randint(0, tcfg.vocab_size, b).astype(np.int32)
+        kvl = np.where(np.arange(b) == 2, 0, position + 1).astype(np.int32)
+        jl, jcache = jtr.forward_decode(
+            jcfg, jp, jcache, jnp.asarray(tok), jnp.asarray(position),
+            policy=jpol, kv_len=jnp.asarray(kvl), block_table=jt)
+        tl, tcache = ttr.forward_decode(
+            tcfg, tp, tcache, torch.from_numpy(tok),
+            torch.from_numpy(position), policy=tpol,
+            kv_len=torch.from_numpy(kvl), block_table=tt)
+        same(jl, tl)
+        position = position + 1

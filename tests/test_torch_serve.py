@@ -1,4 +1,5 @@
-"""Port parity: the PyTorch ``ContinuousBatchServer`` against the JAX one.
+"""Port parity: the PyTorch ``ContinuousBatchServer`` and
+``StaticBatchServer`` against the JAX ones, in float and int8.
 
 On the CPU (``device="cpu"``), on the ``internlm2-1.8b`` smoke config
 with a float32 override and the JAX package's own weights carried across.
@@ -7,6 +8,13 @@ prompts and budgets of ``tests/test_serve.py::
 test_chunked_prefill_matches_reference``, and as the port's own
 single-request decode (one exact-length prefill chunk, then contiguous
 decode).  The scheduler invariants of the JAX tests hold too.
+
+Int8 serving is held token-exact against the JAX int8 engines and
+against a *chunked* oracle: the prompt prefilled in the engine's chunks
+of 4, then greedy decode, once under the fake-quant policy and once under
+native int8.  The chunked engines write each chunk's K/V into the int8
+cache and attend over the quantized entries; a one-shot prefill attends
+over the prompt's unquantized K/V and is not an oracle of them.
 """
 import dataclasses
 
@@ -18,13 +26,16 @@ import torch
 from repro import configs as jconfigs
 from repro.models.params import init_params as jinit
 from repro.serve.server import ContinuousBatchServer as JaxServer
+from repro.serve.server import StaticBatchServer as JaxStatic
 from repro_torch import configs as tconfigs
+from repro_torch.core import quantize as tq
 from repro_torch.models import transformer as ttr
 from repro_torch.models.params import params_from_numpy
 from repro_torch.serve.kvcache import alloc_decode_cache
-from repro_torch.serve.server import ContinuousBatchServer
+from repro_torch.serve.server import (ContinuousBatchServer,
+                                      PagedBatchServer, StaticBatchServer)
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 ARCH = "internlm2-1.8b"
 
@@ -145,10 +156,107 @@ def test_slot_recycling_admits_before_drain(setup):
 
 def test_unported_options_raise(setup):
     _, tcfg, _, tp = setup
-    with pytest.raises(NotImplementedError, match="int8"):
-        ContinuousBatchServer(tcfg, tp, precision="int8", device="cpu")
     with pytest.raises(NotImplementedError, match="artifact"):
         ContinuousBatchServer(tcfg, tp, use_artifact=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        ContinuousBatchServer(
+            tcfg, tp, device="cpu",
+            precision=tq.PrecisionPolicy(weights="int8",
+                                         activations="calibrated"))
+    with pytest.raises(ValueError, match="unknown precision"):
+        ContinuousBatchServer(tcfg, tp, precision="int4", device="cpu")
+
+
+def _chunked_oracle(cfg, params, prompt, max_new, policy, chunk=4):
+    """Single-request greedy decode through the engines' own admission
+    path: the prompt in chunks of ``chunk`` (ragged tail at position −1)
+    into a batch-1 cache, then contiguous decode, under ``policy``."""
+    qparams = tq.quantize_model_params(params, policy)
+    n = len(prompt)
+    cap = -(-n // chunk) * chunk + max_new
+    cache = alloc_decode_cache(cfg, 1, cap, "cpu", policy)
+    for p in range(0, n, chunk):
+        r = min(chunk, n - p)
+        toks = np.zeros((1, chunk), np.int32)
+        poss = np.full((1, chunk), -1, np.int32)
+        toks[0, :r] = prompt[p:p + r]
+        poss[0, :r] = np.arange(p, p + r)
+        logits, cache = ttr.forward_prefill_chunk(
+            cfg, qparams, cache, torch.from_numpy(toks),
+            torch.from_numpy(poss), policy=policy,
+            kv_len=torch.tensor([p + chunk], dtype=torch.int32))
+    out = [int(logits[0, r - 1].argmax())]
+    for pos in range(n, n + max_new - 1):
+        logits, cache = ttr.forward_decode(
+            cfg, qparams, cache, torch.tensor([out[-1]], dtype=torch.int32),
+            torch.tensor([pos], dtype=torch.int32), policy=policy,
+            kv_len=torch.tensor([pos + 1], dtype=torch.int32))
+        out.append(int(logits[0].argmax()))
+    return out
+
+
+def _int8_workload(vocab):
+    """The prompts and budgets of ``tests/test_precision.py::
+    test_int8_serving_token_exact``."""
+    rng = np.random.RandomState(4)
+    return ([rng.randint(0, vocab, n).astype(np.int32) for n in (3, 11, 7)],
+            [5, 4, 6])
+
+
+@pytest.mark.parametrize("precision", ["int8", "int8_fakequant"])
+def test_int8_serving_matches_jax_and_chunked_oracle(setup, precision):
+    """The int8 continuous engine gives the JAX int8 engine's tokens, and
+    both give the chunked oracle's, under fake-quant and native int8."""
+    jcfg, tcfg, jp, tp = setup
+    prompts, budgets = _int8_workload(tcfg.vocab_size)
+    kw = dict(slots=2, max_prompt=16, prefill_chunk=4, max_new_tokens=8,
+              precision=precision)
+    jsrv = JaxServer(jcfg, jp, **kw)
+    jreqs = jsrv.submit(prompts, max_new_tokens=budgets)
+    jsrv.run()
+    tsrv = ContinuousBatchServer(tcfg, tp, device="cpu", **kw)
+    treqs = tsrv.submit(prompts, max_new_tokens=budgets)
+    metrics = tsrv.run()
+    assert [r.tokens for r in treqs] == [r.tokens for r in jreqs]
+    assert metrics["precision"] == precision
+    assert metrics["decode_steps"] == jsrv.metrics["decode_steps"]
+    assert metrics["kv_cache_bytes"] == jsrv.metrics["kv_cache_bytes"]
+    for policy in (tq.INT8_FAKEQUANT, tq.INT8):
+        want = [_chunked_oracle(tcfg, tp, p, b, policy)
+                for p, b in zip(prompts, budgets)]
+        assert [r.tokens for r in treqs] == want, policy
+
+
+@pytest.mark.parametrize("precision", ["float", "int8"])
+def test_static_serving_matches_jax(setup, precision):
+    """The static baseline against the JAX one, and (int8) against the
+    chunked oracle and the port's continuous and paged engines: scheduling
+    never changes tokens."""
+    jcfg, tcfg, jp, tp = setup
+    prompts, budgets = _int8_workload(tcfg.vocab_size)
+    kw = dict(batch_size=2, max_prompt=16, prefill_chunk=4,
+              max_new_tokens=8, precision=precision)
+    jsrv = JaxStatic(jcfg, jp, **kw)
+    jreqs = jsrv.submit(prompts, max_new_tokens=budgets)
+    jsrv.run()
+    tsrv = StaticBatchServer(tcfg, tp, device="cpu", **kw)
+    treqs = tsrv.submit(prompts, max_new_tokens=budgets)
+    metrics = tsrv.run()
+    tokens = [r.tokens for r in treqs]
+    assert tokens == [r.tokens for r in jreqs]
+    assert metrics["engine"] == "static"
+    for key in ("decode_steps", "prefill_chunks", "kv_cache_bytes",
+                "tokens_generated"):
+        assert metrics[key] == jsrv.metrics[key], key
+    policy = tq.policy_for(precision)
+    assert tokens == [_chunked_oracle(tcfg, tp, p, b, policy)
+                      for p, b in zip(prompts, budgets)]
+    for engine in (ContinuousBatchServer, PagedBatchServer):
+        srv = engine(tcfg, tp, slots=2, max_prompt=16, prefill_chunk=4,
+                     max_new_tokens=8, precision=precision, device="cpu")
+        reqs = srv.submit(prompts, max_new_tokens=budgets)
+        srv.run()
+        assert [r.tokens for r in reqs] == tokens, engine.__name__
 
 
 def test_over_capacity_prompt_errors(setup):
