@@ -9,7 +9,8 @@ Phases, each a hard failure (non-zero exit, no result line):
    one ``nvcc`` per source, all started together, and print the build time
    and ptxas' register/shared-memory report.
 2. Hold each kernel against its plain PyTorch version on the card at the
-   serving path's shapes (internlm2-1.8b: Hkv 8, G 2, D 128):
+   shapes of the path that runs it (serving internlm2-1.8b: Hkv 8, G 2,
+   D 128; the KWS Impulse):
    - both attention kernels on the float contiguous cache: decode with 4
      slots at kv_len {0, 1, 37, S}, chunk prefill of C = 64 with 20 pad
      rows, at S = 576 and S = 555;
@@ -21,7 +22,13 @@ Phases, each a hard failure (non-zero exit, no result line):
      shows up;
    - ``int8_matmul`` at M in {4, 64} for each (K, N) of the projections,
      (2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048), and a ragged
-     case (M 5, K 200, N 300): **bitwise** equal to the plain version.
+     case (M 5, K 200, N 300): **bitwise** equal to the plain version;
+   - ``mel_frontend`` on the full-width batch (512 one-second keyword clips,
+     50,688 frames, L 320, 257 bins, 40 mels, as ``frame_signal``'s unfold
+     view), the quickstart's MFCC frontend (32 mels, 0.5 s clips), ragged
+     frame counts 1, 99 and 50,689, the kernel tests' dense shapes (L 256,
+     129 bins; L 512, 257 bins), and silence (exactly log(1e-6)):
+     elementwise within ``MEL_ATOL`` of the plain version.
    Attention tolerance, elementwise against the plain version computed in
    f32 from the same inputs (int8 dequantized and rounded as the kernel
    rounds): in bf16, the output's own rounding (2^-8 of its size) plus
@@ -31,7 +38,8 @@ Phases, each a hard failure (non-zero exit, no result line):
    time: ``F.scaled_dot_product_attention`` on dense bf16 K/V prepared
    beforehand (dequantized, gathered) for attention, ``torch._int_mm``
    (the int32 product alone, M padded to 32, the least it takes) for the
-   int8 matmul.  The port never calls either.
+   int8 matmul, the rfft chain ``torch.fft.rfft`` -> |.|^2 -> mel -> log
+   for the mel frontend.  The port never calls any of them.
 3. Serve eight requests through ``ContinuousBatchServer`` at the full
    width of internlm2-1.8b (24 layers, d_model 2048, 16/8 heads, d_ff 8192,
    vocab 92544 padded to 94208), bf16, random weights from a seeded
@@ -68,8 +76,20 @@ Phases, each a hard failure (non-zero exit, no result line):
    gives the CPU plain path's tokens, through ``PagedBatchServer`` with
    blocks of 8 and a pool small enough to preempt, and through
    ``StaticBatchServer``.  Last, the int8 paged steps' profile.
+6. The KWS Impulse at full width: DS-CNN at the repo's defaults (12
+   classes, 64 filters, 4 blocks) on the MFE block's defaults, f32 with
+   TF32 off, random weights from a seeded generator on the card.  2,048
+   one-second clips in batches of 512 (clips/s), 32 single-clip calls
+   (latency p50, split into DSP and NN time), PTQ on 16 clips and the int8
+   labels of the 2,048 against float's; ``mel_frontend`` must launch once
+   per ``features`` call.  A profile gives the device's idle share.  The
+   same weights and 64 clips on the port's CPU path: float and int8 logits
+   within ``KWS_LOGIT_ATOL``, labels equal where the CPU's top-two gap
+   exceeds it, PTQ values and scales bitwise equal; the quickstart Impulse
+   (MFCC 32 mels / 10 coefficients + a 2-block conv1d stack, 0.5 s clips)
+   gives the CPU's labels on every clip.
 
-Each main path (phases 3 and 5) runs with every launch count set to 0 just
+Each main path (phases 3, 5 and 6) runs with every launch count set to 0 just
 before it and read just after.  Prints the kernels' JSON line, the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.  Needs
 one GPU; exits non-zero without one, or without the rest of the
@@ -95,11 +115,13 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
             torch.int8: 1979e12}
 REPLACES = {"flash_decode": "src/repro/kernels/flash_decode.py:147",
             "flash_chunk_prefill": "src/repro/kernels/flash_decode.py:334",
-            "int8_matmul": "src/repro/kernels/int8_matmul.py:45"}
+            "int8_matmul": "src/repro/kernels/int8_matmul.py:45",
+            "mel_frontend": "src/repro/kernels/mel_frontend.py:34"}
 SOURCES = {"flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
            "flash_chunk_prefill":
                "src/repro_torch/kernels/csrc/flash_decode.cu",
-           "int8_matmul": "src/repro_torch/kernels/csrc/int8_matmul.cu"}
+           "int8_matmul": "src/repro_torch/kernels/csrc/int8_matmul.cu",
+           "mel_frontend": "src/repro_torch/kernels/csrc/mel_frontend.cu"}
 HKV, G, D = 8, 2, 128
 DEV = "cuda"
 # A bf16 output may differ from the f32 plain value by its own rounding,
@@ -118,6 +140,15 @@ GREEDY_EQUAL_MIN = 0.9    # share of compared rows (95.2% read)
 INT8_LOGIT_ATOL = 2.0
 INT8_GREEDY_EQUAL_MIN = 0.8
 GEMM_NAMES = ("gemm", "gemv", "cutlass", "xmma", "cublas", "nvjet")
+# The mel frontend's log-mel, kernel against the plain version in f32 from
+# the same inputs: the two sum in another order (the plain f32 version is
+# within 7.4e-6 of the JAX reference on keyword clips).
+MEL_ATOL = 1e-4
+# Card against CPU for the KWS Impulses, float and int8 logits: twice the
+# largest of the four readings on the H100 (2.89e-6), rounded up to a
+# power of two, the rule of the serving limits; PERF.md gives the readings.
+KWS_LOGIT_ATOL = 2.0 ** -17
+KWS_CLIPS, KWS_BATCH, KWS_SINGLE = 2048, 512, 32
 
 
 def fail(msg: str) -> None:
@@ -434,16 +465,132 @@ def check_int8_matmul(ops, ref):
     return rows
 
 
+def keyword_clips(port, n: int, n_classes: int, n_samples: int, seed: int):
+    """``n`` keyword clips of ``n_samples`` (the port's generator), classes
+    shuffled together: (n, n_samples) f32 numpy and the labels."""
+    samples = port.synthetic.keyword_audio(
+        n_per_class=-(-n // n_classes), n_classes=n_classes,
+        n_samples=n_samples, seed=seed)
+    order = np.random.RandomState(seed).permutation(len(samples))[:n]
+    return (np.stack([samples[i].data for i in order]),
+            np.asarray([samples[i].label for i in order]))
+
+
+def mel_bound_ms(frames, nbins: int, n_mels: int) -> tuple:
+    """Least time for one call: the signal under the frames read once
+    (overlapping frames share it), the tables read once, the log-mel
+    written once; 4·L·nbins + 2·nbins·n_mels f32 operations a frame."""
+    f3 = frames if frames.dim() == 3 else frames[None]
+    nb, nf, l = f3.shape
+    sf = f3.stride(1)
+    span = (nf - 1) * sf + l if sf < l else nf * l
+    n_frames = nb * nf
+    nbytes = 4 * (nb * span + l + 2 * l * nbins + nbins * n_mels
+                  + n_frames * n_mels)
+    ops = n_frames * (4 * l * nbins + 2 * nbins * n_mels)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[torch.float32] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def rfft_call(frames, window, mel_fb, n_fft: int):
+    """The library yardstick, the same function through cuFFT and cuBLAS
+    (frame_len <= n_fft: the zero-padded rfft is the DFT the tables
+    hold)."""
+    def run():
+        spec = torch.fft.rfft(frames * window, n=n_fft)
+        power = spec.real * spec.real + spec.imag * spec.imag
+        return torch.log(torch.clamp(power @ mel_fb, min=1e-6))
+    return run
+
+
+def check_mel_frontend(port, clips):
+    """``mel_frontend`` against its plain version at the Impulse path's
+    shapes: the full-width batch of 512 one-second clips as the unfold
+    view, the quickstart's MFCC frontend (32 mels, 0.5 s clips), ragged
+    frame counts 1, 99 and 50,689, the kernel tests' dense shapes (L 256,
+    129 bins; L 512, 257 bins), and silence (exactly the plain value,
+    log(1e-6)).  Returns the timed rows by case."""
+    blocks = port.dsp_blocks
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    full = blocks.MFEBlock()
+    quick = blocks.MFEBlock(n_mels=32)
+    sig = torch.from_numpy(clips[:KWS_BATCH]).to(DEV)
+    long_sig = torch.randn(50_688 * 160 + 320, generator=gen, device=DEV) \
+        * 0.3
+    cases = {
+        "full_width_512x99": (blocks.frame_signal(sig, 320, 160),
+                              full.tables(DEV), 512),
+        "quickstart_64x49_32mels": (
+            blocks.frame_signal(sig[:64, :8000], 320, 160),
+            quick.tables(DEV), 512),
+    }
+    for f in (1, 99, 50_689):
+        cases[f"ragged_F{f}"] = (
+            blocks.frame_signal(long_sig[:(f - 1) * 160 + 320], 320, 160),
+            full.tables(DEV), 512)
+    rng = np.random.RandomState(3)
+    for f, l, nbins, n_mels in ((128, 256, 129, 40), (256, 512, 257, 32)):
+        kk = np.arange(nbins)[None, :] * np.arange(l)[:, None] * 2 * np.pi / l
+        arrays = (rng.randn(f, l), np.hanning(l), np.cos(kk), -np.sin(kk),
+                  rng.rand(nbins, n_mels))
+        frames, *tables = (torch.from_numpy(a.astype(np.float32)).to(DEV)
+                           for a in arrays)
+        cases[f"dense_F{f}_L{l}_{nbins}bins"] = (frames, tables, l)
+    silence = torch.zeros_like(sig)
+    cases["silence_512x99"] = (blocks.frame_signal(silence, 320, 160),
+                               full.tables(DEV), 512)
+    timed = ("full_width_512x99", "quickstart_64x49_32mels",
+             "ragged_F50689", "dense_F128_L256_129bins",
+             "dense_F256_L512_257bins")
+    rows = {}
+    print(f"  SM clock, power: {gpu_line('clocks.sm,power.draw')}")
+    for name, (frames, tables, n_fft) in cases.items():
+        out = port.ops.mel_frontend(frames, *tables)
+        torch.cuda.synchronize()
+        want = port.ref.mel_frontend_ref(frames, *tables)
+        err = float((out - want).abs().max())
+        print(f"  mel_frontend {name:26s} frames {tuple(frames.shape)}:"
+              f" max|err| {err:.3g}")
+        check(out.shape == want.shape and bool(out.isfinite().all()),
+              f"mel_frontend {name}: shape {tuple(out.shape)} or non-finite")
+        check(err <= MEL_ATOL, f"mel_frontend disagrees with its plain"
+              f" version at {name}: {err} > {MEL_ATOL}")
+        if name.startswith("silence"):
+            floor = float(want.flatten()[0])
+            check(torch.equal(out, want) and bool((out == floor).all())
+                  and abs(floor - float(np.log(1e-6))) < 1e-5,
+                  f"silence: not exactly log(1e-6) everywhere ({floor})")
+        if name not in timed:
+            continue
+        window, cos, sin, mel = tables
+        ms = time_ms(lambda: port.ops.mel_frontend(frames, *tables))
+        plain_ms = time_ms(lambda: port.ref.mel_frontend_ref(frames,
+                                                             *tables))
+        lib = rfft_call(frames, window, mel, n_fft)
+        lib_err = float((lib() - want).abs().max())
+        lib_ms = time_ms(lib)
+        b_ms, b_by = mel_bound_ms(frames, cos.shape[1], mel.shape[1])
+        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": lib_ms, "library_max_abs_err": lib_err}
+        print(f"  mel_frontend {name:26s} kernel {ms:.4f} ms  plain"
+              f" {plain_ms:.4f} ms  rfft {lib_ms:.4f} ms (max|err|"
+              f" {lib_err:.3g})  bound {b_ms:.5f} ms ({b_by})")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: full-width serving
 # ---------------------------------------------------------------------------
 def reset_counts(port) -> None:
     port.fd.reset_launches()
     port.im.reset_launches()
+    port.mf.reset_launches()
 
 
 def read_counts(port) -> dict:
-    return {**port.fd.LAUNCHES, **port.im.LAUNCHES}
+    return {**port.fd.LAUNCHES, **port.im.LAUNCHES, **port.mf.LAUNCHES}
 
 
 def full_config(port):
@@ -486,7 +633,7 @@ def serve_full(port, cfg):
               f"request {r.rid}: token out of [0, {vpad})")
     want = {"flash_decode": cfg.n_layers * metrics["decode_steps"],
             "flash_chunk_prefill": cfg.n_layers * metrics["prefill_chunks"],
-            "int8_matmul": 0}
+            "int8_matmul": 0, "mel_frontend": 0}
     check(launches == want, f"launches {launches} != layers x steps {want}")
     print(f"  launches {launches} = 24 x (decode steps, chunk steps)")
     print("  metrics " + json.dumps(metrics))
@@ -763,6 +910,38 @@ def _merged_us(spans) -> float:
     return total
 
 
+def trace_calls(calls, n: int):
+    """Host wall ms per call of ``calls(i)``, i < n, ending in a sync; then
+    one ``torch.profiler`` pass over the same calls.  The pass starts with
+    one more call outside its timed range, since a session can miss the
+    first kernel it sees.  Returns the wall ms and the trace's kernel and
+    copy events that start inside the timed range."""
+    trace = Path(__file__).resolve().parent / "build" / "profile.json"
+    trace.parent.mkdir(exist_ok=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        calls(i)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        calls(0)
+        torch.cuda.synchronize()
+        with torch.profiler.record_function("timed_calls"):
+            for i in range(n):
+                calls(i)
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    trace.unlink()
+    start = min(e["ts"] for e in events if e.get("name") == "timed_calls")
+    timed = [e for e in events if e.get("ts", -1) >= start]
+    return (wall_ms, [e for e in timed if e.get("cat") == "kernel"],
+            [e for e in timed if e.get("cat") == "gpu_memcpy"])
+
+
 def profile_steps(port, cfg, params, policy=None, paged=False):
     """Host wall time of decode steps (4 slots at fill 257..264) and chunk
     steps (64 tokens into slot 0 at fill 384..512), each ending in a host
@@ -789,25 +968,10 @@ def profile_steps(port, cfg, params, policy=None, paged=False):
             ints([256 + i] * 4), ints([257 + i] * 4)), 8),
         "chunk": (lambda i: chunk_at(0, 320 + 64 * (i % 3)), 3),
     }
-    trace = Path(__file__).resolve().parent / "build" / "profile.json"
-    trace.parent.mkdir(exist_ok=True)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     out = {}
     for name, (step, n) in runs.items():
         step(0)[0].cpu()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(n):
-            step(i)[0].cpu()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
-        with torch.profiler.profile(activities=acts) as prof:
-            for i in range(n):
-                step(i)[0].cpu()
-        prof.export_chrome_trace(str(trace))
-        kernels = [e for e in json.loads(trace.read_text())["traceEvents"]
-                   if e.get("cat") == "kernel"]
-        trace.unlink()
+        wall_ms, kernels, _ = trace_calls(lambda i: step(i)[0].cpu(), n)
         fam = {"attention": 0.0, "int8_matmul": 0.0, "gemm": 0.0,
                "other": 0.0}
         by_name = {}
@@ -872,7 +1036,7 @@ def serve_int8_paged(port, cfg, params):
     steps = metrics["decode_steps"] + metrics["prefill_chunks"]
     want = {"flash_decode": cfg.n_layers * metrics["decode_steps"],
             "flash_chunk_prefill": cfg.n_layers * metrics["prefill_chunks"],
-            "int8_matmul": 7 * cfg.n_layers * steps}
+            "int8_matmul": 7 * cfg.n_layers * steps, "mel_frontend": 0}
     check(launches == want, f"launches {launches} != step counts {want}")
     print(f"  launches {launches} = 24 x (decode steps, chunk steps),"
           f" 7 x 24 x all steps")
@@ -885,8 +1049,155 @@ def serve_int8_paged(port, cfg, params):
     return srv, launches, metrics
 
 
-def gpu_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+# ---------------------------------------------------------------------------
+# Phase 6: the full-width KWS Impulse (DSP block -> DS-CNN, float and int8)
+# ---------------------------------------------------------------------------
+def profile_calls(calls, n: int) -> dict:
+    """``trace_calls`` over ``n`` Impulse calls: device busy (merged kernel
+    spans), the idle share, the mel kernel's share, copies."""
+    wall_ms, kernels, copies = trace_calls(calls, n)
+    mel = [e["dur"] for e in kernels if "mel_frontend_kernel" in e["name"]]
+    busy = _merged_us([(e["ts"], e["dur"]) for e in kernels]) / 1e3 / n
+    mel_ms = sum(mel) / 1e3 / n
+    return dict(host_wall_ms=wall_ms, device_busy_ms=busy,
+                idle_share=1 - busy / wall_ms, mel_kernel_ms=mel_ms,
+                mel_kernels_seen=len(mel), other_kernels_ms=busy - mel_ms,
+                copy_ms=sum(e["dur"] for e in copies) / 1e3 / n,
+                kernels_per_call=len(kernels) / n)
+
+
+def top2_gap(logits: torch.Tensor) -> torch.Tensor:
+    top = logits.topk(2, dim=-1).values
+    return top[:, 0] - top[:, 1]
+
+
+def card_vs_cpu(port, imp, xs, name: str, every_label: bool = False
+                ) -> dict:
+    """The same weights and clips through the port's CPU path: float and
+    int8 logits within ``KWS_LOGIT_ATOL``, labels equal wherever the CPU's
+    top-two gap exceeds it (``every_label``: on every row), and the PTQ
+    trees bitwise equal."""
+    tree = port.tree
+    cpu = port.Impulse(imp.dsp, imp.learn, imp.input_shape,
+                       params=tree.map_tree(lambda t: t.cpu(), imp.params),
+                       device="cpu")
+    out = {}
+    for kind, fn in (("float", "logits"), ("int8", "logits_int8")):
+        if kind == "int8":
+            imp.quantize(xs[:16])
+            cpu.quantize(xs[:16])
+        got = getattr(imp, fn)(xs).cpu()
+        want = getattr(cpu, fn)(xs)
+        gap = float((got - want).abs().max())
+        clear = top2_gap(want) > KWS_LOGIT_ATOL
+        same = got.argmax(-1) == want.argmax(-1)
+        out[kind] = dict(max_abs_gap=gap, rows=int(got.shape[0]),
+                         clear_rows=int(clear.sum()),
+                         labels_equal=int(same.sum()),
+                         min_top2_gap=float(top2_gap(want).min()))
+        print(f"  {name} card vs cpu, {kind}: " + json.dumps(out[kind]))
+        check(gap <= KWS_LOGIT_ATOL, f"{name} {kind} logits: card vs cpu"
+              f" gap {gap} > {KWS_LOGIT_ATOL}")
+        check(bool(same.all() if every_label else same[clear].all()),
+              f"{name} {kind}: labels differ between the card and the CPU")
+    for part in ("q", "scales"):
+        same = tree.map_tree(
+            lambda a, b: a is None if b is None else torch.equal(a.cpu(), b),
+            getattr(imp.qparams, part), getattr(cpu.qparams, part))
+        check(all(tree.leaves(same)), f"{name}: PTQ {part} differ between"
+              " the card and the CPU")
+    return out
+
+
+def kws_impulse(port, clips):
+    """DS-CNN at the repo's defaults on the MFE block's defaults, random
+    weights from a seeded generator on the card: 2,048 one-second clips in
+    batches of 512, 32 single-clip calls split into DSP and NN time, then
+    PTQ on 16 clips and the int8 logits of the 2,048.  The counts are set
+    to 0 before and read after; ``mel_frontend`` must have launched once
+    per features call.  Then the idle share, the card against the CPU on
+    64 clips, and the quickstart Impulse's labels against the CPU's."""
+    cb = port.core_blocks
+    imp = port.Impulse(cb.make_dsp_block("mfe"), cb.make_learn_block("ds-cnn"),
+                       input_shape=16_000, device=DEV)
+    check((imp.learn.cfg.n_classes, imp.learn.cfg.n_filters,
+           imp.learn.cfg.n_blocks, imp.dsp.impl.n_mels,
+           imp.dsp.impl.frame_len, imp.dsp.impl.stride,
+           imp.dsp.impl.n_fft) == (12, 64, 4, 40, 320, 160, 512),
+          f"unexpected KWS config {imp.learn.cfg} {imp.dsp.impl}")
+    imp.init(torch.Generator(device=DEV).manual_seed(0))
+    print(f"  DS-CNN {port.kws.count_params(imp.params)} params, features"
+          f" {imp.dsp.feature_shape(16_000)}")
+    imp.logits(clips[:KWS_BATCH]).cpu()                     # warm up
+    imp.learn.apply(imp.params, imp.features(clips[:1])).cpu()
+
+    reset_counts(port)
+    torch.cuda.synchronize()
+    feature_calls = 0
+    t0 = time.perf_counter()
+    labels = []
+    for i in range(0, KWS_CLIPS, KWS_BATCH):
+        labels.append(imp.logits(clips[i:i + KWS_BATCH]).argmax(-1))
+        feature_calls += 1
+    labels = torch.cat(labels).cpu()
+    batch_s = time.perf_counter() - t0
+    dsp_ms, nn_ms = [], []
+    for i in range(KWS_SINGLE):
+        t0 = time.perf_counter()
+        feats = imp.features(clips[i:i + 1])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        imp.learn.apply(imp.params, feats).argmax(-1).cpu()
+        t2 = time.perf_counter()
+        dsp_ms.append((t1 - t0) * 1e3)
+        nn_ms.append((t2 - t1) * 1e3)
+        feature_calls += 1
+    imp.quantize(clips[:16])
+    labels8 = []
+    for i in range(0, KWS_CLIPS, KWS_BATCH):
+        labels8.append(imp.logits_int8(clips[i:i + KWS_BATCH]).argmax(-1))
+        feature_calls += 1
+    labels8 = torch.cat(labels8).cpu()
+    torch.cuda.synchronize()
+    launches = read_counts(port)
+    want = {"flash_decode": 0, "flash_chunk_prefill": 0, "int8_matmul": 0,
+            "mel_frontend": feature_calls}
+    check(launches == want, f"KWS launches {launches} != {want}")
+    print(f"  launches {launches}: one mel_frontend per features call")
+    check(labels.shape == (KWS_CLIPS,) and labels8.shape == (KWS_CLIPS,)
+          and int(labels.max()) < 12 and int(labels8.max()) < 12,
+          "KWS labels out of range")
+    metrics = dict(
+        clips_per_s=KWS_CLIPS / batch_s,
+        batch1_p50_ms=float(np.median(np.add(dsp_ms, nn_ms))),
+        batch1_dsp_p50_ms=float(np.median(dsp_ms)),
+        batch1_nn_p50_ms=float(np.median(nn_ms)),
+        int8_labels_equal_share=float((labels8 == labels).float().mean()),
+        int8_compression=imp.qparams.meta["compression"])
+    print("  metrics " + json.dumps(metrics))
+
+    prof = {
+        "batch512": profile_calls(lambda i: imp.logits(
+            clips[i * KWS_BATCH:(i + 1) * KWS_BATCH]), 2),
+        "batch1": profile_calls(lambda i: imp.logits(clips[i:i + 1]), 8),
+    }
+    for name, row in prof.items():
+        print(f"  profile {name}: " + json.dumps(row))
+    card_vs_cpu(port, imp, clips[:64], "DS-CNN + MFE")
+
+    quick = port.Impulse(
+        cb.make_dsp_block("mfcc", n_mels=32, n_coeffs=10),
+        cb.make_learn_block("conv1d-stack", n_blocks=2, ch_first=16,
+                            ch_last=64, n_classes=4),
+        input_shape=8000, device=DEV)
+    quick.init(torch.Generator(device=DEV).manual_seed(1))
+    qclips, _ = keyword_clips(port, 64, 4, 8000, seed=2)
+    card_vs_cpu(port, quick, qclips, "quickstart", every_label=True)
+    return launches, metrics, prof
+
+
+def gpu_line(query: str = "name,power.limit") -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
@@ -897,17 +1208,25 @@ def load_port():
     """The port's modules, imported from the checkout beside this file."""
     import_port()
     from repro_torch import configs
-    from repro_torch.core import quantize
+    from repro_torch.core import blocks as core_blocks
+    from repro_torch.core import quantize, tree
+    from repro_torch.core.impulse import Impulse
+    from repro_torch.data import synthetic
+    from repro_torch.dsp import blocks as dsp_blocks
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import int8_matmul as im
-    from repro_torch.models import layers
+    from repro_torch.kernels import mel_frontend as mf
+    from repro_torch.models import kws, layers
     from repro_torch.models.params import init_params
     from repro_torch.serve import kvcache, serve_step, server
     return SimpleNamespace(configs=configs, quantize=quantize, build=build,
-                           ops=ops, ref=ref, fd=fd, im=im, layers=layers,
-                           init_params=init_params, kvcache=kvcache,
-                           serve_step=serve_step, server=server)
+                           ops=ops, ref=ref, fd=fd, im=im, mf=mf,
+                           layers=layers, init_params=init_params,
+                           kvcache=kvcache, serve_step=serve_step,
+                           server=server, core_blocks=core_blocks, tree=tree,
+                           Impulse=Impulse, synthetic=synthetic,
+                           dsp_blocks=dsp_blocks, kws=kws)
 
 
 def main() -> None:
@@ -933,11 +1252,18 @@ def main() -> None:
                 print("   " + line.strip())
     port.fd._lib()
     port.im._lib()
+    port.mf._lib()
     print(f"  build phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    clips, _ = keyword_clips(port, KWS_CLIPS, 12, 16_000, seed=0)
+    print(f"  {KWS_CLIPS} keyword clips of 1 s made in"
+          f" {time.perf_counter() - t0:.1f} s")
 
     print("phase 2: kernels against their plain versions")
     layout_rows = check_layouts(port.ops, port.ref, port.quantize.Int8KV)
     mm_rows = check_int8_matmul(port.ops, port.ref)
+    mel_rows = check_mel_frontend(port, clips)
 
     print("phase 3: full-width serving, internlm2-1.8b bf16")
     cfg = full_config(port)
@@ -963,10 +1289,22 @@ def main() -> None:
           f" {metrics8['kv_cache_bytes']}  preemptions"
           f" {metrics8['preemptions']}  prefix_hit_blocks"
           f" {metrics8['prefix_hit_blocks']}")
+
+    print("phase 6: full-width KWS Impulse, DS-CNN on MFE, f32 and PTQ int8")
+    t0 = time.perf_counter()
+    launches_kws, kws_metrics, kws_prof = kws_impulse(port, clips)
+    print(f"  clips_per_s {kws_metrics['clips_per_s']:.1f}  batch-1 p50"
+          f" {kws_metrics['batch1_p50_ms']:.3f} ms (DSP"
+          f" {kws_metrics['batch1_dsp_p50_ms']:.3f}, NN"
+          f" {kws_metrics['batch1_nn_p50_ms']:.3f})  idle share batch 512"
+          f" {kws_prof['batch512']['idle_share']:.3f}, batch 1"
+          f" {kws_prof['batch1']['idle_share']:.3f}  phase"
+          f" {time.perf_counter() - t0:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     by_path = {name: {"float_continuous": launches[name],
-                      "int8_paged": launches8[name]}
+                      "int8_paged": launches8[name],
+                      "kws_impulse": launches_kws[name]}
                for name in REPLACES}
     kernels = []
     for name in ("flash_decode", "flash_chunk_prefill"):
@@ -981,6 +1319,12 @@ def main() -> None:
         replaces=REPLACES["int8_matmul"], launches=launches8["int8_matmul"],
         launches_by_path=by_path["int8_matmul"],
         **mm_rows["M4_K2048_N8192"], shapes=mm_rows))
+    kernels.append(dict(
+        name="mel_frontend", route="cuda", source=SOURCES["mel_frontend"],
+        replaces=REPLACES["mel_frontend"],
+        launches=launches_kws["mel_frontend"],
+        launches_by_path=by_path["mel_frontend"],
+        **mel_rows["full_width_512x99"], shapes=mel_rows))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
-"""int8 serving quantization (paper C5): the precision policy, quantized
-weights and KV caches, and the dynamic activation quantizer.
+"""int8 quantization (paper C5): the serving path's precision policy,
+quantized weights and KV caches and dynamic activation quantizer, and the
+Impulse's post-training quantization (PTQ) of a parameter tree.
 
-The counterpart of ``repro.core.quantize``'s serving half.  Rounding is
-half-to-even (``torch.round``, as ``jnp.round``) and every scale is
-computed in float32 in the same order as the JAX package, so the int8
-values and the scales come out bitwise equal to its own.
+The counterpart of ``repro.core.quantize`` without its QAT helpers.
+Rounding is half-to-even (``torch.round``, as ``jnp.round``) and every
+scale is computed in float32 in the same order as the JAX package, with
+correctly rounded divisions on every device, so the int8 values and the
+scales come out bitwise equal to its own, on the CPU and on the card.
 
 One layout differs: a ``QTensor``'s values are stored **(..., N, K)**,
 output channel first, so the int8 kernel reads each weight column with
@@ -18,9 +20,11 @@ post-training calibration, which comes with port slice 4.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
+
+from repro_torch.core import tree
 
 # ---------------------------------------------------------------------------
 # PrecisionPolicy: the knob the serving stack threads end to end
@@ -91,11 +95,28 @@ class Int8KV(NamedTuple):
     scale: torch.Tensor
 
 
+# 127 as a 0-d tensor per device, made once (no fill kernel per call)
+_DIV127: Dict[torch.device, torch.Tensor] = {}
+
+
+def _scale_of(amax: torch.Tensor) -> torch.Tensor:
+    """max(amax, 1e-8) / 127 as one correctly rounded f32 division on every
+    device.  The divisor is a tensor on amax's device: PyTorch's CUDA
+    division by a Python scalar multiplies by its reciprocal instead, which
+    can differ in the last bit from the CPU's and the JAX package's
+    quotient."""
+    div = _DIV127.get(amax.device)
+    if div is None:
+        div = _DIV127[amax.device] = torch.full((), 127.0,
+                                                device=amax.device)
+    return torch.clamp(amax, min=1e-8) / div
+
+
 def _symmetric(x32: torch.Tensor, amax: torch.Tensor, axis: int):
     """int8 values and f32 scales of ``x32`` against ``amax`` broadcast
     back along ``axis``: scale = max(amax, 1e-8) / 127, q = clip(round(x /
     scale), ±127), the JAX package's arithmetic step for step."""
-    scale = torch.clamp(amax, min=1e-8) / 127.0
+    scale = _scale_of(amax)
     q = torch.clamp(torch.round(x32 / scale.unsqueeze(axis)), -127, 127)
     return q.to(torch.int8), scale
 
@@ -188,3 +209,76 @@ def quantize_model_params(params, policy: PrecisionPolicy = INT8):
         return out
 
     return ParamTree(wrap(params.tree(), False))
+
+
+# ---------------------------------------------------------------------------
+# PTQ of an Impulse's parameter tree (per-output-channel symmetric int8)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class QuantizedParams:
+    q: Any           # tree of int8 tensors (or passthrough float leaves)
+    scales: Any      # matching tree of f32 scales (None = not quantized)
+    meta: Dict[str, Any]
+
+
+def _quant_leaf(w: torch.Tensor):
+    """Per-output-channel symmetric int8 for >= 2-D float leaves; the last
+    axis is the output channel (the JAX layouts: HWIO, WIO, (in, out)).
+    Returns (q, scale) with scale keeping w's rank, or (w, None)."""
+    if w.dim() < 2 or not w.is_floating_point():
+        return w, None
+    amax = w.abs().amax(dim=tuple(range(w.dim() - 1)), keepdim=True)
+    scale = _scale_of(amax)
+    q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    return q, scale.float()
+
+
+def _dequant_leaf(q, scale):
+    if scale is None:
+        return q
+    return q.float() * scale
+
+
+def quantize_params(params) -> QuantizedParams:
+    """Weight-only PTQ of a parameter tree: ``q`` and ``scales`` have its
+    structure.  Activations stay float (the JAX package's ``calib_fn`` is
+    never called there; calibrated activation ranges come with port slice
+    4).  ``meta`` counts the leaves quantized and the bytes before and
+    after, as the JAX package does."""
+    meta = {"n_quantized": 0, "float_bytes": 0, "int8_bytes": 0}
+
+    def split(t):
+        if isinstance(t, dict):
+            parts = {k: split(v) for k, v in t.items()}
+            return ({k: a for k, (a, _) in parts.items()},
+                    {k: b for k, (_, b) in parts.items()})
+        if isinstance(t, (list, tuple)):
+            parts = [split(v) for v in t]
+            return (type(t)(a for a, _ in parts),
+                    type(t)(b for _, b in parts))
+        q, scale = _quant_leaf(t)
+        meta["float_bytes"] += t.numel() * t.element_size()
+        if scale is None:
+            meta["int8_bytes"] += t.numel() * t.element_size()
+        else:
+            meta["n_quantized"] += 1
+            meta["int8_bytes"] += q.numel() + scale.numel() * 4
+        return q, scale
+
+    qs, ss = split(params)
+    meta["compression"] = meta["float_bytes"] / max(meta["int8_bytes"], 1)
+    return QuantizedParams(qs, ss, meta)
+
+
+def fake_quant_params(qp: QuantizedParams):
+    """The float tree the int8 weights stand for: q * scale per quantized
+    leaf, the other leaves as they are."""
+    return tree.map_tree(_dequant_leaf, qp.q, qp.scales)
+
+
+def quantization_error(params, qp: QuantizedParams) -> float:
+    """Largest |w - dequant(quant(w))| over every leaf."""
+    errs = tree.map_tree(
+        lambda a, b: float((a.float() - b.float()).abs().max()),
+        params, fake_quant_params(qp))
+    return max(tree.leaves(errs))

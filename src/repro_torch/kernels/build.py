@@ -21,7 +21,8 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES: Dict[str, str] = {"flash_decode": "flash_decode.cu",
-                           "int8_matmul": "int8_matmul.cu"}
+                           "int8_matmul": "int8_matmul.cu",
+                           "mel_frontend": "mel_frontend.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -11,7 +11,8 @@ weight is ``x @ w``, left to ``torch.matmul`` as the JAX package leaves
 it to XLA; a ``QTensor`` weight takes the dynamic-activation int8 path
 through ``int8_matmul`` (or its fake-quant float simulation).  The
 attention wrappers take the cache as float tensors or ``Int8KV`` pairs,
-contiguous or paged (``block_table``).
+contiguous or paged (``block_table``).  ``mel_frontend`` is the DSP
+blocks' fused frontend.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from repro_torch.core.quantize import (Int8KV, PrecisionPolicy, QTensor,
                                        quant_dynamic)
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import int8_matmul as im
+from repro_torch.kernels import mel_frontend as mf
 from repro_torch.kernels import ref
 
 
@@ -159,3 +161,21 @@ def chunk_attention(q: torch.Tensor, k_cache, v_cache,
         v_scale=v_scale, block_table=block_table, window=window)
     return out.reshape(b, hkv, c, g, d).permute(0, 2, 1, 3, 4) \
         .reshape(b, c, hq, d)
+
+
+def mel_frontend(frames: torch.Tensor, window: torch.Tensor,
+                 dft_cos: torch.Tensor, dft_sin: torch.Tensor,
+                 mel_fb: torch.Tensor) -> torch.Tensor:
+    """frames: (..., F, L), a unit stride along L (``frame_signal``'s view
+    of the signal is taken as it is) -> log-mel (..., F, n_mels) f32.
+
+    The leading dims fold into the kernel's frame count: the kernel reads
+    frame r of the ``(B, F, L)`` view at batch r // F, frame r % F, so the
+    overlapping frames of a batch of clips need no copy."""
+    if not _on_card(frames):
+        return ref.mel_frontend_ref(frames, window, dft_cos, dft_sin, mel_fb)
+    lead = frames.shape[:-2]
+    f, l = frames.shape[-2:]
+    out = mf.mel_frontend(frames.reshape(-1, f, l), window, dft_cos, dft_sin,
+                          mel_fb)
+    return out.reshape(*lead, f, mel_fb.shape[1])

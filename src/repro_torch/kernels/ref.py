@@ -3,8 +3,9 @@
 Each function is the definition its CUDA kernel must reproduce: the CPU
 path of ``kernels/ops.py`` runs it, and ``chip_smoke.py`` holds each
 kernel against it on the card.  Semantics are those of
-``repro.kernels.ref``: the int8 matmul, and attention over the
-contiguous or paged KV cache in float or int8 (``Int8KV``) form.
+``repro.kernels.ref``: the int8 matmul, attention over the contiguous
+or paged KV cache in float or int8 (``Int8KV``) form, and the mel
+frontend of the DSP blocks.
 """
 from __future__ import annotations
 
@@ -174,3 +175,26 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
         q, k_pool, v_pool, q_position[:, None], pool_positions,
         block_table, kv_len, window=window, k_scale=k_scale,
         v_scale=v_scale)
+
+
+# ---------------------------------------------------------------------------
+# mel frontend (window -> DFT as two products -> power -> mel -> log)
+# ---------------------------------------------------------------------------
+# the floor under the mel energies before the log, as the JAX package's
+LOG_FLOOR = 1e-6
+
+
+def mel_frontend_ref(frames: torch.Tensor, window: torch.Tensor,
+                     dft_cos: torch.Tensor, dft_sin: torch.Tensor,
+                     mel_fb: torch.Tensor) -> torch.Tensor:
+    """frames: (..., F, L), any strides (an ``unfold`` view of the signal
+    included); window: (L,); dft_cos/sin: (L, nbins); mel_fb: (nbins,
+    n_mels).  Returns the log-mel energies (..., F, n_mels) in f32:
+    ``log(max(((x * window) @ cos)^2 + ((x * window) @ sin)^2) @ mel,
+    LOG_FLOOR))``."""
+    xw = frames.float() * window.float()
+    re = xw @ dft_cos.float()
+    im = xw @ dft_sin.float()
+    power = re * re + im * im
+    mel = power @ mel_fb.float()
+    return torch.log(torch.clamp(mel, min=LOG_FLOOR))

@@ -27,6 +27,7 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.core.arch import ArchConfig
 from repro_torch.core.quantize import QTensor
+from repro_torch.core.tree import map_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,3 +235,17 @@ def params_from_numpy(tree: Dict[str, object],
                     dtype=_leaf_dtype(t.ndim, dtype, t.dtype)).contiguous()
 
     return ParamTree(conv(tree))
+
+
+def kws_params_from_numpy(params: object,
+                          device: Union[str, torch.device, None] = None
+                          ) -> object:
+    """Carry a KWS-family parameter tree of numpy arrays (nested dicts and
+    lists, as ``repro.models.kws.*_init`` returns it, mapped to numpy) across
+    as the same tree of float32 tensors on ``device`` (``cuda`` unless
+    named), layouts kept: HWIO/WIO convolution weights, (in, out) dense
+    weights."""
+    device = resolve_device(device)
+    return map_tree(
+        lambda x: torch.from_numpy(np.array(x, np.float32)).to(device),
+        params)

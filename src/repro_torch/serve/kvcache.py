@@ -179,12 +179,12 @@ def release_slot(big_cache: Cache, slot: int) -> Cache:
 def paged_cache_keys(cfg: ArchConfig) -> Tuple[str, ...]:
     """Cache keys that live in the paged pool: the full-attention K/V
     leaves, ``k`` and ``v`` of the uniform dense decoder.  The ring and
-    SSM families of the JAX package come with port slice 3."""
+    SSM families of the JAX package come with port slice 5."""
     kind = layer_pattern(cfg)["kind"]
     if kind != "uniform_dense":
         raise NotImplementedError(
             f"{cfg.name}: paged cache of layer pattern {kind!r} comes with"
-            " port slice 3")
+            " port slice 5")
     return ("k", "v")
 
 

@@ -171,3 +171,31 @@ def test_int8_kernels_match_plain_on_card(cuda_device, dtype, rtol, d):
                                         kv_len=torch.full_like(kvl, 364))
         torch.testing.assert_close(out.float(), want, atol=1e-5, rtol=rtol)
         assert torch.all(out[:, 44:] == 0)
+
+
+@pytest.mark.cuda
+def test_quantizers_bitwise_card_vs_cpu(cuda_device):
+    """The quantizers give the same int8 values and scales on the card as
+    on the CPU (where they are bitwise the JAX package's): every scale is
+    one correctly rounded f32 division on both devices."""
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn(64, 2048, generator=gen) * 3
+    x[0] = 0.0
+    w = torch.randn(3, 3, 16, 64, generator=gen)
+    for fn, arg in ((tq.quant_dynamic, x), (tq.quant_kv, x.reshape(64, 16,
+                                                                   128)),
+                    (tq._leaf_qtensor, x.reshape(4, 512, 64))):
+        for got, want in zip(fn(arg.to(cuda_device)), fn(arg)):
+            assert torch.equal(got.cpu(), want)
+    tree = {"w": w, "b": torch.zeros(64), "blocks": [{"w": x[:, :256]}]}
+    card = tq.quantize_params({"w": w.to(cuda_device),
+                               "b": torch.zeros(64, device=cuda_device),
+                               "blocks": [{"w": x[:, :256].to(cuda_device)}]})
+    host = tq.quantize_params(tree)
+    assert card.meta == host.meta
+    for part in ("q", "scales"):
+        a, b = getattr(card, part), getattr(host, part)
+        assert torch.equal(a["w"].cpu(), b["w"])
+        assert torch.equal(a["blocks"][0]["w"].cpu(), b["blocks"][0]["w"])
+    assert card.scales["b"] is None and torch.equal(card.q["b"].cpu(),
+                                                    host.q["b"])
