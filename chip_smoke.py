@@ -29,14 +29,21 @@ Phases, each a hard failure (non-zero exit, no result line):
      frame counts 1, 99 and 50,689, the kernel tests' dense shapes (L 256,
      129 bins; L 512, 257 bins), and silence (exactly log(1e-6)):
      elementwise within ``MEL_ATOL`` of the plain version.
+   - ``flash_attention`` and ``flash_attention_bwd`` (the training path,
+     bf16) at the training shape (B 4, S 2048, Hq 16, Hkv 8, D 128,
+     causal), a ragged S of 1,000, ``causal=False``, a window of 256 and
+     D 64: the output, and dQ/dK/dV against autograd through the plain
+     version in f32 from the same inputs.
    Attention tolerance, elementwise against the plain version computed in
    f32 from the same inputs (int8 dequantized and rounded as the kernel
    rounds): in bf16, the output's own rounding (2^-8 of its size) plus
-   1e-5; in f32, 1e-5.  Each kernel's and layout's median time over 30
+   1e-5; in f32, 1e-5.  Gradients: the same rounding term plus
+   ``FA_GRAD_ATOL`` of the gradient's largest value.  Each kernel's and layout's median time over 30
    launches (L2 flushed before each, as the serving path finds it), the
    plain version's, the byte/operation bound and a library yardstick's
    time: ``F.scaled_dot_product_attention`` on dense bf16 K/V prepared
-   beforehand (dequantized, gathered) for attention, ``torch._int_mm``
+   beforehand (dequantized, gathered; for the training kernels the KV
+   heads repeated, the backward through autograd), ``torch._int_mm``
    (the int32 product alone, M padded to 32, the least it takes) for the
    int8 matmul, the rfft chain ``torch.fft.rfft`` -> |.|^2 -> mel -> log
    for the mel frontend.  The port never calls any of them.
@@ -88,9 +95,24 @@ Phases, each a hard failure (non-zero exit, no result line):
    exceeds it, PTQ values and scales bitwise equal; the quickstart Impulse
    (MFCC 32 mels / 10 coefficients + a 2-block conv1d stack, 0.5 s clips)
    gives the CPU's labels on every clip.
+7. Full-width training of internlm2-1.8b: f32 masters, bf16 activations,
+   ``make_train_step`` with remat "full" and AdamW (lr 3e-4) through
+   ``Trainer`` for 8 steps of batch 4 x seq 2048 from the Markov token
+   stream, checkpointing to a temporary directory.  Every step's loss must
+   be finite, and the loss of the first step's batch, scored by
+   ``forward_train`` before the first step and after the last, must fall
+   (each step's own loss is on a fresh batch: over 8 steps of this stream
+   it moves less than from batch to batch, so it is printed, not held);
+   each attention kernel's launches must equal what the path implies (24
+   forward + 24 recomputed forward + 24 backward a step).
+   Step ms (median of steps 3 to 8), tokens/s, MFU, peak device memory,
+   then a profile (one step outside the timed range, the mean of two
+   steps inside it): the attention kernels' share of the device time
+   and the idle share.  A small float32 config trained 3 steps on the card
+   and on the CPU from the same weights must agree (``TRAIN_TOL``).
 
-Each main path (phases 3, 5 and 6) runs with every launch count set to 0 just
-before it and read just after.  Prints the kernels' JSON line, the card's
+Each main path (phases 3, 5, 6 and 7) runs with every launch count set to 0
+just before it and read just after.  Prints the kernels' JSON line, the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.  Needs
 one GPU; exits non-zero without one, or without the rest of the
 repository beside it.
@@ -101,6 +123,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -113,15 +136,22 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
             torch.int8: 1979e12}
+# flash_attention_bwd is the gradient of the same TPU kernel, which has none
 REPLACES = {"flash_decode": "src/repro/kernels/flash_decode.py:147",
             "flash_chunk_prefill": "src/repro/kernels/flash_decode.py:334",
             "int8_matmul": "src/repro/kernels/int8_matmul.py:45",
-            "mel_frontend": "src/repro/kernels/mel_frontend.py:34"}
+            "mel_frontend": "src/repro/kernels/mel_frontend.py:34",
+            "flash_attention": "src/repro/kernels/flash_attention.py:83",
+            "flash_attention_bwd": "src/repro/kernels/flash_attention.py:83"}
 SOURCES = {"flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
            "flash_chunk_prefill":
                "src/repro_torch/kernels/csrc/flash_decode.cu",
            "int8_matmul": "src/repro_torch/kernels/csrc/int8_matmul.cu",
-           "mel_frontend": "src/repro_torch/kernels/csrc/mel_frontend.cu"}
+           "mel_frontend": "src/repro_torch/kernels/csrc/mel_frontend.cu",
+           "flash_attention":
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "flash_attention_bwd":
+               "src/repro_torch/kernels/csrc/flash_attention.cu"}
 HKV, G, D = 8, 2, 128
 DEV = "cuda"
 # A bf16 output may differ from the f32 plain value by its own rounding,
@@ -149,6 +179,39 @@ MEL_ATOL = 1e-4
 # power of two, the rule of the serving limits; PERF.md gives the readings.
 KWS_LOGIT_ATOL = 2.0 ** -17
 KWS_CLIPS, KWS_BATCH, KWS_SINGLE = 2048, 512, 32
+# The training kernels' gradients in bf16 against the backward's plain
+# version in f32 on the same inputs and the kernel's own rounded output
+# (``ref.flash_attention_bwd_ref``), so that only the summation order
+# differs: elementwise, the output's rounding (2^-8 of each value) plus
+# FA_GRAD_ATOL of the gradient's median magnitude.  The median, not the
+# largest value: under causal attention the gradients shrink along the
+# sequence, the first rows' 100 to 200 times the median.  Twice the
+# largest of the readings on the H100 (6.16e-5 of the median, dV at D 64),
+# rounded up to a power of two; PERF.md gives them.
+FA_GRAD_ATOL = 2.0 ** -12
+# name: (B, S, Hq, Hkv, D, causal, window)
+FA_CASES = {"train_b4_s2048": (4, 2048, 16, 8, 128, True, 0),
+            "ragged_s1000": (4, 1000, 16, 8, 128, True, 0),
+            "full_s2048": (4, 2048, 16, 8, 128, False, 0),
+            "window256_s2048": (4, 2048, 16, 8, 128, True, 256),
+            "d64_s2048": (4, 2048, 16, 8, 64, True, 0)}
+FA_FAULT_CASE, FA_TILE_Q = "train_b4_s2048", 64   # the kernels' query tile
+FA_KERNELS = ("fa_fwd_kernel", "fa_rowdot_kernel", "fa_dkdv_kernel",
+              "fa_dq_kernel")
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 4, 2048, 3e-4
+# The training stream: TRAIN_TOKENS tokens of the Markov stream over the
+# first TRAIN_STREAM_VOCAB ids (the model keeps its full vocabulary), so
+# that each state occurs about 24 times and 8 steps can learn what a
+# held-out batch shares; over all 92,544 ids each occurs about once and the
+# model only memorises the windows it saw (PERF.md).
+TRAIN_TOKENS, TRAIN_STREAM_VOCAB = 100_000, 4096
+# Card against CPU, the small float32 config after 3 AdamW steps (lr 1e-3):
+# loss and grad norm relative, weights absolute.  Twice the largest reading
+# on the H100 (7.66e-8, 2.26e-7, 2.36e-5: f32 in another summation order,
+# which AdamW's division by sqrt(v) amplifies in the weights), rounded up
+# to a power of two; PERF.md gives the readings.
+TRAIN_TOL = {"loss_rtol": 2.0 ** -22, "grad_norm_rtol": 2.0 ** -21,
+             "param_atol": 2.0 ** -14}
 
 
 def fail(msg: str) -> None:
@@ -580,17 +643,182 @@ def check_mel_frontend(port, clips):
     return rows
 
 
+def fa_pairs(s: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs the mask keeps in one (batch, head)."""
+    i = np.arange(s)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros(s, int)
+    hi = i + 1 if causal else np.full(s, s)
+    return int((hi - lo).sum())
+
+
+def fa_bounds(b, s, hq, hkv, d, causal, window) -> dict:
+    """Least time of the forward and the backward, bf16: operations 4·D
+    per kept (query, key) pair and head (two products), the backward 2.5
+    times the forward's, at 989 TFLOP/s; bytes: each input read once,
+    each output written once (forward: q, k, v -> out, lse; backward: q,
+    k, v, out, dO, lse -> dQ, dK, dV), at 3.35 TB/s."""
+    ops = 4 * d * fa_pairs(s, causal, window) * b * hq
+    q_bytes, kv_bytes = 2 * b * s * hq * d, 2 * 2 * b * s * hkv * d
+    lse = 4 * b * hq * s
+    out = {}
+    for name, n_ops, n_bytes in (
+            ("flash_attention", ops, 2 * q_bytes + kv_bytes + lse),
+            ("flash_attention_bwd", 2.5 * ops,
+             4 * q_bytes + 2 * kv_bytes + lse)):
+        t_ops = n_ops / PEAK_OPS[torch.bfloat16] * 1e3
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        out[name] = (max(t_ops, t_bytes),
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def sdpa_train_calls(q, k, v, do, causal, window):
+    """The library yardstick of both training kernels:
+    ``F.scaled_dot_product_attention`` on the same bf16 inputs laid out
+    (B, H, S, D) with the KV heads repeated beforehand, and its backward
+    through autograd."""
+    g = q.shape[2] // k.shape[2]
+    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in
+                  (q, k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)))
+    dos = do.transpose(1, 2).contiguous()
+    mask = None
+    if window > 0:
+        i = torch.arange(q.shape[1], device=q.device)
+        mask = (i[None, :] > i[:, None] - window) & \
+            ((i[None, :] <= i[:, None]) if causal else True)
+    kw = dict(attn_mask=mask, is_causal=causal and mask is None)
+    leaves = [t.clone().requires_grad_() for t in (qs, ks, vs)]
+    out = F.scaled_dot_product_attention(*leaves, **kw)
+    return (lambda: F.scaled_dot_product_attention(qs, ks, vs, **kw),
+            lambda: torch.autograd.grad(out, leaves, dos, retain_graph=True))
+
+
+def grad_reading(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """A bf16 gradient against its f32 plain value: (reading, share of the
+    limit).  The reading is the largest excess of |got - want| over the
+    output's rounding, 2^-8 |want|, in units of want's median magnitude;
+    the limit is that rounding plus ``FA_GRAD_ATOL`` of the median."""
+    w = want.abs()
+    med = float(w.median())
+    diff = (got.float() - want).abs()
+    return (float((diff - 2.0 ** -8 * w).max()) / med,
+            float((diff / (2.0 ** -8 * w + FA_GRAD_ATOL * med)).max()))
+
+
+def fa_planted_faults(fa, q, k, v, out, lse, do, grads, want, **kw):
+    """The gradient check must fail two planted faults (shares of the
+    limit, each above 1): dK/dV of a kernel that skips its last query tile
+    (``FA_TILE_Q`` rows) in the dK/dV pass -- the kernel's own backward
+    with dO zeroed on those rows, which then add nothing to dK and dV --
+    and each gradient 10% too large on the second half of the sequence."""
+    do_cut = do.clone()
+    do_cut[:, -FA_TILE_Q:] = 0
+    _, dk_cut, dv_cut = fa.flash_attention_bwd(q, k, v, out, lse, do_cut,
+                                               **kw)
+    s = q.shape[1]
+    faults = {"skip_last_q_tile_dk": grad_reading(dk_cut, want[1])[1],
+              "skip_last_q_tile_dv": grad_reading(dv_cut, want[2])[1]}
+    for gname, got, w in zip(("dq", "dk", "dv"), grads, want):
+        scaled = got.clone()
+        scaled[:, s // 2:] *= 1.1
+        faults[f"late_half_x1.1_{gname}"] = grad_reading(scaled, w)[1]
+    return faults
+
+
+def check_flash_attention(port):
+    """Both training kernels against their plain versions at ``FA_CASES``
+    (bf16): the output against ``flash_attention_ref`` at the bf16 limit
+    of ``TOL``; dQ/dK/dV against ``flash_attention_bwd_ref`` in f32 on the
+    same inputs and the kernel's output, by ``grad_reading``, and at the
+    training shape the planted faults of ``fa_planted_faults``; prints the
+    readings (what ``FA_GRAD_ATOL`` is set from).  Returns each kernel's
+    timed rows by case."""
+    fa, ref = port.fa, port.ref
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    rows = {"flash_attention": {}, "flash_attention_bwd": {}}
+    readings = {}
+    for name, (b, s, hq, hkv, d, causal, window) in FA_CASES.items():
+        kw = dict(causal=causal, window=window)
+        q, do = (torch.randn(b, s, hq, d, generator=gen, device=DEV)
+                 .to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(b, s, hkv, d, generator=gen, device=DEV)
+                .to(torch.bfloat16) for _ in range(2))
+        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        grads = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        f32 = [t.float() for t in (q, k, v)]
+        want_out = ref.flash_attention_ref(*f32, causal, window)
+        want = ref.flash_attention_bwd_ref(*f32, out.float(), do.float(),
+                                           causal, window)
+        f_err = float((out.float() - want_out).abs().max())
+        f_ratio = tol_ratio(out, want_out)
+        check(out.dtype == torch.bfloat16 and bool(out.isfinite().all())
+              and f_ratio <= 1, f"flash_attention disagrees with its plain"
+              f" version at {name}: {f_ratio} of the limit")
+        g_err, g_read = [], []
+        for gname, got, w in zip(("dq", "dk", "dv"), grads, want):
+            reading, ratio = grad_reading(got, w)
+            g_err.append(float((got.float() - w).abs().max()))
+            g_read.append(reading)
+            check(got.dtype == torch.bfloat16
+                  and bool(got.isfinite().all()) and ratio <= 1,
+                  f"flash_attention_bwd {gname} disagrees with the plain"
+                  f" backward at {name}: {ratio} of the limit")
+        readings[name] = dict(zip(("dq", "dk", "dv"), g_read))
+        print(f"  flash_attention {name:16s} max|err| {f_err:.3g}"
+              f" ({f_ratio:.3f} of the limit); backward max|err| dq/dk/dv"
+              f" {g_err[0]:.3g}/{g_err[1]:.3g}/{g_err[2]:.3g}, beyond the"
+              f" rounding {max(g_read):.3g} of the median value")
+        if name == FA_FAULT_CASE:
+            faults = fa_planted_faults(fa, q, k, v, out, lse, do, grads,
+                                       want, **kw)
+            print(f"  planted faults at {name}, shares of the limit:"
+                  f" {json.dumps(faults)}")
+            check(min(faults.values()) > 1, f"the gradient check passes a"
+                  f" planted fault: {faults}")
+        del f32, want_out, want
+        kern = {"flash_attention": lambda: fa.flash_attention_fwd(q, k, v,
+                                                                  **kw),
+                "flash_attention_bwd": lambda: fa.flash_attention_bwd(
+                    q, k, v, out, lse, do, **kw)}
+        plain = {"flash_attention": lambda: ref.flash_attention_ref(
+                     q, k, v, causal, window),
+                 "flash_attention_bwd": lambda: ref.flash_attention_bwd_ref(
+                     q, k, v, out, do, causal, window)}
+        lib_f, lib_b = sdpa_train_calls(q, k, v, do, causal, window)
+        lib = {"flash_attention": lib_f, "flash_attention_bwd": lib_b}
+        bounds = fa_bounds(b, s, hq, hkv, d, causal, window)
+        for kname, err in (("flash_attention", f_err),
+                           ("flash_attention_bwd", max(g_err))):
+            ms = time_ms(kern[kname], reps=10)
+            plain_ms = time_ms(plain[kname], reps=10)
+            lib_ms = time_ms(lib[kname], reps=10)
+            b_ms, b_by = bounds[kname]
+            rows[kname][name] = {"max_abs_err": err, "ms": ms,
+                                 "plain_ms": plain_ms, "bound_ms": b_ms,
+                                 "bound_by": b_by, "library_ms": lib_ms}
+            print(f"  {kname:19s} {name:16s} kernel {ms:.4f} ms  plain"
+                  f" {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound"
+                  f" {b_ms:.5f} ms ({b_by})")
+        del plain, lib, lib_f, lib_b
+    worst = max(max(r.values()) for r in readings.values())
+    print(f"  flash_attention_bwd readings (median values beyond the"
+          f" rounding): {json.dumps(readings)}; largest {worst:.4g}, limit"
+          f" FA_GRAD_ATOL {FA_GRAD_ATOL}")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: full-width serving
 # ---------------------------------------------------------------------------
 def reset_counts(port) -> None:
-    port.fd.reset_launches()
-    port.im.reset_launches()
-    port.mf.reset_launches()
+    for mod in (port.fd, port.im, port.mf, port.fa):
+        mod.reset_launches()
 
 
 def read_counts(port) -> dict:
-    return {**port.fd.LAUNCHES, **port.im.LAUNCHES, **port.mf.LAUNCHES}
+    return {**port.fd.LAUNCHES, **port.im.LAUNCHES, **port.mf.LAUNCHES,
+            **port.fa.LAUNCHES}
 
 
 def full_config(port):
@@ -633,7 +861,8 @@ def serve_full(port, cfg):
               f"request {r.rid}: token out of [0, {vpad})")
     want = {"flash_decode": cfg.n_layers * metrics["decode_steps"],
             "flash_chunk_prefill": cfg.n_layers * metrics["prefill_chunks"],
-            "int8_matmul": 0, "mel_frontend": 0}
+            "int8_matmul": 0, "mel_frontend": 0, "flash_attention": 0,
+            "flash_attention_bwd": 0}
     check(launches == want, f"launches {launches} != layers x steps {want}")
     print(f"  launches {launches} = 24 x (decode steps, chunk steps)")
     print("  metrics " + json.dumps(metrics))
@@ -1036,7 +1265,8 @@ def serve_int8_paged(port, cfg, params):
     steps = metrics["decode_steps"] + metrics["prefill_chunks"]
     want = {"flash_decode": cfg.n_layers * metrics["decode_steps"],
             "flash_chunk_prefill": cfg.n_layers * metrics["prefill_chunks"],
-            "int8_matmul": 7 * cfg.n_layers * steps, "mel_frontend": 0}
+            "int8_matmul": 7 * cfg.n_layers * steps, "mel_frontend": 0,
+            "flash_attention": 0, "flash_attention_bwd": 0}
     check(launches == want, f"launches {launches} != step counts {want}")
     print(f"  launches {launches} = 24 x (decode steps, chunk steps),"
           f" 7 x 24 x all steps")
@@ -1161,7 +1391,8 @@ def kws_impulse(port, clips):
     torch.cuda.synchronize()
     launches = read_counts(port)
     want = {"flash_decode": 0, "flash_chunk_prefill": 0, "int8_matmul": 0,
-            "mel_frontend": feature_calls}
+            "mel_frontend": feature_calls, "flash_attention": 0,
+            "flash_attention_bwd": 0}
     check(launches == want, f"KWS launches {launches} != {want}")
     print(f"  launches {launches}: one mel_frontend per features call")
     check(labels.shape == (KWS_CLIPS,) and labels8.shape == (KWS_CLIPS,)
@@ -1196,6 +1427,174 @@ def kws_impulse(port, clips):
     return launches, metrics, prof
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: full-width training
+# ---------------------------------------------------------------------------
+def train_full(port, cfg):
+    """internlm2-1.8b at full width, f32 masters from a seeded generator on
+    the card, bf16 activations: ``Trainer`` -> ``make_train_step`` (remat
+    "full", AdamW lr 3e-4) -> ``forward_train`` for ``TRAIN_STEPS`` steps
+    of batch 4 x seq 2048 from the stream over ``TRAIN_STREAM_VOCAB`` ids,
+    the final checkpoint written to a temporary directory and the best
+    step restored.  The losses by step, of the first batch and of a
+    held-out batch (scored before and after the run) must fall.  Launch
+    counts are set to 0 before the run and read after it; then the
+    profile of two steps."""
+    t0 = time.perf_counter()
+    params = port.init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                              DEV, trainable=True)
+    opt_state = port.optimizer.adamw_init(params)
+    step = port.train_step.make_train_step(
+        cfg, remat="full", opt=port.optimizer.AdamWConfig(lr=TRAIN_LR))
+    # training windows come from the first TRAIN_TOKENS tokens; the held-out
+    # batch is the stream's tail, never trained on
+    tokens = port.synthetic.token_stream(
+        TRAIN_TOKENS + TRAIN_BATCH * (TRAIN_SEQ + 1), TRAIN_STREAM_VOCAB,
+        seed=1)
+    batches = port.synthetic.lm_batches(tokens[:TRAIN_TOKENS], TRAIN_BATCH,
+                                        TRAIN_SEQ, seed=0)
+    # the first step's batch, drawn again from the same seed
+    seen = {k: torch.from_numpy(v).to(DEV) for k, v in next(
+        port.synthetic.lm_batches(tokens[:TRAIN_TOKENS], TRAIN_BATCH,
+                                  TRAIN_SEQ, seed=0)).items()}
+    unseen = port.launch_train.held_out(tokens, TRAIN_BATCH, TRAIN_SEQ, DEV)
+
+    def held_losses() -> tuple:
+        return tuple(port.launch_train.eval_loss(cfg, params, b)
+                     for b in (seen, unseen))
+    n_params = sum(p.numel() for p in params.parameters())
+    torch.cuda.synchronize()
+    print(f"  {n_params} f32 parameters and optimizer state on the card,"
+          f" token stream made, in {time.perf_counter() - t0:.1f} s")
+    held_before = held_losses()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as ckdir:
+        trainer = port.Trainer(
+            step, params, opt_state, ckpt_dir=Path(ckdir), device=DEV,
+            config=port.TrainerConfig(total_steps=TRAIN_STEPS,
+                                      checkpoint_every=0, keep_checkpoints=1,
+                                      log_every=1))
+        reset_counts(port)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = trainer.run(batches)
+        run_s = time.perf_counter() - t0
+        launches = read_counts(port)
+        saved = trainer.ckpt.all_steps()
+    peak = torch.cuda.max_memory_allocated()
+    held_after = held_losses()
+    hist = result["history"]
+    losses = [h["loss"] for h in hist]
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"training losses {losses}")
+    print(f"  the first batch's loss: {held_before[0]:.4f} before the first"
+          f" step ({losses[0]:.4f} in step 1), {held_after[0]:.4f} after"
+          f" step {TRAIN_STEPS}; a held-out batch's: {held_before[1]:.4f}"
+          f" -> {held_after[1]:.4f}")
+    check(losses[-1] < losses[0] and held_after[0] < held_before[0]
+          and held_after[1] < held_before[1], f"the loss did not fall: by"
+          f" step {losses}, the first batch {held_before[0]} ->"
+          f" {held_after[0]}, held out {held_before[1]} -> {held_after[1]}")
+    check(saved == [TRAIN_STEPS], f"checkpoints {saved}")
+    layers = cfg.n_layers
+    want = {name: 0 for name in launches}
+    want.update(flash_attention=2 * layers * TRAIN_STEPS,
+                flash_attention_bwd=layers * TRAIN_STEPS)
+    check(launches == want, f"training launches {launches} != {want}")
+    print(f"  launches {launches}: 24 forward + 24 recomputed forward and"
+          f" 24 backward a step")
+
+    step_s = float(np.median([h["step_time_s"] for h in hist[2:]]))
+    tokens_step = TRAIN_BATCH * TRAIN_SEQ
+    # N: the weights of the matmuls (blocks and unembedding); the input
+    # embedding is a gather and does no multiply-adds
+    n_matmul = n_params - cfg.padded_vocab() * cfg.d_model
+    attn_flops = 3 * 4 * cfg.resolved_head_dim * cfg.n_heads * layers \
+        * TRAIN_BATCH * fa_pairs(TRAIN_SEQ, True, 0)
+    model_flops = 6 * n_matmul * tokens_step + attn_flops
+    metrics = dict(
+        losses=losses, first_batch_loss=[held_before[0], held_after[0]],
+        held_out_loss=[held_before[1], held_after[1]],
+        step_ms=step_s * 1e3,
+        step_ms_all=[h["step_time_s"] * 1e3 for h in hist],
+        tokens_per_s=tokens_step / step_s,
+        mfu=model_flops / step_s / PEAK_OPS[torch.bfloat16],
+        mfu_n=n_matmul, model_flops_per_step=model_flops,
+        peak_memory_bytes=peak, run_s=run_s,
+        restored_step=result.get("restored_step"),
+        attention_launches_per_step={k: v // TRAIN_STEPS
+                                     for k, v in launches.items() if v})
+    print("  metrics " + json.dumps(metrics))
+
+    batch = next(batches)
+
+    def one_step(i):
+        _, _, m = step(trainer.params, trainer.opt_state, batch)
+        float(m["loss"])
+    wall_ms, kernels, copies = trace_calls(one_step, 2)
+    attn = [e for e in kernels if any(n in e["name"] for n in FA_KERNELS)]
+    busy = _merged_us([(e["ts"], e["dur"]) for e in kernels]) / 1e3 / 2
+    attn_ms = sum(e["dur"] for e in attn) / 1e3 / 2
+    check(busy > 0 and len(attn) > 0, f"the profile of a training step saw"
+          f" {len(kernels)} kernels, {len(attn)} of attention")
+    prof = dict(host_wall_ms=wall_ms, device_busy_ms=busy,
+                idle_share=1 - busy / wall_ms, attention_ms=attn_ms,
+                attention_share=attn_ms / busy,
+                attention_kernels_per_step=len(attn) / 2,
+                kernels_per_step=len(kernels) / 2,
+                copy_ms=sum(e["dur"] for e in copies) / 1e3 / 2)
+    by_name = {}
+    for e in kernels:
+        key = e["name"][:70]
+        by_name[key] = by_name.get(key, 0.0) + e["dur"] / 1e3 / 2
+    print("  profile of a step: " + json.dumps(prof))
+    for kname, ms in sorted(by_name.items(), key=lambda x: -x[1])[:8]:
+        print(f"    {ms:.3f} ms/step  {kname}")
+    del trainer, params, opt_state, result
+    return launches, metrics, prof
+
+
+def train_small_vs_cpu(port):
+    """A small float32 config (2 layers, d_model 128, 2/1 heads of 64)
+    trained 3 steps (remat "full", AdamW lr 1e-3) on the card and on the
+    CPU from the same weights and batches: loss and grad norm each step,
+    and every weight after, within ``TRAIN_TOL``."""
+    cfg = dataclasses.replace(port.configs.get_smoke("internlm2-1.8b"),
+                              d_model=128, n_heads=2, n_kv_heads=1,
+                              dtype="float32")
+    tokens = port.synthetic.token_stream(20_000, cfg.vocab_size, seed=1)
+    runs = {}
+    for dev in ("cpu", DEV):
+        params = port.init_params(cfg, torch.Generator().manual_seed(0),
+                                  "cpu", trainable=True).to(dev)
+        opt_state = port.optimizer.adamw_init(params)
+        step = port.train_step.make_train_step(
+            cfg, remat="full", opt=port.optimizer.AdamWConfig(lr=1e-3))
+        batches = port.synthetic.lm_batches(tokens, 4, 64, seed=2)
+        metrics = []
+        for _ in range(3):
+            _, _, m = step(params, opt_state, next(batches))
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[dev] = (metrics, [p.detach().cpu()
+                               for p in port.tree.leaves(params.tree())])
+    (m_cpu, p_cpu), (m_card, p_card) = runs["cpu"], runs[DEV]
+    read = dict(
+        loss_rel=max(abs(a[0] - b[0]) / abs(b[0])
+                     for a, b in zip(m_card, m_cpu)),
+        grad_norm_rel=max(abs(a[1] - b[1]) / abs(b[1])
+                          for a, b in zip(m_card, m_cpu)),
+        param_abs=max(float((a - b).abs().max())
+                      for a, b in zip(p_card, p_cpu)))
+    print(f"  small float32 training, card vs cpu over 3 steps:"
+          f" {json.dumps(read)} (limits {json.dumps(TRAIN_TOL)});"
+          f" losses card {[m[0] for m in m_card]}")
+    check(read["loss_rel"] <= TRAIN_TOL["loss_rtol"]
+          and read["grad_norm_rel"] <= TRAIN_TOL["grad_norm_rtol"]
+          and read["param_abs"] <= TRAIN_TOL["param_atol"],
+          f"small float32 training: card and cpu disagree: {read}")
+    return read
+
+
 def gpu_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                           "--format=csv,noheader"], capture_output=True,
@@ -1214,14 +1613,21 @@ def load_port():
     from repro_torch.data import synthetic
     from repro_torch.dsp import blocks as dsp_blocks
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import int8_matmul as im
     from repro_torch.kernels import mel_frontend as mf
+    from repro_torch.launch import train as launch_train
     from repro_torch.models import kws, layers
     from repro_torch.models.params import init_params
     from repro_torch.serve import kvcache, serve_step, server
+    from repro_torch.train import optimizer, train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
     return SimpleNamespace(configs=configs, quantize=quantize, build=build,
-                           ops=ops, ref=ref, fd=fd, im=im, mf=mf,
+                           ops=ops, ref=ref, fd=fd, im=im, mf=mf, fa=fa,
+                           optimizer=optimizer, train_step=train_step,
+                           launch_train=launch_train,
+                           Trainer=Trainer, TrainerConfig=TrainerConfig,
                            layers=layers, init_params=init_params,
                            kvcache=kvcache, serve_step=serve_step,
                            server=server, core_blocks=core_blocks, tree=tree,
@@ -1253,6 +1659,7 @@ def main() -> None:
     port.fd._lib()
     port.im._lib()
     port.mf._lib()
+    port.fa._lib()
     print(f"  build phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1264,6 +1671,7 @@ def main() -> None:
     layout_rows = check_layouts(port.ops, port.ref, port.quantize.Int8KV)
     mm_rows = check_int8_matmul(port.ops, port.ref)
     mel_rows = check_mel_frontend(port, clips)
+    fa_rows = check_flash_attention(port)
 
     print("phase 3: full-width serving, internlm2-1.8b bf16")
     cfg = full_config(port)
@@ -1300,11 +1708,26 @@ def main() -> None:
           f" {kws_prof['batch512']['idle_share']:.3f}, batch 1"
           f" {kws_prof['batch1']['idle_share']:.3f}  phase"
           f" {time.perf_counter() - t0:.1f} s")
+
+    print("phase 7: full-width training, internlm2-1.8b f32 masters, bf16")
+    del params, srv
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches_train, train_metrics, train_prof = train_full(port, cfg)
+    train_small_vs_cpu(port)
+    print(f"  step_ms {train_metrics['step_ms']:.1f}  tokens_per_s"
+          f" {train_metrics['tokens_per_s']:.1f}  mfu"
+          f" {train_metrics['mfu']:.4f}  peak memory"
+          f" {train_metrics['peak_memory_bytes'] / 2**30:.2f} GiB  attention"
+          f" share {train_prof['attention_share']:.3f}  idle share"
+          f" {train_prof['idle_share']:.3f}  phase"
+          f" {time.perf_counter() - t0:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     by_path = {name: {"float_continuous": launches[name],
                       "int8_paged": launches8[name],
-                      "kws_impulse": launches_kws[name]}
+                      "kws_impulse": launches_kws[name],
+                      "lm_training": launches_train[name]}
                for name in REPLACES}
     kernels = []
     for name in ("flash_decode", "flash_chunk_prefill"):
@@ -1325,6 +1748,12 @@ def main() -> None:
         launches=launches_kws["mel_frontend"],
         launches_by_path=by_path["mel_frontend"],
         **mel_rows["full_width_512x99"], shapes=mel_rows))
+    for name in ("flash_attention", "flash_attention_bwd"):
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCES[name],
+            replaces=REPLACES[name], launches=launches_train[name],
+            launches_by_path=by_path[name],
+            **fa_rows[name]["train_b4_s2048"], shapes=fa_rows[name]))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -30,16 +30,16 @@ PORTED = ("internlm2_1_8b",)
 
 # the port slice (ROADMAP.md, queue 1) that brings each remaining module
 _LATER: Dict[str, str] = {
-    "gemma3_4b": "slice 5 (sliding-window ring serving)",
-    "zamba2_2_7b": "slice 5 (SSM/hybrid serving)",
-    "falcon_mamba_7b": "slice 5 (SSM/hybrid serving)",
+    "gemma3_4b": "slice 8 (sliding-window ring serving)",
+    "zamba2_2_7b": "slice 8 (hybrid serving)",
+    "falcon_mamba_7b": "slice 5 (mamba1 serving with mamba_scan)",
 }
 
 
 def _module(arch_id: str):
     mod_name = ALIASES.get(arch_id, arch_id.replace("-", "_").replace(".", "_"))
     if mod_name not in PORTED:
-        later = _LATER.get(mod_name, "slice 7 (the remaining modules)")
+        later = _LATER.get(mod_name, "slice 9 (the remaining modules)")
         raise NotImplementedError(
             f"{arch_id}: not ported yet; it comes with {later}")
     return importlib.import_module(f"repro_torch.configs.{mod_name}")

@@ -6,7 +6,7 @@ The counterpart of ``repro.core.impulse``'s inference path: ``init``,
 ``confusion_matrix``, ``quantize`` and ``int8_accuracy``.  An Impulse
 lives on one device, ``cuda`` unless ``device="cpu"`` is given; raw input
 (numpy arrays or tensors) is moved there as float32.  Training (``fit``)
-comes with port slice 4.
+comes with port slice 6 (the platform loop).
 """
 from __future__ import annotations
 
@@ -61,7 +61,8 @@ class Impulse:
 
     def fit(self, *args, **kwargs):
         raise NotImplementedError(
-            "Impulse.fit (training with AdamW) comes with port slice 4")
+            "Impulse.fit (training with AdamW) comes with port slice 6"
+            " (the platform loop)")
 
     # ------------------------------------------------------------------
     def _correct(self, logits: torch.Tensor, ys) -> int:

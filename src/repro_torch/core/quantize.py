@@ -15,7 +15,7 @@ its contraction axis contiguous.  ``quantize_model_params`` and
 (..., N).
 
 Calibrated activation ranges (``AmaxObserver``, ``attach_act_amax``) are
-post-training calibration, which comes with port slice 4.
+post-training calibration, which comes with port slice 6.
 """
 from __future__ import annotations
 
@@ -36,7 +36,7 @@ class PrecisionPolicy:
     ``weights``      "float" | "int8": int8 wraps projection weights in
                      ``QTensor`` (per-output-channel symmetric int8).
     ``activations``  "dynamic": each matmul input row is quantized from
-                     its own amax.  ("calibrated" comes with slice 4.)
+                     its own amax.  ("calibrated" comes with slice 6.)
     ``kv_cache``     "float" | "int8": int8 stores the decode cache as
                      ``Int8KV`` (int8 values + per-(entry, head) f32
                      scales).
@@ -53,7 +53,7 @@ class PrecisionPolicy:
         if self.activations == "calibrated":
             raise NotImplementedError(
                 "activations='calibrated' (PTQ calibration) comes with port"
-                " slice 4")
+                " slice 6")
         for name, allowed in (("weights", ("float", "int8")),
                               ("activations", ("dynamic",)),
                               ("kv_cache", ("float", "int8")),
@@ -243,7 +243,7 @@ def quantize_params(params) -> QuantizedParams:
     """Weight-only PTQ of a parameter tree: ``q`` and ``scales`` have its
     structure.  Activations stay float (the JAX package's ``calib_fn`` is
     never called there; calibrated activation ranges come with port slice
-    4).  ``meta`` counts the leaves quantized and the bytes before and
+    6).  ``meta`` counts the leaves quantized and the bytes before and
     after, as the JAX package does."""
     meta = {"n_quantized": 0, "float_bytes": 0, "int8_bytes": 0}
 

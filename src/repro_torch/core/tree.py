@@ -10,6 +10,11 @@ from __future__ import annotations
 from typing import Any, Callable, List
 
 
+def as_tree(obj: Any) -> Any:
+    """A ``ParamTree``'s nested dict of leaves; any other tree as it is."""
+    return obj.tree() if hasattr(obj, "tree") else obj
+
+
 def leaves(tree: Any) -> List[Any]:
     """The leaves of ``tree``, depth first, dict keys sorted."""
     if isinstance(tree, dict):
@@ -28,3 +33,17 @@ def map_tree(fn: Callable, tree: Any, *rest: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(map_tree(fn, *subs) for subs in zip(tree, *rest))
     return fn(tree, *rest)
+
+
+def unflatten(tree: Any, flat: List[Any]) -> Any:
+    """A tree of ``tree``'s structure whose leaves are ``flat``, taken in
+    the order of ``leaves(tree)``."""
+    it = iter(flat)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(x) for x in t)
+        return next(it)
+    return build(tree)

@@ -1,0 +1,173 @@
+"""Whole-sequence flash attention, forward and backward: wrappers of the
+hand-written CUDA kernels in ``csrc/flash_attention.cu``.
+
+``flash_attention_fwd`` replaces ``repro/kernels/flash_attention.py:83``
+(causal, sliding-window or full attention with online softmax);
+``flash_attention_bwd`` is the gradient the TPU kernel never had (the JAX
+package lets XLA differentiate its jnp attention).  ``FlashAttention``, an
+``autograd.Function``, ties the two together: the forward saves q, k, v,
+the output and the rows' log-sum-exp, the backward launches the gradient
+kernel on them.
+
+Layouts are the model's: q ``(B, S, Hq, D)``, k/v ``(B, S, Hkv, D)``, with
+query head ``h`` reading KV head ``h // (Hq // Hkv)`` in place, so GQA
+needs no repeat copy.  Masks are by index (query row i, key j), which
+equals the reference's position masks for the default positions 0..S-1.
+Any S is taken.  Each wrapper checks device, dtype, shape and contiguity,
+launches on PyTorch's current stream and counts the call in ``LAUNCHES``:
+one forward kernel, or one backward (three kernels: the row sums
+``rowsum(dO * O)``, the dK/dV pass and the dQ pass).  They take CUDA
+tensors only: ``kernels/ops.py`` sends CPU tensors to
+``kernels/ref.py::flash_attention_ref``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import build
+
+# launches since the last reset (the caller resets)
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128)
+_FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                 + [ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+                 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention")
+    if lib.flash_attention_fwd.argtypes is None:
+        lib.flash_attention_fwd.argtypes = _FWD_ARGTYPES
+        lib.flash_attention_bwd.argtypes = _BWD_ARGTYPES
+        lib.flash_attention_fwd.restype = ctypes.c_int
+        lib.flash_attention_bwd.restype = ctypes.c_int
+    return lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           **others: torch.Tensor) -> Tuple[int, int, int, int, int]:
+    """Raise on anything the kernels do not take; returns (B, S, Hq, Hkv,
+    D).  ``others`` are tensors of q's shape and dtype (out, dout)."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"CUDA kernel given a tensor on {dev}")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}: expected"
+                         " (B, S, H, D)")
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    if tuple(k.shape) != (b, s, hkv, d) or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v"
+                         f" {tuple(v.shape)}: expected k/v (B, S, Hkv, D)")
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"Hq {hq} is no multiple of Hkv {hkv}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {_HEAD_DIMS}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: one of"
+                        " float32 or bfloat16")
+    named = {"q": q, "k": k, "v": v, **others}
+    for name, t in named.items():
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, q on {dev}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte"
+                             " aligned")
+    for name, t in others.items():
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype}: expected"
+                             f" q's {tuple(q.shape)} {q.dtype}")
+    return b, s, hq, hkv, d
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q (B, S, Hq, D), k/v (B, S, Hkv, D), float32 or bfloat16, contiguous
+    on one CUDA device.  Returns the output (B, S, Hq, D) in q's dtype and
+    the rows' log-sum-exp (B, Hq, S) float32."""
+    b, s, hq, hkv, d = _check(q, k, v)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    rc = _lib().flash_attention_fwd(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), b, s, hq, hkv, d, int(causal),
+        int(window), _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA"
+                           f" error {rc} (q {tuple(q.shape)}, k"
+                           f" {tuple(k.shape)})")
+    LAUNCHES["flash_attention"] += 1
+    return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients (dq, dk, dv) of ``flash_attention_fwd``'s output
+    against ``dout``, from the forward's inputs, output and ``lse``; in the
+    inputs' dtype."""
+    b, s, hq, hkv, d = _check(q, k, v, out=out, dout=dout)
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, s) \
+            or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}: expected"
+                         f" contiguous float32 {(b, hq, s)} on {q.device}")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if dq.numel() == 0:
+        return dq, dk, dv
+    rowdot = torch.empty_like(lse)
+    rc = _lib().flash_attention_bwd(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), rowdot.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, hq, hkv, d,
+        int(causal), int(window), _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA"
+                           f" error {rc} (q {tuple(q.shape)}, k"
+                           f" {tuple(k.shape)})")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention whose forward and backward are the two kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, dout.contiguous(), causal=ctx.causal,
+            window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Differentiable attention through the kernels (CUDA tensors)."""
+    return FlashAttention.apply(q, k, v, causal, window)

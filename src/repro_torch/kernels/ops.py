@@ -12,7 +12,10 @@ it to XLA; a ``QTensor`` weight takes the dynamic-activation int8 path
 through ``int8_matmul`` (or its fake-quant float simulation).  The
 attention wrappers take the cache as float tensors or ``Int8KV`` pairs,
 contiguous or paged (``block_table``).  ``mel_frontend`` is the DSP
-blocks' fused frontend.
+blocks' fused frontend.  ``flash_attention`` is the training path's
+whole-sequence attention, differentiable on either device: on the card
+through the forward and backward kernels (``FlashAttention``), on the CPU
+through autograd of the plain version.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 
 from repro_torch.core.quantize import (Int8KV, PrecisionPolicy, QTensor,
                                        quant_dynamic)
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import int8_matmul as im
 from repro_torch.kernels import mel_frontend as mf
@@ -68,6 +72,18 @@ def quant_matmul(x: torch.Tensor, w, *,
     else:
         out = int8_matmul(xq, w.q, xs, w.scale)
     return out.reshape(*lead, w.q.shape[0]).to(x.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Whole-sequence attention: q (B, S, Hq, D), k/v (B, S, Hkv, D) ->
+    (B, S, Hq, D) in q's dtype.  Index masks: key j is visible to row i
+    when ``j <= i`` (causal) and ``j > i - window`` (window > 0).  GQA is
+    read in place by the kernel (query head h on KV head h // G)."""
+    if not _on_card(q):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=causal, window=window)
 
 
 def _split(cache):

@@ -4,8 +4,8 @@ Each function is the definition its CUDA kernel must reproduce: the CPU
 path of ``kernels/ops.py`` runs it, and ``chip_smoke.py`` holds each
 kernel against it on the card.  Semantics are those of
 ``repro.kernels.ref``: the int8 matmul, attention over the contiguous
-or paged KV cache in float or int8 (``Int8KV``) form, and the mel
-frontend of the DSP blocks.
+or paged KV cache in float or int8 (``Int8KV``) form, the mel
+frontend of the DSP blocks, and whole-sequence attention (training).
 """
 from __future__ import annotations
 
@@ -40,6 +40,74 @@ def int8_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor,
         acc = x_q.double() @ w_q.double().t()
     scale = x_scale[:, None] * w_scale[None, :]
     return acc.float() * scale
+
+
+# ---------------------------------------------------------------------------
+# flash attention (causal, optional sliding window): the training path
+# ---------------------------------------------------------------------------
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int = 0
+                        ) -> torch.Tensor:
+    """q: (B, S, Hq, D); k/v: (B, S, Hkv, D).  The JAX package's
+    ``flash_attention_ref`` after ``ops.flash_attention``'s GQA expansion
+    (query head h reads KV head h // (Hq // Hkv)): index masks (key j
+    visible to row i when ``j <= i`` if causal, and ``j > i - window`` with
+    a window), f32 math, output in q.dtype.  Autograd through it is the
+    plain backward."""
+    g = q.shape[2] // k.shape[2]
+    if g > 1:
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+    p = _attention_probs(q.float(), k.float(), causal, window)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return out.to(q.dtype)
+
+
+def _attention_probs(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                     window: int) -> torch.Tensor:
+    """softmax(q·kᵀ·D^-1/2) under the index masks, (B, H, S, S); q and k
+    (B, S, H, D) with the KV heads expanded."""
+    s, d = q.shape[1], q.shape[3]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * (d ** -0.5)
+    idx = torch.arange(s, device=q.device)
+    qp, kp = idx[:, None], idx[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = kp <= qp
+    if window > 0:
+        mask = mask & (kp > qp - window)
+    scores = torch.where(mask, scores, NEG_INF)
+    return torch.softmax(scores, dim=-1)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            dout: torch.Tensor, causal: bool = True,
+                            window: int = 0):
+    """The plain version of the backward kernel: (dq, dk, dv) of
+    ``flash_attention_ref``'s output against ``dout``, in f32 math,
+    returned in q.dtype.  P is rebuilt from q and k; the row sums
+    ``Dr = rowsum(dout * out)`` come from the ``out`` given, as the kernel
+    takes them from its saved (rounded) output:
+
+        dV = Pᵀ dO,  dS = P ∘ (dO Vᵀ − Dr),  dQ = D^-1/2 dS K,
+        dK = D^-1/2 dSᵀ Q,
+
+    dK and dV summed over the query heads that share a KV head.  Given the
+    f32 output of ``flash_attention_ref`` this is autograd through it."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, out, dout))
+    kf, vf = kf.repeat_interleave(g, dim=2), vf.repeat_interleave(g, dim=2)
+    p = _attention_probs(qf, kf, causal, window)
+    rowdot = (dof * of).sum(-1).transpose(1, 2)            # (B, H, S)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - rowdot[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * (d ** -0.5)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * (d ** -0.5)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk, dv = (t.reshape(b, s, hkv, g, d).sum(3) for t in (dk, dv))
+    return tuple(t.to(q.dtype) for t in (dq, dk, dv))
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

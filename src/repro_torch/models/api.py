@@ -1,8 +1,7 @@
-"""Model API: the serving entry points of a config's family.
+"""Model API: the entry points of a config's family.
 
-The counterpart of ``repro.models.api.ModelFns`` on this slice: the
-decode and chunk-prefill entry points (one-shot prefill and training come
-with a later slice).
+The counterpart of ``repro.models.api.ModelFns`` on the port's paths:
+training, decode and chunk prefill (one-shot prefill comes with slice 7).
 """
 from __future__ import annotations
 
@@ -13,6 +12,7 @@ from repro_torch.models import transformer
 
 
 class ModelFns(NamedTuple):
+    forward_train: Callable
     forward_decode: Callable
     forward_prefill_chunk: Callable
 
@@ -21,5 +21,5 @@ def model_fns(cfg: ArchConfig) -> ModelFns:
     if cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder backbone is not ported yet")
-    return ModelFns(transformer.forward_decode,
+    return ModelFns(transformer.forward_train, transformer.forward_decode,
                     transformer.forward_prefill_chunk)

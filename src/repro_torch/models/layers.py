@@ -2,8 +2,9 @@
 
 Plain functions on tensors, ``f(params, x, ...) -> y``, in the layouts of
 ``repro.models.layers``.  The two attention layers of the serving path
-go through ``kernels.ops``: the CUDA kernels for tensors on the card,
-the plain PyTorch versions on the CPU.
+and the whole-sequence ``attention_layer`` of the training path go
+through ``kernels.ops``: the CUDA kernels for tensors on the card, the
+plain PyTorch versions on the CPU.
 
 Unlike the JAX package, whose arrays are immutable, the cache layers
 write this step's K/V rows **in place** into the cache tensors they are
@@ -24,7 +25,7 @@ import torch.nn.functional as F
 from repro_torch.core.quantize import (Int8KV, PrecisionPolicy, dequant_kv,
                                        is_int8_kv_fakequant, quant_kv)
 from repro_torch.kernels.ops import (chunk_attention, decode_attention,
-                                     quant_matmul)
+                                     flash_attention, quant_matmul)
 
 
 # ---------------------------------------------------------------------------
@@ -136,6 +137,40 @@ def _fake_quant_kv(policy, k, v):
         return dequant_kv(quant_kv(k), k.dtype), dequant_kv(quant_kv(v),
                                                             v.dtype)
     return k, v
+
+
+# ---------------------------------------------------------------------------
+# Whole-sequence attention (training)
+# ---------------------------------------------------------------------------
+def attention_layer(p: dict, x: torch.Tensor, positions: torch.Tensor, *,
+                    n_heads: int, n_kv_heads: int, head_dim: int,
+                    rope_variant: str, rope_theta: float, window: int = 0,
+                    causal: bool = True, kv_override=None,
+                    policy: Optional[PrecisionPolicy] = None):
+    """Attention over a whole sequence (``repro.models.layers:273`` on the
+    uniform dense trunk).  x: (B, S, d); positions: (B, S), rotary only.
+
+    The core is ``ops.flash_attention``, which masks by **index**: the
+    reference masks by position, and the two agree only for the default
+    positions 0..S-1, which the caller (``transformer.forward_train``)
+    guarantees.  Returns (out (B, S, d), (k, v)).
+    """
+    if kv_override is not None:
+        raise NotImplementedError(
+            "cross-attention (kv_override) is not ported yet; it comes with"
+            " slice 9 (enc-dec)")
+    b, s, _ = x.shape
+    q = quant_matmul(x, p["wq"], policy=policy).reshape(
+        b, s, n_heads, head_dim)
+    k = quant_matmul(x, p["wk"], policy=policy).reshape(
+        b, s, n_kv_heads, head_dim)
+    v = quant_matmul(x, p["wv"], policy=policy).reshape(
+        b, s, n_kv_heads, head_dim)
+    q, k = _rope_qk(q, k, positions, rope_variant, rope_theta)
+    o = flash_attention(q, k, v, causal=causal, window=window)
+    out = quant_matmul(o.reshape(b, s, n_heads * head_dim), p["wo"],
+                       policy=policy)
+    return out, (k, v)
 
 
 # ---------------------------------------------------------------------------

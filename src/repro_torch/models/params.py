@@ -8,12 +8,15 @@ from a ``torch.Generator`` on the target device; ``params_from_numpy``
 carries a tree of numpy arrays (for example the JAX package's own
 ``init_params``) across leaf for leaf.
 
-Both return a ``ParamTree``: an ``nn.Module`` whose leaves are frozen
+Both return a ``ParamTree``: an ``nn.Module`` whose leaves are
 ``nn.Parameter``s, indexed like the JAX params dict (``p["blocks"]["attn"]
 ["wq"]``), so ``state_dict``, ``parameters`` and ``to`` work as usual.  An
 int8 projection weight is a ``QTensor`` leaf (``core/quantize.py``): its
 values and scales are held by a ``QLeaf`` module, and indexing returns
-the ``QTensor``.
+the ``QTensor``.  Serving weights are frozen; ``trainable=True`` gives the
+training path's masters: every leaf float32 with ``requires_grad``, as the
+JAX package keeps its masters (``ParamSpec.dtype == "float32"``), cast to
+the activation dtype where they are used (``quant_matmul``).
 """
 from __future__ import annotations
 
@@ -120,18 +123,22 @@ class QLeaf(nn.Module):
 
 
 class ParamTree(nn.Module):
-    """A nested tree of frozen weights, indexed like a dict."""
+    """A nested tree of weights, indexed like a dict: frozen, or
+    (``trainable``) leaves that take gradients."""
 
-    def __init__(self, tree: Dict[str, object]):
+    def __init__(self, tree: Dict[str, object], trainable: bool = False):
         super().__init__()
         for key, val in tree.items():
             if isinstance(val, dict):
-                self.add_module(key, ParamTree(val))
+                self.add_module(key, ParamTree(val, trainable))
             elif isinstance(val, QTensor):
+                if trainable:
+                    raise TypeError(f"{key}: an int8 QTensor leaf cannot be"
+                                    " trained")
                 self.add_module(key, QLeaf(val))
             else:
                 self.register_parameter(
-                    key, nn.Parameter(val, requires_grad=False))
+                    key, nn.Parameter(val, requires_grad=trainable))
         self._per_layer: Optional[List[Dict[str, object]]] = None
 
     def __getitem__(self, key: str):
@@ -153,9 +160,18 @@ class ParamTree(nn.Module):
         return self[key] if key in self else default
 
     def unstack(self) -> List[Dict[str, object]]:
-        """Per-layer views of a stacked ``(L, ...)`` subtree, made once:
+        """Per-layer views of a stacked ``(L, ...)`` subtree.
+
+        Serving (frozen leaves, or no autograd) reuses views made once:
         slicing every leaf on every step costs more host time than the
-        layer's kernels take on the card."""
+        layer's kernels take on the card.  Under autograd with trainable
+        leaves the views are made anew on each call, one ``unbind`` per
+        leaf: they carry this forward's graph, the gradients of all L
+        layers reach the stacked leaf in one stack, and an in-place
+        optimizer update leaves no stale view behind."""
+        if torch.is_grad_enabled() and any(
+                p.requires_grad for p in self.parameters()):
+            return self._unbound()
         if self._per_layer is None:
             n = next(iter(self.parameters())).shape[0]
             self._per_layer = [self._slice(i) for i in range(n)]
@@ -164,6 +180,17 @@ class ParamTree(nn.Module):
     def _apply(self, fn, recurse=True):
         self._per_layer = None      # moved or cast weights: views are stale
         return super()._apply(fn, recurse)
+
+    def _unbound(self) -> List[Dict[str, object]]:
+        n = next(iter(self.parameters())).shape[0]
+        layers: List[Dict[str, object]] = [{} for _ in range(n)]
+        for k, p in self._parameters.items():
+            for i, view in enumerate(torch.unbind(p)):
+                layers[i][k] = view
+        for k, m in self._modules.items():
+            for i, sub in enumerate(m._unbound()):
+                layers[i][k] = sub
+        return layers
 
     def _slice(self, i: int) -> Dict[str, object]:
         out: Dict[str, object] = {k: p[i] for k, p in self._parameters.items()}
@@ -182,14 +209,18 @@ def _leaf_dtype(ndim: int, dtype: Optional[torch.dtype],
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device: Union[str, torch.device, None] = None,
-                dtype: Optional[torch.dtype] = None) -> ParamTree:
+                dtype: Optional[torch.dtype] = None,
+                trainable: bool = False) -> ParamTree:
     """Random weights (scaled normal, norms zero) drawn from ``generator``
     on ``device`` (``cuda`` unless named; the generator must live on the
     same device).  Matrices are stored in ``dtype`` (default: the config's
-    activation dtype).  torch's generator cannot reproduce ``jax.random``:
+    activation dtype; float32 masters when ``trainable``, whose leaves then
+    take gradients).  torch's generator cannot reproduce ``jax.random``:
     parity tests carry the JAX package's weights across with
     ``params_from_numpy`` instead."""
     device = resolve_device(device)
+    if trainable:
+        dtype = dtype or torch.float32
 
     def draw(spec: ParamSpec) -> torch.Tensor:
         dt = _leaf_dtype(len(spec.shape), dtype, cfg.activation_dtype)
@@ -204,21 +235,25 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         return {k: (build(tree[k]) if isinstance(tree[k], dict)
                     else draw(tree[k])) for k in sorted(tree)}
 
-    return ParamTree(build(build_specs(cfg)))
+    return ParamTree(build(build_specs(cfg)), trainable)
 
 
 def params_from_numpy(tree: Dict[str, object],
                       device: Union[str, torch.device, None] = None,
-                      dtype: Optional[torch.dtype] = None) -> ParamTree:
+                      dtype: Optional[torch.dtype] = None,
+                      trainable: bool = False) -> ParamTree:
     """Carry a nested dict of numpy arrays across as a ``ParamTree`` on
     ``device`` (``cuda`` unless named).  Matrices go to ``dtype`` (default:
-    kept as given), 1-D leaves to float32.
+    kept as given; float32 masters when ``trainable``, whose leaves then
+    take gradients), 1-D leaves to float32.
 
     A quantized leaf (any object with ``q`` (..., K, N) int8 and ``scale``
     (..., N) arrays, such as the JAX package's ``QTensor`` mapped to
     numpy) becomes a ``QTensor`` with its values transposed to the port's
     (..., N, K) layout, bit for bit."""
     device = resolve_device(device)
+    if trainable:
+        dtype = dtype or torch.float32
 
     def conv(x) -> object:
         if isinstance(x, dict):
@@ -234,7 +269,7 @@ def params_from_numpy(tree: Dict[str, object],
         return t.to(device=device,
                     dtype=_leaf_dtype(t.ndim, dtype, t.dtype)).contiguous()
 
-    return ParamTree(conv(tree))
+    return ParamTree(conv(tree), trainable)
 
 
 def kws_params_from_numpy(params: object,

@@ -1,10 +1,12 @@
-"""Decoder-only backbone, the serving entry points of the dense trunk.
+"""Decoder-only backbone: the serving and training entry points of the
+dense trunk.
 
-The PyTorch counterpart of ``repro.models.transformer`` on this slice's
-path: ``forward_prefill_chunk`` (one prompt chunk against a live slot
-cache) and ``forward_decode`` (one token per slot).  Depth is a Python
+The PyTorch counterpart of ``repro.models.transformer`` on the port's
+paths: ``forward_prefill_chunk`` (one prompt chunk against a live slot
+cache), ``forward_decode`` (one token per slot) and ``forward_train``
+(the whole sequence and the LM loss, differentiable).  Depth is a Python
 loop over per-layer views of the stacked ``(L, ...)`` weights, where the
-JAX package scans.
+JAX package scans; remat wraps each block in ``torch.utils.checkpoint``.
 
 The cache is the dict ``{"k", "v": (L, B, S, Hkv, D), "full_pos": (B, S)
 int32}`` of ``serve/kvcache.py``, or its paged form ``{"k", "v": (L, NB,
@@ -17,19 +19,43 @@ fake-quant simulation, as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.arch import ArchConfig
 from repro_torch.core.quantize import Int8KV, PrecisionPolicy
 from repro_torch.models.layers import (attention_chunk_layer,
-                                       attention_decode_layer, rms_norm,
-                                       swiglu_mlp, write_pages, write_rows)
+                                       attention_decode_layer,
+                                       attention_layer, rms_norm, swiglu_mlp,
+                                       write_pages, write_rows)
 from repro_torch.models.params import layer_pattern
 
 Cache = Dict[str, object]
+
+# remat policies of the JAX package (``transformer.py:59``); "dots" and
+# "dots_no_batch" save the matmul outputs and come with a later slice
+REMAT_POLICIES = ("none", "full", "dots", "dots_no_batch")
+
+
+def _maybe_remat(fn: Callable, policy: Optional[str]) -> Callable:
+    """``fn`` as it is (``None``/"none"), or recomputed in the backward
+    from its inputs alone ("full", the JAX package's ``nothing_saveable``):
+    ``torch.utils.checkpoint`` without re-entry, so every kernel of the
+    block, attention included, runs again in the backward."""
+    if policy is None or policy == "none":
+        return fn
+    if policy == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 preserve_rng_state=False)
+    if policy in REMAT_POLICIES:
+        raise NotImplementedError(
+            f"remat policy {policy!r} (save the matmul outputs) is not ported"
+            " yet; it comes with slice 10 (ROADMAP queue 1)")
+    raise ValueError(f"unknown remat policy {policy!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -46,6 +72,26 @@ def unembed(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return x @ table.to(x.dtype).t()
 
 
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Cross-entropy in f32 with padded-vocab masking (columns >= vocab_size
+    get -1e30); labels == -1 are ignored.  Returns (loss, {"loss",
+    "tokens", "ppl_log"})."""
+    v_pad = logits.shape[-1]
+    logits = logits.float()
+    if v_pad > vocab_size:
+        col = torch.arange(v_pad, device=logits.device)
+        logits = logits + torch.where(col < vocab_size, 0.0, -1e30)
+    valid = labels >= 0
+    safe_labels = labels.clamp(min=0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, safe_labels[..., None])[..., 0]
+    nll = (logz - picked) * valid
+    n = valid.sum().clamp(min=1)
+    loss = nll.sum() / n
+    return loss, {"loss": loss, "tokens": n, "ppl_log": loss}
+
+
 # ---------------------------------------------------------------------------
 # Block bodies
 # ---------------------------------------------------------------------------
@@ -53,6 +99,17 @@ def _attn_kwargs(cfg: ArchConfig):
     return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                 head_dim=cfg.resolved_head_dim, rope_variant=cfg.rope_variant,
                 rope_theta=cfg.rope_theta)
+
+
+def dense_block(cfg: ArchConfig, p, x, positions, *, policy=None):
+    """One pre-norm block over a whole sequence: causal attention, then
+    SwiGLU."""
+    h = rms_norm(p["attn_norm"], x, cfg.norm_eps)
+    attn_out, _ = attention_layer(p["attn"], h, positions, policy=policy,
+                                  **_attn_kwargs(cfg))
+    x = x + attn_out
+    h = rms_norm(p["mlp_norm"], x, cfg.norm_eps)
+    return x + swiglu_mlp(p["mlp"], h, policy)
 
 
 def dense_block_decode(cfg: ArchConfig, p, x, position, cache_k, cache_v,
@@ -99,6 +156,20 @@ def _positions(cache: Cache, block_table) -> torch.Tensor:
     return cache["pool_pos" if block_table is not None else "full_pos"]
 
 
+def trunk_forward(cfg: ArchConfig, params, x, positions, *,
+                  remat: str = "none",
+                  policy: Optional[PrecisionPolicy] = None):
+    """All blocks over a whole sequence, then the final norm; each block
+    rematerialized under ``remat``.  (Collecting a prefill cache comes with
+    one-shot prefill, slice 7.)"""
+    _check_uniform_dense(cfg)
+    block = _maybe_remat(functools.partial(dense_block, cfg, policy=policy),
+                         remat)
+    for p in params["blocks"].unstack():
+        x = block(p, x, positions)
+    return rms_norm(params["final_norm"], x, cfg.norm_eps)
+
+
 def trunk_decode(cfg: ArchConfig, params, x, position, cache: Cache, *,
                  write_full, policy: Optional[PrecisionPolicy] = None,
                  kv_len: Optional[torch.Tensor] = None,
@@ -133,8 +204,43 @@ def trunk_prefill_chunk(cfg: ArchConfig, params, x, positions,
 
 
 # ---------------------------------------------------------------------------
+# Positions
+# ---------------------------------------------------------------------------
+def default_positions(batch: int, seq: int, device=None) -> torch.Tensor:
+    """(batch, seq) int32 positions 0..seq-1 (rope; M-RoPE comes with the
+    VLM slice)."""
+    pos = torch.arange(seq, dtype=torch.int32, device=device)
+    return pos[None, :].expand(batch, seq)
+
+
+# ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
+def forward_train(cfg: ArchConfig, params, inputs: Dict[str, torch.Tensor],
+                  *, remat: str = "full",
+                  policy: Optional[PrecisionPolicy] = None):
+    """inputs: tokens (B, S) int, labels (B, S) int (−1 ignored), tensors
+    on the weights' device.  Returns ``lm_loss``'s (loss, metrics); the
+    loss is differentiable in the weights.
+
+    Only the default positions 0..S-1 are taken: the attention kernel masks
+    by index, which equals the reference's position masks only there.
+    Batches that bring ``positions`` or ``embeddings`` (packed sequences,
+    the VLM frontend) raise."""
+    for key in ("positions", "embeddings"):
+        if key in inputs:
+            raise NotImplementedError(
+                f"forward_train with inputs[{key!r}] is not ported yet; it"
+                " comes with slice 9 (the VLM/M-RoPE frontend)")
+    tokens = inputs["tokens"]
+    b, s = tokens.shape
+    x = embed_tokens(params, tokens, cfg)
+    positions = default_positions(b, s, tokens.device)
+    x = trunk_forward(cfg, params, x, positions, remat=remat, policy=policy)
+    logits = unembed(params, x, cfg)
+    return lm_loss(logits, inputs["labels"], cfg.vocab_size)
+
+
 def forward_decode(cfg: ArchConfig, params, cache: Cache,
                    token: torch.Tensor, position: torch.Tensor,
                    write_idx: Optional[torch.Tensor] = None,

@@ -178,13 +178,14 @@ def release_slot(big_cache: Cache, slot: int) -> Cache:
 # ---------------------------------------------------------------------------
 def paged_cache_keys(cfg: ArchConfig) -> Tuple[str, ...]:
     """Cache keys that live in the paged pool: the full-attention K/V
-    leaves, ``k`` and ``v`` of the uniform dense decoder.  The ring and
-    SSM families of the JAX package come with port slice 5."""
+    leaves, ``k`` and ``v`` of the uniform dense decoder.  The SSM, ring
+    and hybrid families of the JAX package come with port slices 5
+    (mamba1) and 8 (the sliding-window ring, hybrid)."""
     kind = layer_pattern(cfg)["kind"]
     if kind != "uniform_dense":
         raise NotImplementedError(
             f"{cfg.name}: paged cache of layer pattern {kind!r} comes with"
-            " port slice 5")
+            " port slice 5 (mamba1) or 8 (ring, hybrid)")
     return ("k", "v")
 
 

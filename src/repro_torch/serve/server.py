@@ -26,7 +26,7 @@ kernels read only the live prefix of every slot.
 
 Prompts that cannot fit a slot's capacity are rejected at ``submit``;
 nothing is silently truncated.  The AOT decode artifact of the JAX
-package (``use_artifact``) comes with port slice 7.
+package (``use_artifact``) comes with port slice 9.
 """
 from __future__ import annotations
 
@@ -114,7 +114,7 @@ def _no_artifact(use_artifact: bool) -> None:
     if use_artifact:
         raise NotImplementedError(
             "use_artifact=True: the AOT decode artifact comes with port"
-            " slice 7")
+            " slice 9")
 
 
 class _ServerBase:

@@ -213,7 +213,7 @@ def test_paged_rejects_what_jax_rejects(setup):
     with pytest.raises(ValueError, match="prefill_chunk"):
         PagedBatchServer(tcfg, tp, max_prompt=20, prefill_chunk=24,
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(NotImplementedError, match="slice 9"):
         PagedBatchServer(tcfg, tp, use_artifact=True, device="cpu")
     srv = PagedBatchServer(tcfg, tp, slots=2, max_prompt=20, prefill_chunk=4,
                            max_new_tokens=4, block_size=8, pool_blocks=2,

@@ -158,7 +158,7 @@ def test_unported_options_raise(setup):
     _, tcfg, _, tp = setup
     with pytest.raises(NotImplementedError, match="artifact"):
         ContinuousBatchServer(tcfg, tp, use_artifact=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="slice 6"):
         ContinuousBatchServer(
             tcfg, tp, device="cpu",
             precision=tq.PrecisionPolicy(weights="int8",
