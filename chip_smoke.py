@@ -10,7 +10,7 @@ Phases, each a hard failure (non-zero exit, no result line):
    and ptxas' register/shared-memory report.
 2. Hold each kernel against its plain PyTorch version on the card at the
    shapes of the path that runs it (serving internlm2-1.8b: Hkv 8, G 2,
-   D 128; the KWS Impulse):
+   D 128; the KWS Impulse; training; serving falcon-mamba-7b):
    - both attention kernels on the float contiguous cache: decode with 4
      slots at kv_len {0, 1, 37, S}, chunk prefill of C = 64 with 20 pad
      rows, at S = 576 and S = 555;
@@ -34,19 +34,28 @@ Phases, each a hard failure (non-zero exit, no result line):
      causal), a ragged S of 1,000, ``causal=False``, a window of 256 and
      D 64: the output, and dQ/dK/dV against autograd through the plain
      version in f32 from the same inputs.
+   - ``mamba_scan`` (the mamba1 layer's selective scan, N 16) at a prefill
+     chunk (B 1, S 64, D 8192, bf16, with a carried-in state), a decode
+     step (B 4, S 1, with a state), a long one-shot scan (B 1, S 2048,
+     from zeros), a ragged shape (B 2, S 37, D 200) and f32 inputs: y and
+     the final state within ``MAMBA_TOL`` of the plain version's largest
+     magnitude; and a ragged tail with dt = 0, whose final state and real
+     outputs must equal **bitwise** the kernel's on the real prefix alone.
    Attention tolerance, elementwise against the plain version computed in
    f32 from the same inputs (int8 dequantized and rounded as the kernel
    rounds): in bf16, the output's own rounding (2^-8 of its size) plus
    1e-5; in f32, 1e-5.  Gradients: the same rounding term plus
-   ``FA_GRAD_ATOL`` of the gradient's largest value.  Each kernel's and layout's median time over 30
-   launches (L2 flushed before each, as the serving path finds it), the
-   plain version's, the byte/operation bound and a library yardstick's
-   time: ``F.scaled_dot_product_attention`` on dense bf16 K/V prepared
-   beforehand (dequantized, gathered; for the training kernels the KV
-   heads repeated, the backward through autograd), ``torch._int_mm``
-   (the int32 product alone, M padded to 32, the least it takes) for the
-   int8 matmul, the rfft chain ``torch.fft.rfft`` -> |.|^2 -> mel -> log
-   for the mel frontend.  The port never calls any of them.
+   ``FA_GRAD_ATOL`` of the gradient's median magnitude.  Each kernel's and
+   layout's median time over 30 launches (L2 flushed before each, as the
+   serving path finds it), the plain version's, the byte/operation bound
+   and a library yardstick's time: ``F.scaled_dot_product_attention`` on
+   dense bf16 K/V prepared beforehand (dequantized, gathered; for the
+   training kernels the KV heads repeated, the backward through
+   autograd), ``torch._int_mm`` (the int32 product alone, M padded to 32,
+   the least it takes) for the int8 matmul, the rfft chain
+   ``torch.fft.rfft`` -> |.|^2 -> mel -> log for the mel frontend; no
+   PyTorch call computes a selective scan, so ``mamba_scan`` has none.
+   The port never calls any of them.
 3. Serve eight requests through ``ContinuousBatchServer`` at the full
    width of internlm2-1.8b (24 layers, d_model 2048, 16/8 heads, d_ff 8192,
    vocab 92544 padded to 94208), bf16, random weights from a seeded
@@ -98,27 +107,46 @@ Phases, each a hard failure (non-zero exit, no result line):
 7. Full-width training of internlm2-1.8b: f32 masters, bf16 activations,
    ``make_train_step`` with remat "full" and AdamW (lr 3e-4) through
    ``Trainer`` for 8 steps of batch 4 x seq 2048 from the Markov token
-   stream, checkpointing to a temporary directory.  Every step's loss must
-   be finite, and the loss of the first step's batch, scored by
-   ``forward_train`` before the first step and after the last, must fall
-   (each step's own loss is on a fresh batch: over 8 steps of this stream
-   it moves less than from batch to batch, so it is printed, not held);
-   each attention kernel's launches must equal what the path implies (24
-   forward + 24 recomputed forward + 24 backward a step).
+   stream over its first 4,096 ids, checkpointing to a temporary
+   directory.  Every step's loss must be finite, and three losses must
+   fall: the loss by step (the last step's below the first's), the first
+   step's batch and a held-out batch from the stream's tail (never trained
+   on), both scored by ``forward_train`` before the first step and after
+   the last; each attention kernel's launches must equal what the path
+   implies (24 forward + 24 recomputed forward + 24 backward a step).
    Step ms (median of steps 3 to 8), tokens/s, MFU, peak device memory,
    then a profile (one step outside the timed range, the mean of two
    steps inside it): the attention kernels' share of the device time
    and the idle share.  A small float32 config trained 3 steps on the card
    and on the CPU from the same weights must agree (``TRAIN_TOL``).
+8. Full-width mamba1 serving: falcon-mamba-7b (64 layers, d_model 4096,
+   d_inner 8192, state 16, dt_rank 256, vocab 65024 padded to 65536,
+   7,276,859,392 parameters), bf16, random weights from a seeded generator
+   on the card, through ``ContinuousBatchServer`` as in phase 3 (4 slots,
+   chunk 64, 32 new tokens, eight prompts of 9 to 512 tokens).  Every
+   request must return 32 tokens in the padded vocabulary, and
+   ``mamba_scan`` must launch exactly 64 x (chunk steps + decode steps).
+   Then, as in phase 3 over four seeds, chunk, ragged-chunk and
+   decode steps through the kernel and through the plain scan on copies
+   of the same state: every layer's scan within ``MAMBA_TOL`` of the
+   plain version on its own inputs, the logits within
+   ``MAMBA_LOGIT_ATOL``, greedy tokens equal on at least
+   ``MAMBA_GREEDY_EQUAL_MIN`` of the rows.  The exact oracle: the small
+   float32 smoke config served on the card gives the CPU plain path's
+   tokens through ``ContinuousBatchServer`` and ``PagedBatchServer``.
+   Last, a profile of decode and chunk steps (host wall, device busy, idle
+   share, kernels per step, the scan's share) and tokens/s, TTFT and the
+   state's bytes.
 
-Each main path (phases 3, 5, 6 and 7) runs with every launch count set to 0
-just before it and read just after.  Prints the kernels' JSON line, the card's
+Each main path (phases 3, 5, 6, 7 and 8) runs with every launch count set
+to 0 just before it and read just after.  Prints the kernels' JSON line, the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.  Needs
 one GPU; exits non-zero without one, or without the rest of the
 repository beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -142,7 +170,8 @@ REPLACES = {"flash_decode": "src/repro/kernels/flash_decode.py:147",
             "int8_matmul": "src/repro/kernels/int8_matmul.py:45",
             "mel_frontend": "src/repro/kernels/mel_frontend.py:34",
             "flash_attention": "src/repro/kernels/flash_attention.py:83",
-            "flash_attention_bwd": "src/repro/kernels/flash_attention.py:83"}
+            "flash_attention_bwd": "src/repro/kernels/flash_attention.py:83",
+            "mamba_scan": "src/repro/kernels/mamba_scan.py:49"}
 SOURCES = {"flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
            "flash_chunk_prefill":
                "src/repro_torch/kernels/csrc/flash_decode.cu",
@@ -151,7 +180,8 @@ SOURCES = {"flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
            "flash_attention":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
            "flash_attention_bwd":
-               "src/repro_torch/kernels/csrc/flash_attention.cu"}
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "mamba_scan": "src/repro_torch/kernels/csrc/mamba_scan.cu"}
 HKV, G, D = 8, 2, 128
 DEV = "cuda"
 # A bf16 output may differ from the f32 plain value by its own rounding,
@@ -212,6 +242,28 @@ TRAIN_TOKENS, TRAIN_STREAM_VOCAB = 100_000, 4096
 # to a power of two; PERF.md gives the readings.
 TRAIN_TOL = {"loss_rtol": 2.0 ** -22, "grad_norm_rtol": 2.0 ** -21,
              "param_atol": 2.0 ** -14}
+# The selective scan against its plain version in f32 on the same inputs:
+# the largest |kernel - plain| of y and of the final state, each over that
+# output's largest magnitude (exp and the sum over the state round in
+# another order).  Twice the largest reading on the H100 (4.74e-7, a layer
+# of phase 8, whose decays near 1 keep a long memory), rounded up to a
+# power of two; PERF.md gives the readings.
+MAMBA_TOL = 2.0 ** -20
+# name: (B, S, D, N, dtype, carried-in state)
+MAMBA_CASES = {"chunk_b1_s64": (1, 64, 8192, 16, torch.bfloat16, True),
+               "decode_b4_s1": (4, 1, 8192, 16, torch.bfloat16, True),
+               "oneshot_b1_s2048": (1, 2048, 8192, 16, torch.bfloat16, False),
+               "ragged_b2_s37_d200": (2, 37, 200, 16, torch.bfloat16, True),
+               "f32_b2_s64": (2, 64, 8192, 16, torch.float32, True)}
+MAMBA_TIMED = ("chunk_b1_s64", "decode_b4_s1", "oneshot_b1_s2048")
+MAMBA_LIBRARY = "none: no single PyTorch call computes a selective scan"
+# falcon-mamba's logits, the scan through the kernel against the plain
+# scan on copies of the same state: twice the largest of 16 readings on
+# the H100 (0.2812), rounded up to a power of two; greedy tokens equal on
+# 96.1% of the rows there, so at least 90% is required.  64 bf16 layers
+# carry single-ulp differences of the scan's f32 output onward.
+MAMBA_LOGIT_ATOL = 1.0
+MAMBA_GREEDY_EQUAL_MIN = 0.9
 
 
 def fail(msg: str) -> None:
@@ -808,17 +860,99 @@ def check_flash_attention(port):
     return rows
 
 
+def scan_inputs(gen, b, s, d, n, dtype, with_h0):
+    """The JAX kernel test's distributions, drawn on the card: x, B, C ~
+    N(0, 0.5), dt = softplus(N(0, 0.5)), a = -exp(N(0, 0.3)), h0 ~ N(0, 1)
+    or None."""
+    def normal(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=DEV) * scale
+    x, bm, cm = (normal(*shape, scale=0.5).to(dtype)
+                 for shape in ((b, s, d), (b, s, n), (b, s, n)))
+    dt = F.softplus(normal(b, s, d, scale=0.5)).to(dtype)
+    a = -torch.exp(normal(d, n, scale=0.3))
+    h0 = normal(b, d, n) if with_h0 else None
+    return x, dt, bm, cm, a, h0
+
+
+def scan_bound_ms(b, s, d, n, dtype, with_h0) -> tuple:
+    """Least time for one scan: x, dt, B and C read once in their dtype, A
+    and h0 once, y and h_final written once in f32; 7 f32 operations a
+    (t, d, n) and 1 a (t, d)."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (es * 2 * b * s * (d + n) + 4 * d * n
+              + 4 * b * d * n * (2 if with_h0 else 1) + 4 * b * s * d)
+    ops = 7 * b * s * d * n + b * s * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[torch.float32] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_mamba_scan(port):
+    """``mamba_scan`` against its plain version at ``MAMBA_CASES``, within
+    ``MAMBA_TOL`` of each output's largest magnitude, and the dt = 0 pad
+    tail bitwise; returns the timed rows by case."""
+    ops, ref = port.ops, port.ref
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    rows = {}
+    for name, (b, s, d, n, dtype, with_h0) in MAMBA_CASES.items():
+        args = scan_inputs(gen, b, s, d, n, dtype, with_h0)
+        y, h = ops.mamba_scan(*args)
+        torch.cuda.synchronize()
+        want_y, want_h = ref.mamba_scan_ref(*args)
+        reading = scan_reading(y, h, want_y, want_h)
+        err = max(float((y - want_y).abs().max()),
+                  float((h - want_h).abs().max()))
+        print(f"  mamba_scan {name:20s}: reading {reading:.3g} of the"
+              f" largest magnitude (limit {MAMBA_TOL:.3g}), max|err| {err:.3g}")
+        check(y.shape == (b, s, d) and h.shape == (b, d, n)
+              and bool(y.isfinite().all()) and bool(h.isfinite().all()),
+              f"mamba_scan {name}: shapes {tuple(y.shape)} {tuple(h.shape)}"
+              " or non-finite")
+        check(reading <= MAMBA_TOL, f"mamba_scan disagrees with its plain"
+              f" version at {name}: {reading} > {MAMBA_TOL}")
+        if name not in MAMBA_TIMED:
+            continue
+        ms = time_ms(lambda: ops.mamba_scan(*args))
+        # the plain version launches about nine kernels a step: few
+        # repeats, so that they are queued behind the spin kernel (at S
+        # 2048 one call alone outlasts it, and the host's launch rate is
+        # timed)
+        plain_ms = time_ms(lambda: ref.mamba_scan_ref(*args),
+                           reps=max(1, min(30, 192 // s)), warmup=1)
+        b_ms, b_by = scan_bound_ms(b, s, d, n, dtype, with_h0)
+        rows[name] = {"max_abs_err": err, "reading": reading, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": None, "library": MAMBA_LIBRARY}
+        print(f"  mamba_scan {name:20s} kernel {ms:.5f} ms  plain"
+              f" {plain_ms:.4f} ms  bound {b_ms:.6f} ms ({b_by})")
+    # a ragged chunk's pad tail (dt = 0) against the real prefix alone
+    x, dt, bm, cm, a, h0 = scan_inputs(gen, 2, 64, 8192, 16, torch.bfloat16,
+                                       True)
+    real = 37
+    masked = dt.clone()
+    masked[:, real:] = 0
+    y, h = ops.mamba_scan(x, masked, bm, cm, a, h0)
+    y_cut, h_cut = ops.mamba_scan(*(t[:, :real] for t in (x, dt, bm, cm)),
+                                  a, h0)
+    torch.cuda.synchronize()
+    same = torch.equal(h, h_cut) and torch.equal(y[:, :real], y_cut)
+    print(f"  mamba_scan pad tail (dt = 0 past {real} of 64): final state and"
+          f" real outputs bitwise equal to the real prefix's {same}")
+    check(same, "mamba_scan: a dt = 0 pad tail changed the state")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: full-width serving
 # ---------------------------------------------------------------------------
 def reset_counts(port) -> None:
-    for mod in (port.fd, port.im, port.mf, port.fa):
+    for mod in (port.fd, port.im, port.mf, port.fa, port.ms):
         mod.reset_launches()
 
 
 def read_counts(port) -> dict:
     return {**port.fd.LAUNCHES, **port.im.LAUNCHES, **port.mf.LAUNCHES,
-            **port.fa.LAUNCHES}
+            **port.fa.LAUNCHES, **port.ms.LAUNCHES}
 
 
 def full_config(port):
@@ -859,10 +993,9 @@ def serve_full(port, cfg):
         check(len(r.tokens) == 32, f"request {r.rid}: {len(r.tokens)} tokens")
         check(all(0 <= t < vpad for t in r.tokens),
               f"request {r.rid}: token out of [0, {vpad})")
-    want = {"flash_decode": cfg.n_layers * metrics["decode_steps"],
-            "flash_chunk_prefill": cfg.n_layers * metrics["prefill_chunks"],
-            "int8_matmul": 0, "mel_frontend": 0, "flash_attention": 0,
-            "flash_attention_bwd": 0}
+    want = {name: 0 for name in launches}
+    want.update(flash_decode=cfg.n_layers * metrics["decode_steps"],
+                flash_chunk_prefill=cfg.n_layers * metrics["prefill_chunks"])
     check(launches == want, f"launches {launches} != layers x steps {want}")
     print(f"  launches {launches} = 24 x (decode steps, chunk steps)")
     print("  metrics " + json.dumps(metrics))
@@ -974,7 +1107,7 @@ class Steps:
     def chunk(self, cache, slot, toks, poss, kvl):
         if self.paged:
             return self._chunk(self.params, cache, toks, poss, kvl,
-                               self.table[slot:slot + 1])
+                               self.table[slot:slot + 1], slot)
         return self._chunk(self.params, cache, toks, poss, slot, kvl)
 
     def decode(self, cache, tok, pos, kvl):
@@ -1012,40 +1145,86 @@ def checked(kern, ref, kind, worst, name):
     return call
 
 
-def logits_vs_plain(port, cfg, params, atol, greedy_min, policy=None,
-                    paged=False, seeds=(1, 2, 3, 4)):
+def attention_paths(port) -> SimpleNamespace:
+    """The serving path's attention through the kernels (each call held
+    against the plain version at the kernel tolerance, the worst ratio to
+    the limit in ``wiring``), through the plain attention ``rounded_once``
+    with the plain int8 matmul, and the same in float64: each a list of
+    patches."""
+    layers, ops, ref = port.layers, port.ops, port.ref
+    wiring = {}
+    plain_matmul = mock.patch.object(ops, "int8_matmul",
+                                     ref.int8_matmul_ref)
+    return SimpleNamespace(
+        kernel=[mock.patch.multiple(
+            layers,
+            decode_attention=checked(ops.decode_attention, ref, "decode",
+                                     wiring, "flash_decode"),
+            chunk_attention=checked(ops.chunk_attention, ref, "chunk",
+                                    wiring, "flash_chunk_prefill"))],
+        plain=[mock.patch.multiple(
+            layers, decode_attention=rounded_once(ref, "decode"),
+            chunk_attention=rounded_once(ref, "chunk")), plain_matmul],
+        plain64=[mock.patch.multiple(
+            layers,
+            decode_attention=rounded_once(ref, "decode", torch.float64),
+            chunk_attention=rounded_once(ref, "chunk", torch.float64)),
+            plain_matmul],
+        wiring=wiring, kernels={"flash_decode", "flash_chunk_prefill"})
+
+
+def scan_reading(y, h, want_y, want_h) -> float:
+    """The larger of y's and the final state's largest |kernel - plain|,
+    each over that output's largest magnitude."""
+    return max(float((y - want_y).abs().max() / want_y.abs().max()),
+               float((h - want_h).abs().max() / want_h.abs().max()))
+
+
+def scan_paths(port) -> SimpleNamespace:
+    """The mamba1 layers' scan through the kernel (each call held against
+    the plain version on the same inputs, the worst ratio to ``MAMBA_TOL``
+    in ``wiring``) and through the plain scan; there is no float64 path."""
+    ops, ref = port.ops, port.ref
+    kern, wiring = ops.mamba_scan, {}
+
+    def checked_scan(*args):
+        y, h = kern(*args)
+        ratio = scan_reading(y, h, *ref.mamba_scan_ref(*args)) / MAMBA_TOL
+        wiring["mamba_scan"] = max(wiring.get("mamba_scan", 0.0), ratio)
+        return y, h
+    return SimpleNamespace(
+        kernel=[mock.patch.object(ops, "mamba_scan", checked_scan)],
+        plain=[mock.patch.object(ops, "mamba_scan", ref.mamba_scan_ref)],
+        plain64=None, wiring=wiring, kernels={"mamba_scan"})
+
+
+def patched(patches) -> contextlib.ExitStack:
+    stack = contextlib.ExitStack()
+    for patch in patches:
+        stack.enter_context(patch)
+    return stack
+
+
+def logits_vs_plain(port, cfg, params, atol, greedy_min, paths,
+                    policy=None, paged=False, seeds=(1, 2, 3, 4)):
     """Serving steps through the kernels against the same steps through
-    the plain path (attention ``rounded_once``, the plain int8 matmul) on
-    a copy of the same cache.
+    the plain path (``attention_paths``: attention ``rounded_once`` and
+    the plain int8 matmul; ``scan_paths``: the plain scan) on a copy of
+    the same cache.
 
     For each seed: slots 1 and 3 are filled with 1..5 chunks, then a full
     chunk step (slot 1), a ragged chunk step (slot 3, 1..63 real rows) and
     two decode steps (slots 1 and 3 live, 0 and 2 idle) are compared on
-    their live rows.  Inside the kernel runs every attention call of every
+    their live rows.  Inside the kernel runs every kernel call of every
     layer is also held against the plain version on its own inputs, at
-    the kernel tolerance: that check sees each layer's cache slice, rows
-    and positions without the 24 layers' amplification of rounding.  The
-    logits must agree at ``atol``, and the greedy tokens on at least
-    ``greedy_min`` of the compared rows.  The same steps through the plain
-    path with its attention in float64 (rounded once) give the noise
-    floor of both measures: what a difference of summation order alone
-    does to the logits."""
-    layers, ops, ref = port.layers, port.ops, port.ref
-    wiring = {}
-    kernel_path = mock.patch.multiple(
-        layers,
-        decode_attention=checked(ops.decode_attention, ref, "decode",
-                                 wiring, "flash_decode"),
-        chunk_attention=checked(ops.chunk_attention, ref, "chunk", wiring,
-                                "flash_chunk_prefill"))
-    plain_path = mock.patch.multiple(
-        layers, decode_attention=rounded_once(ref, "decode"),
-        chunk_attention=rounded_once(ref, "chunk"))
-    plain64_path = mock.patch.multiple(
-        layers, decode_attention=rounded_once(ref, "decode", torch.float64),
-        chunk_attention=rounded_once(ref, "chunk", torch.float64))
-    plain_matmul = mock.patch.object(ops, "int8_matmul",
-                                     ref.int8_matmul_ref)
+    the kernel tolerance: that check sees each layer's inputs without the
+    layers' amplification of rounding.  The logits must agree at
+    ``atol``, and the greedy tokens on at least ``greedy_min`` of the
+    compared rows.  Where the paths have one, the same steps through the
+    plain path in float64 (attention rounded once) give the noise floor of
+    both measures: what a difference of summation order alone does to the
+    logits."""
+    wiring = paths.wiring
 
     def ints(a):
         return torch.as_tensor(np.asarray(a, np.int32), device=DEV)
@@ -1076,7 +1255,7 @@ def logits_vs_plain(port, cfg, params, atol, greedy_min, policy=None,
                 fill[i] += 1
             return lambda c: steps.decode(c, tok, pos, kvl)[1][live]
 
-        with kernel_path:
+        with patched(paths.kernel):
             for slot in (1, 3):
                 for _ in range(rng.randint(1, 6)):
                     chunk_run(slot, 64)(cache)
@@ -1086,38 +1265,41 @@ def logits_vs_plain(port, cfg, params, atol, greedy_min, policy=None,
         for name, make in runs:
             run = make()
             copy, copy64 = Steps.copy(cache), Steps.copy(cache)
-            with kernel_path:
+            with patched(paths.kernel):
                 got = run(cache).float()
-            with plain_path, plain_matmul:
+            with patched(paths.plain):
                 want = run(copy).float()
-            with plain64_path, plain_matmul:
-                alt = run(copy64).float()
-            check(torch.equal(cache[steps.pos_key], copy[steps.pos_key]),
-                  f"{name}: stored positions differ")
+            if steps.pos_key in cache:
+                check(torch.equal(cache[steps.pos_key], copy[steps.pos_key]),
+                      f"{name}: stored positions differ")
             same = got.argmax(-1) == want.argmax(-1)
             readings.append(dict(
                 seed=seed, step=name, rows=int(got.shape[0]),
                 fill=[fill[1], fill[3]],
                 max_abs_gap=float((got - want).abs().max()),
-                logit_std=float(want.std()), argmax_equal=int(same.sum()),
-                f64_gap=float((alt - want).abs().max()),
-                f64_argmax_equal=int((alt.argmax(-1) == want.argmax(-1))
-                                     .sum())))
+                logit_std=float(want.std()), argmax_equal=int(same.sum())))
+            if paths.plain64 is not None:
+                with patched(paths.plain64):
+                    alt = run(copy64).float()
+                readings[-1].update(
+                    f64_gap=float((alt - want).abs().max()),
+                    f64_argmax_equal=int((alt.argmax(-1) == want.argmax(-1))
+                                         .sum()))
             print("  logits " + json.dumps(readings[-1]))
     worst_gap = max(r["max_abs_gap"] for r in readings)
     equal = sum(r["argmax_equal"] for r in readings)
     rows = sum(r["rows"] for r in readings)
     print(f"  serving logits: largest gap {worst_gap:.4g} over"
           f" {len(readings)} steps (atol {atol}); greedy tokens equal"
-          f" on {equal} of {rows} rows; every layer's attention within"
+          f" on {equal} of {rows} rows; every layer's kernel call within"
           f" {json.dumps(wiring)} of the kernel limit")
-    print(f"  noise floor, plain f32 vs plain f64 attention: largest gap"
-          f" {max(r['f64_gap'] for r in readings):.4g}, greedy tokens equal"
-          f" on {sum(r['f64_argmax_equal'] for r in readings)} of {rows}"
-          " rows")
-    check(set(wiring) == {"flash_decode", "flash_chunk_prefill"}
-          and max(wiring.values()) <= 1,
-          f"an attention call of the serving path disagrees with its plain"
+    if paths.plain64 is not None:
+        print(f"  noise floor, plain f32 vs plain f64 attention: largest gap"
+              f" {max(r['f64_gap'] for r in readings):.4g}, greedy tokens"
+              f" equal on {sum(r['f64_argmax_equal'] for r in readings)} of"
+              f" {rows} rows")
+    check(set(wiring) == paths.kernels and max(wiring.values()) <= 1,
+          f"a kernel call of the serving path disagrees with its plain"
           f" version: {wiring}")
     check(worst_gap <= atol, f"serving logits disagree: {worst_gap}")
     check(equal >= greedy_min * rows,
@@ -1201,13 +1383,14 @@ def profile_steps(port, cfg, params, policy=None, paged=False):
     for name, (step, n) in runs.items():
         step(0)[0].cpu()
         wall_ms, kernels, _ = trace_calls(lambda i: step(i)[0].cpu(), n)
-        fam = {"attention": 0.0, "int8_matmul": 0.0, "gemm": 0.0,
-               "other": 0.0}
+        fam = {"attention": 0.0, "int8_matmul": 0.0, "mamba_scan": 0.0,
+               "gemm": 0.0, "other": 0.0}
         by_name = {}
         for e in kernels:
             low = e["name"].lower()
             key = ("attention" if "attn_kernel" in low else
                    "int8_matmul" if "int8_mm_kernel" in low else
+                   "mamba_scan" if "mamba_scan_kernel" in low else
                    "gemm" if any(w in low for w in GEMM_NAMES) else "other")
             fam[key] += e["dur"] / 1e3 / n
             by_name[e["name"][:60]] = by_name.get(e["name"][:60], 0.0) \
@@ -1263,10 +1446,10 @@ def serve_int8_paged(port, cfg, params):
     check(metrics["preemptions"] >= 1, f"no preemption: {metrics}")
     check(metrics["prefix_hit_blocks"] >= 1, f"no prefix hit: {metrics}")
     steps = metrics["decode_steps"] + metrics["prefill_chunks"]
-    want = {"flash_decode": cfg.n_layers * metrics["decode_steps"],
-            "flash_chunk_prefill": cfg.n_layers * metrics["prefill_chunks"],
-            "int8_matmul": 7 * cfg.n_layers * steps, "mel_frontend": 0,
-            "flash_attention": 0, "flash_attention_bwd": 0}
+    want = {name: 0 for name in launches}
+    want.update(flash_decode=cfg.n_layers * metrics["decode_steps"],
+                flash_chunk_prefill=cfg.n_layers * metrics["prefill_chunks"],
+                int8_matmul=7 * cfg.n_layers * steps)
     check(launches == want, f"launches {launches} != step counts {want}")
     print(f"  launches {launches} = 24 x (decode steps, chunk steps),"
           f" 7 x 24 x all steps")
@@ -1390,9 +1573,8 @@ def kws_impulse(port, clips):
     labels8 = torch.cat(labels8).cpu()
     torch.cuda.synchronize()
     launches = read_counts(port)
-    want = {"flash_decode": 0, "flash_chunk_prefill": 0, "int8_matmul": 0,
-            "mel_frontend": feature_calls, "flash_attention": 0,
-            "flash_attention_bwd": 0}
+    want = {name: 0 for name in launches}
+    want.update(mel_frontend=feature_calls)
     check(launches == want, f"KWS launches {launches} != {want}")
     print(f"  launches {launches}: one mel_frontend per features call")
     check(labels.shape == (KWS_CLIPS,) and labels8.shape == (KWS_CLIPS,)
@@ -1595,6 +1777,89 @@ def train_small_vs_cpu(port):
     return read
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: full-width mamba1 serving
+# ---------------------------------------------------------------------------
+def mamba_config(port):
+    cfg = port.configs.get("falcon-mamba-7b")
+    check((cfg.n_layers, cfg.d_model, cfg.d_inner, cfg.ssm_state,
+           cfg.padded_vocab(), cfg.tie_embeddings)
+          == (64, 4096, 8192, 16, 65536, False), f"unexpected config {cfg}")
+    return cfg
+
+
+def serve_mamba_full(port, cfg):
+    """falcon-mamba-7b at full width through ``ContinuousBatchServer``, as
+    phase 3 serves internlm2: returns the weights, launches and metrics."""
+    t0 = time.perf_counter()
+    params = port.init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                              DEV)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"  weights: {n_params} params in {time.perf_counter() - t0:.1f} s")
+    check(n_params == 7_276_859_392, f"{n_params} parameters")
+    kw = dict(slots=4, prefill_chunk=64, max_new_tokens=32, max_prompt=512,
+              device=DEV)
+    warm = port.server.ContinuousBatchServer(cfg, params, **kw)
+    warm.submit([np.arange(9, dtype=np.int32)], max_new_tokens=2)
+    warm.run()
+    del warm
+
+    rng = np.random.RandomState(0)
+    lens = [9, 37, 64, 128, 200, 301, 450, 512]
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    srv = port.server.ContinuousBatchServer(cfg, params, **kw)
+    reqs = srv.submit(prompts)
+    reset_counts(port)
+    torch.cuda.synchronize()
+    metrics = srv.run()
+    torch.cuda.synchronize()
+    launches = read_counts(port)
+    vpad = cfg.padded_vocab()
+    for r in reqs:
+        check(len(r.tokens) == 32, f"request {r.rid}: {len(r.tokens)} tokens")
+        check(all(0 <= t < vpad for t in r.tokens),
+              f"request {r.rid}: token out of [0, {vpad})")
+    want = {name: 0 for name in launches}
+    want.update(mamba_scan=cfg.n_layers * (metrics["decode_steps"]
+                                           + metrics["prefill_chunks"]))
+    check(launches == want, f"launches {launches} != layers x steps {want}")
+    print(f"  launches {launches} = 64 x (decode steps + chunk steps)")
+    print("  metrics " + json.dumps(metrics))
+    return params, launches, metrics
+
+
+def serve_small_mamba_vs_cpu(port):
+    """The exact oracle for the mamba1 trunk: the float32 smoke config (2
+    layers, d_model 64, state 8) served through the kernel on the card
+    gives the CPU plain path's tokens, through ``ContinuousBatchServer``
+    and ``PagedBatchServer`` (blocks of 8), on the prompts and budgets of
+    the CPU parity tests."""
+    cfg = dataclasses.replace(port.configs.get_smoke("falcon-mamba-7b"),
+                              dtype="float32")
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 12, 9, 3, 16)]
+    budgets = [6, 4, 8, 5, 3]
+    host = port.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    common = dict(slots=2, max_prompt=16, prefill_chunk=4, max_new_tokens=8)
+    engines = {"continuous": (port.server.ContinuousBatchServer, {}),
+               "paged": (port.server.PagedBatchServer, dict(block_size=8))}
+    for name, (engine, kw) in engines.items():
+        tokens = {}
+        for dev in ("cpu", DEV):
+            srv = engine(cfg, host.to(dev), device=dev, **common, **kw)
+            reqs = srv.submit(prompts, max_new_tokens=budgets)
+            srv.run()
+            tokens[dev] = [r.tokens for r in reqs]
+        check(tokens[DEV] == tokens["cpu"],
+              f"small float32 mamba1 {name} serving: card {tokens[DEV]} !="
+              f" cpu {tokens['cpu']}")
+        print(f"  small float32 mamba1 {name} serving, card == cpu tokens:"
+              f" {tokens[DEV]}")
+
+
 def gpu_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                           "--format=csv,noheader"], capture_output=True,
@@ -1616,6 +1881,7 @@ def load_port():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import int8_matmul as im
+    from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import mel_frontend as mf
     from repro_torch.launch import train as launch_train
     from repro_torch.models import kws, layers
@@ -1625,6 +1891,7 @@ def load_port():
     from repro_torch.train.trainer import Trainer, TrainerConfig
     return SimpleNamespace(configs=configs, quantize=quantize, build=build,
                            ops=ops, ref=ref, fd=fd, im=im, mf=mf, fa=fa,
+                           ms=ms,
                            optimizer=optimizer, train_step=train_step,
                            launch_train=launch_train,
                            Trainer=Trainer, TrainerConfig=TrainerConfig,
@@ -1660,6 +1927,7 @@ def main() -> None:
     port.im._lib()
     port.mf._lib()
     port.fa._lib()
+    port.ms._lib()
     print(f"  build phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1672,11 +1940,13 @@ def main() -> None:
     mm_rows = check_int8_matmul(port.ops, port.ref)
     mel_rows = check_mel_frontend(port, clips)
     fa_rows = check_flash_attention(port)
+    scan_rows = check_mamba_scan(port)
 
     print("phase 3: full-width serving, internlm2-1.8b bf16")
     cfg = full_config(port)
     params, launches, metrics = serve_full(port, cfg)
-    logits_vs_plain(port, cfg, params, LOGIT_ATOL, GREEDY_EQUAL_MIN)
+    logits_vs_plain(port, cfg, params, LOGIT_ATOL, GREEDY_EQUAL_MIN,
+                    attention_paths(port))
     serve_small_vs_cpu(port)
     print("phase 4: where a step's time goes")
     profile_steps(port, cfg, params)
@@ -1688,7 +1958,7 @@ def main() -> None:
     srv, launches8, metrics8 = serve_int8_paged(port, cfg, params)
     int8 = port.quantize.INT8
     logits_vs_plain(port, cfg, srv.params, INT8_LOGIT_ATOL,
-                    INT8_GREEDY_EQUAL_MIN, int8, True)
+                    INT8_GREEDY_EQUAL_MIN, attention_paths(port), int8, True)
     serve_small_int8_vs_cpu(port)
     profile_steps(port, cfg, srv.params, int8, True)
     print(f"  int8 paged tokens_per_s {metrics8['tokens_per_s']:.2f}"
@@ -1722,12 +1992,32 @@ def main() -> None:
           f" share {train_prof['attention_share']:.3f}  idle share"
           f" {train_prof['idle_share']:.3f}  phase"
           f" {time.perf_counter() - t0:.1f} s")
+
+    print("phase 8: full-width mamba1 serving, falcon-mamba-7b bf16")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mcfg = mamba_config(port)
+    mparams, launches_ssm, metrics_ssm = serve_mamba_full(port, mcfg)
+    logits_vs_plain(port, mcfg, mparams, MAMBA_LOGIT_ATOL,
+                    MAMBA_GREEDY_EQUAL_MIN, scan_paths(port))
+    serve_small_mamba_vs_cpu(port)
+    ssm_prof = profile_steps(port, mcfg, mparams)
+    shares = {name: p["mamba_scan_ms"] / p["device_busy_ms"]
+              for name, p in ssm_prof.items()}
+    print(f"  mamba_scan share of device busy: {json.dumps(shares)}")
+    print(f"  tokens_per_s {metrics_ssm['tokens_per_s']:.2f}  ttft_p50_s"
+          f" {metrics_ssm['ttft_p50_s']:.4f}  ttft_p95_s"
+          f" {metrics_ssm['ttft_p95_s']:.4f}  state bytes"
+          f" {metrics_ssm['kv_cache_bytes']}  phase"
+          f" {time.perf_counter() - t0:.1f} s")
+    del mparams
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     by_path = {name: {"float_continuous": launches[name],
                       "int8_paged": launches8[name],
                       "kws_impulse": launches_kws[name],
-                      "lm_training": launches_train[name]}
+                      "lm_training": launches_train[name],
+                      "mamba1_serving": launches_ssm[name]}
                for name in REPLACES}
     kernels = []
     for name in ("flash_decode", "flash_chunk_prefill"):
@@ -1754,6 +2044,11 @@ def main() -> None:
             replaces=REPLACES[name], launches=launches_train[name],
             launches_by_path=by_path[name],
             **fa_rows[name]["train_b4_s2048"], shapes=fa_rows[name]))
+    kernels.append(dict(
+        name="mamba_scan", route="cuda", source=SOURCES["mamba_scan"],
+        replaces=REPLACES["mamba_scan"], launches=launches_ssm["mamba_scan"],
+        launches_by_path=by_path["mamba_scan"],
+        **scan_rows["chunk_b1_s64"], shapes=scan_rows))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

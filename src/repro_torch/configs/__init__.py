@@ -26,13 +26,12 @@ ALIASES: Dict[str, str] = {
     "qwen2-vl-72b": "qwen2_vl_72b",
 }
 
-PORTED = ("internlm2_1_8b",)
+PORTED = ("internlm2_1_8b", "falcon_mamba_7b")
 
 # the port slice (ROADMAP.md, queue 1) that brings each remaining module
 _LATER: Dict[str, str] = {
     "gemma3_4b": "slice 8 (sliding-window ring serving)",
     "zamba2_2_7b": "slice 8 (hybrid serving)",
-    "falcon_mamba_7b": "slice 5 (mamba1 serving with mamba_scan)",
 }
 
 

@@ -23,7 +23,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES: Dict[str, str] = {"flash_decode": "flash_decode.cu",
                            "int8_matmul": "int8_matmul.cu",
                            "mel_frontend": "mel_frontend.cu",
-                           "flash_attention": "flash_attention.cu"}
+                           "flash_attention": "flash_attention.cu",
+                           "mamba_scan": "mamba_scan.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

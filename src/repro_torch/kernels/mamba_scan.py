@@ -1,0 +1,101 @@
+"""The selective scan of the mamba1 layer: the wrapper of the hand-written
+CUDA kernel in ``csrc/mamba_scan.cu``.
+
+``mamba_scan`` replaces ``repro/kernels/mamba_scan.py:49``, and takes a
+carried-in state ``h0``, which the TPU kernel did not.  The wrapper checks
+device, dtypes, shapes and contiguity, allocates y and the final state,
+launches the kernel on PyTorch's current stream and counts the launch in
+``LAUNCHES``.  It takes CUDA tensors only: ``kernels/ops.py`` sends CPU
+tensors to ``kernels/ref.py::mamba_scan_ref``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import build
+
+# launches since the last reset (the caller resets)
+LAUNCHES = {"mamba_scan": 0}
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_STATE = 64            # the kernel's largest N (16 lanes x 4 elements)
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+             + [ctypes.c_void_p])
+
+
+def reset_launches() -> None:
+    LAUNCHES["mamba_scan"] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("mamba_scan")
+    if lib.mamba_scan.argtypes is None:
+        lib.mamba_scan.argtypes = _ARGTYPES
+        lib.mamba_scan.restype = ctypes.c_int
+    return lib
+
+
+def _check(x, dt, b_mat, c_mat, a, h0) -> Tuple[int, int, int, int]:
+    """Raise on anything the kernel does not take; returns (B, S, D, N)."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"CUDA kernel given a tensor on {dev}")
+    if x.dim() != 3 or b_mat.dim() != 3:
+        raise ValueError(f"x {tuple(x.shape)}, b_mat {tuple(b_mat.shape)}:"
+                         " expected (B, S, D) and (B, S, N)")
+    bsz, s, d = x.shape
+    n = b_mat.shape[-1]
+    shapes = {"dt": (dt, (bsz, s, d)), "b_mat": (b_mat, (bsz, s, n)),
+              "c_mat": (c_mat, (bsz, s, n)), "a": (a, (d, n))}
+    if h0 is not None:
+        shapes["h0"] = (h0, (bsz, d, n))
+    for name, (t, want) in shapes.items():
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} {tuple(t.shape)}: expected {want}")
+    if min(bsz, s, d, n) < 1 or n > MAX_STATE or bsz > 65535:
+        raise ValueError(f"(B, S, D, N) = {(bsz, s, d, n)}: the kernel takes"
+                         f" sizes >= 1, N <= {MAX_STATE}, B <= 65535")
+    if x.dtype not in _DTYPES or any(t.dtype != x.dtype
+                                     for t in (dt, b_mat, c_mat)):
+        raise TypeError(f"x/dt/b_mat/c_mat dtypes {x.dtype}/{dt.dtype}/"
+                        f"{b_mat.dtype}/{c_mat.dtype}: one of float32 or"
+                        " bfloat16")
+    named = {"x": x, "dt": dt, "b_mat": b_mat, "c_mat": c_mat, "a": a}
+    if h0 is not None:
+        named["h0"] = h0
+    for name, t in named.items():
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, x on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name in ("a", "h0"):
+        if name in named and named[name].dtype != torch.float32:
+            raise TypeError(f"{name} is {named[name].dtype}: expected"
+                            " float32")
+    return bsz, s, d, n
+
+
+def mamba_scan(x: torch.Tensor, dt: torch.Tensor, b_mat: torch.Tensor,
+               c_mat: torch.Tensor, a: torch.Tensor,
+               h0: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x/dt: (B, S, D), b_mat/c_mat: (B, S, N), one dtype (bf16 or f32);
+    a: (D, N) f32; h0: (B, D, N) f32 or None (zeros); all contiguous on one
+    CUDA device.  Returns (y (B, S, D) f32, h_final (B, D, N) f32), within
+    rounding of ``ref.mamba_scan_ref``."""
+    bsz, s, d, n = _check(x, dt, b_mat, c_mat, a, h0)
+    y = torch.empty((bsz, s, d), dtype=torch.float32, device=x.device)
+    h_final = torch.empty((bsz, d, n), dtype=torch.float32, device=x.device)
+    rc = _lib().mamba_scan(
+        _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), b_mat.data_ptr(),
+        c_mat.data_ptr(), a.data_ptr(), None if h0 is None else h0.data_ptr(),
+        y.data_ptr(), h_final.data_ptr(), bsz, s, d, n,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"mamba_scan kernel launch failed: CUDA error {rc}"
+                           f" (B, S, D, N = {bsz}, {s}, {d}, {n})")
+    LAUNCHES["mamba_scan"] += 1
+    return y, h_final

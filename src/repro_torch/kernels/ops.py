@@ -15,11 +15,12 @@ contiguous or paged (``block_table``).  ``mel_frontend`` is the DSP
 blocks' fused frontend.  ``flash_attention`` is the training path's
 whole-sequence attention, differentiable on either device: on the card
 through the forward and backward kernels (``FlashAttention``), on the CPU
-through autograd of the plain version.
+through autograd of the plain version.  ``mamba_scan`` is the selective
+scan of the mamba1 layers, from a carried-in state.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,6 +29,7 @@ from repro_torch.core.quantize import (Int8KV, PrecisionPolicy, QTensor,
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import int8_matmul as im
+from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import mel_frontend as mf
 from repro_torch.kernels import ref
 
@@ -195,3 +197,18 @@ def mel_frontend(frames: torch.Tensor, window: torch.Tensor,
     out = mf.mel_frontend(frames.reshape(-1, f, l), window, dft_cos, dft_sin,
                           mel_fb)
     return out.reshape(*lead, f, mel_fb.shape[1])
+
+
+def mamba_scan(x: torch.Tensor, dt: torch.Tensor, b_mat: torch.Tensor,
+               c_mat: torch.Tensor, a: torch.Tensor,
+               h0: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Selective scan: x/dt (B, S, D) and b_mat/c_mat (B, S, N) in the
+    activation dtype, a (D, N) f32, h0 (B, D, N) f32 or None (zeros) ->
+    (y (B, S, D) f32, h_final (B, D, N) f32).  ``dt == 0`` steps leave the
+    state exactly as it was."""
+    if not _on_card(x):
+        return ref.mamba_scan_ref(x, dt, b_mat, c_mat, a, h0)
+    return ms.mamba_scan(x.contiguous(), dt.contiguous(), b_mat.contiguous(),
+                         c_mat.contiguous(), a.float().contiguous(),
+                         None if h0 is None else h0.contiguous())

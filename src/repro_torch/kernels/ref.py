@@ -5,11 +5,12 @@ path of ``kernels/ops.py`` runs it, and ``chip_smoke.py`` holds each
 kernel against it on the card.  Semantics are those of
 ``repro.kernels.ref``: the int8 matmul, attention over the contiguous
 or paged KV cache in float or int8 (``Int8KV``) form, the mel
-frontend of the DSP blocks, and whole-sequence attention (training).
+frontend of the DSP blocks, whole-sequence attention (training), and the
+selective scan of the mamba1 layers.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -266,3 +267,33 @@ def mel_frontend_ref(frames: torch.Tensor, window: torch.Tensor,
     power = re * re + im * im
     mel = power @ mel_fb.float()
     return torch.log(torch.clamp(mel, min=LOG_FLOOR))
+
+
+# ---------------------------------------------------------------------------
+# selective scan (mamba1-style diagonal SSM)
+# ---------------------------------------------------------------------------
+def mamba_scan_ref(x: torch.Tensor, dt: torch.Tensor, b_mat: torch.Tensor,
+                   c_mat: torch.Tensor, a: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x/dt: (B, S, D); b_mat/c_mat: (B, S, N); a: (D, N), negative; h0:
+    (B, D, N) carried-in state (zeros when None).  A loop over time in
+    f32, the inputs widened first:
+
+        h[t] = exp(dt[t] * a) * h[t-1] + (dt[t] * x[t]) * b[t]
+        y[t] = sum_n h[t, :, n] * c[t, n]
+
+    Returns (y (B, S, D) f32, h_final (B, D, N) f32).  ``dt == 0`` leaves
+    the state exactly as it was (``exp(0) == 1``, input term 0)."""
+    bsz, s, d = x.shape
+    n = b_mat.shape[-1]
+    xf, dtf, bf, cf = (t.float() for t in (x, dt, b_mat, c_mat))
+    af = a.float()
+    h = (torch.zeros((bsz, d, n), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t, :, None] * af)
+        h = decay * h + (dtf[:, t] * xf[:, t])[:, :, None] * bf[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]))
+    return torch.stack(ys, dim=1), h

@@ -1,7 +1,9 @@
 """Model API: the entry points of a config's family.
 
 The counterpart of ``repro.models.api.ModelFns`` on the port's paths:
-training, decode and chunk prefill (one-shot prefill comes with slice 7).
+training, decode and chunk prefill (one-shot prefill comes with slice 7),
+for the dense decoder and (serving only) the mamba1 trunk of the ``ssm``
+family.
 """
 from __future__ import annotations
 

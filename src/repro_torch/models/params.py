@@ -3,7 +3,8 @@
 Every backbone weight is declared once as a ``ParamSpec`` (shape and
 initializer), in the layout of ``repro.models.params``: projection
 weights ``(d_in, d_out)`` applied as ``x @ w``, and per-layer leaves
-stacked along a leading ``(L, ...)`` axis.  ``init_params`` draws them
+stacked along a leading ``(L, ...)`` axis.  The uniform dense decoder and
+the uniform mamba1 trunk (falcon-mamba) are declared.  ``init_params`` draws them
 from a ``torch.Generator`` on the target device; ``params_from_numpy``
 carries a tree of numpy arrays (for example the JAX package's own
 ``init_params``) across leaf for leaf.
@@ -36,7 +37,7 @@ from repro_torch.core.tree import map_tree
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
-    init: str = "normal"          # normal | zeros
+    init: str = "normal"          # normal|zeros|ones|a_log|dt_bias|conv
     scale: float = 0.02
 
     def stack(self, n: int) -> "ParamSpec":
@@ -63,9 +64,32 @@ def mlp_specs(cfg: ArchConfig) -> SpecTree:
             "w_down": ParamSpec((f, d))}
 
 
+def mamba1_specs(cfg: ArchConfig) -> SpecTree:
+    d, di, ds, k = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.d_conv
+    dt_rank = max(d // 16, 1)
+    return {"in_proj": ParamSpec((d, 2 * di)),
+            "conv_w": ParamSpec((k, di), init="conv"),
+            "conv_b": ParamSpec((di,), init="zeros"),
+            "x_dt": ParamSpec((di, dt_rank)),
+            "dt_proj": ParamSpec((dt_rank, di), scale=0.1),
+            "dt_bias": ParamSpec((di,), init="dt_bias"),
+            "wb": ParamSpec((di, ds)), "wc": ParamSpec((di, ds)),
+            "a_log": ParamSpec((di, ds), init="a_log"),
+            "d_skip": ParamSpec((di,), init="ones"),
+            "out_proj": ParamSpec((di, d))}
+
+
 def dense_block_specs(cfg: ArchConfig) -> SpecTree:
     return {"attn_norm": _norm(cfg.d_model), "attn": attn_specs(cfg),
             "mlp_norm": _norm(cfg.d_model), "mlp": mlp_specs(cfg)}
+
+
+def mamba_block_specs(cfg: ArchConfig) -> SpecTree:
+    if cfg.ssm_variant != "mamba1":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.ssm_variant!r} layer is not ported yet;"
+            " mamba2 comes with slice 8 (hybrid serving)")
+    return {"norm": _norm(cfg.d_model), "mamba": mamba1_specs(cfg)}
 
 
 def _stack_tree(tree: SpecTree, n: int) -> SpecTree:
@@ -93,17 +117,22 @@ def layer_pattern(cfg: ArchConfig) -> Dict[str, int]:
     return {"kind": "uniform_dense", "n_layers": cfg.n_layers}
 
 
+_BLOCK_SPECS = {"uniform_dense": dense_block_specs,
+                "uniform_ssm": mamba_block_specs}
+
+
 def build_specs(cfg: ArchConfig) -> SpecTree:
     pat = layer_pattern(cfg)
-    if pat["kind"] != "uniform_dense" or cfg.is_encdec:
+    if pat["kind"] not in _BLOCK_SPECS or cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: layer pattern {pat['kind']!r} is not ported yet"
-            " (this slice ports the uniform dense decoder)")
+            " (the port has the uniform dense and uniform mamba1 trunks)")
     d, vpad = cfg.d_model, cfg.padded_vocab()
     specs: SpecTree = {"embed": ParamSpec((vpad, d)), "final_norm": _norm(d)}
     if not cfg.tie_embeddings:
         specs["unembed"] = ParamSpec((vpad, d))
-    specs["blocks"] = _stack_tree(dense_block_specs(cfg), pat["n_layers"])
+    specs["blocks"] = _stack_tree(_BLOCK_SPECS[pat["kind"]](cfg),
+                                  pat["n_layers"])
     return specs
 
 
@@ -200,40 +229,79 @@ class ParamTree(nn.Module):
         return out
 
 
-def _leaf_dtype(ndim: int, dtype: Optional[torch.dtype],
+# leaves the JAX package's mamba1 layer reads in float32 whatever the
+# activation dtype (``ssm.py:128``, ``:161``): they stay float32
+F32_LEAVES = ("a_log", "d_skip")
+
+
+def _leaf_dtype(name: str, ndim: int, dtype: Optional[torch.dtype],
                 default: torch.dtype) -> torch.dtype:
-    # 1-D leaves (norm scales) stay float32, as the JAX package's masters;
-    # matrices take the working dtype
-    return torch.float32 if ndim < 2 else (dtype or default)
+    # 1-D leaves (norm scales) and the SSM's dynamics stay float32, as the
+    # JAX package's masters; matrices take the working dtype
+    if ndim < 2 or name in F32_LEAVES:
+        return torch.float32
+    return dtype or default
+
+
+def _draw(spec: ParamSpec, generator: torch.Generator, device
+          ) -> torch.Tensor:
+    """One leaf in float32 by its initializer, as
+    ``repro.models.params._init_one`` draws it (from torch's generator)."""
+    shape = spec.shape
+    if spec.init == "zeros":
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    if spec.init == "ones":
+        return torch.ones(shape, dtype=torch.float32, device=device)
+    if spec.init == "a_log":
+        # A = -exp(a_log) = -(1..N) along the state axis (S4D-real)
+        base = torch.log(torch.arange(1, shape[-1] + 1, dtype=torch.float32,
+                                      device=device))
+        return base.expand(shape).contiguous()
+    if spec.init == "dt_bias":
+        # inverse softplus of dt, log-uniform in [1e-3, 0.1] (mamba init)
+        u = torch.empty(shape, dtype=torch.float32, device=device).uniform_(
+            float(np.log(1e-3)), float(np.log(0.1)), generator=generator)
+        dt = torch.exp(u)
+        return dt + torch.log(-torch.expm1(-dt))
+    if spec.init == "conv":
+        # the bound reads the leading axis, as the JAX package's does (the
+        # layer count, once the spec is stacked)
+        bound = shape[0] ** -0.5
+        return torch.empty(shape, dtype=torch.float32, device=device
+                           ).uniform_(-bound, bound, generator=generator)
+    x = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32)
+    return x.mul_(spec.scale)
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device: Union[str, torch.device, None] = None,
                 dtype: Optional[torch.dtype] = None,
                 trainable: bool = False) -> ParamTree:
-    """Random weights (scaled normal, norms zero) drawn from ``generator``
-    on ``device`` (``cuda`` unless named; the generator must live on the
-    same device).  Matrices are stored in ``dtype`` (default: the config's
-    activation dtype; float32 masters when ``trainable``, whose leaves then
-    take gradients).  torch's generator cannot reproduce ``jax.random``:
-    parity tests carry the JAX package's weights across with
-    ``params_from_numpy`` instead."""
+    """Random weights drawn from ``generator`` on ``device`` (``cuda``
+    unless named; the generator must live on the same device), each by its
+    spec's initializer: scaled normal, zeros (norms, biases), and the
+    mamba1 layer's ones (D skip), ``a_log``, ``dt_bias`` and ``conv``.
+    Matrices are stored in ``dtype`` (default: the config's activation
+    dtype; float32 masters when ``trainable``, whose leaves then take
+    gradients); 1-D leaves and ``F32_LEAVES`` in float32.  torch's
+    generator cannot reproduce ``jax.random``: parity tests carry the JAX
+    package's weights across with ``params_from_numpy`` instead."""
     device = resolve_device(device)
     if trainable:
         dtype = dtype or torch.float32
 
-    def draw(spec: ParamSpec) -> torch.Tensor:
-        dt = _leaf_dtype(len(spec.shape), dtype, cfg.activation_dtype)
-        if spec.init == "zeros":
-            return torch.zeros(spec.shape, dtype=dt, device=device)
-        x = torch.randn(spec.shape, generator=generator, device=device,
-                        dtype=torch.float32)
-        return x.mul_(spec.scale).to(dt)
-
     def build(tree: SpecTree) -> Dict[str, object]:
         # sorted keys: the leaf order of jax.tree.flatten
-        return {k: (build(tree[k]) if isinstance(tree[k], dict)
-                    else draw(tree[k])) for k in sorted(tree)}
+        out: Dict[str, object] = {}
+        for k in sorted(tree):
+            if isinstance(tree[k], dict):
+                out[k] = build(tree[k])
+                continue
+            spec = tree[k]
+            dt = _leaf_dtype(k, len(spec.shape), dtype, cfg.activation_dtype)
+            out[k] = _draw(spec, generator, device).to(dt)
+        return out
 
     return ParamTree(build(build_specs(cfg)), trainable)
 
@@ -245,7 +313,7 @@ def params_from_numpy(tree: Dict[str, object],
     """Carry a nested dict of numpy arrays across as a ``ParamTree`` on
     ``device`` (``cuda`` unless named).  Matrices go to ``dtype`` (default:
     kept as given; float32 masters when ``trainable``, whose leaves then
-    take gradients), 1-D leaves to float32.
+    take gradients), 1-D leaves and ``F32_LEAVES`` to float32.
 
     A quantized leaf (any object with ``q`` (..., K, N) int8 and ``scale``
     (..., N) arrays, such as the JAX package's ``QTensor`` mapped to
@@ -255,9 +323,9 @@ def params_from_numpy(tree: Dict[str, object],
     if trainable:
         dtype = dtype or torch.float32
 
-    def conv(x) -> object:
+    def conv(x, name: str = "") -> object:
         if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
+            return {k: conv(v, k) for k, v in x.items()}
         if hasattr(x, "q") and hasattr(x, "scale"):
             q = torch.from_numpy(np.array(x.q))
             if q.dtype != torch.int8:
@@ -266,8 +334,8 @@ def params_from_numpy(tree: Dict[str, object],
                 q.transpose(-1, -2).contiguous().to(device),
                 torch.from_numpy(np.array(x.scale, np.float32)).to(device))
         t = torch.from_numpy(np.array(x))
-        return t.to(device=device,
-                    dtype=_leaf_dtype(t.ndim, dtype, t.dtype)).contiguous()
+        return t.to(device=device, dtype=_leaf_dtype(
+            name, t.ndim, dtype, t.dtype)).contiguous()
 
     return ParamTree(conv(tree), trainable)
 

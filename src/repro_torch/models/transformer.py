@@ -1,21 +1,25 @@
 """Decoder-only backbone: the serving and training entry points of the
-dense trunk.
+dense trunk, and the serving entry points of the uniform mamba1 trunk.
 
 The PyTorch counterpart of ``repro.models.transformer`` on the port's
 paths: ``forward_prefill_chunk`` (one prompt chunk against a live slot
 cache), ``forward_decode`` (one token per slot) and ``forward_train``
-(the whole sequence and the LM loss, differentiable).  Depth is a Python
-loop over per-layer views of the stacked ``(L, ...)`` weights, where the
-JAX package scans; remat wraps each block in ``torch.utils.checkpoint``.
+(the whole sequence and the LM loss, differentiable; dense only).  Depth
+is a Python loop over per-layer views of the stacked ``(L, ...)``
+weights, where the JAX package scans; remat wraps each block in
+``torch.utils.checkpoint``.
 
-The cache is the dict ``{"k", "v": (L, B, S, Hkv, D), "full_pos": (B, S)
-int32}`` of ``serve/kvcache.py``, or its paged form ``{"k", "v": (L, NB,
-BS, Hkv, D), "pool_pos": (NB, BS)}`` addressed through a block table; K/V
-leaves are float tensors or ``Int8KV`` pairs.  Both entry points update
-it **in place** and return it: positions are stamped once before the
-trunk (every layer attends with them), and each layer writes its K/V
-rows.  ``policy`` (``core/quantize.py``) selects float, int8 or its
-fake-quant simulation, as in the JAX package.
+The dense cache is the dict ``{"k", "v": (L, B, S, Hkv, D), "full_pos":
+(B, S) int32}`` of ``serve/kvcache.py``, or its paged form ``{"k", "v":
+(L, NB, BS, Hkv, D), "pool_pos": (NB, BS)}`` addressed through a block
+table; K/V leaves are float tensors or ``Int8KV`` pairs.  The SSM cache is
+``{"ssm": SSMState(conv (L, B, d_conv-1, d_inner), h (L, B, d_inner,
+ssm_state) f32)}``, slot-addressed on every engine.  Both entry points
+update the cache **in place** and return it: positions, where the cache
+has them, are stamped once before the trunk (every layer attends with
+them), and each layer writes its K/V rows or its state.  ``policy``
+(``core/quantize.py``) selects float, int8 or its fake-quant simulation,
+as in the JAX package (the SSM family quantizes nothing).
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from repro_torch.models.layers import (attention_chunk_layer,
                                        attention_layer, rms_norm, swiglu_mlp,
                                        write_pages, write_rows)
 from repro_torch.models.params import layer_pattern
+from repro_torch.models.ssm import SSMState, mamba1_decode, mamba1_layer
 
 Cache = Dict[str, object]
 
@@ -136,11 +141,43 @@ def dense_block_chunk(cfg: ArchConfig, p, x, positions, cache_k, cache_v,
     return x + swiglu_mlp(p["mlp"], h, policy)
 
 
-def _check_uniform_dense(cfg: ArchConfig) -> None:
+def mamba_block_chunk(cfg: ArchConfig, p, x, state, mask, fill):
+    """One pre-norm mamba1 block over a chunk (or a whole prompt from
+    ``state=None``); returns (x, new_state)."""
+    h = rms_norm(p["norm"], x, cfg.norm_eps)
+    y, new_state = mamba1_layer(p["mamba"], h, cfg, state, mask=mask,
+                                fill=fill)
+    return x + y, new_state
+
+
+def mamba_block_decode(cfg: ArchConfig, p, x, state, active=None):
+    """One-token mamba1 block.  Rows with ``active == False`` (idle or
+    mid-prefill serving slots) keep their state: the returned state equals
+    ``state`` bit for bit there, so a decode step never advances the
+    recurrence of a row another phase owns."""
+    h = rms_norm(p["norm"], x, cfg.norm_eps)
+    y, new_state = mamba1_decode(p["mamba"], h, cfg, state)
+    if active is not None:
+        new_state = SSMState(*(
+            torch.where(active.reshape((-1,) + (1,) * (n.dim() - 1)), n, o)
+            for n, o in zip(new_state, state)))
+    return x + y, new_state
+
+
+def _pattern(cfg: ArchConfig) -> str:
+    """The layer pattern of a served trunk: uniform dense or uniform
+    mamba1."""
     kind = layer_pattern(cfg)["kind"]
-    if kind != "uniform_dense":
+    if kind not in ("uniform_dense", "uniform_ssm"):
         raise NotImplementedError(
             f"{cfg.name}: layer pattern {kind!r} is not ported yet")
+    return kind
+
+
+def _store_state(cache: Cache, i: int, state: SSMState) -> None:
+    """Write layer ``i``'s new (conv, h) into the SSM cache in place."""
+    for dst, src in zip(cache["ssm"], state):
+        dst[i].copy_(src)
 
 
 def _layer(leaf, i: int):
@@ -162,7 +199,10 @@ def trunk_forward(cfg: ArchConfig, params, x, positions, *,
     """All blocks over a whole sequence, then the final norm; each block
     rematerialized under ``remat``.  (Collecting a prefill cache comes with
     one-shot prefill, slice 7.)"""
-    _check_uniform_dense(cfg)
+    if _pattern(cfg) == "uniform_ssm":
+        raise NotImplementedError(
+            f"{cfg.name}: training the mamba1 trunk needs the scan's"
+            " gradient, which is not ported yet (ROADMAP, later work)")
     block = _maybe_remat(functools.partial(dense_block, cfg, policy=policy),
                          remat)
     for p in params["blocks"].unstack():
@@ -175,8 +215,15 @@ def trunk_decode(cfg: ArchConfig, params, x, position, cache: Cache, *,
                  kv_len: Optional[torch.Tensor] = None,
                  active: Optional[torch.Tensor] = None,
                  block_table: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One-token pass through all blocks, writing each layer's K/V row."""
-    _check_uniform_dense(cfg)
+    """One-token pass through all blocks, writing each layer's K/V row or
+    (SSM) its state, the latter only on ``active`` rows."""
+    if _pattern(cfg) == "uniform_ssm":
+        conv, h = cache["ssm"]
+        for i, p in enumerate(params["blocks"].unstack()):
+            x, st = mamba_block_decode(cfg, p, x, SSMState(conv[i], h[i]),
+                                       active=active)
+            _store_state(cache, i, st)
+        return rms_norm(params["final_norm"], x, cfg.norm_eps)
     pos = _positions(cache, block_table)
     for i, p in enumerate(params["blocks"].unstack()):
         x = dense_block_decode(cfg, p, x, position, _layer(cache["k"], i),
@@ -192,8 +239,18 @@ def trunk_prefill_chunk(cfg: ArchConfig, params, x, positions,
                         kv_len: Optional[torch.Tensor] = None,
                         block_table: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
-    """C-token pass through all blocks against the live slot cache."""
-    _check_uniform_dense(cfg)
+    """C-token pass through all blocks against the live slot cache.  An
+    SSM row carries its state through the chunk: the pad tail (position
+    −1) is masked out of the recurrence and the conv window."""
+    if _pattern(cfg) == "uniform_ssm":
+        mask = positions >= 0
+        fill = mask.sum(dim=1, dtype=torch.int32)
+        conv, h = cache["ssm"]
+        for i, p in enumerate(params["blocks"].unstack()):
+            x, st = mamba_block_chunk(cfg, p, x, SSMState(conv[i], h[i]),
+                                      mask, fill)
+            _store_state(cache, i, st)
+        return rms_norm(params["final_norm"], x, cfg.norm_eps)
     pos = _positions(cache, block_table)
     for i, p in enumerate(params["blocks"].unstack()):
         x = dense_block_chunk(cfg, p, x, positions, _layer(cache["k"], i),
@@ -253,18 +310,19 @@ def forward_decode(cfg: ArchConfig, params, cache: Cache,
     ``write_idx`` (B,) is the cache row to write into; it defaults to
     ``position`` (pad-free admission keeps index == position).
     ``kv_len`` (B,) bounds each row's live region by index; ``kv_len == 0``
-    marks an idle slot, which is neither read nor written.  ``None`` reads
-    and writes every row.  ``block_table`` (B, n) marks ``cache`` as
-    paged; ``kv_len`` is then required.  Returns (logits (B, V_pad),
-    cache) with the cache updated in place.
+    marks an idle slot, which is neither read nor written (an SSM row
+    keeps its state).  ``None`` reads and writes every row.
+    ``block_table`` (B, n) marks ``cache`` as paged; ``kv_len`` is then
+    required.  Returns (logits (B, V_pad), cache) with the cache updated
+    in place.
     """
     x = embed_tokens(params, token[:, None], cfg)
     write_full = position if write_idx is None else write_idx
     active = None if kv_len is None else kv_len > 0
-    if block_table is not None:
+    if "pool_pos" in cache:
         _write_pool_pos(cache["pool_pos"], position[:, None], write_full,
                         block_table, active)
-    else:
+    elif "full_pos" in cache:
         _write_pos(cache["full_pos"], position, write_full, active)
     x = trunk_decode(cfg, params, x, position, cache, write_full=write_full,
                      policy=policy, kv_len=kv_len, active=active,
@@ -315,10 +373,10 @@ def forward_prefill_chunk(cfg: ArchConfig, params, cache: Cache,
     """
     x = embed_tokens(params, tokens, cfg)
     write_full = positions[:, 0]
-    if block_table is not None:
+    if "pool_pos" in cache:
         _write_pool_pos(cache["pool_pos"], positions, write_full,
                         block_table)
-    else:
+    elif "full_pos" in cache:
         _write_pos_chunk(cache["full_pos"], positions, write_full)
     x = trunk_prefill_chunk(cfg, params, x, positions, cache,
                             write_full=write_full, policy=policy,

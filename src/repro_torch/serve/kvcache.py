@@ -2,13 +2,16 @@
 static engines are built on, and the **paged KV pool** (block table +
 ``BlockManager``) the paged engine is built on.
 
-The counterpart of ``repro.serve.kvcache`` for the uniform dense decoder:
+The counterpart of ``repro.serve.kvcache`` for the uniform dense decoder
+and the uniform mamba1 trunk:
 
 * ``kv_cache_bytes``      — footprint arithmetic.
 * ``alloc_decode_cache``  — zero-filled ``slots`` x ``capacity`` decode
                             cache, positions −1 (invalid), built directly
                             from the config's shapes; with an int8 policy
-                            the K/V leaves are ``Int8KV`` pairs.
+                            the K/V leaves are ``Int8KV`` pairs.  The SSM
+                            cache is one ``SSMState`` of (conv, h) with a
+                            slot axis and no positions.
 * ``take_slot`` / ``put_slot`` / ``release_slot`` — the slot API.  Where the
   JAX package slices and splices immutable arrays, ``take_slot`` returns
   **views** of one slot's row, so a chunk step run on them writes straight
@@ -43,11 +46,17 @@ from repro_torch.core.arch import ArchConfig
 from repro_torch.core.quantize import Int8KV, PrecisionPolicy
 from repro_torch.kernels.flash_decode import kv_block_size
 from repro_torch.models.params import layer_pattern
+from repro_torch.models.ssm import SSMState
 
 Cache = Dict[str, object]
 
-# slot (batch) axis of each leaf of the uniform dense decode cache
-SLOT_AXES = {"k": 1, "v": 1, "full_pos": 0}
+# slot (batch) axis of each leaf of a slot-addressed decode cache: the
+# uniform dense decoder's, or the uniform mamba1 trunk's (conv and h)
+SLOT_AXES = {"k": 1, "v": 1, "full_pos": 0, "ssm": 1}
+
+# the leaves that live in the paged pool, by layer pattern (the SSM state
+# is slot-addressed on every engine: nothing of that trunk is paged)
+_PAGED_KEYS = {"uniform_dense": ("k", "v"), "uniform_ssm": ()}
 
 
 def kv_cache_bytes(cfg: ArchConfig, batch: int, seq_len: int,
@@ -95,12 +104,13 @@ def kv_cache_bytes(cfg: ArchConfig, batch: int, seq_len: int,
 # ---------------------------------------------------------------------------
 # Slot-addressed decode cache (continuous and static batching)
 # ---------------------------------------------------------------------------
-def _check_uniform_dense(cfg: ArchConfig) -> None:
+def _pattern(cfg: ArchConfig) -> str:
     kind = layer_pattern(cfg)["kind"]
-    if kind != "uniform_dense":
+    if kind not in _PAGED_KEYS:
         raise NotImplementedError(
             f"{cfg.name}: decode cache of layer pattern {kind!r} is not"
             " ported yet")
+    return kind
 
 
 def _kv_leaf(shape, cfg: ArchConfig, device, policy) -> object:
@@ -120,9 +130,19 @@ def alloc_decode_cache(cfg: ArchConfig, slots: int, capacity: int,
     """All-empty decode cache on ``device`` (``cuda`` unless named): K/V
     zeros (L, slots, capacity, Hkv, D) in the activation dtype (``Int8KV``
     under a native int8 KV ``policy``), positions (slots, capacity) int32
-    at −1."""
-    _check_uniform_dense(cfg)
+    at −1.  The uniform mamba1 trunk's is ``{"ssm": SSMState(conv (L,
+    slots, d_conv − 1, d_inner) in the activation dtype, h (L, slots,
+    d_inner, ssm_state) f32)}``, zeros under every policy, independent of
+    ``capacity``."""
+    kind = _pattern(cfg)
     device = resolve_device(device)
+    if kind == "uniform_ssm":
+        lead = (cfg.n_layers, slots)
+        return {"ssm": SSMState(
+            torch.zeros(lead + (cfg.d_conv - 1, cfg.d_inner),
+                        dtype=cfg.activation_dtype, device=device),
+            torch.zeros(lead + (cfg.d_inner, cfg.ssm_state),
+                        dtype=torch.float32, device=device))}
     kv_shape = (cfg.n_layers, slots, capacity, cfg.n_kv_heads,
                 cfg.resolved_head_dim)
     return {
@@ -134,42 +154,53 @@ def alloc_decode_cache(cfg: ArchConfig, slots: int, capacity: int,
 
 
 def _tensors(leaf) -> Tuple[torch.Tensor, ...]:
-    return tuple(leaf) if isinstance(leaf, Int8KV) else (leaf,)
+    """The tensors of a leaf: itself, or the fields of an ``Int8KV`` or
+    ``SSMState``."""
+    return tuple(leaf) if isinstance(leaf, tuple) else (leaf,)
 
 
 def decode_cache_nbytes(cache: Cache) -> int:
-    """Device bytes of a decode cache: K/V values, Int8KV scales and
-    position leaves."""
+    """Device bytes of a decode cache: K/V values, Int8KV scales, SSM
+    state and position leaves."""
     return sum(t.numel() * t.element_size() for leaf in cache.values()
                for t in _tensors(leaf))
 
 
 def _row(leaf, axis: int, slot: int):
-    if isinstance(leaf, Int8KV):
-        return Int8KV(*(t.narrow(axis, slot, 1) for t in leaf))
+    if isinstance(leaf, tuple):
+        return type(leaf)(*(t.narrow(axis, slot, 1) for t in leaf))
     return leaf.narrow(axis, slot, 1)
 
 
-def take_slot(big_cache: Cache, slot: int) -> Cache:
+def take_slot(big_cache: Cache, slot: int, pooled: Sequence[str] = ()
+              ) -> Cache:
     """Slot ``slot``'s row of the big cache as a batch-1 cache of **views**:
-    writes to it land in the big cache."""
-    return {key: _row(t, SLOT_AXES[key], slot) for key, t in big_cache.items()}
+    writes to it land in the big cache.  Leaves named in ``pooled`` (a
+    paged cache's pool, shared by every slot) are passed whole."""
+    return {key: t if key in pooled else _row(t, SLOT_AXES[key], slot)
+            for key, t in big_cache.items()}
 
 
 def put_slot(big_cache: Cache, small_cache: Cache, slot: int) -> Cache:
-    """Copy a batch-1 cache into row ``slot``, in place.  Putting a fresh
-    ``alloc_decode_cache(cfg, 1, ...)`` resets the slot for admission."""
-    for key, leaf in big_cache.items():
-        rows = _tensors(_row(leaf, SLOT_AXES[key], slot))
-        for dst, src in zip(rows, _tensors(small_cache[key])):
+    """Copy each leaf of a batch-1 cache into row ``slot`` of the big
+    cache's leaf of that name, in place.  Putting a fresh
+    ``alloc_decode_cache(cfg, 1, ...)`` resets the slot for admission
+    (positions −1, SSM state zeroed)."""
+    for key, leaf in small_cache.items():
+        rows = _tensors(_row(big_cache[key], SLOT_AXES[key], slot))
+        for dst, src in zip(rows, _tensors(leaf)):
             dst.copy_(src)
     return big_cache
 
 
 def release_slot(big_cache: Cache, slot: int) -> Cache:
     """Invalidate a slot row in place: its positions become −1.  K/V bytes
-    stay; no position marks them, so they are never attended."""
-    big_cache["full_pos"][slot].fill_(-1)
+    and SSM state stay; no position marks the K/V, so they are never
+    attended, and admission resets the state.  The pool-addressed
+    ``pool_pos`` is not touched: paged reuse is fenced by ``kv_len``."""
+    for key, leaf in big_cache.items():
+        if key.endswith("_pos") and key != "pool_pos":
+            leaf[slot].fill_(-1)
     return big_cache
 
 
@@ -178,15 +209,15 @@ def release_slot(big_cache: Cache, slot: int) -> Cache:
 # ---------------------------------------------------------------------------
 def paged_cache_keys(cfg: ArchConfig) -> Tuple[str, ...]:
     """Cache keys that live in the paged pool: the full-attention K/V
-    leaves, ``k`` and ``v`` of the uniform dense decoder.  The SSM, ring
-    and hybrid families of the JAX package come with port slices 5
-    (mamba1) and 8 (the sliding-window ring, hybrid)."""
+    leaves, ``k`` and ``v`` of the uniform dense decoder, and nothing of
+    the pure mamba1 trunk, whose state is slot-addressed.  The ring and
+    hybrid families of the JAX package come with port slice 8."""
     kind = layer_pattern(cfg)["kind"]
-    if kind != "uniform_dense":
+    if kind not in _PAGED_KEYS:
         raise NotImplementedError(
             f"{cfg.name}: paged cache of layer pattern {kind!r} comes with"
-            " port slice 5 (mamba1) or 8 (ring, hybrid)")
-    return ("k", "v")
+            " port slice 8 (ring, hybrid)")
+    return _PAGED_KEYS[kind]
 
 
 def alloc_paged_cache(cfg: ArchConfig, slots: int, capacity: int,
@@ -197,14 +228,18 @@ def alloc_paged_cache(cfg: ArchConfig, slots: int, capacity: int,
     """All-empty paged decode cache: K/V pools (L, num_blocks, BS, Hkv, D)
     (``Int8KV`` under a native int8 KV policy) and a (num_blocks, BS)
     ``pool_pos`` pool at −1.  BS defaults to ``kv_block_size(capacity)``
-    and may be any divisor of ``capacity`` that is at least 8.  ``slots``
-    sizes nothing here (the uniform dense decoder has no slot-addressed
-    leaf); the block table is host state of the server."""
-    paged_cache_keys(cfg)
+    and may be any divisor of ``capacity`` that is at least 8.  The uniform
+    dense decoder has no slot-addressed leaf, so ``slots`` sizes nothing
+    there; the pure mamba1 trunk pages nothing, and its cache is the
+    ``slots``-row SSM state of ``alloc_decode_cache``.  The block table is
+    host state of the server."""
+    keys = paged_cache_keys(cfg)
     bs = block_size or kv_block_size(capacity)
     if capacity % bs or bs < 8:
         raise ValueError(f"block size {bs} must divide capacity {capacity}"
                          " and be >= 8")
+    if not keys:
+        return alloc_decode_cache(cfg, slots, capacity, device, policy)
     pool = alloc_decode_cache(cfg, num_blocks, bs, device, policy)
     return {"k": pool["k"], "v": pool["v"], "pool_pos": pool["full_pos"]}
 
@@ -223,7 +258,10 @@ def kv_pool_block_bytes(cfg: ArchConfig, capacity: int,
                         policy: Optional[PrecisionPolicy] = None,
                         block_size: Optional[int] = None) -> int:
     """Device bytes one physical KV block occupies across the pool leaves
-    (K/V values, Int8KV scales and its ``pool_pos`` row)."""
+    (K/V values, Int8KV scales and its ``pool_pos`` row); 0 where nothing
+    is paged."""
+    if not paged_cache_keys(cfg):
+        return 0
     bs = block_size or kv_block_size(capacity)
     return decode_cache_nbytes(abstract_paged_cache(cfg, 1, bs, 1, policy,
                                                     bs))

@@ -20,7 +20,7 @@ import torch
 from repro_torch.core.arch import ArchConfig
 from repro_torch.core.quantize import PrecisionPolicy
 from repro_torch.models.api import model_fns
-from repro_torch.serve.kvcache import take_slot
+from repro_torch.serve.kvcache import paged_cache_keys, take_slot
 
 
 def make_chunk_prefill_step(cfg: ArchConfig,
@@ -50,19 +50,21 @@ def make_chunk_prefill_step(cfg: ArchConfig,
 def make_paged_chunk_prefill_step(cfg: ArchConfig,
                                   policy: Optional[PrecisionPolicy] = None):
     """Chunk-prefill step over the paged cache: ``step(params, cache,
-    tokens, positions, kv_len, block_row) -> (next_tokens (1, C), logits,
-    cache)``.  The pool leaves are shared by every slot, so the chunk
-    addresses them through ``block_row``, the (1, n_blocks) block-table
-    row of the slot being prefilled; ``kv_len`` stays the logical
-    post-write fill ``p + C``."""
+    tokens, positions, kv_len, block_row, slot) -> (next_tokens (1, C),
+    logits, cache)``.  The pool leaves are shared by every slot, so the
+    chunk addresses them through ``block_row``, the (1, n_blocks)
+    block-table row of the slot being prefilled; ``kv_len`` stays the
+    logical post-write fill ``p + C``.  Slot-addressed leaves (the SSM
+    state) are taken as views of row ``slot``, as in the slot step."""
     fns = model_fns(cfg)
+    pooled = paged_cache_keys(cfg) + ("pool_pos",)
 
     @torch.no_grad()
     def paged_chunk_step(params, cache, tokens, positions, kv_len,
-                         block_row):
+                         block_row, slot: int):
         logits, _ = fns.forward_prefill_chunk(
-            cfg, params, cache, tokens, positions, policy=policy,
-            kv_len=kv_len, block_table=block_row)
+            cfg, params, take_slot(cache, slot, pooled), tokens, positions,
+            policy=policy, kv_len=kv_len, block_table=block_row)
         next_tokens = logits.argmax(dim=-1).to(torch.int32)
         return next_tokens, logits, cache
 

@@ -510,6 +510,12 @@ class PagedBatchServer(ContinuousBatchServer):
       front and re-prefilled over ``prompt ++ generated``
       (preempt-and-recompute; greedy decoding makes it token-exact).
 
+    The SSM state stays slot-addressed and is reset at admission: a pure
+    mamba1 trunk pages nothing, so there the engine is plain continuous
+    batching with the pool bookkeeping off (no blocks, no prefix sharing,
+    nothing to preempt for).  Prefix sharing needs every layer's state in
+    the pool, so only the uniform dense decoder shares.
+
     The other options are those of ``ContinuousBatchServer``.
     """
 
@@ -524,7 +530,8 @@ class PagedBatchServer(ContinuousBatchServer):
 
     def _init_steps(self) -> None:
         pool_blocks, block_size, prefix_cache = self._pool_opts
-        paged_cache_keys(self.cfg)       # raises for an unported family
+        # raises for an unported family; () for the pure mamba1 trunk
+        self.paged_keys = paged_cache_keys(self.cfg)
         self.block_size = int(block_size or kv_block_size(self.capacity))
         if self.capacity % self.block_size or self.block_size < 8:
             raise ValueError(
@@ -543,7 +550,8 @@ class PagedBatchServer(ContinuousBatchServer):
         if self.pool_blocks < 1:
             raise ValueError("pool_blocks must be >= 1")
         self.manager = BlockManager(self.pool_blocks, self.block_size,
-                                    prefix_cache=prefix_cache)
+                                    prefix_cache=prefix_cache
+                                    and bool(self.paged_keys))
         self._block_bytes = kv_pool_block_bytes(
             self.cfg, self.capacity, self.prec, self.block_size)
         self._chunk_step = make_paged_chunk_prefill_step(self.cfg, self.prec)
@@ -551,6 +559,11 @@ class PagedBatchServer(ContinuousBatchServer):
         self.cache = alloc_paged_cache(
             self.cfg, self.n_slots, self.capacity, self.pool_blocks,
             self.device, self.prec, self.block_size)
+        # pool leaves need no scrub, since a new tenant's writes precede
+        # its kv_len; the pure mamba1 trunk's slot-addressed state is reset
+        # at admission as in the contiguous engine
+        self._empty_row = {} if self.paged_keys else alloc_decode_cache(
+            self.cfg, 1, self.capacity, self.device, self.prec)
         self._cur = np.zeros((self.n_slots,), np.int32)
         # host mirror of the block table (0 = unmapped: always a valid
         # block id; dead entries are fenced by kv_len, not by the table)
@@ -599,45 +612,20 @@ class PagedBatchServer(ContinuousBatchServer):
             seq = (np.concatenate([req.prompt,
                                    np.asarray(req.tokens, np.int32)])
                    if req.tokens else req.prompt)
-            # a blocked head request is retried every scheduler
-            # iteration: skip the (hashing + LRU-touching) prefix match
-            # unless the pool or registry changed since it last failed
-            state = (req.rid, self.manager.free_blocks,
-                     self.manager.live_blocks, self.manager.registry_size())
-            if state == self._blocked_state:
-                return
-            shared = self.manager.match_prefix(seq)
-            start = len(shared) * self.block_size
-            # chunk-rounded prefill rows must fit the table; drop shared
-            # blocks if a misaligned chunk boundary overflows (dropped
-            # blocks are not used, so not hits)
-            while shared and (start + _chunk_rows(len(seq) - start,
-                                                  self.chunk)
-                              > self.capacity):
-                self.manager.unmatch(shared[-1:])
-                shared = shared[:-1]
-                start -= self.block_size
-            rows = start + _chunk_rows(len(seq) - start, self.chunk)
-            need = -(-rows // self.block_size) - len(shared)
-            if not self.manager.can_alloc(need):
-                # undo the match exactly (refcounts and accounting):
-                # nothing was admitted, so nothing is counted
-                self.manager.unmatch(shared, whole_query=True)
-                if all(s.free for s in self.sched.slots):
-                    # nothing running could ever free blocks: this
-                    # request is individually unservable
-                    raise PoolExhausted(
-                        f"request rid={req.rid} needs {need} KV blocks of"
-                        f" {self.block_size} but the pool holds only"
-                        f" {self.pool_blocks}")
-                self._blocked_state = state
-                return
-            self._prompt_blocks_seen += max(
-                (len(seq) - 1) // self.block_size, 0)
+            if self.paged_keys:
+                shared, need = self._match_and_reserve(req, seq)
+                if need is None:
+                    return
+            else:
+                # pure mamba1 trunk: no pooled leaves, no block accounting
+                shared, need = [], 0
             self._blocked_state = None
             slot = free[0]
             self.sched.waiting.popleft()
             blocks = shared + self.manager.alloc(need)
+            if self._empty_row:
+                put_slot(self.cache, self._empty_row, slot.index)
+            start = len(shared) * self.block_size
             slot.occupy(req.rid, seq, req.max_new_tokens)
             slot.blocks = blocks
             slot.chunk_pos = start          # prefill starts past the hit
@@ -645,10 +633,49 @@ class PagedBatchServer(ContinuousBatchServer):
             if req.admitted_step is None:
                 req.admitted_step = decode_steps
 
+    def _match_and_reserve(self, req, seq):
+        """The head request's prefix-cache hit and the blocks its prefill
+        needs beyond it: (shared blocks, blocks to allocate), or
+        (None, None) when the pool cannot cover it yet (it waits)."""
+        # a blocked head request is retried every scheduler iteration:
+        # skip the (hashing + LRU-touching) prefix match unless the pool
+        # or registry changed since it last failed
+        state = (req.rid, self.manager.free_blocks,
+                 self.manager.live_blocks, self.manager.registry_size())
+        if state == self._blocked_state:
+            return None, None
+        shared = self.manager.match_prefix(seq)
+        start = len(shared) * self.block_size
+        # chunk-rounded prefill rows must fit the table; drop shared
+        # blocks if a misaligned chunk boundary overflows (dropped blocks
+        # are not used, so not hits)
+        while shared and (start + _chunk_rows(len(seq) - start, self.chunk)
+                          > self.capacity):
+            self.manager.unmatch(shared[-1:])
+            shared = shared[:-1]
+            start -= self.block_size
+        rows = start + _chunk_rows(len(seq) - start, self.chunk)
+        need = -(-rows // self.block_size) - len(shared)
+        if not self.manager.can_alloc(need):
+            # undo the match exactly (refcounts and accounting): nothing
+            # was admitted, so nothing is counted
+            self.manager.unmatch(shared, whole_query=True)
+            if all(s.free for s in self.sched.slots):
+                # nothing running could ever free blocks: this request is
+                # individually unservable
+                raise PoolExhausted(
+                    f"request rid={req.rid} needs {need} KV blocks of"
+                    f" {self.block_size} but the pool holds only"
+                    f" {self.pool_blocks}")
+            self._blocked_state = state
+            return None, None
+        self._prompt_blocks_seen += max((len(seq) - 1) // self.block_size, 0)
+        return shared, need
+
     def _chunk_call(self, slot, toks, poss, kvl):
         row = self._tensor(self.block_table[slot.index:slot.index + 1])
         return self._chunk_step(self.params, self.cache, toks, poss, kvl,
-                                row)
+                                row, slot.index)
 
     def _register_prefill(self, slot, prompt) -> None:
         """Publish the fully written prompt blocks to the prefix cache."""
@@ -662,6 +689,8 @@ class PagedBatchServer(ContinuousBatchServer):
         in, preempting the youngest occupied slot (LIFO) whenever the pool
         runs dry.  Oldest slots grow first, so under pressure service
         order degenerates gracefully to FCFS."""
+        if not self.paged_keys:
+            return active                   # pure mamba1: nothing paged
         for s in sorted(active, key=lambda x: x.rid):
             while not s.free and s.position // self.block_size \
                     >= len(s.blocks):
