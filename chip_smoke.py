@@ -30,10 +30,11 @@ Phases, each a hard failure (non-zero exit, no result line):
      129 bins; L 512, 257 bins), and silence (exactly log(1e-6)):
      elementwise within ``MEL_ATOL`` of the plain version.
    - ``flash_attention`` and ``flash_attention_bwd`` (the training path,
-     bf16) at the training shape (B 4, S 2048, Hq 16, Hkv 8, D 128,
-     causal), a ragged S of 1,000, ``causal=False``, a window of 256 and
-     D 64: the output, and dQ/dK/dV against autograd through the plain
-     version in f32 from the same inputs.
+     bf16, on the tensor cores) at the training shape (B 4, S 2048, Hq 16,
+     Hkv 8, D 128, causal), a ragged S of 1,000, ``causal=False``, a
+     window of 256 and D 64: the output, and dQ/dK/dV against autograd
+     through the plain version in f32 from the same inputs; each time
+     also as a share of its bound and a factor over SDPA.
    - ``mamba_scan`` (the mamba1 layer's selective scan, N 16) at a prefill
      chunk (B 1, S 64, D 8192, bf16, with a carried-in state), a decode
      step (B 4, S 1, with a state), a long one-shot scan (B 1, S 2048,
@@ -116,9 +117,10 @@ Phases, each a hard failure (non-zero exit, no result line):
    implies (24 forward + 24 recomputed forward + 24 backward a step).
    Step ms (median of steps 3 to 8), tokens/s, MFU, peak device memory,
    then a profile (one step outside the timed range, the mean of two
-   steps inside it): the attention kernels' share of the device time
-   and the idle share.  A small float32 config trained 3 steps on the card
-   and on the CPU from the same weights must agree (``TRAIN_TOL``).
+   steps inside it): the attention kernels' share of the device time,
+   each one's ms a step, and the idle share.  A small float32 config
+   trained 3 steps on the card and on the CPU from the same weights must
+   agree (``TRAIN_TOL``).
 8. Full-width mamba1 serving: falcon-mamba-7b (64 layers, d_model 4096,
    d_inner 8192, state 16, dt_rank 256, vocab 65024 padded to 65536,
    7,276,859,392 parameters), bf16, random weights from a seeded generator
@@ -225,9 +227,12 @@ FA_CASES = {"train_b4_s2048": (4, 2048, 16, 8, 128, True, 0),
             "full_s2048": (4, 2048, 16, 8, 128, False, 0),
             "window256_s2048": (4, 2048, 16, 8, 128, True, 256),
             "d64_s2048": (4, 2048, 16, 8, 64, True, 0)}
-FA_FAULT_CASE, FA_TILE_Q = "train_b4_s2048", 64   # the kernels' query tile
-FA_KERNELS = ("fa_fwd_kernel", "fa_rowdot_kernel", "fa_dkdv_kernel",
-              "fa_dq_kernel")
+# the query tile of the bf16 dK/dV pass (kTile in flash_attention.cu)
+FA_FAULT_CASE, FA_TILE_Q = "train_b4_s2048", 64
+# the kernels of the bf16 path (the f32 CUDA-core kernels are named
+# fa_fwd_kernel, fa_dkdv_kernel, fa_dq_kernel)
+FA_KERNELS = ("fa_fwd_wgmma_kernel", "fa_rowdot_kernel",
+              "fa_dkdv_wgmma_kernel", "fa_dq_wgmma_kernel")
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 4, 2048, 3e-4
 # The training stream: TRAIN_TOKENS tokens of the Markov stream over the
 # first TRAIN_STREAM_VOCAB ids (the model keeps its full vocabulary), so
@@ -851,7 +856,8 @@ def check_flash_attention(port):
                                  "bound_by": b_by, "library_ms": lib_ms}
             print(f"  {kname:19s} {name:16s} kernel {ms:.4f} ms  plain"
                   f" {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound"
-                  f" {b_ms:.5f} ms ({b_by})")
+                  f" {b_ms:.5f} ms ({b_by}): {b_ms / ms:.3f} of the"
+                  f" bound, {ms / lib_ms:.2f}x sdpa")
         del plain, lib, lib_f, lib_b
     worst = max(max(r.values()) for r in readings.values())
     print(f"  flash_attention_bwd readings (median values beyond the"
@@ -1719,9 +1725,15 @@ def train_full(port, cfg):
     attn_ms = sum(e["dur"] for e in attn) / 1e3 / 2
     check(busy > 0 and len(attn) > 0, f"the profile of a training step saw"
           f" {len(kernels)} kernels, {len(attn)} of attention")
+    attn_by_kernel = {}
+    for e in attn:
+        kname = next(n for n in FA_KERNELS if n in e["name"])
+        attn_by_kernel[kname] = attn_by_kernel.get(kname, 0.0) \
+            + e["dur"] / 1e3 / 2
     prof = dict(host_wall_ms=wall_ms, device_busy_ms=busy,
                 idle_share=1 - busy / wall_ms, attention_ms=attn_ms,
                 attention_share=attn_ms / busy,
+                attention_ms_by_kernel=attn_by_kernel,
                 attention_kernels_per_step=len(attn) / 2,
                 kernels_per_step=len(kernels) / 2,
                 copy_ms=sum(e["dur"] for e in copies) / 1e3 / 2)

@@ -13,41 +13,83 @@
 //   query head h reads KV head h / (Hq / Hkv) in place (GQA, no repeat copy).
 //   Query row i attends key j when
 //       j < S, (causal ? j <= i : true), (window > 0 ? j > i - window : true)
-//   (index masks: the caller's positions are 0..S-1).  Scores q * scale . k
-//   in f32 (scale = D^-1/2 applied to q, as the TPU kernel does), online
-//   softmax (m, l, acc) in f32, l floored at 1e-30, output in T.  The
-//   forward also writes each row's log-sum-exp lse = m + log(l) in f32
-//   (B, Hq, S), which the backward reads to rebuild P = exp(s - lse).
-//   Any S: the last tile of rows and of keys is masked (the TPU kernel
-//   asserts S % block == 0).
+//   (index masks: the caller's positions are 0..S-1).  Scores q . k * scale
+//   (scale = D^-1/2) in f32, online softmax (m, l, acc) in f32, l floored
+//   at 1e-30, output in T.  The forward also writes each row's log-sum-exp
+//   lse = m + log(l) in f32 (B, Hq, S), which the backward reads to rebuild
+//   P = exp(s - lse).  Any S: the last tile of rows and of keys is masked
+//   (the TPU kernel asserts S % block == 0).
 //
 // Backward, from (q, k, v, o, lse, dO):
 //   Dr = rowsum(dO * o)                 (f32, one warp per row)
-//   P  = exp(q*scale . k - lse),  dP = dO . v,  dS = P * (dP - Dr)
-//   dV = P^T dO,  dK = dS^T (q * scale),  dQ = scale * dS K
+//   P  = exp(q . k * scale - lse),  dP = dO . v,  dS = P * (dP - Dr)
+//   dV = P^T dO,  dK = scale * dS^T q,  dQ = scale * dS K
 // in three kernels: the row sums; one pass per KV tile that loops over the
 // G query heads sharing the tile and over their query tiles, so dK/dV sum
 // the group in registers without atomics; one pass per query tile for dQ.
-// Accumulation in f32; dQ, dK, dV written in T.
-//
-// Design (simple first): 128 threads a block; tiles of q/k/v/dO rows are
-// staged in shared memory as f32 rows of D + 4 words (conflict-free float4
-// reads of neighbouring rows); score tiles are register-blocked FMA dot
-// products (8 rows x 4 keys a thread in the forward), and the P.V / P^T.dO
-// products are register-blocked outer products over the tile (8 rows x D/16
-// columns a thread).  The online-softmax row max is a shuffle over the 16
-// lanes that share a row.  A loop inside the block walks the key tiles (the
-// TPU's sequential grid axis); tiles above the diagonal or wholly outside
-// the window are skipped, as the TPU kernel skips them.  Loads are
-// synchronous (no overlap of a tile's load with the previous one's compute).
+// Accumulation in f32; dQ, dK, dV written in T.  The launcher dispatches on
+// the type: bf16 goes to the tensor-core kernels, f32 to the CUDA-core
+// kernels, and nothing else is taken.
 //
 // Bound on the H100: operations.  A causal forward at the training shape
-// (B 4, S 2048, Hq 16, D 128) does 4 * B * Hq * S^2 * D / 2 = 69 GFLOP
-// (0.07 ms at 989 TFLOP/s bf16) against 50 MB of bytes (0.015 ms at
-// 3.35 TB/s); the backward does 2.5 times the forward's operations.  This
-// kernel runs on the CUDA cores in f32 (67 TFLOP/s at best), so it cannot
-// come near the bf16 bound: mma.sync/wgmma tiles, TMA loads and a pipelined
-// K/V ring are the work of a later PR.
+// (B 4, S 2048, Hq 16, D 128) does 4 * B * Hq * D * S (S + 1) / 2 = 68.75
+// GFLOP, 0.0695 ms at 989 TFLOP/s bf16, against 50 MB of bytes (0.015 ms
+// at 3.35 TB/s); the backward does 2.5 times the forward's operations,
+// 0.174 ms.
+//
+// bf16: the tensor-core kernels (fa_*_wgmma_kernel).  One warpgroup (128
+// threads) a block, tiles of 64 query rows and 64 keys.  What holds a
+// CUDA-core design back, and what this one does about it:
+//   1. Products on the tensor cores: every product is a wgmma (sm_90a),
+//      f32 accumulation.  S = Q K^T (and S^T = K Q^T, dP = dO V^T, dP^T =
+//      V dO^T) reads both operands from shared memory, K-major, m64n64k16;
+//      `scale` multiplies the f32 sum afterwards (D^-1/2 is no power of
+//      two, so q * scale in bf16 would round).  P V, P^T dO, dS^T q and
+//      dS K take P (or dS) from registers as the A operand -- the f32
+//      accumulator of the score product is laid out as wgmma's A fragment
+//      -- and the other tile from shared memory, MN-major (read
+//      transposed), m64n64k16 on one 64-column block of D at a time.
+//      Rounding P or dS once to bf16 would compute a less exact function
+//      (an error of about 2^-9 of the output's scale, beyond the 2^-8-of-
+//      each-element limit the checks hold), so each is split exactly,
+//      x = hi + lo with both in bf16 (x to 16 significant bits), and both
+//      parts are issued into the same f32 accumulator: 1.5 times the
+//      forward's tensor work, 10/6 times the backward's.
+//   2. Tiles staged in bf16, as loaded: 64 rows x D in D / 64 column blocks
+//      of 128-byte rows, 16-byte chunks swizzled (chunk c of row r at
+//      c ^ (r % 8)), wgmma's 128-byte swizzle.  Shared memory at D 128:
+//      forward 82,944 bytes (Q and two K/V stages), dK/dV pass 100,352, dQ
+//      pass 99,328: two blocks (eight warps) an SM.
+//   3. Asynchronous loads: cp.async with zero-fill past S, into a ring of
+//      two stages: the forward and the dQ pass stream K/V tiles, the dK/dV
+//      pass keeps its K/V tile and streams (Q, dO, lse, Dr); the next
+//      tile's load is issued before the current tile's products.  cp.async
+//      and not TMA: the swizzle is written by hand, and no tensor map or
+//      driver entry point is needed.  A fence.proxy.async makes the copies
+//      visible to wgmma's reads.
+//   Key tiles wholly above the diagonal or outside the window are skipped;
+//   only tiles that hold a masked pair (diagonal, window edge, ragged tail)
+//   evaluate the mask.  The grid puts the tile index on its slowest axis
+//   and starts with the longest causal rows (the forward and dQ pass with
+//   the last query tile, the dK/dV pass with the first key tile).
+//   Each second product is summed on the tensor cores one tile (64 rows
+//   of T) at a time and added to its accumulator in f32 on the CUDA cores
+//   (gemm_split_add): one wgmma accumulator carried along a whole causal
+//   row drifted beyond the limit.
+//   ptxas (-Xptxas -v, CUDA 12.9, sm_90a), registers at D 128 / D 64, and
+//   the dynamic shared memory: fa_fwd_wgmma_kernel 217 / 168, no spills,
+//   82,944 / 41,984 bytes; fa_dkdv_wgmma_kernel 255 with 68 bytes of spill
+//   stores and loads / 224, no spills, 100,352 / 51,200 bytes;
+//   fa_dq_wgmma_kernel 197 / 141, no spills, 99,328 / 50,176 bytes;
+//   fa_rowdot_kernel 24.
+//
+// f32: the CUDA-core kernels (fa_fwd_kernel, fa_dkdv_kernel, fa_dq_kernel),
+// the design of the first port, kept for f32 alone: tensor cores would
+// mean TF32, which the f32 card-against-CPU training check cannot take.
+// 128 threads a block; tiles of q/k/v/dO rows staged in shared memory as
+// f32 rows of D + 4 words; score tiles are register-blocked FMA dot
+// products, P.V and P^T.dO register-blocked outer products; synchronous
+// loads.  q is multiplied by scale in f32 as it is staged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,13 +110,8 @@ template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
 }
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
-// 16 bytes of T as f32: 4 floats, or 8 bf16 (bf16 -> f32 is exact: the
-// bf16 bits are the high half of the f32)
+// 16 bytes of T as f32 (the CUDA-core kernels take f32 alone)
 template <typename T> struct Vec;
 template <> struct Vec<float> {
   static constexpr int N = 4;
@@ -83,17 +120,6 @@ template <> struct Vec<float> {
     f[1] = __uint_as_float(r.y);
     f[2] = __uint_as_float(r.z);
     f[3] = __uint_as_float(r.w);
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void unpack(const uint4& r, float* f) {
-    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
   }
 };
 
@@ -152,7 +178,7 @@ __device__ __forceinline__ bool key_ok(int kp, int qp, int S, int causal,
 }
 
 // ---------------------------------------------------------------------------
-// Forward: grid (query tiles, Hq, B).  Thread (ty, tx) owns query rows
+// f32 forward: grid (query tiles, Hq, B).  Thread (ty, tx) owns query rows
 // ty*8 .. ty*8+7 of the tile; in the score phase keys tx + 16 j of the key
 // tile, in the P.V phase output columns cg*64 + tx*4 .. +3.
 // ---------------------------------------------------------------------------
@@ -298,8 +324,8 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Backward 1: Dr[b, h, i] = sum_d dO[b, i, h, d] * o[b, i, h, d], one warp
-// per (b, i, h) row in memory order.
+// Backward 1, either type: Dr[b, h, i] = sum_d dO[b, i, h, d] * o[b, i, h,
+// d], one warp per (b, i, h) row in memory order.
 // ---------------------------------------------------------------------------
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -323,7 +349,7 @@ fa_rowdot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 }
 
 // ---------------------------------------------------------------------------
-// Backward 2: dK, dV.  Grid (key tiles of BKV, Hkv, B).  For each of the G
+// f32 backward 2: dK, dV.  Grid (key tiles of BKV, Hkv, B).  For each of the G
 // query heads of the KV head and each live query tile of 64 rows: the
 // transposed scores and dP^T (thread (ty, tx): keys ty*4 .. +3, rows tx + 16
 // j), then dV += P^T dO and dK += dS^T (q * scale) as outer products over
@@ -489,9 +515,9 @@ fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Backward 3: dQ.  Grid (query tiles, Hq, B).  Thread (ty, tx): rows ty*8 ..
-// +7; in the score phase keys tx + 16 j of the key tile, in the dS.K phase
-// columns cg*64 + tx*4 .. +3.
+// f32 backward 3: dQ.  Grid (query tiles, Hq, B).  Thread (ty, tx): rows
+// ty*8 .. +7; in the score phase keys tx + 16 j of the key tile, in the
+// dS.K phase columns cg*64 + tx*4 .. +3.
 // ---------------------------------------------------------------------------
 template <typename T, int D, int BK>
 __global__ void __launch_bounds__(kThreads)
@@ -624,22 +650,614 @@ fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 on the tensor cores: shared helpers
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+
+constexpr int kWG = 128;           // one warpgroup a block
+constexpr int kTile = 64;          // query rows and keys a tile
+constexpr uint32_t kAtom = 1024;   // 8 swizzled rows of 128 bytes
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// the first 1024-byte boundary of dynamic shared memory (swizzle atoms)
+__device__ __forceinline__ uint32_t smem_base(const void* p) {
+  return (smem_u32(p) + kAtom - 1) & ~(kAtom - 1);
+}
+
+// 16 bytes global -> shared, asynchronously; zeros when !valid (no read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 4 bytes, zeros when !valid
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// this thread's cp.async writes, visible to the async proxy wgmma reads by
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accesses of an accumulator across the
+// asynchronous products that write it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (given in bytes, encoded in 16-byte units)
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+// A 64-row tile as load_tile writes it, as a K-major operand (rows are M or
+// N, the D axis is K), at k-step kk (16 columns): within a column block the
+// step moves the start by 32 bytes, the swizzle is applied to the address
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
+  return gmma_desc(tile + (kk >> 2) * (kTile * 128) + (kk & 3) * 32, 16,
+                   kAtom);
+}
+// One 64-column block of the same tile as an MN-major B operand (rows are
+// K, the block's 64 columns are N, read transposed), at k-step kk (16
+// rows): groups of 8 rows are 1024 bytes apart (stride offset); the leading
+// offset, the distance to a next column block, is kTile * 128 bytes
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
+  return gmma_desc(tile + kk * 16 * 128, kTile * 128, kAtom);
+}
+
+// Rows [row0, row0 + kTile) of one head of a (B, S, H, D) bf16 tensor into
+// the swizzled tile at `dst` (1024-byte aligned): D / 64 column blocks of
+// kTile rows of 128 bytes; the 16-byte chunk c of row r sits at chunk
+// c ^ (r % 8), wgmma's 128-byte swizzle.  `src` points at (b, 0, h, 0);
+// rows are `rs` elements apart; rows >= S are zeros.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
+                                          long long rs, int row0, int S,
+                                          int tid) {
+  constexpr int CPR = D / 8;   // 16-byte chunks a row
+  static_assert((kTile * CPR) % kWG == 0, "tile / threads");
+#pragma unroll
+  for (int it = 0; it < kTile * CPR / kWG; ++it) {
+    const int i = tid + it * kWG;
+    const int r = i / CPR, c = i % CPR;
+    const bool ok = row0 + r < S;
+    cp_async16(dst + (c >> 3) * (kTile * 128) + r * 128 +
+                   (((c & 7) ^ (r & 7)) << 4),
+               src + (ok ? row0 + r : 0) * rs + c * 8, ok);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);   // a in the low half
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+// (a, b) = hi + lo, both bf16 pairs: hi = bf16(x), lo = bf16(x - hi)
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = pack_bf16(a - __low2float(h), b - __high2float(h));
+}
+
+// the wgmma shapes the kernels use
+// D[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, A and B K-major in shared
+// memory; scale_d 0 overwrites D
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A in registers, B MN-major in
+// shared memory (read transposed); scale_d 0 overwrites D
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// s (=) A . B^T over D, A and B two 64-row tiles (64 x 64 f32 result)
+template <int D>
+__device__ __forceinline__ void gemm_abt(float (&s)[32], uint32_t a,
+                                         uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss(s, desc_kmajor(a, kk), desc_kmajor(b, kk), kk > 0 ? 1 : 0);
+}
+
+// The wgmma A fragments of a 64 x 64 f32 accumulator x, split into bf16
+// hi + lo.  Thread (warp w, lane l) holds x[4 j + 2 i + e] at row 16 w +
+// l / 4 + 8 i, column 8 j + 2 (l % 4) + e; fragment register r of k-step
+// kk (columns 16 kk .. +15) is the pair x[8 kk + 2 r], x[8 kk + 2 r + 1].
+__device__ __forceinline__ void split_frags(const float (&x)[32],
+                                            uint32_t (&hi)[4][4],
+                                            uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1], hi[kk][r],
+                 lo[kk][r]);
+}
+
+// acc = acc * alpha(row) + X . T: X (64 x 64) as its split fragments, T a
+// 64-row tile (64 x D).  For each 64-column block of T the product is
+// summed on the tensor cores from zero, over these 64 rows of T alone, and
+// then added to acc on the CUDA cores in f32, rounded to nearest.  Carried
+// in one wgmma accumulator over every query row, the dK and dV rows of the
+// first keys of a causal sequence drifted: at B 4, S 2048, Hq 16, Hkv 8,
+// D 128 on the H100, dK read 1.12 of the gradient limit; a tile at a time,
+// 0.99 (the output's own rounding).
+template <int D>
+__device__ __forceinline__ void gemm_split_add(float (&acc)[D / 2],
+                                               const uint32_t (&hi)[4][4],
+                                               const uint32_t (&lo)[4][4],
+                                               uint32_t t, float alpha0,
+                                               float alpha1) {
+#pragma unroll
+  for (int cb = 0; cb < D / 64; ++cb) {
+    float part[32];   // overwritten by the first product (scale_d 0)
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t db = desc_mnmajor(t + cb * (kTile * 128), kk);
+      wgmma_rs(part, hi[kk], db, kk > 0 ? 1 : 0);
+      wgmma_rs(part, lo[kk], db, 1);
+    }
+    wg_commit();
+    wg_wait_all();
+    fence_regs(part);
+    // part[4 j + 2 i + e] is acc[32 cb + 4 j + 2 i + e]: row half i
+#pragma unroll
+    for (int x = 0; x < 32; ++x)
+      acc[32 * cb + x] =
+          fmaf(acc[32 * cb + x], (x & 2) ? alpha1 : alpha0, part[x]);
+  }
+}
+
+// true when some (row, key) pair of the two tiles is masked
+__device__ __forceinline__ bool tile_edge(int q0, int k0, int S, int causal,
+                                          int window) {
+  return q0 + kTile > S || k0 + kTile > S ||
+         (causal && k0 + kTile - 1 > q0) ||
+         (window > 0 && k0 <= q0 + kTile - 1 - window);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 forward: grid (Hq, B, query tiles), the last query tile first.
+// Thread (warp w, lane l) owns rows q0 + 16 w + l / 4 (+ 8) and, of each
+// 8-column block of S and of the output, columns 2 (l % 4) and + 1.
+// Shared memory: Q, then two stages of (K, V).
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(kWG, 2)
+fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ out,
+                    float* __restrict__ lse, int S, int Hq, int Hkv,
+                    int causal, int window, float scale_log2) {
+  constexpr uint32_t T = kTile * D * 2;   // bytes of a tile
+  extern __shared__ uint8_t smem[];
+  const uint32_t s_q = smem_base(smem);
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTile;
+  const int hk = h / (Hq / Hkv);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int row = q0 + (tid >> 5) * 16 + (lane >> 2);
+  const int c0 = (lane & 3) * 2;
+  const long long q_rs = (long long)Hq * D, k_rs = (long long)Hkv * D;
+  const long long q_base = (long long)b * S * q_rs + (long long)h * D;
+  const long long k_base = (long long)b * S * k_rs + (long long)hk * D;
+
+  // live key tiles: below the diagonal (causal), inside the window
+  const int k_hi = causal ? min(S, q0 + kTile) : S;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t_lo = k_lo / kTile, t_hi = (k_hi + kTile - 1) / kTile;
+
+  load_tile<D>(s_q, q + q_base, q_rs, q0, S, tid);
+  load_tile<D>(s_q + T, k + k_base, k_rs, t_lo * kTile, S, tid);
+  load_tile<D>(s_q + 2 * T, v + k_base, k_rs, t_lo * kTile, S, tid);
+  cp_async_commit();
+
+  float o[D / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const uint32_t s_k = s_q + T * (1 + 2 * ((t - t_lo) & 1)), s_v = s_k + T;
+    cp_async_wait_all();
+    fence_async_smem();
+    __syncthreads();   // tile t has landed; tile t - 1's stage is free
+    if (t + 1 < t_hi) {
+      const uint32_t n_k = s_q + T * (1 + 2 * ((t + 1 - t_lo) & 1));
+      load_tile<D>(n_k, k + k_base, k_rs, (t + 1) * kTile, S, tid);
+      load_tile<D>(n_k + T, v + k_base, k_rs, (t + 1) * kTile, S, tid);
+    }
+    cp_async_commit();
+
+    // scores of this tile alone: not carried, overwritten by the first
+    // product (scale_d 0), dead while P V runs
+    float s[32];
+    fence_regs(s);
+    wg_fence();
+    gemm_abt<D>(s, s_q, s_k);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(s);
+
+    // online softmax in base 2: x = s * scale * log2(e); masked x = -inf
+    const int k0 = t * kTile;
+    const bool edge = tile_edge(q0, k0, S, causal, window);
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = s[4 * j + 2 * i + e] * scale_log2;
+          if (edge &&
+              !key_ok(k0 + 8 * j + c0 + e, row + 8 * i, S, causal, window))
+            x = -INFINITY;
+          s[4 * j + 2 * i + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // m starts at kNegInf (finite): a row with no valid key yet keeps
+      // alpha = 1 and p = 0
+      alpha[i] = exp2f(m[i] - mx);
+      m[i] = mx;
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = exp2f(s[4 * j + 2 * i + e] - mx);
+          s[4 * j + 2 * i + e] = p;
+          ps += p;
+        }
+      l[i] = l[i] * alpha[i] + ps;   // this thread's share of the row sum
+    }
+
+    // o = o * alpha + P V, P split into bf16 hi + lo
+    uint32_t ph[4][4], pl[4][4];
+    split_frags(s, ph, pl);
+    gemm_split_add<D>(o, ph, pl, s_v, alpha[0], alpha[1]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    const int qp = row + 8 * i;
+    if (qp >= S) continue;
+    const float inv = 1.f / fmaxf(li, 1e-30f);
+    bf16* og = out + q_base + qp * q_rs + c0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(og + 8 * j) =
+          pack_bf16(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+    // a row with no valid key (none exists for rows < S) gets lse = +inf,
+    // so the backward's P = exp(s - lse) is 0 there
+    if ((lane & 3) == 0)
+      lse[((long long)b * Hq + h) * S + qp] =
+          li > 0.f ? (m[i] + log2f(li)) * kLn2 : INFINITY;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 backward, dK and dV: grid (Hkv, B, key tiles), the first key tile
+// first.  The block keeps its K and V tiles and walks the (head, query
+// tile) steps of the G heads of its group, streaming Q, dO and the rows'
+// lse and Dr through two stages.  S^T = K Q^T and dP^T = V dO^T put the
+// keys on the accumulator's rows, so P^T and dS^T are already the A
+// fragments of dV += P^T dO and dK += dS^T Q.
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(kWG, 2)
+fa_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ dr, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int S, int Hq, int Hkv,
+                     int causal, int window, float scale,
+                     float scale_log2) {
+  constexpr uint32_t T = kTile * D * 2;
+  extern __shared__ uint8_t smem[];
+  // K, V, then two stages of (Q, dO), then two stages of (lse, Dr) rows
+  const uint32_t s_k = smem_base(smem), s_v = s_k + T;
+  float* rows_s = reinterpret_cast<float*>(smem + (s_k - smem_u32(smem)) +
+                                           6 * T);
+  const int hk = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * kTile;
+  const int G = Hq / Hkv;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int key = k0 + (tid >> 5) * 16 + (lane >> 2);
+  const int c0 = (lane & 3) * 2;
+  const long long q_rs = (long long)Hq * D, k_rs = (long long)Hkv * D;
+  const long long k_base = (long long)b * S * k_rs + (long long)hk * D;
+
+  // live query tiles: rows at or below the tile's keys (causal), rows whose
+  // window still reaches them
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(S, k0 + kTile - 1 + window) : S;
+  const int t_lo = q_lo / kTile;
+  const int nt = (q_hi + kTile - 1) / kTile - t_lo;
+  const int n = G * nt;
+
+  auto load_step = [&](int it, int st) {
+    const int h = hk * G + it / nt, q0 = (t_lo + it % nt) * kTile;
+    const long long q_base = (long long)b * S * q_rs + (long long)h * D;
+    const uint32_t s_q = s_k + T * (2 + 2 * st);
+    load_tile<D>(s_q, q + q_base, q_rs, q0, S, tid);
+    load_tile<D>(s_q + T, dout + q_base, q_rs, q0, S, tid);
+    const int r = tid & (kTile - 1);
+    const bool ok = q0 + r < S;
+    const float* src = (tid < kTile ? lse : dr) +
+                       ((long long)b * Hq + h) * S + (ok ? q0 + r : 0);
+    cp_async4(smem_u32(rows_s + (2 * st + tid / kTile) * kTile + r), src, ok);
+  };
+
+  load_tile<D>(s_k, k + k_base, k_rs, k0, S, tid);
+  load_tile<D>(s_v, v + k_base, k_rs, k0, S, tid);
+  load_step(0, 0);
+  cp_async_commit();
+
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    dka[i] = 0.f;
+    dva[i] = 0.f;
+  }
+
+  for (int it = 0; it < n; ++it) {
+    const int stage = it & 1;
+    const int q0 = (t_lo + it % nt) * kTile;
+    const uint32_t s_q = s_k + T * (2 + 2 * stage), s_do = s_q + T;
+    const float* lse_s = rows_s + 2 * stage * kTile;
+    const float* dr_s = lse_s + kTile;
+    cp_async_wait_all();
+    fence_async_smem();
+    __syncthreads();   // step it has landed; step it - 1's stage is free
+    if (it + 1 < n) load_step(it + 1, stage ^ 1);
+    cp_async_commit();
+
+    float st_[32], dp[32];   // this step's alone (scale_d 0 overwrites)
+    fence_regs(st_);
+    fence_regs(dp);
+    wg_fence();
+    gemm_abt<D>(st_, s_k, s_q);    // S^T = K Q^T
+    gemm_abt<D>(dp, s_v, s_do);    // dP^T = V dO^T
+    wg_commit();
+    wg_wait_all();
+    fence_regs(st_);
+    fence_regs(dp);
+
+    // P^T = exp(S^T * scale - lse), dS^T = P^T (dP^T - Dr); row: key,
+    // column: query row
+    const bool edge = tile_edge(q0, k0, S, causal, window);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + c0 + e, x = 4 * j + 2 * i + e;
+          const bool ok =
+              !edge || (q0 + c < S &&
+                        key_ok(key + 8 * i, q0 + c, S, causal, window));
+          const float p =
+              ok ? exp2f(fmaf(st_[x], scale_log2, -lse_s[c] * kLog2e)) : 0.f;
+          st_[x] = p;
+          dp[x] = p * (dp[x] - dr_s[c]);
+        }
+
+    uint32_t ph[4][4], pl[4][4], dh[4][4], dl[4][4];
+    split_frags(st_, ph, pl);
+    split_frags(dp, dh, dl);
+    gemm_split_add<D>(dva, ph, pl, s_do, 1.f, 1.f);   // dV += P^T dO
+    gemm_split_add<D>(dka, dh, dl, s_q, 1.f, 1.f);    // dK += dS^T Q
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kp = key + 8 * i;
+    if (kp >= S) continue;
+    bf16* dko = dk + k_base + kp * k_rs + c0;
+    bf16* dvo = dv + k_base + kp * k_rs + c0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dko + 8 * j) = pack_bf16(
+          dka[4 * j + 2 * i] * scale, dka[4 * j + 2 * i + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dvo + 8 * j) =
+          pack_bf16(dva[4 * j + 2 * i], dva[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 backward, dQ: grid (Hq, B, query tiles), the last query tile first.
+// The block keeps Q and dO and streams K/V tiles through two stages;
+// dQ += dS K with dS split into bf16 hi + lo.
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(kWG, 2)
+fa_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ dr, bf16* __restrict__ dq,
+                   int S, int Hq, int Hkv, int causal, int window,
+                   float scale, float scale_log2) {
+  constexpr uint32_t T = kTile * D * 2;
+  extern __shared__ uint8_t smem[];
+  // Q, dO, then two stages of (K, V)
+  const uint32_t s_q = smem_base(smem), s_do = s_q + T;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTile;
+  const int hk = h / (Hq / Hkv);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int row = q0 + (tid >> 5) * 16 + (lane >> 2);
+  const int c0 = (lane & 3) * 2;
+  const long long q_rs = (long long)Hq * D, k_rs = (long long)Hkv * D;
+  const long long q_base = (long long)b * S * q_rs + (long long)h * D;
+  const long long k_base = (long long)b * S * k_rs + (long long)hk * D;
+
+  const int k_hi = causal ? min(S, q0 + kTile) : S;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t_lo = k_lo / kTile, t_hi = (k_hi + kTile - 1) / kTile;
+
+  load_tile<D>(s_q, q + q_base, q_rs, q0, S, tid);
+  load_tile<D>(s_do, dout + q_base, q_rs, q0, S, tid);
+  load_tile<D>(s_q + 2 * T, k + k_base, k_rs, t_lo * kTile, S, tid);
+  load_tile<D>(s_q + 3 * T, v + k_base, k_rs, t_lo * kTile, S, tid);
+  cp_async_commit();
+
+  float lse2[2], drr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const long long at = ((long long)b * Hq + h) * S + row + 8 * i;
+    lse2[i] = row + 8 * i < S ? lse[at] * kLog2e : 0.f;
+    drr[i] = row + 8 * i < S ? dr[at] : 0.f;
+  }
+  float dqa[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const uint32_t s_k = s_q + T * (2 + 2 * ((t - t_lo) & 1)), s_v = s_k + T;
+    cp_async_wait_all();
+    fence_async_smem();
+    __syncthreads();
+    if (t + 1 < t_hi) {
+      const uint32_t n_k = s_q + T * (2 + 2 * ((t + 1 - t_lo) & 1));
+      load_tile<D>(n_k, k + k_base, k_rs, (t + 1) * kTile, S, tid);
+      load_tile<D>(n_k + T, v + k_base, k_rs, (t + 1) * kTile, S, tid);
+    }
+    cp_async_commit();
+
+    float s[32], dp[32];   // this tile's alone (scale_d 0 overwrites)
+    fence_regs(s);
+    fence_regs(dp);
+    wg_fence();
+    gemm_abt<D>(s, s_q, s_k);     // S = Q K^T
+    gemm_abt<D>(dp, s_do, s_v);   // dP = dO V^T
+    wg_commit();
+    wg_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    const int k0 = t * kTile;
+    const bool edge = tile_edge(q0, k0, S, causal, window);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int x = 4 * j + 2 * i + e;
+          const bool ok = !edge || key_ok(k0 + 8 * j + c0 + e, row + 8 * i,
+                                          S, causal, window);
+          const float p = ok ? exp2f(fmaf(s[x], scale_log2, -lse2[i])) : 0.f;
+          dp[x] = p * (dp[x] - drr[i]);
+        }
+
+    uint32_t dh[4][4], dl[4][4];
+    split_frags(dp, dh, dl);
+    gemm_split_add<D>(dqa, dh, dl, s_k, 1.f, 1.f);   // dQ += dS K
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = row + 8 * i;
+    if (qp >= S) continue;
+    bf16* o = dq + q_base + qp * q_rs + c0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(o + 8 * j) = pack_bf16(
+          dqa[4 * j + 2 * i] * scale, dqa[4 * j + 2 * i + 1] * scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
-constexpr int kFwdBK = 64;   // keys per tile, forward
-constexpr int kDqBK = 32;    // keys per tile, dQ pass
+constexpr int kFwdBK = 64;   // keys per tile, f32 forward
+constexpr int kDqBK = 32;    // keys per tile, f32 dQ pass
 
-template <typename T, int D>
+template <int D>
 constexpr int fwd_smem() {
   return ((kBQ + 2 * kFwdBK) * (D + 4) + kFwdBK * (kBQ + 4)) * 4;
 }
-template <typename T, int D>
+template <int D>
 constexpr int dkdv_smem() {
   return ((2 * 32 + 2 * kBQ) * (D + 4) + 2 * kBQ * (32 + 4) + 2 * kBQ) * 4;
 }
-template <typename T, int D>
+template <int D>
 constexpr int dq_smem() {
   return ((2 * kBQ + 2 * kDqBK) * (D + 4) + kDqBK * (kBQ + 4)) * 4;
+}
+// bf16: tiles of kTile x D, the alignment slack, the dK/dV pass's rows
+template <int D>
+constexpr int wgmma_smem(int tiles, int row_floats) {
+  return kAtom + tiles * kTile * D * 2 + row_floats * 4;
 }
 
 template <typename K>
@@ -648,31 +1266,46 @@ int set_smem(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
-float scale_of(int D) {
-  return static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
-}
+double scale_of(int D) { return 1.0 / sqrt(static_cast<double>(D)); }
 
-template <typename T, int D>
-int launch_fwd(const void* q, const void* k, const void* v, void* out,
-               void* lse, int B, int S, int Hq, int Hkv, int causal,
-               int window, cudaStream_t st) {
-  auto kern = fa_fwd_kernel<T, D, kFwdBK>;
-  constexpr int smem = fwd_smem<T, D>();
+template <int D>
+int launch_fwd_f32(const void* q, const void* k, const void* v, void* out,
+                   void* lse, int B, int S, int Hq, int Hkv, int causal,
+                   int window, cudaStream_t st) {
+  auto kern = fa_fwd_kernel<float, D, kFwdBK>;
+  constexpr int smem = fwd_smem<D>();
   int rc = set_smem(kern, smem);
   if (rc != 0) return rc;
   const dim3 grid((S + kBQ - 1) / kBQ, Hq, B);
   kern<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), S, Hq, Hkv, causal, window, scale_of(D));
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(lse), S, Hq, Hkv, causal, window,
+      static_cast<float>(scale_of(D)));
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch_fwd_bf16(const void* q, const void* k, const void* v, void* out,
+                    void* lse, int B, int S, int Hq, int Hkv, int causal,
+                    int window, cudaStream_t st) {
+  auto kern = fa_fwd_wgmma_kernel<D>;
+  constexpr int smem = wgmma_smem<D>(5, 0);   // Q, two stages of K, V
+  int rc = set_smem(kern, smem);
+  if (rc != 0) return rc;
+  const dim3 grid(Hq, B, (S + kTile - 1) / kTile);
+  kern<<<grid, kWG, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out),
+      static_cast<float*>(lse), S, Hq, Hkv, causal, window,
+      static_cast<float>(scale_of(D) * 1.4426950408889634));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Dr = rowsum(dO * o), the first kernel of either backward
 template <typename T, int D>
-int launch_bwd(const void* q, const void* k, const void* v, const void* o,
-               const void* dout, const void* lse, void* dr, void* dq,
-               void* dk, void* dv, int B, int S, int Hq, int Hkv, int causal,
-               int window, cudaStream_t st) {
+int launch_rowdot(const void* o, const void* dout, void* dr, int B, int S,
+                  int Hq, cudaStream_t st) {
   const long long rows = (long long)B * S * Hq;
   const int rows_per_block = kThreads / 32;
   const unsigned int n_blocks =
@@ -680,31 +1313,78 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   fa_rowdot_kernel<T, D><<<n_blocks, kThreads, 0, st>>>(
       static_cast<const T*>(o), static_cast<const T*>(dout),
       static_cast<float*>(dr), rows, S, Hq);
-  int rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
+}
 
-  auto kv_kern = fa_dkdv_kernel<T, D>;
-  constexpr int kv_smem = dkdv_smem<T, D>();
+template <int D>
+int launch_bwd_f32(const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const void* lse,
+                   void* dr, void* dq, void* dk, void* dv, int B, int S,
+                   int Hq, int Hkv, int causal, int window, cudaStream_t st) {
+  int rc = launch_rowdot<float, D>(o, dout, dr, B, S, Hq, st);
+  if (rc != 0) return rc;
+  const float scale = static_cast<float>(scale_of(D));
+  auto kv_kern = fa_dkdv_kernel<float, D>;
+  constexpr int kv_smem = dkdv_smem<D>();
   rc = set_smem(kv_kern, kv_smem);
   if (rc != 0) return rc;
   kv_kern<<<dim3((S + 31) / 32, Hkv, B), kThreads, kv_smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dr),
-      static_cast<T*>(dk), static_cast<T*>(dv), S, Hq, Hkv, causal, window,
-      scale_of(D));
+      static_cast<float*>(dk), static_cast<float*>(dv), S, Hq, Hkv, causal,
+      window, scale);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
 
-  auto q_kern = fa_dq_kernel<T, D, kDqBK>;
-  constexpr int q_smem = dq_smem<T, D>();
+  auto q_kern = fa_dq_kernel<float, D, kDqBK>;
+  constexpr int q_smem = dq_smem<D>();
   rc = set_smem(q_kern, q_smem);
   if (rc != 0) return rc;
   q_kern<<<dim3((S + kBQ - 1) / kBQ, Hq, B), kThreads, q_smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dr),
-      static_cast<T*>(dq), S, Hq, Hkv, causal, window, scale_of(D));
+      static_cast<float*>(dq), S, Hq, Hkv, causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_bwd_bf16(const void* q, const void* k, const void* v,
+                    const void* o, const void* dout, const void* lse,
+                    void* dr, void* dq, void* dk, void* dv, int B, int S,
+                    int Hq, int Hkv, int causal, int window,
+                    cudaStream_t st) {
+  int rc = launch_rowdot<bf16, D>(o, dout, dr, B, S, Hq, st);
+  if (rc != 0) return rc;
+  const float scale = static_cast<float>(scale_of(D));
+  const float scale_log2 =
+      static_cast<float>(scale_of(D) * 1.4426950408889634);
+  const int tiles = (S + kTile - 1) / kTile;
+
+  auto kv_kern = fa_dkdv_wgmma_kernel<D>;
+  // K, V, two stages of Q, dO; two stages of 64 lse and 64 Dr
+  constexpr int kv_smem = wgmma_smem<D>(6, 4 * kTile);
+  rc = set_smem(kv_kern, kv_smem);
+  if (rc != 0) return rc;
+  kv_kern<<<dim3(Hkv, B, tiles), kWG, kv_smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(dr),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, Hq, Hkv, causal,
+      window, scale, scale_log2);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+
+  auto q_kern = fa_dq_wgmma_kernel<D>;
+  constexpr int q_smem = wgmma_smem<D>(6, 0);   // Q, dO, two stages of K, V
+  rc = set_smem(q_kern, q_smem);
+  if (rc != 0) return rc;
+  q_kern<<<dim3(Hq, B, tiles), kWG, q_smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(dr),
+      static_cast<bf16*>(dq), S, Hq, Hkv, causal, window, scale, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -712,25 +1392,26 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  D: 64 or 128.  q/out (B, S, Hq, D),
-// k/v (B, S, Hkv, D) dense; lse (B, Hq, S) f32.  Hq % Hkv == 0.
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  D: 64 or
+// 128.  q/out (B, S, Hq, D), k/v (B, S, Hkv, D) dense; lse (B, Hq, S) f32.
+// Hq % Hkv == 0.
 int flash_attention_fwd(int dtype, const void* q, const void* k,
                         const void* v, void* out, void* lse, int B, int S,
                         int Hq, int Hkv, int D, int causal, int window,
                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && D == 128)
-    return launch_fwd<__nv_bfloat16, 128>(q, k, v, out, lse, B, S, Hq, Hkv,
-                                          causal, window, st);
+    return launch_fwd_bf16<128>(q, k, v, out, lse, B, S, Hq, Hkv, causal,
+                                window, st);
   if (dtype == 1 && D == 64)
-    return launch_fwd<__nv_bfloat16, 64>(q, k, v, out, lse, B, S, Hq, Hkv,
-                                         causal, window, st);
+    return launch_fwd_bf16<64>(q, k, v, out, lse, B, S, Hq, Hkv, causal,
+                               window, st);
   if (dtype == 0 && D == 128)
-    return launch_fwd<float, 128>(q, k, v, out, lse, B, S, Hq, Hkv, causal,
-                                  window, st);
+    return launch_fwd_f32<128>(q, k, v, out, lse, B, S, Hq, Hkv, causal,
+                               window, st);
   if (dtype == 0 && D == 64)
-    return launch_fwd<float, 64>(q, k, v, out, lse, B, S, Hq, Hkv, causal,
-                                 window, st);
+    return launch_fwd_f32<64>(q, k, v, out, lse, B, S, Hq, Hkv, causal,
+                              window, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -744,19 +1425,17 @@ int flash_attention_bwd(int dtype, const void* q, const void* k,
                         int causal, int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && D == 128)
-    return launch_bwd<__nv_bfloat16, 128>(q, k, v, o, dout, lse, dr, dq, dk,
-                                          dv, B, S, Hq, Hkv, causal, window,
-                                          st);
+    return launch_bwd_bf16<128>(q, k, v, o, dout, lse, dr, dq, dk, dv, B, S,
+                                Hq, Hkv, causal, window, st);
   if (dtype == 1 && D == 64)
-    return launch_bwd<__nv_bfloat16, 64>(q, k, v, o, dout, lse, dr, dq, dk,
-                                         dv, B, S, Hq, Hkv, causal, window,
-                                         st);
+    return launch_bwd_bf16<64>(q, k, v, o, dout, lse, dr, dq, dk, dv, B, S,
+                               Hq, Hkv, causal, window, st);
   if (dtype == 0 && D == 128)
-    return launch_bwd<float, 128>(q, k, v, o, dout, lse, dr, dq, dk, dv, B,
-                                  S, Hq, Hkv, causal, window, st);
+    return launch_bwd_f32<128>(q, k, v, o, dout, lse, dr, dq, dk, dv, B, S,
+                               Hq, Hkv, causal, window, st);
   if (dtype == 0 && D == 64)
-    return launch_bwd<float, 64>(q, k, v, o, dout, lse, dr, dq, dk, dv, B, S,
-                                 Hq, Hkv, causal, window, st);
+    return launch_bwd_f32<64>(q, k, v, o, dout, lse, dr, dq, dk, dv, B, S,
+                              Hq, Hkv, causal, window, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
