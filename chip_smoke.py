@@ -21,8 +21,10 @@ Phases, each a hard failure (non-zero exit, no result line):
      live blocks names a poisoned block), so a read outside the live table
      shows up;
    - ``int8_matmul`` at M in {4, 64} for each (K, N) of the projections,
-     (2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048), and a ragged
-     case (M 5, K 200, N 300): **bitwise** equal to the plain version;
+     (2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048), at M 1 and 16
+     for (2048, 8192), and a ragged case (M 5, K 200, N 300): **bitwise**
+     equal to the plain version, each timed row with its share of the
+     bound and its factor over ``torch._int_mm``;
    - ``mel_frontend`` on the full-width batch (512 one-second keyword clips,
      50,688 frames, L 320, 257 bins, 40 mels, as ``frame_signal``'s unfold
      view), the quickstart's MFCC frontend (32 mels, 0.5 s clips), ragged
@@ -305,7 +307,15 @@ def flush_l2() -> None:
     _flush_buf.zero_()
 
 
-def time_ms(fn, reps: int = 30, warmup: int = 5) -> float:
+def flush_l2_clean() -> None:
+    """The same eviction by reading the buffer: the L2 is left holding
+    clean lines, which the next kernel's reads need not write back."""
+    if _flush_buf is None:
+        flush_l2()
+    _flush_buf.sum()
+
+
+def time_ms(fn, reps: int = 30, warmup: int = 5, flush=flush_l2) -> float:
     """Median device time of one call.  The stream is first held by a spin
     kernel while every launch is queued, so the events time the kernels
     back to back, not the host's launch overhead; the L2 is flushed
@@ -316,7 +326,7 @@ def time_ms(fn, reps: int = 30, warmup: int = 5) -> float:
     torch.cuda._sleep(100_000_000)     # ~60 ms: longer than the queueing
     pairs = []
     for _ in range(reps):
-        flush_l2()
+        flush()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -541,13 +551,23 @@ def check_layouts(ops, ref, Int8KV):
 MATMUL_SHAPES = ((2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048))
 
 
-def check_int8_matmul(ops, ref):
+def check_int8_matmul(ops, ref, im):
     """``int8_matmul`` against its plain version, bitwise, at the serving
-    shapes (M = 4 slots at decode, M = 64 in a chunk) and a ragged case;
-    returns the timed rows by shape."""
+    shapes (M = 4 slots at decode, M = 64 in a chunk; M 1 and 16, the
+    decode regime's ends, at 2048 -> 8192) and a ragged case; returns the
+    timed rows by shape, each with its share of the bound and its factor
+    over ``torch._int_mm``.  Two readings put the times in context: the
+    timing floor (``time_ms`` of a kernel that writes one float) and the
+    kernel's time after a flush that leaves the L2 clean (``time_ms``'s
+    flush leaves it full of dirty lines, which the kernel's reads must
+    first write back)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
+    one = torch.zeros(1, device=DEV)
+    floor_ms = time_ms(one.zero_)
+    print(f"  timing floor (one float written): {floor_ms:.5f} ms")
     rows = {}
     shapes = [(m, k, n) for k, n in MATMUL_SHAPES for m in (4, 64)]
+    shapes += [(1, 2048, 8192), (16, 2048, 8192)]
     for m, k, n in shapes + [(5, 200, 300)]:
         x = torch.randint(-127, 128, (m, k), generator=gen, device=DEV,
                           dtype=torch.int8)
@@ -559,12 +579,17 @@ def check_int8_matmul(ops, ref):
         torch.cuda.synchronize()
         want = ref.int8_matmul_ref(x, w, xs, ws)
         same = torch.equal(out, want)
-        print(f"  int8_matmul M={m} K={k} N={n}: bitwise equal {same}")
+        plan = im._plan(m, n, k)
+        print(f"  int8_matmul M={m} K={k} N={n}: bitwise equal {same}"
+              f"  ({plan.regime}, tile {plan.mt} x {plan.bn}, split"
+              f" {plan.split}, grid {plan.grid})")
         check(same, f"int8_matmul differs from its plain version at"
               f" {(m, k, n)}: max |err| {float((out - want).abs().max())}")
         if (m, k, n) not in shapes:
             continue
         ms = time_ms(lambda: ops.int8_matmul(x, w, xs, ws))
+        clean_ms = time_ms(lambda: ops.int8_matmul(x, w, xs, ws),
+                           flush=flush_l2_clean)
         plain_ms = time_ms(lambda: ref.int8_matmul_ref(x, w, xs, ws))
         # torch._int_mm takes M > 16 only: M is padded to 32 for it
         xp = torch.zeros((max(m, 32), k), dtype=torch.int8, device=DEV)
@@ -574,14 +599,18 @@ def check_int8_matmul(ops, ref):
         nbytes = m * k + n * k + 4 * (m + n) + 4 * m * n
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = 2 * m * n * k / PEAK_OPS[torch.int8] * 1e3
+        bound = max(t_bytes, t_ops)
         rows[f"M{m}_K{k}_N{n}"] = {
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
+            "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms}
-        print(f"  int8_matmul M={m} K={k} N={n}: kernel {ms:.4f} ms  plain"
-              f" {plain_ms:.4f} ms  _int_mm (M {max(m, 32)}) {lib_ms:.4f} ms"
-              f"  bound {max(t_bytes, t_ops):.5f} ms")
+            "library_ms": lib_ms, "share_of_bound": bound / ms,
+            "factor_vs_library": ms / lib_ms, "clean_l2_ms": clean_ms,
+            "timing_floor_ms": floor_ms}
+        print(f"  int8_matmul M={m} K={k} N={n}: kernel {ms:.5f} ms (clean"
+              f" L2 {clean_ms:.5f})  plain {plain_ms:.4f} ms  _int_mm (M"
+              f" {max(m, 32)}) {lib_ms:.5f} ms  bound {bound:.5f} ms:"
+              f" {bound / ms:.3f} of the bound, {ms / lib_ms:.2f}x _int_mm")
     return rows
 
 
@@ -1932,7 +1961,7 @@ def main() -> None:
         print(f"  {name}:")
         for line in log.splitlines():
             if "Compiling entry function" in line:
-                print("   " + line.strip()[:110])
+                print("   " + line.strip()[:170])
             elif "registers" in line or "spill" in line:
                 print("   " + line.strip())
     port.fd._lib()
@@ -1949,7 +1978,7 @@ def main() -> None:
 
     print("phase 2: kernels against their plain versions")
     layout_rows = check_layouts(port.ops, port.ref, port.quantize.Int8KV)
-    mm_rows = check_int8_matmul(port.ops, port.ref)
+    mm_rows = check_int8_matmul(port.ops, port.ref, port.im)
     mel_rows = check_mel_frontend(port, clips)
     fa_rows = check_flash_attention(port)
     scan_rows = check_mamba_scan(port)
