@@ -19,7 +19,8 @@ Phases, each a hard failure (non-zero exit, no result line):
      block table, and the unmapped blocks poisoned (NaN K/V, or NaN int8
      scales, and valid-looking positions; every table entry past a slot's
      live blocks names a poisoned block), so a read outside the live table
-     shows up;
+     shows up; and decode with all four slots full at S = 576 (bf16, float
+     and int8 paged with blocks of 64), where the bytes weigh most;
    - ``int8_matmul`` at M in {4, 64} for each (K, N) of the projections,
      (2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048), at M 1 and 16
      for (2048, 8192), and a ragged case (M 5, K 200, N 300): **bitwise**
@@ -58,7 +59,9 @@ Phases, each a hard failure (non-zero exit, no result line):
    the least it takes) for the int8 matmul, the rfft chain
    ``torch.fft.rfft`` -> |.|^2 -> mel -> log for the mel frontend; no
    PyTorch call computes a selective scan, so ``mamba_scan`` has none.
-   The port never calls any of them.
+   The port never calls any of them.  Beside the attention and
+   ``int8_matmul`` rows stand the timing floor (a kernel that writes one
+   float) and the kernel's time after a flush that leaves the L2 clean.
 3. Serve eight requests through ``ContinuousBatchServer`` at the full
    width of internlm2-1.8b (24 layers, d_model 2048, 16/8 heads, d_ff 8192,
    vocab 92544 padded to 94208), bf16, random weights from a seeded
@@ -77,7 +80,8 @@ Phases, each a hard failure (non-zero exit, no result line):
    is exact: a small float32 config (head_dim 128) served through the
    kernels must give the same greedy tokens as the plain path on the CPU.
 4. A profile of decode and chunk steps says where a step's time goes
-   (host wall, device busy, attention, GEMMs).
+   (host wall, device busy, kernels per step, attention, ``int8_matmul``,
+   GEMMs).
 5. The int8 paged path: the same model, ``precision="int8"``, through
    ``PagedBatchServer`` (4 slots, chunk 64, 32 new tokens, max_prompt 512:
    capacity 576, blocks of 64, 9 table entries) with a pool of 24 blocks,
@@ -490,61 +494,114 @@ LAYOUTS = {"float": (False, None), "int8": (True, None),
            "int8_paged_bs8": (True, 8)}
 
 
+def wrapper_call(fd, kind, q, k, v, qp, pos, kvl, table):
+    """The kernel's wrapper alone on inputs laid out beforehand as
+    ``ops.decode_attention``/``ops.chunk_attention`` lay them out (for a
+    chunk, q grouped by KV head and the positions by row: two copies, and
+    a third for the output, that the ops call makes each time)."""
+    b, c, hq, d = q.shape
+    g = hq // HKV
+    (kq, ks), (vq, vs) = (x if isinstance(x, tuple) else (x, None)
+                          for x in (k, v))
+    if kind == "decode":
+        qg, qr, fn = q.reshape(b, HKV, g, d), qp, fd.flash_decode
+    else:
+        qg = q.reshape(b, c, HKV, g, d).permute(0, 2, 1, 3, 4) \
+            .reshape(b, HKV, c * g, d).contiguous()
+        qr = qp[:, :, None].expand(b, c, g).reshape(b, c * g).contiguous()
+        fn = fd.flash_chunk_prefill
+    return lambda: fn(qg, kq, vq, qr, pos, kvl, k_scale=ks, v_scale=vs,
+                      block_table=table)
+
+
+def time_layout_row(ops, ref, kind, kern, q, k, v, qpos, qp, pos, kvl,
+                    table, err, floor_ms) -> dict:
+    """One timed attention row: the ops call (what the serving path makes)
+    after the usual flush and after one that leaves the L2 clean, the
+    kernel's wrapper alone, the plain version, SDPA on dense K/V, the
+    bound, and beside them the timing floor, the share of the bound and
+    the factor over SDPA."""
+    def call():
+        return kern(q, k, v, qp, pos, kv_len=kvl, block_table=table)
+    ms = time_ms(call)
+    clean_ms = time_ms(call, flush=flush_l2_clean)
+    alone_ms = time_ms(wrapper_call(ops.fd, kind, q, k, v, qp, pos, kvl,
+                                    table))
+    plain_ms = time_ms(lambda: plain_attention(
+        ref, kind, q, k, v, qp, pos, kv_len=kvl, block_table=table))
+    kd, vd, pd = dense_inputs(q, k, v, pos, table)
+    lib_ms = time_ms(sdpa_call(q, kd, vd, qpos, pd, kvl))
+    b_ms, b_by = layout_bound_ms(q, k, qpos, pos, kvl, table)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "clean_l2_ms": clean_ms, "wrapper_alone_ms": alone_ms,
+            "timing_floor_ms": floor_ms,
+            "share_of_bound": b_ms / ms, "factor_vs_library": ms / lib_ms}
+
+
 def check_layouts(ops, ref, Int8KV):
     """Both attention kernels in every layout against their plain
-    versions; returns each kernel's timed rows by layout."""
+    versions; returns each kernel's timed rows by layout (bf16, S 576),
+    and decode with all four slots full in the float and int8 paged
+    (blocks of 64) layouts, the bytes-bound case."""
     gen = torch.Generator(device="cuda").manual_seed(1)
+    one = torch.zeros(1, device=DEV)
+    floor_ms = time_ms(one.zero_)
+    print(f"  timing floor (one float written): {floor_ms:.5f} ms")
     rows = {"flash_decode": {}, "flash_chunk_prefill": {}}
+    cases = []
     for layout, (int8, bs) in LAYOUTS.items():
         for s in ((576, 555) if bs is None else (576,)):
             for dtype in (torch.bfloat16, torch.float32):
-                cases = {
+                cases.append((layout, s, dtype, {
                     "flash_decode": ("decode", make_layout_case(
                         gen, Int8KV, int8, bs, 4, 1, s, [0, 1, 37, s],
                         [0, 1, 1, 1], dtype), ops.decode_attention),
                     "flash_chunk_prefill": ("chunk", make_layout_case(
                         gen, Int8KV, int8, bs, 1, 64, s, [448], [44], dtype),
                         ops.chunk_attention),
-                }
-                for name, (kind, case, kern) in cases.items():
-                    q, k, v, qpos, pos, kvl, table = case
-                    qp = qpos[:, 0] if kind == "decode" else qpos
-                    out = kern(q, k, v, qp, pos, kv_len=kvl,
-                               block_table=table)
-                    torch.cuda.synchronize()
-                    want = plain_attention(ref, kind, *f32_inputs(q, k, v),
-                                           qp, pos, kv_len=kvl,
-                                           block_table=table)
-                    err = float((out.float() - want).abs().max())
-                    ratio = tol_ratio(out, want)
-                    print(f"  {name:20s} {layout:16s} S={s}"
-                          f" {str(dtype):15s} max|err| {err:.3g},"
-                          f" {ratio:.3f} of the limit")
-                    check(out.dtype == dtype and bool(out.isfinite().all()),
-                          f"{name} {layout}: non-finite or wrong dtype")
-                    check(ratio <= 1, f"{name} disagrees with its plain"
-                          f" version, {layout} S={s} {dtype}: {ratio} of the"
-                          " limit")
-                    zero = out[0] if kind == "decode" else out[0, 44:]
-                    check(bool((zero == 0).all()),
-                          f"{name} {layout}: empty slot or pad rows not zero")
-                    if s != 576 or dtype != torch.bfloat16:
-                        continue
-                    ms = time_ms(lambda: kern(q, k, v, qp, pos, kv_len=kvl,
-                                              block_table=table))
-                    plain_ms = time_ms(lambda: plain_attention(
-                        ref, kind, q, k, v, qp, pos, kv_len=kvl,
-                        block_table=table))
-                    kd, vd, pd = dense_inputs(q, k, v, pos, table)
-                    lib_ms = time_ms(sdpa_call(q, kd, vd, qpos, pd, kvl))
-                    b_ms, b_by = layout_bound_ms(q, k, qpos, pos, kvl, table)
-                    rows[name][layout] = {
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": lib_ms}
-                    print(f"  {name:20s} {layout:16s} kernel {ms:.4f} ms"
-                          f"  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms"
-                          f"  bound {b_ms:.5f} ms ({b_by})")
+                }))
+    for layout in ("float", "int8_paged_bs64"):
+        cases.append((f"{layout}_full", 576, torch.bfloat16, {
+            "flash_decode": ("decode", make_layout_case(
+                gen, Int8KV, *LAYOUTS[layout], 4, 1, 576, [576] * 4,
+                [1] * 4, torch.bfloat16), ops.decode_attention)}))
+    for layout, s, dtype, by_name in cases:
+        for name, (kind, case, kern) in by_name.items():
+            q, k, v, qpos, pos, kvl, table = case
+            qp = qpos[:, 0] if kind == "decode" else qpos
+            out = kern(q, k, v, qp, pos, kv_len=kvl, block_table=table)
+            torch.cuda.synchronize()
+            want = plain_attention(ref, kind, *f32_inputs(q, k, v), qp, pos,
+                                   kv_len=kvl, block_table=table)
+            err = float((out.float() - want).abs().max())
+            ratio = tol_ratio(out, want)
+            b, hkv, r = q.shape[0], HKV, q.shape[1] * G
+            plan = ops.fd._plan(b, hkv, r, s, dtype, isinstance(k, tuple), D)
+            print(f"  {name:20s} {layout:21s} S={s} {str(dtype):15s}"
+                  f" max|err| {err:.3g}, {ratio:.3f} of the limit"
+                  f"  ({plan.kernel}, {plan.rows} rows a block, split"
+                  f" {plan.split}, grid {plan.grid})")
+            check(out.dtype == dtype and bool(out.isfinite().all()),
+                  f"{name} {layout}: non-finite or wrong dtype")
+            check(ratio <= 1, f"{name} disagrees with its plain version,"
+                  f" {layout} S={s} {dtype}: {ratio} of the limit")
+            if not layout.endswith("_full"):
+                zero = out[0] if kind == "decode" else out[0, 44:]
+                check(bool((zero == 0).all()),
+                      f"{name} {layout}: empty slot or pad rows not zero")
+            if s != 576 or dtype != torch.bfloat16:
+                continue
+            row = time_layout_row(ops, ref, kind, kern, q, k, v, qpos, qp,
+                                  pos, kvl, table, err, floor_ms)
+            rows[name][layout] = row
+            print(f"  {name:20s} {layout:21s} kernel {row['ms']:.5f} ms"
+                  f" (clean L2 {row['clean_l2_ms']:.5f}, wrapper alone"
+                  f" {row['wrapper_alone_ms']:.5f}, floor {floor_ms:.5f})"
+                  f"  plain {row['plain_ms']:.4f} ms  sdpa"
+                  f" {row['library_ms']:.5f} ms  bound {row['bound_ms']:.6f}"
+                  f" ms ({row['bound_by']}): {row['share_of_bound']:.4f} of"
+                  f" the bound, {row['factor_vs_library']:.2f}x SDPA")
     return rows
 
 
@@ -1436,6 +1493,9 @@ def profile_steps(port, cfg, params, policy=None, paged=False):
                          kernels_per_step=len(kernels) / n,
                          **{f"{k}_ms": v for k, v in fam.items()})
         print(f"  {name} step: " + json.dumps(out[name]))
+        print(f"  {name} step: attention_ms {fam['attention']:.4f}"
+              f"  int8_matmul_ms {fam['int8_matmul']:.4f}  device_busy_ms"
+              f" {busy:.4f}  kernels_per_step {len(kernels) / n:g}")
         for kname, ms in sorted(by_name.items(), key=lambda x: -x[1])[:6]:
             print(f"    {ms:.4f} ms/step  {kname}")
     return out

@@ -6,10 +6,15 @@ in ``csrc/flash_decode.cu``.
 ``flash_chunk_prefill`` replaces ``:334``, in all four layouts of the TPU
 kernels: K/V float or int8 (``k_scale``/``v_scale`` given), each
 contiguous or paged (``block_table`` given).  Each wrapper checks device,
-dtype, shape, strides and alignment, launches its kernel on PyTorch's
-current stream and counts the launch in ``LAUNCHES``.  They take CUDA
-tensors only: ``kernels/ops.py`` sends CPU tensors to the plain versions
-in ``kernels/ref.py``.
+dtype, shape, strides and alignment, plans the launch from the shape
+(``_plan``), launches one kernel on PyTorch's current stream and counts
+the launch in ``LAUNCHES``.  The plan splits each slot's KV sweep over a
+thread-block cluster whose blocks merge their partial softmax states in
+distributed shared memory, and picks the kernel: ``simt_attn_kernel``
+(CUDA cores, f32) for decode and every float32 call,
+``mma_attn_kernel`` (bf16 tensor cores) for bf16 chunks of more than 16
+query rows.  They take CUDA tensors only: ``kernels/ops.py`` sends CPU
+tensors to the plain versions in ``kernels/ref.py``.
 
 K/V (and their scales) may be per-layer slices of the stacked cache or
 one slot's row of it: any stride of the outer (slot or pool-block) axis
@@ -19,7 +24,9 @@ copies, gathers or dequantizes the cache.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import dataclasses
+import functools
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -31,7 +38,110 @@ LAUNCHES = {"flash_decode": 0, "flash_chunk_prefill": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
-             + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 7
+             + [ctypes.c_void_p])
+
+# the kernels' constants (csrc/flash_decode.cu): the CUDA-core kernel's
+# KV tile, ring depth and most rows a block, the tensor-core kernel's KV
+# tile and ring depth, the portable cluster size and the shared memory's
+# alignment slack
+SIMT_BK = 16
+SIMT_STAGES = 4
+SIMT_MAX_ROWS = 16
+MMA_BK = 64
+MMA_STAGES = 2
+MAX_SPLIT = 8
+SMEM_SLACK = 128
+SMS = 132                 # the H100's SMs
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch: ``kernel`` "simt" (CUDA cores) or "mma" (tensor
+    cores); ``rows`` query rows a block; KV tiles of ``bk`` entries
+    through a ring of ``stages``; each slot's KV sweep split over the
+    ``split`` blocks of a cluster; the grid (B, Hkv, row tiles x split)
+    and the dynamic shared memory in bytes."""
+    kernel: str
+    rows: int
+    bk: int
+    stages: int
+    split: int
+    grid: Tuple[int, int, int]
+    smem: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _simt_warps(rows: int) -> int:
+    """Warps of a CUDA-core block: eight for 2 rows (decode), four for
+    16."""
+    return 8 if rows <= 2 else 4
+
+
+def _smem(kernel: str, rows: int, d: int, kv_bytes: int, int8: bool) -> int:
+    """Dynamic shared memory of a launch, as the kernel lays it out: the
+    ring (K and V tiles, positions, int8 scales a stage), and after the
+    sweep the partial (acc, m, l) of the block's rows; the CUDA-core
+    kernel also holds its warps' partials, the tensor-core kernel
+    the query tile and, for int8, the dequantized K and V tiles."""
+    bk, stages = (MMA_BK, MMA_STAGES) if kernel == "mma" \
+        else (SIMT_BK, SIMT_STAGES)
+    ring = stages * (2 * bk * d * kv_bytes + bk * 4 * (3 if int8 else 1))
+    part = rows * (d + 2) * 4
+    if kernel == "mma":
+        need = max(ring + rows * d * 2 + (2 * bk * d * 2 if int8 else 0),
+                   part)
+    else:
+        need = max(ring, (_simt_warps(rows) + 1) * part)
+    return need + SMEM_SLACK
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(b: int, hkv: int, r: int, s: int, dtype: torch.dtype, int8: bool,
+          d: int = 128) -> Plan:
+    """The launch for ``r`` query rows a (slot, KV head) over a cache of
+    capacity ``s``, from the host-known shape alone (``kv_len`` lives on
+    the card).  bf16 calls of more than 16 rows (chunks) take the
+    tensor-core kernel with 64, 32 or 16 rows a block, the most that
+    still gives one block an SM at the largest split; the rest take the
+    CUDA-core kernel with 2 rows a block (decode at G <= 2) or 16.  The
+    split is the least power of two that gives the grid at least one
+    block an SM, at most 8 (the portable cluster size) and at most the
+    KV tiles of a full slot."""
+    mma = dtype == torch.bfloat16 and r > SIMT_MAX_ROWS
+    bk, stages = (MMA_BK, MMA_STAGES) if mma else (SIMT_BK, SIMT_STAGES)
+    max_split = 1
+    while max_split < MAX_SPLIT and 2 * max_split <= _cdiv(s, bk):
+        max_split *= 2
+    if mma:
+        rows = 64
+        while rows > 16 and b * hkv * _cdiv(r, rows) * max_split < SMS:
+            rows //= 2
+    else:
+        rows = 2 if r <= 2 else SIMT_MAX_ROWS
+    tiles = b * hkv * _cdiv(r, rows)
+    split = 1
+    while split < max_split and tiles * split < SMS:
+        split *= 2
+    kv_bytes = 1 if int8 else torch.empty((), dtype=dtype).element_size()
+    kernel = "mma" if mma else "simt"
+    return Plan(kernel, rows, bk, stages, split,
+                (b, hkv, _cdiv(r, rows) * split),
+                _smem(kernel, rows, d, kv_bytes, int8))
+
+
+def _tile_ranges(plan: Plan, kv_len: int, s: int) -> List[Tuple[int, int]]:
+    """The KV tiles ``[begin, end)`` that each block of a split sweeps
+    for a slot of ``kv_len`` live entries, by rank: the kernel's own rule
+    (``Sweep`` in ``csrc/flash_decode.cu``), kv_len clamped to [0, s] and
+    its n = ceil(kv_len / bk) tiles dealt out as evenly as whole tiles
+    allow; a range may be empty."""
+    n = _cdiv(min(max(kv_len, 0), s), plan.bk)
+    return [(rank * n // plan.split, (rank + 1) * n // plan.split)
+            for rank in range(plan.split)]
 
 
 def kv_block_size(capacity: int, block_k: int = 128) -> int:
@@ -146,6 +256,7 @@ def _launch(entry: str, q, k, v, q_pos, cache_pos, kv_len, window: int,
     fn = getattr(_lib(), entry)
     int8 = k_scale is not None
     paged = block_table is not None
+    p = _plan(b, hkv, r, s, q.dtype, int8, d)
     rc = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if int8 else None,
             v_scale.data_ptr() if int8 else None, q_pos.data_ptr(),
@@ -154,7 +265,8 @@ def _launch(entry: str, q, k, v, q_pos, cache_pos, kv_len, window: int,
             b, s, hkv, r, d, block_table.shape[1] if paged else 0,
             k.shape[1] if paged else 0, k.stride(0), v.stride(0),
             k_scale.stride(0) if int8 else 0, cache_pos.stride(0),
-            int(window), torch.cuda.current_stream(q.device).cuda_stream)
+            int(window), int(p.kernel == "mma"), p.rows, p.bk, p.stages,
+            p.split, p.smem, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
     LAUNCHES[entry] += 1
@@ -168,7 +280,10 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  v_scale: Optional[torch.Tensor] = None,
                  block_table: Optional[torch.Tensor] = None,
                  window: int = 0) -> torch.Tensor:
-    """One-token GQA decode attention on the card.
+    """One-token GQA decode attention on the card: one launch, each
+    slot's KV sweep split over a cluster (``_plan``), on the CUDA cores
+    (``simt_attn_kernel``; bf16 with more than 16 query heads a KV head
+    takes ``mma_attn_kernel``).
 
     q: (B, Hkv, G, D) grouped queries; q_pos: (B,) int32; kv_len: (B,)
     int32 per-slot fill (the logical capacity scans everything).
@@ -192,7 +307,10 @@ def flash_chunk_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         v_scale: Optional[torch.Tensor] = None,
                         block_table: Optional[torch.Tensor] = None,
                         window: int = 0) -> torch.Tensor:
-    """Chunk-prefill attention on the card.
+    """Chunk-prefill attention on the card: one launch, each slot's KV
+    sweep split over a cluster (``_plan``); bf16 chunks of more than 16
+    rows on the tensor cores (``mma_attn_kernel``), f32 and smaller ones
+    on the CUDA cores (``simt_attn_kernel``).
 
     q: (B, Hkv, R, D) with R = C·G rows ordered (query, group); q_pos:
     (B, R) int32 per-row positions, −1 for a pad row (exact zeros); the
