@@ -31,7 +31,11 @@ Phases, each a hard failure (non-zero exit, no result line):
      view), the quickstart's MFCC frontend (32 mels, 0.5 s clips), ragged
      frame counts 1, 99 and 50,689, the kernel tests' dense shapes (L 256,
      129 bins; L 512, 257 bins), and silence (exactly log(1e-6)):
-     elementwise within ``MEL_ATOL`` of the plain version.
+     elementwise within ``MEL_ATOL`` of the plain version; each timed row
+     (the single clip of 99 frames among them) with its factor over the
+     rfft chain and its bound, whose operations count at the TF32
+     tensor-core rate (the kernel's DFT products run there), the f32
+     CUDA-core figure beside it.
    - ``flash_attention`` and ``flash_attention_bwd`` (the training path,
      bf16, on the tensor cores) at the training shape (B 4, S 2048, Hq 16,
      Hkv 8, D 128, causal), a ragged S of 1,000, ``causal=False``, a
@@ -44,7 +48,8 @@ Phases, each a hard failure (non-zero exit, no result line):
      from zeros), a ragged shape (B 2, S 37, D 200) and f32 inputs: y and
      the final state within ``MAMBA_TOL`` of the plain version's largest
      magnitude; and a ragged tail with dt = 0, whose final state and real
-     outputs must equal **bitwise** the kernel's on the real prefix alone.
+     outputs must equal **bitwise** the kernel's on the real prefix alone;
+     each timed row with its share of the bound.
    Attention tolerance, elementwise against the plain version computed in
    f32 from the same inputs (int8 dequantized and rounded as the kernel
    rounds): in bf16, the output's own rounding (2^-8 of its size) plus
@@ -172,6 +177,7 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
             torch.int8: 1979e12}
+TF32_OPS = 495e12         # f32 products on the tensor cores (TF32, dense)
 # flash_attention_bwd is the gradient of the same TPU kernel, which has none
 REPLACES = {"flash_decode": "src/repro/kernels/flash_decode.py:147",
             "flash_chunk_prefill": "src/repro/kernels/flash_decode.py:334",
@@ -685,7 +691,12 @@ def keyword_clips(port, n: int, n_classes: int, n_samples: int, seed: int):
 def mel_bound_ms(frames, nbins: int, n_mels: int) -> tuple:
     """Least time for one call: the signal under the frames read once
     (overlapping frames share it), the tables read once, the log-mel
-    written once; 4·L·nbins + 2·nbins·n_mels f32 operations a frame."""
+    written once; 4·L·nbins + 2·nbins·n_mels operations a frame at the
+    TF32 tensor-core rate (the kernel's DFT products run there, each as
+    three TF32 products, so it can reach at most a third of this bound).
+    Returns (bound ms, "bytes" or "operations", the same bound with the
+    operations at the f32 CUDA-core rate, as it was stated before the
+    products moved to the tensor cores)."""
     f3 = frames if frames.dim() == 3 else frames[None]
     nb, nf, l = f3.shape
     sf = f3.stride(1)
@@ -695,8 +706,10 @@ def mel_bound_ms(frames, nbins: int, n_mels: int) -> tuple:
                   + n_frames * n_mels)
     ops = n_frames * (4 * l * nbins + 2 * nbins * n_mels)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[torch.float32] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    t_ops = ops / TF32_OPS * 1e3
+    t_f32 = max(t_bytes, ops / PEAK_OPS[torch.float32] * 1e3)
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", t_f32)
 
 
 def rfft_call(frames, window, mel_fb, n_fft: int):
@@ -746,7 +759,7 @@ def check_mel_frontend(port, clips):
     silence = torch.zeros_like(sig)
     cases["silence_512x99"] = (blocks.frame_signal(silence, 320, 160),
                                full.tables(DEV), 512)
-    timed = ("full_width_512x99", "quickstart_64x49_32mels",
+    timed = ("full_width_512x99", "quickstart_64x49_32mels", "ragged_F99",
              "ragged_F50689", "dense_F128_L256_129bins",
              "dense_F256_L512_257bins")
     rows = {}
@@ -776,13 +789,16 @@ def check_mel_frontend(port, clips):
         lib = rfft_call(frames, window, mel, n_fft)
         lib_err = float((lib() - want).abs().max())
         lib_ms = time_ms(lib)
-        b_ms, b_by = mel_bound_ms(frames, cos.shape[1], mel.shape[1])
+        b_ms, b_by, f32_ms = mel_bound_ms(frames, cos.shape[1],
+                                          mel.shape[1])
         rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": b_ms, "bound_by": b_by,
-                      "library_ms": lib_ms, "library_max_abs_err": lib_err}
+                      "bound_f32_ms": f32_ms, "library_ms": lib_ms,
+                      "library_max_abs_err": lib_err}
         print(f"  mel_frontend {name:26s} kernel {ms:.4f} ms  plain"
               f" {plain_ms:.4f} ms  rfft {lib_ms:.4f} ms (max|err|"
-              f" {lib_err:.3g})  bound {b_ms:.5f} ms ({b_by})")
+              f" {lib_err:.3g})  {ms / lib_ms:.2f}x rfft  bound"
+              f" {b_ms:.5f} ms ({b_by}; {f32_ms:.5f} at the f32 rate)")
     return rows
 
 
@@ -1016,7 +1032,8 @@ def check_mamba_scan(port):
                       "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                       "library_ms": None, "library": MAMBA_LIBRARY}
         print(f"  mamba_scan {name:20s} kernel {ms:.5f} ms  plain"
-              f" {plain_ms:.4f} ms  bound {b_ms:.6f} ms ({b_by})")
+              f" {plain_ms:.4f} ms  bound {b_ms:.6f} ms ({b_by}),"
+              f" {b_ms / ms:.3f} of it")
     # a ragged chunk's pad tail (dt = 0) against the real prefix alone
     x, dt, bm, cm, a, h0 = scan_inputs(gen, 2, 64, 8192, 16, torch.bfloat16,
                                        True)

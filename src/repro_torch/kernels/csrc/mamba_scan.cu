@@ -17,153 +17,318 @@
 // S >= 1 and D >= 1, N <= 64 (the TPU kernel asserted D % block_d == 0 and
 // S % chunk == 0).
 //
-// dt == 0 is an exact identity on the state: the decay is then exactly 1
-// and the input term exactly 0, so a ragged chunk's masked pad tail, or an
+// dt == 0 is an exact identity on the state: the decay expf(0 * a) is then
+// exactly 1 (a finite; expf(+-0) is 1, as the plain version's exp(0)) and
+// the input term exactly 0, so a ragged chunk's masked pad tail, or an
 // idle serving row, leaves h bit for bit as it was.  No fast math: expf
-// rounds as the plain version's exp does, up to its last ulp.
-//
-// Design (simple first):
-//   A block of 256 threads takes 16 channels d of one batch row b; each
-//   channel has 16 lanes, and lane l carries the state elements
-//   n = l, l + 16, l + 32, l + 48 (those below N) in registers for the
-//   whole sweep over t.  The block stages 32 time steps of its x and dt
-//   columns and of B and C in shared memory, each element read once,
-//   then steps through them: one expf and two FMAs per state element, the
-//   lanes' partial dot products with C summed by warp shuffles inside
-//   each 16-lane group.  y goes through shared memory and out as whole
-//   rows of 16 channels per step.  At the chunk shape (B 1, D 8192) that is
-//   512 blocks, 131,072 threads; at decode (B 4, S 1) 2,048 blocks.
+// rounds as the plain version's exp does, up to its last ulp.  The step
+// has no branch (a select around expf compiles to one, which serializes
+// the step's independent exponentials).
 //
 // Bound on the H100: bytes.  The scan moves x, dt, B and C once, A once,
 // h0 and h_final once, y once, against 7 f32 operations per (t, d, n):
 //   a prefill chunk (B 1, S 64, D 8192, N 16, bf16 in): 5.77 MB, 1.72 us
 //     at 3.35 TB/s (0.75 us of f32 operations at 67 TFLOP/s);
 //   a decode step (B 4, S 1): 4.98 MB, mostly h0 and h_final, 1.49 us.
-// A launch and its first loads take several microseconds by themselves,
-// so at these shapes the overhead of the launch, not the bound, sets the
-// time (PERF.md gives the readings).
+// In practice the sweep is bound by instruction issue: expf (about ten
+// instructions of its accurate sequence) is over half of a step's
+// instructions, and the one-shot S 2048 at B 1 runs two warps a
+// scheduler (PERF.md gives the readings).
 //
-// Left for later PRs: the sequence split across blocks (a chunked scan
-// with a carry pass) for long one-shot prompts at small batch, where the
-// sweep over t runs on few threads, and the scan fused with the layer's
-// elementwise prologue (softplus, the D skip, the gate).
+// Design: a quarter of a channel a thread.
+//   Lane q of a channel's four holds the states n = q * KPER .. q * KPER +
+//   KPER - 1 (KPER 4 for N <= 16, 16 for N <= 64) in registers for the
+//   whole sweep over t, and moves h0, h_final and a as float4s (a warp
+//   moves 512 contiguous bytes of state at a time).  y[t] is the lanes'
+//   partial dot products with C[t], each summed in state order, then
+//   summed across the 4 lanes in a fixed order: at S > 1 four steps at a
+//   time, their decays and inputs first (16 independent expf) and the
+//   lanes' 4 x 4 partials reduced by a transposing butterfly (3 shuffles
+//   for 4 steps; lane q writes step q's y).  A block is 256 threads, 64
+//   channels of
+//   one batch row: at the decode step (B 4, D 8192) 131,072 threads, one
+//   wave; at the prefill chunk (B 1) 32,768, eight warps an SM.
+//   S = 1 (decode) reads x, dt, B and C straight from global memory, with
+//   no staging and no block sync.  S > 1 stages TC steps of the block's x
+//   and dt columns and of B and C (which every channel of the row shares)
+//   in shared memory through a two-chunk cp.async ring (16-byte copies
+//   when every row is 16-byte aligned, else plain loads), one block sync a
+//   chunk; each thread then steps through the chunk on its own.  The
+//   sequence is not split across blocks: a split scan redoes each
+//   segment's sweep (and its expf) once the incoming state is known, and
+//   the long one-shot sweep is issue-bound, not latency-bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kLanes = 16;                   // lanes per channel
+constexpr int kLanes = 4;                    // lanes a channel
 constexpr int kThreads = 256;
 constexpr int kChannels = kThreads / kLanes; // channels a block
-constexpr int kPer = 4;                      // state elements per lane
-constexpr int kMaxN = kLanes * kPer;         // 64
-constexpr int kChunk = 32;                   // time steps staged at once
+constexpr int kMaxN = 64;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-template <typename T>
+// K consecutive values from p (K * sizeof(T) bytes aligned), widened
+template <int K>
+__device__ __forceinline__ void widen(const float* p, float (&v)[K]) {
+#pragma unroll
+  for (int i = 0; i < K / 4; ++i) {
+    const float4 u = reinterpret_cast<const float4*>(p)[i];
+    v[4 * i] = u.x;
+    v[4 * i + 1] = u.y;
+    v[4 * i + 2] = u.z;
+    v[4 * i + 3] = u.w;
+  }
+}
+template <int K>
+__device__ __forceinline__ void widen(const __nv_bfloat16* p,
+                                      float (&v)[K]) {
+#pragma unroll
+  for (int i = 0; i < K / 4; ++i) {
+    const uint2 u = reinterpret_cast<const uint2*>(p)[i];
+    v[4 * i] = __uint_as_float(u.x << 16);
+    v[4 * i + 1] = __uint_as_float(u.x & 0xffff0000u);
+    v[4 * i + 2] = __uint_as_float(u.y << 16);
+    v[4 * i + 3] = __uint_as_float(u.y & 0xffff0000u);
+  }
+}
+
+// The thread's K values at p: the first `live`, zeros after (under VEC
+// `live` is K or 0, and K values are read as vectors)
+template <int K, bool VEC, typename T>
+__device__ __forceinline__ void read_k(const T* p, int live, float (&v)[K]) {
+  if (VEC) {
+    if (live > 0) {
+      widen<K>(p, v);
+    } else {
+#pragma unroll
+      for (int j = 0; j < K; ++j) v[j] = 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < K; ++j) v[j] = j < live ? to_f32(p[j]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// U consecutive steps (x and dt rows kChannels apart, B and C rows N
+// apart: a staged chunk, or at S = 1 global memory).  The decays and inputs of all U steps come first, so
+// that their U * KPER expf are independent; then the state walks the U
+// steps.  The lanes' partial y of the U steps are summed by a transposing
+// reduction: for U = 4 the channel's lane q returns step q's y, summed as
+// (y0 + y2) + (y1 + y3) over the lanes' partials (3 shuffles for 4 steps);
+// for U = 1 every lane returns the one step's.
+template <int KPER, int U, bool VEC, typename T>
+__device__ __forceinline__ float steps(float (&h)[KPER],
+                                       const float (&av)[KPER],
+                                       const T* xr, const T* dtr,
+                                       const T* br, const T* cr, int N,
+                                       int n0, int live, int q) {
+  float dec[U][KPER], inp[U][KPER], cv[U][KPER];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const float dtv = to_f32(dtr[u * kChannels]);
+    const float dx = dtv * to_f32(xr[u * kChannels]);
+    float bv[KPER];
+    // every lane may read its K values (VEC: rows of 4 * KPER)
+    read_k<KPER, VEC>(br + u * N + n0, VEC ? KPER : live, bv);
+    read_k<KPER, VEC>(cr + u * N + n0, VEC ? KPER : live, cv[u]);
+#pragma unroll
+    for (int j = 0; j < KPER; ++j) {
+      dec[u][j] = expf(dtv * av[j]);   // exactly 1 at dt = 0
+      inp[u][j] = dx * bv[j];
+    }
+  }
+  float yp[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < KPER; ++j) {
+      if (VEC || j < live) {
+        h[j] = dec[u][j] * h[j] + inp[u][j];
+        acc = fmaf(h[j], cv[u][j], acc);
+      }
+    }
+    yp[u] = acc;
+  }
+  if constexpr (U == 1) {
+    float acc = yp[0];
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1, kLanes);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2, kLanes);
+    return acc;
+  } else {
+    static_assert(U == kLanes, "one step a lane");
+    // lanes q and q ^ 2 swap halves: q keeps steps (q & 2) + {0, 1}
+    const bool up = q & 2;
+    float r1[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const float send = up ? yp[u] : yp[u + 2];
+      const float keep = up ? yp[u + 2] : yp[u];
+      r1[u] = keep + __shfl_xor_sync(0xffffffffu, send, 2, kLanes);
+    }
+    // lanes q and q ^ 1: q keeps step (q & 2) + (q & 1) = q
+    const bool odd = q & 1;
+    const float send = odd ? r1[0] : r1[1];
+    const float keep = odd ? r1[1] : r1[0];
+    return keep + __shfl_xor_sync(0xffffffffu, send, 1, kLanes);
+  }
+}
+
+// VEC: N == 4 * KPER, every pointer 16-byte aligned and the rows of x, dt
+// (D * sizeof(T) bytes) and of B, C (N * sizeof(T)) multiples of 16 bytes
+template <typename T, int KPER, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 mamba_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                   const T* __restrict__ bm, const T* __restrict__ cm,
                   const float* __restrict__ a, const float* __restrict__ h0,
                   float* __restrict__ y, float* __restrict__ hout, int S,
                   int D, int N) {
-  __shared__ float xs[kChunk][kChannels];
-  __shared__ float dts[kChunk][kChannels];
-  __shared__ float ys[kChunk][kChannels];
-  __shared__ float bs[kChunk][kMaxN];
-  __shared__ float cs[kChunk][kMaxN];
+  constexpr int TC = 64 / sizeof(T);         // steps a chunk
+  constexpr int NS = kLanes * KPER;          // states a channel at most
+  constexpr int EPC = 16 / sizeof(T);        // elements a 16-byte copy
+  constexpr int U = KPER == 4 ? 4 : 1;       // steps at once
+  static_assert(TC % U == 0, "chunk");
+  // two chunks of x and dt columns, then of B and C rows (raw storage:
+  // __nv_bfloat16 has constructors)
+  __shared__ __align__(16) unsigned char
+      raw[sizeof(T) * 2 * TC * (2 * kChannels + 2 * NS)];
+  T(*xs)[TC][kChannels] = reinterpret_cast<T(*)[TC][kChannels]>(raw);
+  T(*dts)[TC][kChannels] = xs + 2;
+  T(*bs)[TC * NS] = reinterpret_cast<T(*)[TC * NS]>(dts + 2);
+  T(*cs)[TC * NS] = bs + 2;
 
   const int tid = threadIdx.x;
-  const int lane = tid % kLanes;
-  const int ch = tid / kLanes;
+  const int ch = tid / kLanes, q = tid % kLanes;
   const int b = blockIdx.y;
   const int d0 = blockIdx.x * kChannels;
   const int d = d0 + ch;
-  const bool live = d < D;
-  const long long row0 = static_cast<long long>(b) * S;   // row (b, 0)
-  const long long hbase = (static_cast<long long>(b) * D + d) * N;
+  const bool on = d < D;
+  const int n0 = q * KPER;
+  const int live = !on ? 0 : VEC ? KPER : max(0, min(KPER, N - n0));
+  const long long hoff = (static_cast<long long>(b) * D + d) * N + n0;
 
-  float h[kPer], av[kPer];
+  float h[KPER], av[KPER];
+  read_k<KPER, VEC>(a + static_cast<long long>(d) * N + n0, live, av);
+  if (h0 != nullptr) {
+    read_k<KPER, VEC>(h0 + hoff, live, h);
+  } else {
 #pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int n = lane + j * kLanes;
-    const bool on = live && n < N;
-    av[j] = on ? a[static_cast<long long>(d) * N + n] : 0.f;
-    h[j] = (on && h0 != nullptr) ? h0[hbase + n] : 0.f;
+    for (int j = 0; j < KPER; ++j) h[j] = 0.f;
   }
 
-  for (int t0 = 0; t0 < S; t0 += kChunk) {
-    const int tc = min(kChunk, S - t0);
-    __syncthreads();           // the last chunk's tiles are consumed
-    for (int i = tid; i < kChunk * kChannels; i += kThreads) {
-      const int tt = i / kChannels;
-      const int c = i - tt * kChannels;
-      float xv = 0.f, dv = 0.f;
-      if (tt < tc && d0 + c < D) {
-        const long long off = (row0 + t0 + tt) * D + d0 + c;
-        xv = to_f32(x[off]);
-        dv = to_f32(dt[off]);
-      }
-      xs[tt][c] = xv;
-      dts[tt][c] = dv;
-    }
-    for (int i = tid; i < kChunk * N; i += kThreads) {
-      const int tt = i / N;
-      const int n = i - tt * N;
-      if (tt < tc) {
-        const long long off = (row0 + t0 + tt) * N + n;
-        bs[tt][n] = to_f32(bm[off]);
-        cs[tt][n] = to_f32(cm[off]);
-      }
-    }
-    __syncthreads();
-
-    for (int tt = 0; tt < tc; ++tt) {
-      const float dtt = dts[tt][ch];
-      const float dx = dtt * xs[tt][ch];
-      float acc = 0.f;
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int n = lane + j * kLanes;
-        if (n < N) {
-          // dt == 0: a decay of exactly 1, whatever expf does at 0
-          const float decay = dtt == 0.f ? 1.f : expf(dtt * av[j]);
-          h[j] = decay * h[j] + dx * bs[tt][n];
-          acc = fmaf(h[j], cs[tt][n], acc);
+  if (S == 1) {
+    // decode: one step straight from global memory (a channel past D
+    // reads channel 0's x and dt, and its result is dropped)
+    const long long xo = static_cast<long long>(b) * D + (on ? d : 0);
+    const long long bo = static_cast<long long>(b) * N;
+    const float yv = steps<KPER, 1, VEC>(h, av, x + xo, dt + xo, bm + bo,
+                                         cm + bo, N, n0, live, q);
+    if (q == 0 && on) y[xo] = yv;
+  } else {
+    const long long row0 = static_cast<long long>(b) * S;   // row (b, 0)
+    // chunk c's x, dt, B and C into buffer s; rows past S and channels
+    // past D are zeros
+    auto stage = [&](int c, int s) {
+      const int t0 = c * TC;
+      if (VEC) {
+        constexpr int CPR = kChannels / EPC;   // 16-byte copies a row
+        for (int i = tid; i < TC * CPR; i += kThreads) {
+          const int tt = i / CPR, dc = d0 + (i % CPR) * EPC;
+          const bool ok = t0 + tt < S && dc < D;
+          const long long off = ok ? (row0 + t0 + tt) * D + dc : 0;
+          cp_async16(&xs[s][tt][(i % CPR) * EPC], x + off, ok);
+          cp_async16(&dts[s][tt][(i % CPR) * EPC], dt + off, ok);
+        }
+        const long long base = (row0 + t0) * N;
+        for (int i = tid; i < TC * N / EPC; i += kThreads) {
+          const bool ok = t0 + (i * EPC) / N < S;
+          const long long off = ok ? base + i * EPC : 0;
+          cp_async16(&bs[s][i * EPC], bm + off, ok);
+          cp_async16(&cs[s][i * EPC], cm + off, ok);
+        }
+        cp_async_commit();
+      } else {
+        const T zero = T(0.f);
+        for (int i = tid; i < TC * kChannels; i += kThreads) {
+          const int tt = i / kChannels, c2 = i % kChannels;
+          const bool ok = t0 + tt < S && d0 + c2 < D;
+          const long long off = (row0 + t0 + tt) * D + d0 + c2;
+          xs[s][tt][c2] = ok ? x[off] : zero;
+          dts[s][tt][c2] = ok ? dt[off] : zero;
+        }
+        for (int i = tid; i < TC * N; i += kThreads) {
+          const bool ok = t0 + i / N < S;
+          const long long off = (row0 + t0) * N + i;
+          bs[s][i] = ok ? bm[off] : zero;
+          cs[s][i] = ok ? cm[off] : zero;
         }
       }
-#pragma unroll
-      for (int off = kLanes / 2; off > 0; off >>= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, off, kLanes);
-      if (lane == 0) ys[tt][ch] = acc;
-    }
-    __syncthreads();
-    for (int i = tid; i < tc * kChannels; i += kThreads) {
-      const int tt = i / kChannels;
-      const int c = i - tt * kChannels;
-      if (d0 + c < D) y[(row0 + t0 + tt) * D + d0 + c] = ys[tt][c];
+    };
+    const int nchunks = (S + TC - 1) / TC;
+    stage(0, 0);
+    for (int c = 0; c < nchunks; ++c) {
+      const int s = c & 1;
+      if (VEC) cp_async_wait_all();
+      // chunk c has landed, and every thread is done with chunk c - 1,
+      // whose buffer chunk c + 1 takes
+      __syncthreads();
+      if (c + 1 < nchunks) stage(c + 1, s ^ 1);
+      const int tc = min(TC, S - c * TC);
+      const long long yrow = (row0 + c * TC) * D + d;
+      for (int tt = 0; tt < tc; tt += U) {
+        // rows past S are zeros: dt = 0 steps, which leave h as it was
+        const float yv = steps<KPER, U, VEC>(h, av, &xs[s][tt][ch],
+                                             &dts[s][tt][ch], &bs[s][tt * N],
+                                             &cs[s][tt * N], N, n0, live, q);
+        // lane q holds step tt + q's y (U = 4), lane 0 step tt's (U = 1)
+        if (on && q < U && tt + q < tc)
+          y[yrow + static_cast<long long>(tt + q) * D] = yv;
+      }
     }
   }
 
+  if (VEC) {
+    if (on) {
 #pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int n = lane + j * kLanes;
-    if (live && n < N) hout[hbase + n] = h[j];
+      for (int i = 0; i < KPER / 4; ++i)
+        reinterpret_cast<float4*>(hout + hoff)[i] =
+            make_float4(h[4 * i], h[4 * i + 1], h[4 * i + 2], h[4 * i + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < KPER; ++j)
+      if (j < live) hout[hoff + j] = h[j];
   }
 }
 
-template <typename T>
+template <typename T, int KPER, bool VEC>
 int launch(const void* x, const void* dt, const void* bm, const void* cm,
            const void* a, const void* h0, void* y, void* hout, int B, int S,
            int D, int N, cudaStream_t stream) {
   const dim3 grid((D + kChannels - 1) / kChannels, B);
-  mamba_scan_kernel<T><<<grid, kThreads, 0, stream>>>(
+  mamba_scan_kernel<T, KPER, VEC><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dt),
       static_cast<const T*>(bm), static_cast<const T*>(cm),
       static_cast<const float*>(a), static_cast<const float*>(h0),
@@ -171,24 +336,54 @@ int launch(const void* x, const void* dt, const void* bm, const void* cm,
   return static_cast<int>(cudaGetLastError());
 }
 
+bool aligned16(const void* p) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <typename T>
+int dispatch(const void* x, const void* dt, const void* bm, const void* cm,
+             const void* a, const void* h0, void* y, void* hout, int B,
+             int S, int D, int N, int kper, cudaStream_t st) {
+  const bool vec = N == kLanes * kper &&
+                   (static_cast<long long>(D) * sizeof(T)) % 16 == 0 &&
+                   (static_cast<long long>(N) * sizeof(T)) % 16 == 0 &&
+                   aligned16(x) && aligned16(dt) && aligned16(bm) &&
+                   aligned16(cm) && aligned16(a) && aligned16(h0) &&
+                   aligned16(hout);
+  if (kper == 4)
+    return vec ? launch<T, 4, true>(x, dt, bm, cm, a, h0, y, hout, B, S, D,
+                                    N, st)
+               : launch<T, 4, false>(x, dt, bm, cm, a, h0, y, hout, B, S, D,
+                                     N, st);
+  return vec ? launch<T, 16, true>(x, dt, bm, cm, a, h0, y, hout, B, S, D, N,
+                                   st)
+             : launch<T, 16, false>(x, dt, bm, cm, a, h0, y, hout, B, S, D,
+                                    N, st);
+}
+
 }  // namespace
 
 extern "C" {
 
 // dtype of x, dt, B and C: 0 = float32, 1 = bfloat16.  h0 may be null
-// (zeros); it must not alias hout.  Returns a cudaError_t: sizes the kernel
-// does not take (cudaErrorInvalidValue), or the launch's own error.
+// (zeros); it must not alias hout.  kper: the wrapper's plan, states a
+// lane, 4 (N <= 16) or 16 (N <= 64).  Returns a cudaError_t: sizes or a
+// plan the kernel does not take (cudaErrorInvalidValue), or the launch's
+// own error.
 int mamba_scan(int dtype, const void* x, const void* dt, const void* bm,
                const void* cm, const void* a, const void* h0, void* y,
-               void* hout, int B, int S, int D, int N, void* stream) {
-  if (B < 1 || B > 65535 || S < 1 || D < 1 || N < 1 || N > kMaxN)
+               void* hout, int B, int S, int D, int N, int kper,
+               void* stream) {
+  if (B < 1 || B > 65535 || S < 1 || D < 1 || N < 1 || N > kMaxN ||
+      (kper != 4 && kper != 16) || N > kLanes * kper)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, dt, bm, cm, a, h0, y, hout, B, S, D, N,
-                                 st);
+    return dispatch<__nv_bfloat16>(x, dt, bm, cm, a, h0, y, hout, B, S, D,
+                                   N, kper, st);
   if (dtype == 0)
-    return launch<float>(x, dt, bm, cm, a, h0, y, hout, B, S, D, N, st);
+    return dispatch<float>(x, dt, bm, cm, a, h0, y, hout, B, S, D, N, kper,
+                           st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -3,15 +3,18 @@ CUDA kernel in ``csrc/mamba_scan.cu``.
 
 ``mamba_scan`` replaces ``repro/kernels/mamba_scan.py:49``, and takes a
 carried-in state ``h0``, which the TPU kernel did not.  The wrapper checks
-device, dtypes, shapes and contiguity, allocates y and the final state,
-launches the kernel on PyTorch's current stream and counts the launch in
-``LAUNCHES``.  It takes CUDA tensors only: ``kernels/ops.py`` sends CPU
-tensors to ``kernels/ref.py::mamba_scan_ref``.
+device, dtypes, shapes and contiguity, plans the launch from the shape
+(``_plan``), allocates y and the final state, launches the kernel on
+PyTorch's current stream and counts the launch in ``LAUNCHES``.  It takes
+CUDA tensors only: ``kernels/ops.py`` sends CPU tensors to
+``kernels/ref.py::mamba_scan_ref``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import dataclasses
+import functools
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -21,9 +24,44 @@ from repro_torch.kernels import build
 LAUNCHES = {"mamba_scan": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_STATE = 64            # the kernel's largest N (16 lanes x 4 elements)
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+MAX_STATE = 64            # the kernel's largest N (4 lanes x 16 states)
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
              + [ctypes.c_void_p])
+
+# the kernel's constants (csrc/mamba_scan.cu): lanes a channel, threads a
+# block, and the steps a staged chunk holds (64 bytes of each column)
+LANES = 4
+THREADS = 256
+CHANNELS = THREADS // LANES
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch: ``kper`` states a lane (a quarter of a channel's N), a
+    grid of (channel blocks, batch rows) of ``CHANNELS`` channels each,
+    and ``chunk`` steps staged at a time when S > 1 (none at S = 1)."""
+    kper: int
+    grid: Tuple[int, int]
+    chunk: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(b: int, s: int, d: int, n: int, itemsize: int) -> Plan:
+    """The launch for a (B, S, D) scan of N states with inputs of
+    ``itemsize`` bytes, from the shape alone.  Block x of batch row y
+    takes channels [64 x, 64 x + 64) of row y (those below D)."""
+    return Plan(4 if n <= 16 else 16, (_cdiv(d, CHANNELS), b),
+                64 // itemsize)
+
+
+def chunk_ranges(p: Plan, s: int) -> List[Tuple[int, int]]:
+    """The steps [lo, hi) of each chunk the kernel stages at S > 1: fixed
+    multiples of the chunk length, the last one cut at S."""
+    return [(t0, min(s, t0 + p.chunk)) for t0 in range(0, s, p.chunk)]
 
 
 def reset_launches() -> None:
@@ -87,12 +125,13 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, b_mat: torch.Tensor,
     CUDA device.  Returns (y (B, S, D) f32, h_final (B, D, N) f32), within
     rounding of ``ref.mamba_scan_ref``."""
     bsz, s, d, n = _check(x, dt, b_mat, c_mat, a, h0)
+    p = _plan(bsz, s, d, n, x.element_size())
     y = torch.empty((bsz, s, d), dtype=torch.float32, device=x.device)
     h_final = torch.empty((bsz, d, n), dtype=torch.float32, device=x.device)
     rc = _lib().mamba_scan(
         _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), b_mat.data_ptr(),
         c_mat.data_ptr(), a.data_ptr(), None if h0 is None else h0.data_ptr(),
-        y.data_ptr(), h_final.data_ptr(), bsz, s, d, n,
+        y.data_ptr(), h_final.data_ptr(), bsz, s, d, n, p.kper,
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mamba_scan kernel launch failed: CUDA error {rc}"

@@ -81,6 +81,29 @@ def test_kernel_matches_plain_on_card(cuda_device, b, s, d, n, dtype, h0):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,s,d,n,dtype", [
+    (1, 4096, 64, 16, torch.bfloat16),   # long S: 128 staged chunks
+    (3, 1, 37, 16, torch.bfloat16),      # S = 1, rows not 16-byte multiples
+    (2, 5, 37, 16, torch.bfloat16),      # a ragged last group of 4 steps,
+                                         # plain (not cp.async) staging
+    (2, 33, 96, 40, torch.bfloat16),     # 16 states a lane, N < 64
+    (1, 70, 64, 64, torch.bfloat16),     # 16 states a lane, vectorized
+    (2, 1, 96, 64, torch.float32),       # S = 1 with 16 states a lane
+])
+def test_each_plan_branch_matches_plain(cuda_device, b, s, d, n, dtype):
+    """The plan's states a lane (4 or 16), the decode path (S = 1), the
+    staged chunks with 16-byte copies or plain loads, and a ragged tail."""
+    args = _inputs(cuda_device, b, s, d, n, dtype, seed=s)
+    assert tms._plan(b, s, d, n, args[0].element_size()).kper == (
+        4 if n <= 16 else 16)
+    y, h = tops.mamba_scan(*args)
+    torch.cuda.synchronize()
+    y_want, h_want = tref.mamba_scan_ref(*args)
+    readings = (_reading(y, y_want), _reading(h, h_want))
+    assert max(readings) <= MAMBA_TOL, readings
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_masked_tail_is_bitwise_identity(cuda_device, dtype):
     """dt = 0 on a ragged chunk's tail: the final state equals, bit for

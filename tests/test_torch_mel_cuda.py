@@ -93,6 +93,34 @@ def test_dense_frames_kernel_test_shapes(cuda_device, f, l, nbins, n_mels):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("f,l,nbins,n_mels,hop,config,groups", [
+    (50_688, 320, 257, 40, 160, 0, 5),   # 128 frames a block, 5 groups
+    (3136, 320, 257, 32, 160, 1, 3),     # 64 frames a block, 3 groups
+    (99, 320, 257, 40, 161, 2, 8),       # 16 frames, 8 groups; rows not
+                                         # 16-byte aligned (4-byte copies)
+    (7, 200, 65, 20, 37, 2, 8),          # ragged L and bins
+    (300, 1024, 513, 40, 512, 1, 8),     # n_fft 1024: 8 groups of 9 tiles
+])
+def test_each_plan_branch_matches_plain(cuda_device, f, l, nbins, n_mels,
+                                        hop, config, groups):
+    """Every block shape of the plan, one and several bin groups, the
+    16-byte and the 4-byte frame copies, against the plain version on
+    DFT tables of n_fft = 2 (nbins - 1) and a random filterbank."""
+    plan = tmf._plan(f, l, nbins, n_mels)
+    assert (plan.config, plan.groups) == (config, groups)
+    rng = np.random.RandomState(f)
+    n_fft = 2 * (nbins - 1)
+    kk = np.arange(nbins)[None, :] * np.arange(l)[:, None] * 2 * np.pi / n_fft
+    sig, window, cos, sin, mel = (
+        torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+        for a in (rng.randn((f - 1) * hop + l) * 0.3, np.hanning(l),
+                  np.cos(kk), -np.sin(kk), rng.rand(nbins, n_mels)))
+    frames = tblocks.frame_signal(sig, l, hop)
+    assert frames.shape == (f, l) and frames.stride() == (hop, 1)
+    _check(frames, (window, cos, sin, mel))
+
+
+@pytest.mark.cuda
 def test_silence_is_exact(cuda_device):
     blk = tblocks.MFEBlock()
     out = blk(torch.zeros((4, 16_000), device=cuda_device))
@@ -103,6 +131,26 @@ def test_silence_is_exact(cuda_device):
     assert torch.equal(out, want)
     assert abs(float(out[0, 0, 0]) - math.log(1e-6)) < 1e-5
     assert bool((out == out[0, 0, 0]).all())
+
+
+@pytest.mark.cuda
+def test_nan_frames_give_nan_as_the_plain_version(cuda_device):
+    """A NaN sample makes every output of its frame NaN, as in the plain
+    version; the other frames stay finite and within the limit (the
+    kernel's rounding to TF32 keeps NaN)."""
+    blk = tblocks.MFEBlock()
+    sig = _clips(2, 16_000, cuda_device).clone()
+    sig[1, 5000] = float("nan")
+    frames = tblocks.frame_signal(sig, blk.frame_len, blk.stride)
+    tables = blk.tables(cuda_device)
+    out = tops.mel_frontend(frames, *tables)
+    want = tref.mel_frontend_ref(frames, *tables)
+    torch.cuda.synchronize()
+    nan_rows = want.isnan().any(-1)
+    assert int(nan_rows.sum()) == 2 and bool(want[nan_rows].isnan().all())
+    assert torch.equal(out.isnan(), want.isnan())
+    err = float((out[~nan_rows] - want[~nan_rows]).abs().max())
+    assert err <= ATOL, err
 
 
 @pytest.mark.cuda
@@ -118,8 +166,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         tmf.mel_frontend(frames, tables[0].cpu(), *tables[1:])
     with pytest.raises(ValueError, match="expected"):
         tmf.mel_frontend(frames, tables[0], tables[1][:, :-1], *tables[2:])
-    # 32 frames of L 2048 and 1,025 bins need 393,344 bytes of shared
-    # memory, past the 227 KB a block may have: refused, not tiled smaller
+    # 1,025 bins (129 tiles of 8) need more than the 8 groups of 16 tiles
+    # a cluster of the widest block shape holds: refused, not tiled smaller
     big = torch.zeros(2048, 1025, device=cuda_device)
     with pytest.raises(RuntimeError, match="launch failed"):
         tmf.mel_frontend(torch.zeros(4, 2048, device=cuda_device),
