@@ -103,7 +103,15 @@ Phases, each a hard failure (non-zero exit, no result line):
    oracle again: a small float32 int8 config served through the kernels
    gives the CPU plain path's tokens, through ``PagedBatchServer`` with
    blocks of 8 and a pool small enough to preempt, and through
-   ``StaticBatchServer``.  Last, the int8 paged steps' profile.
+   ``StaticBatchServer``.  Then the int8 paged steps' profile.  Last,
+   calibrated activations: the small float32 config's quantized weights
+   with an amax attached per scope (``SMALL_AMAX``) give the CPU's tokens
+   through ``ContinuousBatchServer``; at full width a dynamic int8
+   continuous run of phase 3's requests records the rows each projection
+   scope is fed, ``calibrate_amax`` folds them into one amax a scope, and
+   the calibrated run of the same requests must launch every kernel as
+   often as the dynamic run did; its logits are held against the plain
+   path at ``INT8_LOGIT_ATOL`` (greedy ``CAL_GREEDY_EQUAL_MIN``).
 6. The KWS Impulse at full width: DS-CNN at the repo's defaults (12
    classes, 64 filters, 4 blocks) on the MFE block's defaults, f32 with
    TF32 off, random weights from a seeded generator on the card.  2,048
@@ -115,7 +123,19 @@ Phases, each a hard failure (non-zero exit, no result line):
    within ``KWS_LOGIT_ATOL``, labels equal where the CPU's top-two gap
    exceeds it, PTQ values and scales bitwise equal; the quickstart Impulse
    (MFCC 32 mels / 10 coefficients + a 2-block conv1d stack, 0.5 s clips)
-   gives the CPU's labels on every clip.
+   gives the CPU's labels on every clip.  Then ``Impulse.fit`` at full
+   width: the same DS-CNN on MFE from seeded weights, trained on 1,536 of
+   the clips and held out on 512, 3 epochs at batch 32 (144 AdamW steps):
+   ``mel_frontend`` must launch once a step and once per ``evaluate``
+   batch and nothing else; the last epoch's loss below the first's and
+   ln 12; ``val_acc`` at least ``FIT_VAL_ACC_MIN``; the held-out int8
+   accuracy after PTQ within 0.1 of float.  Step ms, clips/s, a profiled
+   step's idle share and ``mel_frontend`` share, and the MCU estimates
+   (predictions for those boards, not card numbers).  The quickstart
+   Impulse fitted 2 epochs at batch 16 on its 64 clips on the card and on
+   the CPU from the same weights: history within ``FIT_LOSS_RTOL``,
+   logits within ``FIT_LOGIT_ATOL``, labels equal where the CPU's top-two
+   gap clears it, weights within the Adam bound.
 7. Full-width training of internlm2-1.8b: f32 masters, bf16 activations,
    ``make_train_step`` with remat "full" and AdamW (lr 3e-4) through
    ``Trainer`` for 8 steps of batch 4 x seq 2048 from the Markov token
@@ -151,8 +171,9 @@ Phases, each a hard failure (non-zero exit, no result line):
    share, kernels per step, the scan's share) and tokens/s, TTFT and the
    state's bytes.
 
-Each main path (phases 3, 5, 6, 7 and 8) runs with every launch count set
-to 0 just before it and read just after.  Prints the kernels' JSON line, the card's
+Each main path (phases 3, 5 paged and calibrated, 6 inference and fit, 7
+and 8) runs with every launch count set to 0 just before it and read just
+after.  Prints the kernels' JSON line, the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.  Needs
 one GPU; exits non-zero without one, or without the rest of the
 repository beside it.
@@ -213,6 +234,13 @@ GREEDY_EQUAL_MIN = 0.9    # share of compared rows (95.2% read)
 # plain path run once more in float64 shows the same spread (PERF.md).
 INT8_LOGIT_ATOL = 2.0
 INT8_GREEDY_EQUAL_MIN = 0.8
+# The same path with calibrated activations (one amax a projection scope,
+# phase 5): the logits at INT8_LOGIT_ATOL, greedy tokens equal on 77.8%
+# of the rows at the first reading (the plain path's own f32 against f64
+# floor 86.4%), so at least 70% is required.  A static range quantizes
+# most rows on a coarser grid than their own amax would, so a rounding
+# flip moves a value further (PERF.md).
+CAL_GREEDY_EQUAL_MIN = 0.7
 GEMM_NAMES = ("gemm", "gemv", "cutlass", "xmma", "cublas", "nvjet")
 # The mel frontend's log-mel, kernel against the plain version in f32 from
 # the same inputs: the two sum in another order (the plain f32 version is
@@ -222,6 +250,26 @@ MEL_ATOL = 1e-4
 # largest of the four readings on the H100 (2.89e-6), rounded up to a
 # power of two, the rule of the serving limits; PERF.md gives the readings.
 KWS_LOGIT_ATOL = 2.0 ** -17
+# Phase 6's fit: the DS-CNN trained on the first 1,536 of the 2,048 clips
+# and held out on 512, 3 epochs at batch 32 (144 AdamW steps), lr 1e-3.
+FIT_TRAIN, FIT_EPOCHS, FIT_BATCH, FIT_LR = 1536, 3, 32, 1e-3
+# The held-out accuracy after the fit: at most half of what the first
+# card run read (0.5195 on the H100; chance is 1/12).
+FIT_VAL_ACC_MIN = 0.25
+# Card against CPU, the quickstart Impulse fitted 2 epochs at batch 16
+# (8 AdamW steps) from the same weights: the per-epoch loss and accuracy
+# relative, the logits after the fit absolute.  Twice the largest reading
+# on the H100 over 9 weight seeds (7.32e-8 and 4.77e-6: f32 in another
+# summation order, carried through 8 Adam steps;
+# scripts/chip_fit_readings.py), rounded up to a power of two; PERF.md
+# gives the reasoning.
+FIT_CHECK_EPOCHS = 2
+FIT_LOSS_RTOL = 2.0 ** -22
+FIT_LOGIT_ATOL = 2.0 ** -16
+# Phase 5's small calibrated config: one amax per projection scope, as the
+# JAX package's calibrated test attaches them.
+SMALL_AMAX = {"wq": 4.0, "wk": 4.0, "wv": 4.0, "wo": 4.0, "w_gate": 4.0,
+              "w_up": 4.0, "w_down": 8.0}
 KWS_CLIPS, KWS_BATCH, KWS_SINGLE = 2048, 512, 32
 # The training kernels' gradients in bf16 against the backward's plain
 # version in f32 on the same inputs and the kernel's own rounded output
@@ -1190,6 +1238,120 @@ def serve_small_int8_vs_cpu(port):
               f" {tokens[DEV]}")
 
 
+def calibrated_policy(port):
+    return dataclasses.replace(port.quantize.INT8, activations="calibrated")
+
+
+def serve_small_calibrated_vs_cpu(port):
+    """The exact oracle with calibrated activations: the small float32
+    config's weights quantized once, a calibrated amax attached per scope
+    (``SMALL_AMAX``), served through ``ContinuousBatchServer`` on the card
+    gives the CPU plain path's tokens on the prompts and budgets of the
+    CPU parity test."""
+    cfg, qz = small_config(port), port.quantize
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (3, 11, 7)]
+    budgets = [5, 4, 6]
+    host = port.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    qparams = qz.attach_act_amax(qz.quantize_model_params(host, qz.INT8),
+                                 SMALL_AMAX)
+    tokens = {}
+    for dev in ("cpu", DEV):
+        srv = port.server.ContinuousBatchServer(
+            cfg, qparams.to(dev), slots=2, max_prompt=16, prefill_chunk=4,
+            max_new_tokens=8, precision=calibrated_policy(port), device=dev)
+        reqs = srv.submit(prompts, max_new_tokens=budgets)
+        srv.run()
+        tokens[dev] = [r.tokens for r in reqs]
+    check(tokens[DEV] == tokens["cpu"],
+          f"small calibrated int8 serving: card {tokens[DEV]} != cpu"
+          f" {tokens['cpu']}")
+    print(f"  small calibrated int8 continuous serving, card == cpu tokens:"
+          f" {tokens[DEV]}")
+
+
+def projection_sites(params) -> dict:
+    """The address of each layer's int8 values -> its projection's scope
+    name (``wq`` ... ``w_down``): the per-layer views the serving steps
+    hand ``quant_matmul`` start there."""
+    sites = {}
+    for scope in ("attn", "mlp"):
+        for name, qt in params["blocks"][scope].tree().items():
+            for i in range(qt.q.shape[0]):
+                sites[qt.q[i].data_ptr()] = name
+    return sites
+
+
+def serve_calibrated(port, cfg, params):
+    """Full-width calibrated int8 serving through ``ContinuousBatchServer``
+    on phase 3's requests.  A dynamic int8 run of the same requests feeds
+    the calibration: each projection scope's amax is ``calibrate_amax``
+    over the rows that run gave that scope's ``quant_matmul`` (recorded
+    here, outside the package), attached with ``attach_act_amax``.  Then
+    the calibrated run, counts set to 0 before it and read after: the
+    kernels must launch as often as in the dynamic run.  Returns the
+    calibrated server, its launches and metrics, and the greedy agreement
+    with the dynamic run."""
+    qz, layers = port.quantize, port.layers
+    kw = dict(slots=4, prefill_chunk=64, max_new_tokens=32, max_prompt=512,
+              device=DEV)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (9, 37, 64, 128, 200, 301, 450, 512)]
+    dyn = port.server.ContinuousBatchServer(cfg, params, precision="int8",
+                                            **kw)
+    sites = projection_sites(dyn.params)
+    rows = {name: [] for name in set(sites.values())}
+    kern = layers.quant_matmul
+
+    def recording(x, w, *, policy=None):
+        rows[sites[w.q.data_ptr()]].append(x.detach().abs().amax())
+        return kern(x, w, policy=policy)
+
+    dreqs = dyn.submit(prompts)
+    reset_counts(port)
+    with mock.patch.object(layers, "quant_matmul", recording):
+        dyn.run()
+    torch.cuda.synchronize()
+    dyn_launches = read_counts(port)
+    amax = {name: qz.calibrate_amax(r) for name, r in sorted(rows.items())}
+    print("  calibrated amax by scope (from the dynamic run): "
+          + json.dumps(amax))
+
+    srv = port.server.ContinuousBatchServer(
+        cfg, qz.attach_act_amax(dyn.params, amax),
+        precision=calibrated_policy(port), **kw)
+    reqs = srv.submit(prompts)
+    reset_counts(port)
+    torch.cuda.synchronize()
+    metrics = srv.run()
+    torch.cuda.synchronize()
+    launches = read_counts(port)
+    vpad = cfg.padded_vocab()
+    for r in reqs:
+        check(len(r.tokens) == 32, f"request {r.rid}: {len(r.tokens)} tokens")
+        check(all(0 <= t < vpad for t in r.tokens),
+              f"request {r.rid}: token out of [0, {vpad})")
+    steps = metrics["decode_steps"] + metrics["prefill_chunks"]
+    want = {name: 0 for name in launches}
+    want.update(flash_decode=cfg.n_layers * metrics["decode_steps"],
+                flash_chunk_prefill=cfg.n_layers * metrics["prefill_chunks"],
+                int8_matmul=7 * cfg.n_layers * steps)
+    check(launches == want, f"calibrated launches {launches} != step counts"
+          f" {want}")
+    check(launches == dyn_launches, f"calibrated launches {launches} !="
+          f" the dynamic run's {dyn_launches}")
+    same = sum(a == b for r, d in zip(reqs, dreqs)
+               for a, b in zip(r.tokens, d.tokens))
+    agreement = same / sum(len(r.tokens) for r in reqs)
+    print(f"  launches {launches} = the dynamic run's; greedy tokens equal"
+          f" to the dynamic int8 run's on {same} of"
+          f" {sum(len(r.tokens) for r in reqs)}")
+    print("  metrics " + json.dumps(metrics, default=str))
+    return srv, launches, metrics, agreement
+
+
 class Steps:
     """The serving path's chunk and decode steps on one 4-slot cache of
     576 entries: contiguous, or (``paged``) a pool of 36 blocks of 64
@@ -1584,11 +1746,17 @@ def profile_calls(calls, n: int) -> dict:
     mel = [e["dur"] for e in kernels if "mel_frontend_kernel" in e["name"]]
     busy = _merged_us([(e["ts"], e["dur"]) for e in kernels]) / 1e3 / n
     mel_ms = sum(mel) / 1e3 / n
+    by_name = {}
+    for e in kernels:
+        by_name[e["name"][:60]] = by_name.get(e["name"][:60], 0.0) \
+            + e["dur"] / 1e3 / n
+    top = sorted(by_name.items(), key=lambda x: -x[1])[:8]
     return dict(host_wall_ms=wall_ms, device_busy_ms=busy,
                 idle_share=1 - busy / wall_ms, mel_kernel_ms=mel_ms,
                 mel_kernels_seen=len(mel), other_kernels_ms=busy - mel_ms,
                 copy_ms=sum(e["dur"] for e in copies) / 1e3 / n,
-                kernels_per_call=len(kernels) / n)
+                kernels_per_call=len(kernels) / n,
+                top_kernels_ms=[[k, v] for k, v in top])
 
 
 def top2_gap(logits: torch.Tensor) -> torch.Tensor:
@@ -1710,15 +1878,158 @@ def kws_impulse(port, clips):
         print(f"  profile {name}: " + json.dumps(row))
     card_vs_cpu(port, imp, clips[:64], "DS-CNN + MFE")
 
+    quick, qclips, _ = quickstart(port)
+    card_vs_cpu(port, quick, qclips, "quickstart", every_label=True)
+    return launches, metrics, prof
+
+
+def quickstart(port):
+    """The quickstart Impulse (MFCC 32 mels / 10 coefficients + a 2-block
+    conv1d stack, 4 classes, 0.5 s clips), seeded weights on the card, and
+    64 of its clips with their labels."""
+    cb = port.core_blocks
     quick = port.Impulse(
         cb.make_dsp_block("mfcc", n_mels=32, n_coeffs=10),
         cb.make_learn_block("conv1d-stack", n_blocks=2, ch_first=16,
                             ch_last=64, n_classes=4),
         input_shape=8000, device=DEV)
     quick.init(torch.Generator(device=DEV).manual_seed(1))
-    qclips, _ = keyword_clips(port, 64, 4, 8000, seed=2)
-    card_vs_cpu(port, quick, qclips, "quickstart", every_label=True)
+    qclips, qlabels = keyword_clips(port, 64, 4, 8000, seed=2)
+    return quick, qclips, qlabels
+
+
+def kws_fit(port, clips, labels):
+    """``Impulse.fit`` at full width: the DS-CNN at the repo's defaults on
+    the MFE block's defaults, seeded weights on the card, trained on the
+    first ``FIT_TRAIN`` clips for ``FIT_EPOCHS`` epochs at batch
+    ``FIT_BATCH`` (lr ``FIT_LR``) with the rest held out for ``val_acc``.
+    The counts are set to 0 before the fit and read after:
+    ``mel_frontend`` must launch once a step and once per ``evaluate``
+    batch, and nothing else.  Each step ends in a sync here (the fit
+    itself reads its metrics once an epoch) for the step times.  Then PTQ
+    and the held-out accuracies, the MCU estimates, a profile of 8 steps
+    and the quickstart Impulse's fit on the card against the CPU's."""
+    cb = port.core_blocks
+    imp = port.Impulse(cb.make_dsp_block("mfe"), cb.make_learn_block("ds-cnn"),
+                       input_shape=16_000, device=DEV)
+    train = (clips[:FIT_TRAIN], labels[:FIT_TRAIN])
+    held = (clips[FIT_TRAIN:], labels[FIT_TRAIN:])
+    step, stamps = imp.train_step, []
+
+    def timed(*args):
+        out = step(*args)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return out
+
+    reset_counts(port)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(imp, "train_step", timed):
+        hist = imp.fit(train, epochs=FIT_EPOCHS, batch_size=FIT_BATCH,
+                       lr=FIT_LR, generator=torch.Generator(device=DEV)
+                       .manual_seed(0), eval_data=held)["history"]
+    fit_s = time.perf_counter() - t0
+    launches = read_counts(port)
+    per_epoch = -(-FIT_TRAIN // FIT_BATCH)
+    evals = FIT_EPOCHS * -(-len(held[0]) // 64)
+    check(len(stamps) == FIT_EPOCHS * per_epoch, f"{len(stamps)} steps")
+    want = {name: 0 for name in launches}
+    want.update(mel_frontend=len(stamps) + evals)
+    check(launches == want, f"fit launches {launches} != one mel_frontend a"
+          f" step and an evaluate batch {want}")
+    print(f"  launches {launches}: {len(stamps)} steps + {evals} evaluate"
+          f" batches")
+    for rec in hist:
+        print("  epoch " + json.dumps(rec))
+    # intervals inside epochs 2 on (each epoch's first one holds the
+    # previous epoch's evaluation)
+    step_ms = [(b - a) * 1e3 for e in range(1, FIT_EPOCHS)
+               for a, b in zip(stamps[e * per_epoch:(e + 1) * per_epoch],
+                               stamps[e * per_epoch + 1:(e + 1) * per_epoch])]
+    first, last = hist[0], hist[-1]
+    check(last["loss"] < first["loss"] and last["loss"] < np.log(12),
+          f"fit loss did not fall below the first epoch's and ln 12: {hist}")
+    check(last["val_acc"] >= FIT_VAL_ACC_MIN,
+          f"val_acc {last['val_acc']} < {FIT_VAL_ACC_MIN}")
+    imp.quantize(train[0][:16])
+    f32_acc = imp.evaluate(imp.params, *held)
+    int8_acc = imp.int8_accuracy(*held)
+    check(int8_acc >= f32_acc - 0.1,
+          f"int8 held-out accuracy {int8_acc} < float {f32_acc} - 0.1")
+    metrics = dict(step_ms=float(np.median(step_ms)),
+                   clips_per_s=FIT_BATCH / float(np.median(step_ms)) * 1e3,
+                   fit_s=fit_s, val_acc=last["val_acc"],
+                   heldout_f32_acc=f32_acc, heldout_int8_acc=int8_acc)
+    print("  fit metrics " + json.dumps(metrics))
+    for target in port.estimator.TARGETS:
+        for engine in ("eon", "tflm"):
+            r = port.estimator.estimate_impulse(imp, target, engine=engine)
+            print(f"  estimate (the estimator's prediction for the board,"
+                  f" not a card number) {target} {engine} int8: dsp"
+                  f" {r.dsp_latency_ms:.2f} ms, nn {r.nn_latency_ms:.2f} ms,"
+                  f" ram {r.ram_kb:.1f} kB, flash {r.flash_kb:.1f} kB, fits"
+                  f" {r.fits}, macs {r.detail['macs']}")
+
+    params = port.tree.map_tree(
+        lambda t: t.clone().requires_grad_(True), imp.params)
+    opt_cfg = port.optimizer.AdamWConfig(lr=FIT_LR, weight_decay=0.0,
+                                         grad_clip=1.0)
+    opt = port.optimizer.adamw_init(params)
+    xs = torch.as_tensor(train[0][:8 * FIT_BATCH], device=DEV)
+    ys = torch.as_tensor(train[1][:8 * FIT_BATCH], dtype=torch.long,
+                         device=DEV)
+    prof = profile_calls(lambda i: imp.train_step(
+        params, opt, opt_cfg, xs[i * FIT_BATCH:(i + 1) * FIT_BATCH],
+        ys[i * FIT_BATCH:(i + 1) * FIT_BATCH]), 8)
+    prof["mel_share"] = prof["mel_kernel_ms"] / prof["device_busy_ms"]
+    print("  profile of a fit step: " + json.dumps(prof))
+    fit_vs_cpu(port)
     return launches, metrics, prof
+
+
+def fit_vs_cpu(port):
+    """The quickstart Impulse fitted ``FIT_CHECK_EPOCHS`` epochs at batch
+    16 on its 64 clips on the card and on the CPU from the same weights:
+    the loss and accuracy history within ``FIT_LOSS_RTOL``, the logits
+    after the fit within ``FIT_LOGIT_ATOL``, labels equal wherever the
+    CPU's top-two gap exceeds it, and every weight within the Adam bound
+    (``2 x lr x steps``: a leaf whose gradient is noise moves by up to lr
+    a step, whatever the noise's sign)."""
+    quick, qclips, qlabels = quickstart(port)
+    tree = port.tree
+    imps = {dev: port.Impulse(quick.dsp, quick.learn, quick.input_shape,
+                              params=tree.map_tree(lambda t: t.to(dev),
+                                                   quick.params),
+                              device=dev) for dev in (DEV, "cpu")}
+    hist = {dev: imp.fit((qclips, qlabels), epochs=FIT_CHECK_EPOCHS,
+                         batch_size=16, lr=FIT_LR)["history"]
+            for dev, imp in imps.items()}
+    loss_gap = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in
+                   zip(hist[DEV], hist["cpu"]) for k in ("loss", "acc")
+                   if b[k])
+    got = imps[DEV].logits(qclips).cpu()
+    want = imps["cpu"].logits(qclips)
+    gap = float((got - want).abs().max())
+    clear = top2_gap(want) > FIT_LOGIT_ATOL
+    same = got.argmax(-1) == want.argmax(-1)
+    w_gap = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        tree.leaves(imps[DEV].params), tree.leaves(imps["cpu"].params)))
+    steps = FIT_CHECK_EPOCHS * -(-len(qclips) // 16)
+    reading = dict(history_rel_gap=loss_gap, logits_max_abs_gap=gap,
+                   rows=int(got.shape[0]), clear_rows=int(clear.sum()),
+                   labels_equal=int(same.sum()), weights_max_abs_gap=w_gap,
+                   adam_bound=2 * FIT_LR * steps)
+    print("  quickstart fit, card vs cpu: " + json.dumps(reading))
+    check(loss_gap <= FIT_LOSS_RTOL, f"fit history: card vs cpu relative"
+          f" gap {loss_gap} > {FIT_LOSS_RTOL}: {hist}")
+    check(gap <= FIT_LOGIT_ATOL, f"fitted logits: card vs cpu gap {gap} >"
+          f" {FIT_LOGIT_ATOL}")
+    check(bool(same[clear].all()), "fitted labels differ between the card"
+          " and the CPU")
+    check(w_gap <= 2 * FIT_LR * steps, f"fitted weights: card vs cpu gap"
+          f" {w_gap} beyond the Adam bound")
+    return reading
 
 
 # ---------------------------------------------------------------------------
@@ -1991,7 +2302,7 @@ def load_port():
     import_port()
     from repro_torch import configs
     from repro_torch.core import blocks as core_blocks
-    from repro_torch.core import quantize, tree
+    from repro_torch.core import estimator, quantize, tree
     from repro_torch.core.impulse import Impulse
     from repro_torch.data import synthetic
     from repro_torch.dsp import blocks as dsp_blocks
@@ -2017,7 +2328,8 @@ def load_port():
                            kvcache=kvcache, serve_step=serve_step,
                            server=server, core_blocks=core_blocks, tree=tree,
                            Impulse=Impulse, synthetic=synthetic,
-                           dsp_blocks=dsp_blocks, kws=kws)
+                           dsp_blocks=dsp_blocks, kws=kws,
+                           estimator=estimator)
 
 
 def main() -> None:
@@ -2049,7 +2361,7 @@ def main() -> None:
     print(f"  build phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    clips, _ = keyword_clips(port, KWS_CLIPS, 12, 16_000, seed=0)
+    clips, labels = keyword_clips(port, KWS_CLIPS, 12, 16_000, seed=0)
     print(f"  {KWS_CLIPS} keyword clips of 1 s made in"
           f" {time.perf_counter() - t0:.1f} s")
 
@@ -2085,6 +2397,20 @@ def main() -> None:
           f" {metrics8['kv_cache_bytes']}  preemptions"
           f" {metrics8['preemptions']}  prefix_hit_blocks"
           f" {metrics8['prefix_hit_blocks']}")
+    print("  calibrated int8 activations, continuous")
+    t0 = time.perf_counter()
+    serve_small_calibrated_vs_cpu(port)
+    cal_srv, launches_cal, metrics_cal, cal_agree = serve_calibrated(
+        port, cfg, srv.params)
+    logits_vs_plain(port, cfg, cal_srv.params, INT8_LOGIT_ATOL,
+                    CAL_GREEDY_EQUAL_MIN, attention_paths(port),
+                    cal_srv.prec)
+    print(f"  calibrated int8 tokens_per_s {metrics_cal['tokens_per_s']:.2f}"
+          f"  ttft_p50_s {metrics_cal['ttft_p50_s']:.4f}  ttft_p95_s"
+          f" {metrics_cal['ttft_p95_s']:.4f}  greedy agreement with the"
+          f" dynamic run {cal_agree:.4f}  part"
+          f" {time.perf_counter() - t0:.1f} s")
+    del cal_srv
 
     print("phase 6: full-width KWS Impulse, DS-CNN on MFE, f32 and PTQ int8")
     t0 = time.perf_counter()
@@ -2095,6 +2421,17 @@ def main() -> None:
           f" {kws_metrics['batch1_nn_p50_ms']:.3f})  idle share batch 512"
           f" {kws_prof['batch512']['idle_share']:.3f}, batch 1"
           f" {kws_prof['batch1']['idle_share']:.3f}  phase"
+          f" {time.perf_counter() - t0:.1f} s")
+    print("  Impulse.fit at full width, DS-CNN on MFE")
+    t0 = time.perf_counter()
+    launches_fit, fit_metrics, fit_prof = kws_fit(port, clips, labels)
+    print(f"  fit step_ms {fit_metrics['step_ms']:.3f}  clips_per_s"
+          f" {fit_metrics['clips_per_s']:.1f}  idle share"
+          f" {fit_prof['idle_share']:.3f}  mel_frontend share of device"
+          f" busy {fit_prof['mel_share']:.3f}  val_acc"
+          f" {fit_metrics['val_acc']:.4f}  held-out int8"
+          f" {fit_metrics['heldout_int8_acc']:.4f} (float"
+          f" {fit_metrics['heldout_f32_acc']:.4f})  part"
           f" {time.perf_counter() - t0:.1f} s")
 
     print("phase 7: full-width training, internlm2-1.8b f32 masters, bf16")
@@ -2133,7 +2470,9 @@ def main() -> None:
 
     by_path = {name: {"float_continuous": launches[name],
                       "int8_paged": launches8[name],
+                      "int8_continuous_calibrated": launches_cal[name],
                       "kws_impulse": launches_kws[name],
+                      "kws_fit": launches_fit[name],
                       "lm_training": launches_train[name],
                       "mamba1_serving": launches_ssm[name]}
                for name in REPLACES}
@@ -2147,13 +2486,14 @@ def main() -> None:
             layouts=layout_rows[name]))
     kernels.append(dict(
         name="int8_matmul", route="cuda", source=SOURCES["int8_matmul"],
-        replaces=REPLACES["int8_matmul"], launches=launches8["int8_matmul"],
+        replaces=REPLACES["int8_matmul"],
+        launches=launches8["int8_matmul"] + launches_cal["int8_matmul"],
         launches_by_path=by_path["int8_matmul"],
         **mm_rows["M4_K2048_N8192"], shapes=mm_rows))
     kernels.append(dict(
         name="mel_frontend", route="cuda", source=SOURCES["mel_frontend"],
         replaces=REPLACES["mel_frontend"],
-        launches=launches_kws["mel_frontend"],
+        launches=launches_kws["mel_frontend"] + launches_fit["mel_frontend"],
         launches_by_path=by_path["mel_frontend"],
         **mel_rows["full_width_512x99"], shapes=mel_rows))
     for name in ("flash_attention", "flash_attention_bwd"):

@@ -1,21 +1,27 @@
 """int8 quantization (paper C5): the serving path's precision policy,
-quantized weights and KV caches and dynamic activation quantizer, and the
-Impulse's post-training quantization (PTQ) of a parameter tree.
+quantized weights and KV caches and per-row activation quantizer
+(dynamic, or against a calibrated range), the Impulse's post-training
+quantization (PTQ) of a parameter tree, and quantization-aware training
+(QAT) by straight-through fake quantization.
 
-The counterpart of ``repro.core.quantize`` without its QAT helpers.
-Rounding is half-to-even (``torch.round``, as ``jnp.round``) and every
-scale is computed in float32 in the same order as the JAX package, with
-correctly rounded divisions on every device, so the int8 values and the
-scales come out bitwise equal to its own, on the CPU and on the card.
+The counterpart of ``repro.core.quantize``.  Rounding is half-to-even
+(``torch.round``, as ``jnp.round``) and every scale is computed in
+float32 in the same order as the JAX package, with correctly rounded
+divisions on every device, so the int8 values and the scales come out
+bitwise equal to its own, on the CPU and on the card.
 
 One layout differs: a ``QTensor``'s values are stored **(..., N, K)**,
 output channel first, so the int8 kernel reads each weight column with
 its contraction axis contiguous.  ``quantize_model_params`` and
 ``params_from_numpy`` transpose once when they build it; the scales stay
-(..., N).
+(..., N), and a calibrated ``amax`` has the stacked prefix ``q.shape[:-2]``
+in either layout.
 
-Calibrated activation ranges (``AmaxObserver``, ``attach_act_amax``) are
-post-training calibration, which comes with port slice 6.
+Calibrated activation ranges: ``AmaxObserver``/``calibrate_amax`` fold
+representative activations into one amax, ``attach_act_amax`` puts it on
+the ``QTensor`` sites by scope name, and ``PrecisionPolicy(activations=
+"calibrated")`` makes ``ops.quant_matmul`` quantize each input row
+against it (a site with no amax stays dynamic).
 """
 from __future__ import annotations
 
@@ -35,8 +41,11 @@ class PrecisionPolicy:
 
     ``weights``      "float" | "int8": int8 wraps projection weights in
                      ``QTensor`` (per-output-channel symmetric int8).
-    ``activations``  "dynamic": each matmul input row is quantized from
-                     its own amax.  ("calibrated" comes with slice 6.)
+    ``activations``  "dynamic" | "calibrated": dynamic quantizes each
+                     matmul input row from its own amax; calibrated
+                     against the ``QTensor.amax`` recorded from
+                     representative batches (``AmaxObserver``), dynamic
+                     where no amax was attached.
     ``kv_cache``     "float" | "int8": int8 stores the decode cache as
                      ``Int8KV`` (int8 values + per-(entry, head) f32
                      scales).
@@ -50,12 +59,8 @@ class PrecisionPolicy:
     compute: str = "native"
 
     def __post_init__(self):
-        if self.activations == "calibrated":
-            raise NotImplementedError(
-                "activations='calibrated' (PTQ calibration) comes with port"
-                " slice 6")
         for name, allowed in (("weights", ("float", "int8")),
-                              ("activations", ("dynamic",)),
+                              ("activations", ("dynamic", "calibrated")),
                               ("kv_cache", ("float", "int8")),
                               ("compute", ("native", "fake_quant"))):
             if getattr(self, name) not in allowed:
@@ -83,9 +88,12 @@ def policy_for(name) -> PrecisionPolicy:
 class QTensor(NamedTuple):
     """A quantized weight: ``q`` (..., N, K) int8 values, output channel
     first, and ``scale`` (..., N) f32 per-output-channel scales.  Leading
-    dims are stacked layers."""
+    dims are stacked layers.  ``amax`` optionally carries a calibrated
+    input-activation amax for this matmul site (0-d, or (L,) for stacked
+    layers); None means dynamic activation ranges."""
     q: torch.Tensor
     scale: torch.Tensor
+    amax: Optional[torch.Tensor] = None
 
 
 class Int8KV(NamedTuple):
@@ -124,15 +132,22 @@ def _symmetric(x32: torch.Tensor, amax: torch.Tensor, axis: int):
 # ---------------------------------------------------------------------------
 # Dynamic activation quantization (per-row symmetric: the serving path)
 # ---------------------------------------------------------------------------
-def quant_dynamic(x: torch.Tensor):
+def quant_dynamic(x: torch.Tensor, amax: Optional[torch.Tensor] = None):
     """Symmetric int8 per-row quantization of a matmul input.
 
     x: (..., K) float.  Each row gets its own scale from its amax, so the
-    int8 matmul's per-row x per-channel dequant is exact.  Returns
-    (q int8 (..., K), scale f32 (...,)).
+    int8 matmul's per-row x per-channel dequant is exact.  ``amax``
+    (broadcastable to x.shape[:-1]) substitutes a calibrated range for the
+    observed one.  Returns (q int8 (..., K), scale f32 (...,), contiguous).
     """
     x32 = x.float()
-    return _symmetric(x32, x32.abs().amax(dim=-1), -1)
+    if amax is None:
+        row_amax = x32.abs().amax(dim=-1)
+    else:
+        row_amax = torch.as_tensor(amax, dtype=torch.float32,
+                                   device=x.device).expand(x32.shape[:-1])
+    q, scale = _symmetric(x32, row_amax, -1)
+    return q, scale.contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -188,8 +203,9 @@ def _leaf_qtensor(w: torch.Tensor) -> QTensor:
 
 def quantize_model_params(params, policy: PrecisionPolicy = INT8):
     """Wrap every projection weight consumed by ``ops.quant_matmul`` in a
-    ``QTensor``.  Leaves outside ``QUANT_SCOPES`` (embeddings, norms) pass
-    through untouched.  ``params`` is a ``ParamTree``; so is the result
+    ``QTensor``.  Leaves outside ``QUANT_SCOPES`` (embeddings, norms), and
+    leaves that already are ``QTensor``s (a quantized tree, its calibrated
+    amax attached), pass through untouched.  ``params`` is a ``ParamTree``; so is the result
     (it shares the untouched leaves' storage)."""
     if policy.weights != "int8":
         return params
@@ -209,6 +225,68 @@ def quantize_model_params(params, policy: PrecisionPolicy = INT8):
         return out
 
     return ParamTree(wrap(params.tree(), False))
+
+
+def attach_act_amax(qparams, amax_by_scope: Dict[str, Any]):
+    """Attach calibrated activation amax values to the ``QTensor`` sites,
+    keyed by their innermost scope or leaf name (e.g. ``{"wq": 3.1,
+    "w_down": 8.2}`` or coarser ``{"attn": 3.5}``).  Unmatched sites keep
+    dynamic ranges.
+
+    The amax is broadcast to the leaf's stacked prefix (``q.shape[:-2]``)
+    on the leaf's device, so the per-layer views of a stacked leaf carry
+    their layer's value; a per-layer array of that shape passes through as
+    it is.  ``qparams`` is a ``ParamTree`` (so is the result, sharing the
+    leaves' storage) or a nested dict."""
+    from repro_torch.models.params import ParamTree
+
+    def attach(leaf: QTensor, path) -> QTensor:
+        for name in reversed(path):
+            if name in amax_by_scope:
+                amax = torch.as_tensor(amax_by_scope[name],
+                                       dtype=torch.float32,
+                                       device=leaf.q.device)
+                return leaf._replace(
+                    amax=amax.expand(leaf.q.shape[:-2]).contiguous())
+        return leaf
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            return {k: walk(v, path + (k,)) for k, v in t.items()}
+        return attach(t, path) if isinstance(t, QTensor) else t
+
+    if isinstance(qparams, ParamTree):
+        return ParamTree(walk(qparams.tree(), ()))
+    return walk(qparams, ())
+
+
+@dataclasses.dataclass
+class AmaxObserver:
+    """Running activation amax over representative batches (paper C5's
+    calibration step).  ``momentum=None`` tracks the running max;
+    otherwise an EMA, which is robust to outlier batches."""
+    momentum: Optional[float] = None
+    amax: Optional[float] = None
+
+    def update(self, x) -> float:
+        cur = float(torch.as_tensor(x).abs().max())
+        if self.amax is None:
+            self.amax = cur
+        elif self.momentum is None:
+            self.amax = max(self.amax, cur)
+        else:
+            self.amax = self.momentum * self.amax + (1 - self.momentum) * cur
+        return self.amax
+
+
+def calibrate_amax(batches, momentum: Optional[float] = None) -> float:
+    """Fold representative batches into one calibrated amax."""
+    obs = AmaxObserver(momentum=momentum)
+    for x in batches:
+        obs.update(x)
+    if obs.amax is None:
+        raise ValueError("no calibration batches given")
+    return obs.amax
 
 
 # ---------------------------------------------------------------------------
@@ -242,9 +320,9 @@ def _dequant_leaf(q, scale):
 def quantize_params(params) -> QuantizedParams:
     """Weight-only PTQ of a parameter tree: ``q`` and ``scales`` have its
     structure.  Activations stay float (the JAX package's ``calib_fn`` is
-    never called there; calibrated activation ranges come with port slice
-    6).  ``meta`` counts the leaves quantized and the bytes before and
-    after, as the JAX package does."""
+    never called there, so the port takes none).  ``meta`` counts the
+    leaves quantized and the bytes before and after, as the JAX package
+    does."""
     meta = {"n_quantized": 0, "float_bytes": 0, "int8_bytes": 0}
 
     def split(t):
@@ -282,3 +360,51 @@ def quantization_error(params, qp: QuantizedParams) -> float:
         lambda a, b: float((a.float() - b.float()).abs().max()),
         params, fake_quant_params(qp))
     return max(tree.leaves(errs))
+
+
+# ---------------------------------------------------------------------------
+# QAT: straight-through-estimator fake quant for training
+# ---------------------------------------------------------------------------
+def fake_quant_ste(w: torch.Tensor) -> torch.Tensor:
+    """Quantize-dequantize with an identity gradient (STE): the values of
+    ``_dequant_leaf(_quant_leaf(w))``, the gradient of ``w``."""
+    q, scale = _quant_leaf(w.detach())
+    if scale is None:
+        return w
+    return w + (_dequant_leaf(q, scale) - w).detach()
+
+
+def qat_params(params):
+    """STE fake quant of every quantizable leaf (wrap a loss with this for
+    quantization-aware training)."""
+    return tree.map_tree(fake_quant_ste, params)
+
+
+# ---------------------------------------------------------------------------
+# Activation quantization helpers (per-tensor affine)
+# ---------------------------------------------------------------------------
+def _f32(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A Python float as a 0-d f32 tensor on ``like``'s device: an
+    operation with it rounds once in f32 on every device (the card's
+    division by a Python scalar multiplies by its reciprocal)."""
+    return torch.tensor(value, dtype=torch.float32, device=like.device)
+
+
+def calibrate_activation(x) -> Dict[str, float]:
+    """Per-tensor affine int8 range of ``x``: ``scale`` and ``zero_point``."""
+    x = torch.as_tensor(x)
+    lo = float(x.min())
+    hi = float(x.max())
+    scale = max(hi - lo, 1e-8) / 255.0
+    zero_point = int(round(-lo / scale)) - 128
+    return {"scale": scale, "zero_point": zero_point}
+
+
+def quant_activation(x: torch.Tensor, c: Dict[str, float]) -> torch.Tensor:
+    q = torch.round(x / _f32(c["scale"], x)) + c["zero_point"]
+    return torch.clamp(q, -128, 127).to(torch.int8)
+
+
+def dequant_activation(q: torch.Tensor, c: Dict[str, float]
+                       ) -> torch.Tensor:
+    return (q.float() - c["zero_point"]) * _f32(c["scale"], q)

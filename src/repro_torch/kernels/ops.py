@@ -8,8 +8,9 @@ fallback and no switch.
 
 ``quant_matmul`` is the matmul every projection goes through: a float
 weight is ``x @ w``, left to ``torch.matmul`` as the JAX package leaves
-it to XLA; a ``QTensor`` weight takes the dynamic-activation int8 path
-through ``int8_matmul`` (or its fake-quant float simulation).  The
+it to XLA; a ``QTensor`` weight takes the int8 path, its activations
+quantized per row (dynamically or against a calibrated amax), through
+``int8_matmul`` (or its fake-quant float simulation).  The
 attention wrappers take the cache as float tensors or ``Int8KV`` pairs,
 contiguous or paged (``block_table``).  ``mel_frontend`` is the DSP
 blocks' fused frontend.  ``flash_attention`` is the training path's
@@ -56,18 +57,21 @@ def quant_matmul(x: torch.Tensor, w, *,
     """Precision-aware matmul: ``x (..., K) @ w``.
 
     A float ``w`` (K, N) is ``x @ w``.  A ``QTensor`` (values (N, K)) takes
-    the int8 path: the rows of x are quantized dynamically, the int8
-    kernel runs with the dequant in its epilogue, and the f32 result is
-    cast back to x's dtype.  With ``policy.compute == "fake_quant"`` the
-    same quantization decisions run in float: the integer-valued f32
-    product with the scales applied once afterwards, the kernel's
-    accumulate-then-scale order (exact while every partial sum stays below
-    2^24), as the JAX package's oracle does.
+    the int8 path: the rows of x are quantized dynamically (with
+    ``policy.activations == "calibrated"``, against the ``QTensor``'s
+    calibrated amax where it has one), the int8 kernel runs with the
+    dequant in its epilogue, and the f32 result is cast back to x's dtype.
+    With ``policy.compute == "fake_quant"`` the same quantization decisions
+    run in float: the integer-valued f32 product with the scales applied
+    once afterwards, the kernel's accumulate-then-scale order (exact while
+    every partial sum stays below 2^24), as the JAX package's oracle does.
     """
     if not isinstance(w, QTensor):
         return x @ w.to(x.dtype)
     lead, kdim = x.shape[:-1], x.shape[-1]
-    xq, xs = quant_dynamic(x.reshape(-1, kdim))
+    calibrated = policy is not None and policy.activations == "calibrated"
+    xq, xs = quant_dynamic(x.reshape(-1, kdim),
+                           w.amax if calibrated else None)
     if policy is not None and policy.compute == "fake_quant":
         acc = xq.float() @ w.q.float().t()
         out = acc * (xs[:, None] * w.scale[None, :])

@@ -13,11 +13,12 @@ Both return a ``ParamTree``: an ``nn.Module`` whose leaves are
 ``nn.Parameter``s, indexed like the JAX params dict (``p["blocks"]["attn"]
 ["wq"]``), so ``state_dict``, ``parameters`` and ``to`` work as usual.  An
 int8 projection weight is a ``QTensor`` leaf (``core/quantize.py``): its
-values and scales are held by a ``QLeaf`` module, and indexing returns
-the ``QTensor``.  Serving weights are frozen; ``trainable=True`` gives the
-training path's masters: every leaf float32 with ``requires_grad``, as the
-JAX package keeps its masters (``ParamSpec.dtype == "float32"``), cast to
-the activation dtype where they are used (``quant_matmul``).
+values, scales and calibrated amax (if any) are held by a ``QLeaf``
+module, and indexing returns the ``QTensor``.  Serving weights are
+frozen; ``trainable=True`` gives the training path's masters: every leaf
+float32 with ``requires_grad``, as the JAX package keeps its masters
+(``ParamSpec.dtype == "float32"``), cast to the activation dtype where
+they are used (``quant_matmul``).
 """
 from __future__ import annotations
 
@@ -140,15 +141,23 @@ def build_specs(cfg: ArchConfig) -> SpecTree:
 # The weights as a module
 # ---------------------------------------------------------------------------
 class QLeaf(nn.Module):
-    """The two frozen tensors of a ``QTensor`` leaf."""
+    """The frozen tensors of a ``QTensor`` leaf: values, scales and, where
+    one was attached, the calibrated activation amax."""
 
     def __init__(self, qt: QTensor):
         super().__init__()
         self.q = nn.Parameter(qt.q, requires_grad=False)
         self.scale = nn.Parameter(qt.scale, requires_grad=False)
+        self.amax = None if qt.amax is None else nn.Parameter(
+            qt.amax, requires_grad=False)
 
     def qtensor(self) -> QTensor:
-        return QTensor(self.q, self.scale)
+        return QTensor(self.q, self.scale, self.amax)
+
+    def layer(self, i: int) -> QTensor:
+        """Layer i of a stacked leaf."""
+        return QTensor(self.q[i], self.scale[i],
+                       None if self.amax is None else self.amax[i])
 
 
 class ParamTree(nn.Module):
@@ -224,8 +233,7 @@ class ParamTree(nn.Module):
     def _slice(self, i: int) -> Dict[str, object]:
         out: Dict[str, object] = {k: p[i] for k, p in self._parameters.items()}
         for k, m in self._modules.items():
-            out[k] = QTensor(m.q[i], m.scale[i]) if isinstance(m, QLeaf) \
-                else m._slice(i)
+            out[k] = m.layer(i) if isinstance(m, QLeaf) else m._slice(i)
         return out
 
 
@@ -318,7 +326,8 @@ def params_from_numpy(tree: Dict[str, object],
     A quantized leaf (any object with ``q`` (..., K, N) int8 and ``scale``
     (..., N) arrays, such as the JAX package's ``QTensor`` mapped to
     numpy) becomes a ``QTensor`` with its values transposed to the port's
-    (..., N, K) layout, bit for bit."""
+    (..., N, K) layout, bit for bit, and its ``amax`` (where it has one)
+    in float32."""
     device = resolve_device(device)
     if trainable:
         dtype = dtype or torch.float32
@@ -330,9 +339,12 @@ def params_from_numpy(tree: Dict[str, object],
             q = torch.from_numpy(np.array(x.q))
             if q.dtype != torch.int8:
                 raise TypeError(f"quantized leaf of {q.dtype}, not int8")
+            amax = getattr(x, "amax", None)
             return QTensor(
                 q.transpose(-1, -2).contiguous().to(device),
-                torch.from_numpy(np.array(x.scale, np.float32)).to(device))
+                torch.from_numpy(np.array(x.scale, np.float32)).to(device),
+                None if amax is None else torch.from_numpy(
+                    np.array(amax, np.float32)).to(device))
         t = torch.from_numpy(np.array(x))
         return t.to(device=device, dtype=_leaf_dtype(
             name, t.ndim, dtype, t.dtype)).contiguous()

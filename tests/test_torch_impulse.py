@@ -173,11 +173,17 @@ def test_custom_blocks_register():
 
 
 def test_fit_raises_and_int8_needs_quantize():
-    imp = TImpulse(tcb.make_dsp_block("mfe"), tcb.make_learn_block("ds-cnn"),
+    """``fit`` trains (it raised before the port had it; its parity with
+    the JAX package is in ``test_torch_fit.py``); the int8 path still
+    needs ``quantize`` first."""
+    imp = TImpulse(tcb.make_dsp_block("mfe"),
+                   tcb.make_learn_block("ds-cnn", n_filters=8, n_blocks=1),
                    input_shape=16_000, device="cpu")
     imp.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        imp.fit((np.zeros((1, 16_000)), np.zeros(1)))
+    out = imp.fit((np.zeros((3, 16_000), np.float32), np.zeros(3, np.int64)),
+                  epochs=1, batch_size=2)
+    assert [sorted(r) for r in out["history"]] == [["acc", "epoch", "loss"]]
+    assert np.isfinite(out["final"]["loss"])
     with pytest.raises(RuntimeError, match="quantize"):
         imp.logits_int8(np.zeros((1, 16_000), np.float32))
 

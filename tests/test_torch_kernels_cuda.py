@@ -186,7 +186,10 @@ def test_quantizers_bitwise_card_vs_cpu(cuda_device):
                                                                    128)),
                     (tq._leaf_qtensor, x.reshape(4, 512, 64))):
         for got, want in zip(fn(arg.to(cuda_device)), fn(arg)):
-            assert torch.equal(got.cpu(), want)
+            if want is None:            # a QTensor's amax: none attached
+                assert got is None
+            else:
+                assert torch.equal(got.cpu(), want)
     tree = {"w": w, "b": torch.zeros(64), "blocks": [{"w": x[:, :256]}]}
     card = tq.quantize_params({"w": w.to(cuda_device),
                                "b": torch.zeros(64, device=cuda_device),

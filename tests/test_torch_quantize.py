@@ -181,5 +181,8 @@ def test_policy_for_and_unported_calibration():
         tq.policy_for("fp4")
     with pytest.raises(ValueError):
         tq.PrecisionPolicy(weights="int4")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tq.PrecisionPolicy(weights="int8", activations="calibrated")
+    cal = tq.PrecisionPolicy(weights="int8", activations="calibrated")
+    assert dataclasses.asdict(cal) == dataclasses.asdict(
+        jq.PrecisionPolicy(weights="int8", activations="calibrated"))
+    with pytest.raises(ValueError):
+        tq.PrecisionPolicy(activations="static")

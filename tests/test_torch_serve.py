@@ -158,11 +158,12 @@ def test_unported_options_raise(setup):
     _, tcfg, _, tp = setup
     with pytest.raises(NotImplementedError, match="artifact"):
         ContinuousBatchServer(tcfg, tp, use_artifact=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        ContinuousBatchServer(
-            tcfg, tp, device="cpu",
-            precision=tq.PrecisionPolicy(weights="int8",
-                                         activations="calibrated"))
+    # calibrated activations are served (test_torch_calibrated.py)
+    srv = ContinuousBatchServer(
+        tcfg, tp, device="cpu",
+        precision=tq.PrecisionPolicy(weights="int8",
+                                     activations="calibrated"))
+    assert srv.prec.activations == "calibrated"
     with pytest.raises(ValueError, match="unknown precision"):
         ContinuousBatchServer(tcfg, tp, precision="int4", device="cpu")
 
