@@ -30,10 +30,13 @@ Phases, each a hard failure (non-zero exit, no result line):
      50,688 frames, L 320, 257 bins, 40 mels, as ``frame_signal``'s unfold
      view), the quickstart's MFCC frontend (32 mels, 0.5 s clips), ragged
      frame counts 1, 99 and 50,689, the kernel tests' dense shapes (L 256,
-     129 bins; L 512, 257 bins), and silence (exactly log(1e-6)):
+     129 bins; L 512, 257 bins), the EON tuner's longest frames (L 800 on
+     n_fft 512, 257 bins, 40 and 32 mels, a fit batch of 32 clips at hops
+     of 400 and 160), and silence (exactly log(1e-6)):
      elementwise within ``MEL_ATOL`` of the plain version; each timed row
      (the single clip of 99 frames among them) with its factor over the
-     rfft chain and its bound, whose operations count at the TF32
+     rfft chain (a frame longer than n_fft folded first) and its bound,
+     whose operations count at the TF32
      tensor-core rate (the kernel's DFT products run there), the f32
      CUDA-core figure beside it.
    - ``flash_attention`` and ``flash_attention_bwd`` (the training path,
@@ -171,9 +174,30 @@ Phases, each a hard failure (non-zero exit, no result line):
    share, kernels per step, the scan's share) and tokens/s, TTFT and the
    state's bytes.
 
-Each main path (phases 3, 5 paged and calibrated, 6 inference and fit, 7
-and 8) runs with every launch count set to 0 just before it and read just
-after.  Prints the kernels' JSON line, the card's
+Phases 3, 5 (paged and calibrated), 6 (inference) and 8 then run once
+more from the deployment artifact (``use_artifact=True``;
+``compile_impulse`` at batch 512 and 1): the decode step, or the whole
+Impulse, exported with ``torch.export`` and replayed as a CUDA graph
+captured when the engine is built.  Each prints the build time,
+``artifact_bytes`` and ``temp_bytes``, tokens/s (clips/s) and the decode
+step's (the call's) host wall, device busy and idle share beside the
+eager run's, and must give the eager run's tokens (the Impulse: its
+logits, within ``KWS_LOGIT_ATOL`` and bitwise where cuDNN picks the same
+algorithm under capture, and labels).  A replay launches the captured
+kernels without a wrapper: the kernels a run executed are the wrappers'
+count in it plus the capture's count times the replays, and they must
+equal the eager run's launches, one replay a decode step (or call).
+9. The EON tuner (``EONTuner.search``: 8 candidates sampled, screened by
+   the MCU estimator for the nano33ble, trained 1 epoch each on 384
+   seeded one-second keyword clips of 4 classes and ranked on 128) and a
+   ``Project`` through every stage (ingest, impulse, 8 epochs, test,
+   PTQ, estimate, tune, ``deploy(int8=True)`` to a file): the reloaded
+   artifact's logits must equal the artifact's before saving, and the
+   eager int8 logits within ``KWS_LOGIT_ATOL``.
+
+Each main path (phases 3, 5 paged and calibrated, 6 inference and fit, 7,
+8, their artifact runs and 9) runs with every launch count set to 0 just
+before it and read just after.  Prints the kernels' JSON line, the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.  Needs
 one GPU; exits non-zero without one, or without the rest of the
 repository beside it.
@@ -761,11 +785,19 @@ def mel_bound_ms(frames, nbins: int, n_mels: int) -> tuple:
 
 
 def rfft_call(frames, window, mel_fb, n_fft: int):
-    """The library yardstick, the same function through cuFFT and cuBLAS
-    (frame_len <= n_fft: the zero-padded rfft is the DFT the tables
-    hold)."""
+    """The library yardstick, the same function through cuFFT and cuBLAS.
+    For frame_len <= n_fft the zero-padded rfft is the DFT the tables
+    hold; a longer frame (the tuner's 800 samples at n_fft 512) is folded
+    modulo n_fft first, since the tables' angles repeat every n_fft
+    samples."""
+    l = frames.shape[-1]
+
     def run():
-        spec = torch.fft.rfft(frames * window, n=n_fft)
+        xw = frames * window
+        if l > n_fft:
+            xw = F.pad(xw, (0, -l % n_fft)).unflatten(-1, (-1, n_fft)) \
+                .sum(-2)
+        spec = torch.fft.rfft(xw, n=n_fft)
         power = spec.real * spec.real + spec.imag * spec.imag
         return torch.log(torch.clamp(power @ mel_fb, min=1e-6))
     return run
@@ -777,7 +809,9 @@ def check_mel_frontend(port, clips):
     view, the quickstart's MFCC frontend (32 mels, 0.5 s clips), ragged
     frame counts 1, 99 and 50,689, the kernel tests' dense shapes (L 256,
     129 bins; L 512, 257 bins), and silence (exactly the plain value,
-    log(1e-6)).  Returns the timed rows by case."""
+    log(1e-6)), and the EON tuner's longest frames (L 800, 0.05 s, against
+    n_fft 512 and 257 bins) at 40 and 32 mels on a fit batch of 32 clips,
+    hops of 400 and 160.  Returns the timed rows by case."""
     blocks = port.dsp_blocks
     gen = torch.Generator(device=DEV).manual_seed(5)
     full = blocks.MFEBlock()
@@ -807,9 +841,17 @@ def check_mel_frontend(port, clips):
     silence = torch.zeros_like(sig)
     cases["silence_512x99"] = (blocks.frame_signal(silence, 320, 160),
                                full.tables(DEV), 512)
+    for n_mels, stride_s in ((40, 0.025), (32, 0.01)):
+        tuner = blocks.MFEBlock(frame_s=0.05, stride_s=stride_s,
+                                n_mels=n_mels)
+        frames = blocks.frame_signal(sig[:32], tuner.frame_len,
+                                     tuner.stride)
+        cases[f"tuner_L800_32x{frames.shape[1]}_{n_mels}mels"] = (
+            frames, tuner.tables(DEV), 512)
     timed = ("full_width_512x99", "quickstart_64x49_32mels", "ragged_F99",
              "ragged_F50689", "dense_F128_L256_129bins",
-             "dense_F256_L512_257bins")
+             "dense_F256_L512_257bins", "tuner_L800_32x39_40mels",
+             "tuner_L800_32x96_32mels")
     rows = {}
     print(f"  SM clock, power: {gpu_line('clocks.sm,power.draw')}")
     for name, (frames, tables, n_fft) in cases.items():
@@ -1156,7 +1198,8 @@ def serve_full(port, cfg):
     check(launches == want, f"launches {launches} != layers x steps {want}")
     print(f"  launches {launches} = 24 x (decode steps, chunk steps)")
     print("  metrics " + json.dumps(metrics))
-    return params, launches, metrics
+    return params, launches, metrics, eager_run(srv, prompts, reqs, kw,
+                                                launches, metrics)
 
 
 def small_config(port):
@@ -1349,7 +1392,8 @@ def serve_calibrated(port, cfg, params):
           f" to the dynamic int8 run's on {same} of"
           f" {sum(len(r.tokens) for r in reqs)}")
     print("  metrics " + json.dumps(metrics, default=str))
-    return srv, launches, metrics, agreement
+    return srv, launches, metrics, agreement, eager_run(
+        srv, prompts, reqs, dict(kw, precision=srv.prec), launches, metrics)
 
 
 class Steps:
@@ -1644,34 +1688,41 @@ def profile_steps(port, cfg, params, policy=None, paged=False):
     for slot in range(4):
         for c0 in range(0, 256, 64):
             chunk_at(slot, c0)
-    runs = {
+    calls = {
         "decode": (lambda i: steps.decode(
             cache, ints(rng.randint(0, cfg.vocab_size, 4)),
             ints([256 + i] * 4), ints([257 + i] * 4)), 8),
         "chunk": (lambda i: chunk_at(0, 320 + 64 * (i % 3)), 3),
     }
-    out = {}
-    for name, (step, n) in runs.items():
-        step(0)[0].cpu()
-        wall_ms, kernels, _ = trace_calls(lambda i: step(i)[0].cpu(), n)
-        fam = {"attention": 0.0, "int8_matmul": 0.0, "mamba_scan": 0.0,
-               "gemm": 0.0, "other": 0.0}
-        by_name = {}
-        for e in kernels:
-            low = e["name"].lower()
-            key = ("attention" if "attn_kernel" in low else
-                   "int8_matmul" if "int8_mm_kernel" in low else
-                   "mamba_scan" if "mamba_scan_kernel" in low else
-                   "gemm" if any(w in low for w in GEMM_NAMES) else "other")
-            fam[key] += e["dur"] / 1e3 / n
-            by_name[e["name"][:60]] = by_name.get(e["name"][:60], 0.0) \
-                + e["dur"] / 1e3 / n
-        busy = _merged_us([(e["ts"], e["dur"]) for e in kernels]) / 1e3 / n
-        out[name] = dict(host_wall_ms=wall_ms, device_busy_ms=busy,
-                         idle_share=1 - busy / wall_ms if wall_ms else None,
-                         kernels_per_step=len(kernels) / n,
-                         **{f"{k}_ms": v for k, v in fam.items()})
-        print(f"  {name} step: " + json.dumps(out[name]))
+    return {name: profile_step(name, step, n)
+            for name, (step, n) in calls.items()}
+
+
+def profile_step(name: str, step, n: int, quiet: bool = False) -> dict:
+    """``step(i)`` once to warm, then ``trace_calls`` over ``n`` calls,
+    each ending in a host read of its tokens: host wall, device busy, idle
+    share, kernels a step and device time by kernel family."""
+    step(0)[0].cpu()
+    wall_ms, kernels, _ = trace_calls(lambda i: step(i)[0].cpu(), n)
+    fam = {"attention": 0.0, "int8_matmul": 0.0, "mamba_scan": 0.0,
+           "gemm": 0.0, "other": 0.0}
+    by_name = {}
+    for e in kernels:
+        low = e["name"].lower()
+        key = ("attention" if "attn_kernel" in low else
+               "int8_matmul" if "int8_mm_kernel" in low else
+               "mamba_scan" if "mamba_scan_kernel" in low else
+               "gemm" if any(w in low for w in GEMM_NAMES) else "other")
+        fam[key] += e["dur"] / 1e3 / n
+        by_name[e["name"][:60]] = by_name.get(e["name"][:60], 0.0) \
+            + e["dur"] / 1e3 / n
+    busy = _merged_us([(e["ts"], e["dur"]) for e in kernels]) / 1e3 / n
+    out = dict(host_wall_ms=wall_ms, device_busy_ms=busy,
+               idle_share=1 - busy / wall_ms if wall_ms else None,
+               kernels_per_step=len(kernels) / n,
+               **{f"{k}_ms": v for k, v in fam.items()})
+    print(f"  {name} step: " + json.dumps(out))
+    if not quiet:
         print(f"  {name} step: attention_ms {fam['attention']:.4f}"
               f"  int8_matmul_ms {fam['int8_matmul']:.4f}  device_busy_ms"
               f" {busy:.4f}  kernels_per_step {len(kernels) / n:g}")
@@ -1733,7 +1784,8 @@ def serve_int8_paged(port, cfg, params):
           f" {kvb['int8']}, bf16 {kvb['float']}; the int8 pool of 16 blocks"
           f" holds {metrics['kv_cache_bytes']}")
     print("  metrics " + json.dumps(metrics))
-    return srv, launches, metrics
+    return srv, launches, metrics, eager_run(
+        srv, prompts, reqs, dict(kw, pool_blocks=16), launches, metrics)
 
 
 # ---------------------------------------------------------------------------
@@ -1880,7 +1932,7 @@ def kws_impulse(port, clips):
 
     quick, qclips, _ = quickstart(port)
     card_vs_cpu(port, quick, qclips, "quickstart", every_label=True)
-    return launches, metrics, prof
+    return launches, metrics, prof, imp
 
 
 def quickstart(port):
@@ -2256,7 +2308,8 @@ def serve_mamba_full(port, cfg):
     check(launches == want, f"launches {launches} != layers x steps {want}")
     print(f"  launches {launches} = 64 x (decode steps + chunk steps)")
     print("  metrics " + json.dumps(metrics))
-    return params, launches, metrics
+    return params, launches, metrics, eager_run(srv, prompts, reqs, kw,
+                                                launches, metrics)
 
 
 def serve_small_mamba_vs_cpu(port):
@@ -2289,6 +2342,302 @@ def serve_small_mamba_vs_cpu(port):
               f" {tokens[DEV]}")
 
 
+# ---------------------------------------------------------------------------
+# The deployment artifact (paper C4): phases 3, 5, 6 and 8 from the artifact
+# ---------------------------------------------------------------------------
+def eager_run(srv, prompts, reqs, kw, launches, metrics) -> SimpleNamespace:
+    """What an artifact run is held to: the eager run's requests, engine
+    options, the server's weights, tokens, launches and metrics."""
+    return SimpleNamespace(engine=type(srv), params=srv.params,
+                           prompts=prompts, kw=kw, launches=launches,
+                           metrics=metrics,
+                           tokens=[list(r.tokens) for r in reqs])
+
+
+def executed(port, step, host: dict) -> dict:
+    """Kernel launches of a run that replays ``step``: the wrappers' count
+    (the eager steps beside it; a replay launches the captured kernels
+    without a wrapper) plus the capture's launches times the replays."""
+    return {k: host[k] + step.captured_launches[k] * step.replays
+            for k in host}
+
+
+def artifact_serving(port, name, cfg, eager) -> tuple:
+    """The eager run's requests once more through the same engine with
+    ``use_artifact=True``: the decode step compiled into an artifact,
+    rehydrated and captured as a CUDA graph when the engine is built
+    (timed), then every decode step of the run replayed.  The counts are
+    set to 0 just before the run and read just after.  Gates: the eager
+    run's tokens, a replay a decode step, and the kernels executed (the
+    wrappers' count plus the capture's times the replays) equal to the
+    eager run's launches.  Returns the executed launches, the metrics and
+    the artifact's report."""
+    t0 = time.perf_counter()
+    srv = eager.engine(cfg, eager.params, use_artifact=True, **eager.kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    step = srv.decode
+    check(isinstance(step, port.eon.GraphStep) and step.graph is not None,
+          f"{name}: the engine's decode step is not a captured graph")
+    check(step.replays == 0, f"{name}: {step.replays} replays before run()")
+    reqs = srv.submit(eager.prompts)
+    reset_counts(port)
+    torch.cuda.synchronize()
+    metrics = srv.run()
+    torch.cuda.synchronize()
+    host = read_counts(port)
+    tokens = [list(r.tokens) for r in reqs]
+    same = sum(a == b for t, e in zip(tokens, eager.tokens)
+               for a, b in zip(t, e))
+    check(tokens == eager.tokens, f"{name}: the artifact's tokens differ"
+          f" from the eager run's ({same} of"
+          f" {sum(map(len, eager.tokens))} equal)")
+    check(step.replays == metrics["decode_steps"]
+          == eager.metrics["decode_steps"],
+          f"{name}: {step.replays} replays, {metrics['decode_steps']} decode"
+          f" steps, eager {eager.metrics['decode_steps']}")
+    ran = executed(port, step, host)
+    check(ran == eager.launches, f"{name}: kernels executed {ran} (host"
+          f" {host}, captured {step.captured_launches} x {step.replays}"
+          f" replays) != the eager run's {eager.launches}")
+    art = srv.artifact
+    report = dict(name=art.name, build_s=build_s,
+                  compile_time_s=art.compile_time_s,
+                  artifact_bytes=art.artifact_bytes,
+                  temp_bytes=art.memory["temp_bytes"],
+                  argument_bytes=art.memory["argument_bytes"],
+                  flops=art.flops, captured_launches=step.captured_launches,
+                  replays=step.replays, host_launches=host)
+    print(f"  {name} from the artifact: tokens equal to the eager run's"
+          f" ({sum(map(len, tokens))}); kernels executed {ran} = host"
+          f" {host} + captured {step.captured_launches} x {step.replays}"
+          " replays = the eager run's")
+    print(f"  {name} artifact " + json.dumps(report))
+    print(f"  {name} tokens_per_s eager {eager.metrics['tokens_per_s']:.2f}"
+          f"  artifact {metrics['tokens_per_s']:.2f}  ttft_p50_s eager"
+          f" {eager.metrics['ttft_p50_s']:.4f} artifact"
+          f" {metrics['ttft_p50_s']:.4f}")
+    return ran, metrics, report, srv
+
+
+def decode_side_by_side(port, name, srv, fill: int) -> dict:
+    """The decode step eager and from the engine's artifact, on the
+    engine's own weights and cache after its run, with the same inputs:
+    8 steps of 4 slots at fill ``fill``..``fill + 7`` (paged: slot s on
+    pool blocks from s x ceil((fill + 8) / BS) on), each ending in a host
+    read of its tokens.  Host wall, device busy, idle share and kernels a
+    step of both."""
+    cfg = srv.cfg
+    ss = port.serve_step
+    rng = np.random.RandomState(2)
+    toks = [torch.as_tensor(rng.randint(0, cfg.vocab_size, 4)
+                            .astype(np.int32), device=DEV)
+            for _ in range(9)]
+
+    def ints(v):
+        return torch.full((4,), v, dtype=torch.int32, device=DEV)
+
+    extra = ()
+    if isinstance(srv, port.server.PagedBatchServer):
+        eager = ss.make_paged_decode_step(cfg, srv.prec)
+        per = -(-(fill + 8) // srv.block_size)
+        table = torch.zeros((4, srv.n_table), dtype=torch.int32, device=DEV)
+        if srv.paged_keys:
+            check(4 * per <= srv.pool_blocks, f"{name}: fill {fill} needs"
+                  f" {4 * per} of {srv.pool_blocks} blocks")
+            table[:, :per] = torch.arange(4 * per, dtype=torch.int32,
+                                          device=DEV).reshape(4, per)
+        extra = (table,)
+    else:
+        eager = ss.make_slot_decode_step(cfg, srv.prec)
+    out = {}
+    for kind, fn in (("eager", eager), ("artifact", srv.decode)):
+        out[kind] = profile_step(
+            f"{name} {kind} decode", lambda i, fn=fn: fn(
+                srv.params, srv.cache, toks[i], ints(fill - 1 + i),
+                ints(fill + i), *extra), 8, quiet=True)
+    e, a = out["eager"], out["artifact"]
+    print(f"  {name} decode step, eager | artifact: host wall"
+          f" {e['host_wall_ms']:.3f} | {a['host_wall_ms']:.3f} ms, device"
+          f" busy {e['device_busy_ms']:.3f} | {a['device_busy_ms']:.3f} ms,"
+          f" idle share {e['idle_share']:.3f} | {a['idle_share']:.3f},"
+          f" kernels {e['kernels_per_step']:g} | {a['kernels_per_step']:g}")
+    return out
+
+
+def kws_artifact(port, imp, clips, eager_metrics, eager_prof) -> tuple:
+    """Phase 6's Impulse from its artifact (``compile_impulse``) at batch
+    512 and 1: the same 2,048 clips in batches of 512 (clips/s) and 32
+    single clips (the whole call's p50), with the counts set to 0 before
+    and read after.  Gates: the eager logits (bitwise, or within
+    ``KWS_LOGIT_ATOL`` if cuDNN chose another algorithm under capture),
+    the eager labels, no wrapper launch (every call a replay) and one
+    ``mel_frontend`` captured per graph.  Then a profile's idle share
+    beside the eager one."""
+    eon = port.eon
+    arts, fns = {}, {}
+    for b in (KWS_BATCH, 1):
+        t0 = time.perf_counter()
+        arts[b] = eon.compile_impulse(imp, batch_size=b)
+        fns[b] = arts[b].rehydrate()
+        fns[b](torch.from_numpy(clips[:b]))          # capture
+        torch.cuda.synchronize()
+        print(f"  artifact batch {b}: {arts[b].name}, build"
+              f" {time.perf_counter() - t0:.2f} s, " + json.dumps(
+                  dict(artifact_bytes=arts[b].artifact_bytes,
+                       **arts[b].memory, flops=arts[b].flops)))
+    big, one = fns[KWS_BATCH], fns[1]
+    worst = 0.0
+    for i in range(0, 1024, KWS_BATCH):
+        got = big(torch.from_numpy(clips[i:i + KWS_BATCH])).clone()
+        want = imp.logits(clips[i:i + KWS_BATCH])
+        worst = max(worst, float((got - want).abs().max()))
+    got1 = one(torch.from_numpy(clips[:1])).clone()
+    worst = max(worst, float((got1 - imp.logits(clips[:1])).abs().max()))
+    check(worst <= KWS_LOGIT_ATOL, f"KWS artifact logits differ from the"
+          f" eager ones by {worst} > {KWS_LOGIT_ATOL}")
+    print(f"  artifact logits against eager: max|gap| {worst:.3g}"
+          f" ({'bitwise' if worst == 0 else 'within KWS_LOGIT_ATOL'})")
+
+    replays0 = {b: fns[b].replays for b in fns}
+    reset_counts(port)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels = []
+    for i in range(0, KWS_CLIPS, KWS_BATCH):
+        labels.append(big(torch.from_numpy(
+            clips[i:i + KWS_BATCH])).argmax(-1))
+    labels = torch.cat(labels).cpu()
+    batch_s = time.perf_counter() - t0
+    one_ms, eager_one_ms = [], []
+    for i in range(KWS_SINGLE):
+        t0 = time.perf_counter()
+        one(torch.from_numpy(clips[i:i + 1])).argmax(-1).cpu()
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+    host = read_counts(port)
+    for i in range(KWS_SINGLE):
+        t0 = time.perf_counter()
+        imp.logits(clips[i:i + 1]).argmax(-1).cpu()
+        eager_one_ms.append((time.perf_counter() - t0) * 1e3)
+    calls = {b: fns[b].replays - replays0[b] for b in fns}
+    check(all(n == 0 for n in host.values()), f"KWS artifact: wrapper"
+          f" launches {host} during replays")
+    check(all(fns[b].captured_launches == dict(
+        {k: 0 for k in host}, mel_frontend=1) for b in fns),
+          f"KWS artifact: captured {[fns[b].captured_launches for b in fns]}")
+    eager_labels = torch.cat([imp.logits(clips[i:i + KWS_BATCH]).argmax(-1)
+                              for i in range(0, KWS_CLIPS, KWS_BATCH)]).cpu()
+    check(torch.equal(labels, eager_labels), "KWS artifact labels differ")
+    ran = {k: sum(fns[b].captured_launches[k] * calls[b] for b in fns)
+           for k in host}
+    metrics = dict(clips_per_s=KWS_CLIPS / batch_s,
+                   batch1_p50_ms=float(np.median(one_ms)),
+                   eager_batch1_call_p50_ms=float(np.median(eager_one_ms)))
+    prof = {
+        "batch512": profile_calls(lambda i: big(torch.from_numpy(
+            clips[i * KWS_BATCH:(i + 1) * KWS_BATCH])), 2),
+        "batch1": profile_calls(lambda i: one(torch.from_numpy(
+            clips[i:i + 1])), 8),
+    }
+    for b in ("batch512", "batch1"):
+        e, a = eager_prof[b], prof[b]
+        print(f"  KWS {b}, eager | artifact: host wall"
+              f" {e['host_wall_ms']:.4f} | {a['host_wall_ms']:.4f} ms,"
+              f" device busy {e['device_busy_ms']:.4f} |"
+              f" {a['device_busy_ms']:.4f} ms, idle share"
+              f" {e['idle_share']:.3f} | {a['idle_share']:.3f}, kernels"
+              f" {e['kernels_per_call']:g} | {a['kernels_per_call']:g}")
+    print(f"  KWS clips_per_s eager {eager_metrics['clips_per_s']:.1f} |"
+          f" artifact {metrics['clips_per_s']:.1f}; batch-1 whole call p50"
+          f" eager {metrics['eager_batch1_call_p50_ms']:.3f} | artifact"
+          f" {metrics['batch1_p50_ms']:.3f} ms; kernels executed {ran}")
+    return ran, metrics, prof
+
+
+def tuner_and_project(port) -> tuple:
+    """Phase 9: ``EONTuner.search`` on the card (8 samples, 1 epoch) on
+    seeded one-second keyword clips, 4 classes, 384 to train and 128 to
+    rank; then a ``Project`` through every stage, ending in
+    ``deploy(int8=True)`` to a file and its reload, whose logits must
+    equal the artifact's before saving.  Returns the launches of each
+    (counts set to 0 before, read after) and a summary."""
+    clips, labels = keyword_clips(port, 512, 4, 16_000, seed=7)
+    tuner = port.tuner.EONTuner(input_samples=16_000, n_classes=4,
+                                target="nano33ble", seed=0, device=DEV)
+    reset_counts(port)
+    t0 = time.perf_counter()
+    cands = tuner.sample(8)
+    for c in cands:
+        print(f"  sampled {c.describe()}")
+    survivors = tuner.screen(cands)
+    for c in survivors:
+        e = c.estimate
+        print(f"  survivor {c.describe()}: ram {e.ram_kb:.1f} KB, flash"
+              f" {e.flash_kb:.1f} KB, latency {e.total_latency_ms:.1f} ms")
+    ranked = tuner.evaluate(survivors, (clips[:384], labels[:384]),
+                            (clips[384:], labels[384:]), epochs=1)
+    torch.cuda.synchronize()
+    tuner_s = time.perf_counter() - t0
+    tuner_launches = read_counts(port)
+    for c in ranked:
+        print(f"  ranked {c.accuracy:.4f}  {c.describe()}")
+    check(bool(survivors) and all(c.trained for c in ranked)
+          and [c.accuracy for c in ranked]
+          == sorted((c.accuracy for c in ranked), reverse=True),
+          "EON tuner: no survivor, or not ranked by accuracy")
+    check(tuner_launches["mel_frontend"] > 0,
+          f"EON tuner: no mel_frontend launch ({tuner_launches})")
+    print(f"  EON tuner: {len(cands)} sampled, {len(survivors)} survived the"
+          f" screen, trained 1 epoch each in {tuner_s:.1f} s; launches"
+          f" {tuner_launches}")
+
+    reset_counts(port)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        p = port.project.Project("kws-card", Path(tmp) / "project",
+                                 device=DEV)
+        version = p.ingest(port.synthetic.keyword_audio(
+            n_per_class=24, n_classes=3, n_samples=4000))
+        p.set_impulse("mfcc", {"n_mels": 32, "n_coeffs": 10},
+                      "conv1d-stack", {"n_blocks": 2, "ch_first": 16,
+                                       "ch_last": 32})
+        p.train(epochs=8)
+        acc = p.test()["accuracy"]
+        meta = p.quantize()
+        est = p.estimate("nano33ble")
+        p.tune(n_samples=4, epochs=1)
+        art = p.deploy(Path(tmp) / "deploy.bin", int8=True)
+        loaded = port.eon.CompiledArtifact.load(Path(tmp) / "deploy.bin")
+        xs = torch.from_numpy(p.dataset.arrays("test")[0][:1])
+        before = art.rehydrate()(xs).clone()
+        after = loaded.rehydrate()(xs).clone()
+        eager = p.impulse.logits_int8(xs)
+        log_saved = (Path(tmp) / "project" / "project_log.json").exists()
+        stages = p.summary()["stages_run"]
+    torch.cuda.synchronize()
+    project_launches = read_counts(port)
+    gap = float((before - eager).abs().max())
+    check(torch.equal(before, after) and bool(after.isfinite().all()),
+          "Project: the reloaded artifact's logits differ from the"
+          " artifact's before saving")
+    check(gap <= KWS_LOGIT_ATOL, f"Project: the int8 artifact's logits"
+          f" differ from the eager int8 logits by {gap}")
+    check(log_saved and stages == ["ingest", "set_impulse", "train", "test",
+                                   "quantize", "estimate", "tune",
+                                   "deploy"], f"Project stages {stages}")
+    summary = dict(version=version, test_accuracy=acc,
+                   compression=meta["compression"], ram_kb=est.ram_kb,
+                   flash_kb=est.flash_kb, fits=est.fits,
+                   artifact=art.name, artifact_bytes=art.artifact_bytes,
+                   reload_equal=True, int8_vs_eager_gap=gap,
+                   seconds=time.perf_counter() - t0)
+    print("  Project " + json.dumps(summary))
+    print(f"  Project launches {project_launches}")
+    return tuner_launches, project_launches, dict(
+        tuner_s=tuner_s, sampled=len(cands), survivors=len(survivors),
+        ranked=[c.accuracy for c in ranked], project=summary)
+
+
 def gpu_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                           "--format=csv,noheader"], capture_output=True,
@@ -2302,7 +2651,8 @@ def load_port():
     import_port()
     from repro_torch import configs
     from repro_torch.core import blocks as core_blocks
-    from repro_torch.core import estimator, quantize, tree
+    from repro_torch.core import eon_compiler as eon
+    from repro_torch.core import estimator, project, quantize, tree, tuner
     from repro_torch.core.impulse import Impulse
     from repro_torch.data import synthetic
     from repro_torch.dsp import blocks as dsp_blocks
@@ -2329,7 +2679,8 @@ def load_port():
                            server=server, core_blocks=core_blocks, tree=tree,
                            Impulse=Impulse, synthetic=synthetic,
                            dsp_blocks=dsp_blocks, kws=kws,
-                           estimator=estimator)
+                           estimator=estimator, eon=eon, tuner=tuner,
+                           project=project)
 
 
 def main() -> None:
@@ -2374,7 +2725,7 @@ def main() -> None:
 
     print("phase 3: full-width serving, internlm2-1.8b bf16")
     cfg = full_config(port)
-    params, launches, metrics = serve_full(port, cfg)
+    params, launches, metrics, run3 = serve_full(port, cfg)
     logits_vs_plain(port, cfg, params, LOGIT_ATOL, GREEDY_EQUAL_MIN,
                     attention_paths(port))
     serve_small_vs_cpu(port)
@@ -2383,9 +2734,14 @@ def main() -> None:
     print(f"  tokens_per_s {metrics['tokens_per_s']:.2f}  ttft_p50_s "
           f"{metrics['ttft_p50_s']:.4f}  ttft_p95_s {metrics['ttft_p95_s']:.4f}"
           f"  kv_cache_bytes {metrics['kv_cache_bytes']}")
+    print("phase 3 from the artifact")
+    launches_a3, _, art3, asrv = artifact_serving(
+        port, "float continuous", cfg, run3)
+    art3["decode"] = decode_side_by_side(port, "float continuous", asrv, 257)
+    del asrv
 
     print("phase 5: full-width int8 paged serving, internlm2-1.8b bf16")
-    srv, launches8, metrics8 = serve_int8_paged(port, cfg, params)
+    srv, launches8, metrics8, run5 = serve_int8_paged(port, cfg, params)
     int8 = port.quantize.INT8
     logits_vs_plain(port, cfg, srv.params, INT8_LOGIT_ATOL,
                     INT8_GREEDY_EQUAL_MIN, attention_paths(port), int8, True)
@@ -2397,10 +2753,15 @@ def main() -> None:
           f" {metrics8['kv_cache_bytes']}  preemptions"
           f" {metrics8['preemptions']}  prefix_hit_blocks"
           f" {metrics8['prefix_hit_blocks']}")
+    print("  int8 paged from the artifact")
+    launches_a5, _, art5, asrv = artifact_serving(port, "int8 paged", cfg,
+                                                  run5)
+    art5["decode"] = decode_side_by_side(port, "int8 paged", asrv, 129)
+    del asrv
     print("  calibrated int8 activations, continuous")
     t0 = time.perf_counter()
     serve_small_calibrated_vs_cpu(port)
-    cal_srv, launches_cal, metrics_cal, cal_agree = serve_calibrated(
+    cal_srv, launches_cal, metrics_cal, cal_agree, run5c = serve_calibrated(
         port, cfg, srv.params)
     logits_vs_plain(port, cfg, cal_srv.params, INT8_LOGIT_ATOL,
                     CAL_GREEDY_EQUAL_MIN, attention_paths(port),
@@ -2410,11 +2771,16 @@ def main() -> None:
           f" {metrics_cal['ttft_p95_s']:.4f}  greedy agreement with the"
           f" dynamic run {cal_agree:.4f}  part"
           f" {time.perf_counter() - t0:.1f} s")
-    del cal_srv
+    print("  calibrated int8 from the artifact")
+    launches_a5c, _, art5c, asrv = artifact_serving(
+        port, "int8 calibrated", cfg, run5c)
+    art5c["decode"] = decode_side_by_side(port, "int8 calibrated", asrv, 257)
+    del asrv
+    del cal_srv, run5c
 
     print("phase 6: full-width KWS Impulse, DS-CNN on MFE, f32 and PTQ int8")
     t0 = time.perf_counter()
-    launches_kws, kws_metrics, kws_prof = kws_impulse(port, clips)
+    launches_kws, kws_metrics, kws_prof, kws_imp = kws_impulse(port, clips)
     print(f"  clips_per_s {kws_metrics['clips_per_s']:.1f}  batch-1 p50"
           f" {kws_metrics['batch1_p50_ms']:.3f} ms (DSP"
           f" {kws_metrics['batch1_dsp_p50_ms']:.3f}, NN"
@@ -2422,6 +2788,10 @@ def main() -> None:
           f" {kws_prof['batch512']['idle_share']:.3f}, batch 1"
           f" {kws_prof['batch1']['idle_share']:.3f}  phase"
           f" {time.perf_counter() - t0:.1f} s")
+    print("  the KWS Impulse from the artifact")
+    launches_a6, kws_art_metrics, kws_art_prof = kws_artifact(
+        port, kws_imp, clips, kws_metrics, kws_prof)
+    del kws_imp
     print("  Impulse.fit at full width, DS-CNN on MFE")
     t0 = time.perf_counter()
     launches_fit, fit_metrics, fit_prof = kws_fit(port, clips, labels)
@@ -2435,7 +2805,7 @@ def main() -> None:
           f" {time.perf_counter() - t0:.1f} s")
 
     print("phase 7: full-width training, internlm2-1.8b f32 masters, bf16")
-    del params, srv
+    del params, srv, run3, run5
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     launches_train, train_metrics, train_prof = train_full(port, cfg)
@@ -2452,7 +2822,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     mcfg = mamba_config(port)
-    mparams, launches_ssm, metrics_ssm = serve_mamba_full(port, mcfg)
+    mparams, launches_ssm, metrics_ssm, run8 = serve_mamba_full(port, mcfg)
     logits_vs_plain(port, mcfg, mparams, MAMBA_LOGIT_ATOL,
                     MAMBA_GREEDY_EQUAL_MIN, scan_paths(port))
     serve_small_mamba_vs_cpu(port)
@@ -2465,7 +2835,23 @@ def main() -> None:
           f" {metrics_ssm['ttft_p95_s']:.4f}  state bytes"
           f" {metrics_ssm['kv_cache_bytes']}  phase"
           f" {time.perf_counter() - t0:.1f} s")
-    del mparams
+    print("phase 8 from the artifact")
+    launches_a8, _, art8, asrv = artifact_serving(port, "falcon-mamba", mcfg,
+                                                  run8)
+    art8["decode"] = decode_side_by_side(port, "falcon-mamba", asrv, 257)
+    del asrv
+    del mparams, run8
+    torch.cuda.empty_cache()
+
+    print("phase 9: the EON tuner and the Project API on the card")
+    t0 = time.perf_counter()
+    launches_tuner, launches_project, tp_summary = tuner_and_project(port)
+    print(f"  phase {time.perf_counter() - t0:.1f} s")
+    print("  artifacts " + json.dumps({
+        "float_continuous": art3, "int8_paged": art5,
+        "int8_continuous_calibrated": art5c, "mamba1_serving": art8,
+        "kws_impulse": {"metrics": kws_art_metrics, "profile": kws_art_prof},
+        "tuner_and_project": tp_summary}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     by_path = {name: {"float_continuous": launches[name],
@@ -2474,7 +2860,15 @@ def main() -> None:
                       "kws_impulse": launches_kws[name],
                       "kws_fit": launches_fit[name],
                       "lm_training": launches_train[name],
-                      "mamba1_serving": launches_ssm[name]}
+                      "mamba1_serving": launches_ssm[name],
+                      "float_continuous_artifact": launches_a3[name],
+                      "int8_paged_artifact": launches_a5[name],
+                      "int8_continuous_calibrated_artifact":
+                          launches_a5c[name],
+                      "kws_impulse_artifact": launches_a6[name],
+                      "mamba1_serving_artifact": launches_a8[name],
+                      "eon_tuner": launches_tuner[name],
+                      "project": launches_project[name]}
                for name in REPLACES}
     kernels = []
     for name in ("flash_decode", "flash_chunk_prefill"):

@@ -8,7 +8,7 @@ the port slice that brings it.
 from __future__ import annotations
 
 import importlib
-from typing import Dict
+from typing import Dict, Optional
 
 from repro_torch.core.arch import ArchConfig
 
@@ -30,18 +30,31 @@ PORTED = ("internlm2_1_8b", "falcon_mamba_7b")
 
 # the port slice (ROADMAP.md, queue 1) that brings each remaining module
 _LATER: Dict[str, str] = {
+    "granite_3_8b": "slice 7 (two more dense configs)",
+    "llama3_2_3b": "slice 7 (two more dense configs)",
     "gemma3_4b": "slice 8 (sliding-window ring serving)",
     "zamba2_2_7b": "slice 8 (hybrid serving)",
 }
 
 
+def _name(arch_id: str) -> str:
+    return ALIASES.get(arch_id, arch_id.replace("-", "_").replace(".", "_"))
+
+
+def comes_with(arch_id: str) -> Optional[str]:
+    """The port slice that brings ``arch_id``; None once it is ported."""
+    mod_name = _name(arch_id)
+    if mod_name in PORTED:
+        return None
+    return _LATER.get(mod_name, "slice 9 (the remaining modules)")
+
+
 def _module(arch_id: str):
-    mod_name = ALIASES.get(arch_id, arch_id.replace("-", "_").replace(".", "_"))
-    if mod_name not in PORTED:
-        later = _LATER.get(mod_name, "slice 9 (the remaining modules)")
+    later = comes_with(arch_id)
+    if later is not None:
         raise NotImplementedError(
             f"{arch_id}: not ported yet; it comes with {later}")
-    return importlib.import_module(f"repro_torch.configs.{mod_name}")
+    return importlib.import_module(f"repro_torch.configs.{_name(arch_id)}")
 
 
 def get(arch_id: str) -> ArchConfig:

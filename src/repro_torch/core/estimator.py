@@ -91,16 +91,36 @@ _MATMULS = (_aten.mm, _aten.bmm)
 
 class _GraphCounter(TorchDispatchMode):
     """MACs of the convolutions and matmuls, and the element count of
-    every buffer an operation makes (views alias their input: none)."""
+    every buffer an operation makes (views alias their input: none).
+
+    A ``constant_pad_nd`` whose only consumer is a convolution (the SAME
+    padding ``models/kws.py`` writes before a strided convolution) is
+    counted as part of that convolution, not as a buffer: XLA pads inside
+    the convolution, and so does an MCU runtime."""
 
     def __init__(self):
         super().__init__()
         self.macs = 0
-        self.sizes: List[int] = []
+        self._sizes: List[int] = []
+        # id of a pad's output -> [its index in _sizes, the tensor, None
+        # until consumed, then whether only convolutions consumed it]
+        self._pads: Dict[int, list] = {}
+
+    @property
+    def sizes(self) -> List[int]:
+        folded = {i for i, _, conv_only in self._pads.values()
+                  if conv_only is True}
+        return [n for i, n in enumerate(self._sizes) if i not in folded]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         op = func.overloadpacket
+        for i, a in enumerate(args):
+            pad = self._pads.get(id(a)) if isinstance(a, torch.Tensor) \
+                else None
+            if pad is not None and pad[1] is a:
+                pad[2] = pad[2] is not False and op is _aten.convolution \
+                    and i == 0
         if op is _aten.convolution:
             self.macs += out.numel() * math.prod(args[1].shape[1:])
         elif op in _MATMULS:
@@ -109,8 +129,10 @@ class _GraphCounter(TorchDispatchMode):
             self.macs += out.numel() * args[1].shape[-1]
         if not func.is_view:
             outs = out if isinstance(out, (tuple, list)) else (out,)
-            self.sizes += [t.numel() for t in outs
-                           if isinstance(t, torch.Tensor)]
+            if op is _aten.constant_pad_nd:
+                self._pads[id(out)] = [len(self._sizes), out, None]
+            self._sizes += [t.numel() for t in outs
+                            if isinstance(t, torch.Tensor)]
         return out
 
 

@@ -29,6 +29,7 @@ import dataclasses
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.core import tree
 
@@ -102,6 +103,13 @@ class Int8KV(NamedTuple):
     q: torch.Tensor
     scale: torch.Tensor
 
+
+# Stable names under which ``torch.export`` serializes the trees that hold
+# these (a deployed decode step's weights and cache).
+pytree._register_namedtuple(
+    QTensor, serialized_type_name="repro_torch.core.quantize.QTensor")
+pytree._register_namedtuple(
+    Int8KV, serialized_type_name="repro_torch.core.quantize.Int8KV")
 
 # 127 as a 0-d tensor per device, made once (no fill kernel per call)
 _DIV127: Dict[torch.device, torch.Tensor] = {}

@@ -18,12 +18,23 @@ whole-sequence attention, differentiable on either device: on the card
 through the forward and backward kernels (``FlashAttention``), on the CPU
 through autograd of the plain version.  ``mamba_scan`` is the selective
 scan of the mamba1 layers, from a carried-in state.
+
+The four kernels a deployed step runs (``flash_decode``, ``int8_matmul``,
+``mel_frontend``, ``mamba_scan``) are registered as custom operators
+(``torch.ops.repro_torch.*``) at the level of their tensor arguments: the
+``cpu`` implementation is the plain version, the ``cuda`` one the
+kernel's launch (which counts ``LAUNCHES``), and a fake implementation
+gives the output shapes, so that ``torch.export`` traces each one as one
+node instead of reaching into the ``ctypes`` launch.  The dispatcher
+picks the implementation by the tensors' device, as before.  The
+wrappers below unpack ``Int8KV`` and ``QTensor`` before the call.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+from torch.library import custom_op
 
 from repro_torch.core.quantize import (Int8KV, PrecisionPolicy, QTensor,
                                        quant_dynamic)
@@ -35,6 +46,13 @@ from repro_torch.kernels import mel_frontend as mf
 from repro_torch.kernels import ref
 
 
+def launch_counts() -> dict:
+    """Every kernel's launches since its last reset, by name: what the
+    wrappers counted on the host (a replayed CUDA graph adds nothing)."""
+    return {**fd.LAUNCHES, **im.LAUNCHES, **mf.LAUNCHES, **fa.LAUNCHES,
+            **ms.LAUNCHES}
+
+
 def _on_card(x: torch.Tensor) -> bool:
     if x.device.type == "cuda":
         return True
@@ -43,13 +61,24 @@ def _on_card(x: torch.Tensor) -> bool:
     raise ValueError(f"no kernel path for a tensor on {x.device}")
 
 
+@custom_op("repro_torch::int8_matmul", mutates_args=(), device_types="cpu",
+           schema="(Tensor x_q, Tensor w_q, Tensor x_scale, Tensor w_scale)"
+                  " -> Tensor")
 def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
                 w_scale: torch.Tensor) -> torch.Tensor:
     """``(M, K) int8 · (N, K) int8ᵀ`` → exact int32 sum → ``× x_scale[m] ×
     w_scale[n]`` → (M, N) f32."""
-    if not _on_card(x_q):
-        return ref.int8_matmul_ref(x_q, w_q, x_scale, w_scale)
+    return ref.int8_matmul_ref(x_q, w_q, x_scale, w_scale)
+
+
+@int8_matmul.register_kernel("cuda")
+def _int8_matmul_cuda(x_q, w_q, x_scale, w_scale):
     return im.int8_matmul(x_q, w_q, x_scale, w_scale)
+
+
+@int8_matmul.register_fake
+def _int8_matmul_fake(x_q, w_q, x_scale, w_scale):
+    return x_q.new_empty((x_q.shape[0], w_q.shape[0]), dtype=torch.float32)
 
 
 def quant_matmul(x: torch.Tensor, w, *,
@@ -121,14 +150,36 @@ def decode_attention(q: torch.Tensor, k_cache, v_cache,
     v, v_scale = _split(v_cache)
     if block_table is not None and kv_len is None:
         raise ValueError("paged decode_attention requires kv_len")
-    if not _on_card(q):
-        if block_table is not None:
-            return ref.paged_decode_attention_ref(
-                q, k, v, q_position, cache_positions, block_table, kv_len,
-                window=window, k_scale=k_scale, v_scale=v_scale)
-        return ref.decode_attention_ref(
-            q, k, v, q_position, cache_positions, window=window,
-            kv_len=kv_len, k_scale=k_scale, v_scale=v_scale)
+    return flash_decode(q, k, v, k_scale, v_scale, q_position,
+                        cache_positions, kv_len, block_table, int(window))
+
+
+@custom_op("repro_torch::flash_decode", mutates_args=(), device_types="cpu",
+           schema="(Tensor q, Tensor k, Tensor v, Tensor? k_scale,"
+                  " Tensor? v_scale, Tensor q_position, Tensor"
+                  " cache_positions, Tensor? kv_len, Tensor? block_table,"
+                  " int window) -> Tensor")
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 k_scale: Optional[torch.Tensor],
+                 v_scale: Optional[torch.Tensor], q_position: torch.Tensor,
+                 cache_positions: torch.Tensor,
+                 kv_len: Optional[torch.Tensor],
+                 block_table: Optional[torch.Tensor], window: int
+                 ) -> torch.Tensor:
+    """``decode_attention`` on the cache's tensors (an ``Int8KV``'s values
+    and scales apart): q (B, 1, Hq, D) -> (B, 1, Hq, D) in q's dtype."""
+    if block_table is not None:
+        return ref.paged_decode_attention_ref(
+            q, k, v, q_position, cache_positions, block_table, kv_len,
+            window=window, k_scale=k_scale, v_scale=v_scale)
+    return ref.decode_attention_ref(
+        q, k, v, q_position, cache_positions, window=window, kv_len=kv_len,
+        k_scale=k_scale, v_scale=v_scale)
+
+
+@flash_decode.register_kernel("cuda")
+def _flash_decode_cuda(q, k, v, k_scale, v_scale, q_position,
+                       cache_positions, kv_len, block_table, window):
     b, _, hq, d = q.shape
     hkv = k.shape[2]
     if kv_len is None:
@@ -140,6 +191,12 @@ def decode_attention(q: torch.Tensor, k_cache, v_cache,
         kv_len.to(torch.int32).contiguous(), k_scale=k_scale,
         v_scale=v_scale, block_table=block_table, window=window)
     return out.reshape(b, 1, hq, d)
+
+
+@flash_decode.register_fake
+def _flash_decode_fake(q, k, v, k_scale, v_scale, q_position,
+                       cache_positions, kv_len, block_table, window):
+    return torch.empty_like(q)
 
 
 def chunk_attention(q: torch.Tensor, k_cache, v_cache,
@@ -185,6 +242,9 @@ def chunk_attention(q: torch.Tensor, k_cache, v_cache,
         .reshape(b, c, hq, d)
 
 
+@custom_op("repro_torch::mel_frontend", mutates_args=(), device_types="cpu",
+           schema="(Tensor frames, Tensor window, Tensor dft_cos,"
+                  " Tensor dft_sin, Tensor mel_fb) -> Tensor")
 def mel_frontend(frames: torch.Tensor, window: torch.Tensor,
                  dft_cos: torch.Tensor, dft_sin: torch.Tensor,
                  mel_fb: torch.Tensor) -> torch.Tensor:
@@ -194,13 +254,22 @@ def mel_frontend(frames: torch.Tensor, window: torch.Tensor,
     The leading dims fold into the kernel's frame count: the kernel reads
     frame r of the ``(B, F, L)`` view at batch r // F, frame r % F, so the
     overlapping frames of a batch of clips need no copy."""
-    if not _on_card(frames):
-        return ref.mel_frontend_ref(frames, window, dft_cos, dft_sin, mel_fb)
+    return ref.mel_frontend_ref(frames, window, dft_cos, dft_sin, mel_fb)
+
+
+@mel_frontend.register_kernel("cuda")
+def _mel_frontend_cuda(frames, window, dft_cos, dft_sin, mel_fb):
     lead = frames.shape[:-2]
     f, l = frames.shape[-2:]
     out = mf.mel_frontend(frames.reshape(-1, f, l), window, dft_cos, dft_sin,
                           mel_fb)
     return out.reshape(*lead, f, mel_fb.shape[1])
+
+
+@mel_frontend.register_fake
+def _mel_frontend_fake(frames, window, dft_cos, dft_sin, mel_fb):
+    return frames.new_empty(frames.shape[:-1] + (mel_fb.shape[1],),
+                            dtype=torch.float32)
 
 
 def mamba_scan(x: torch.Tensor, dt: torch.Tensor, b_mat: torch.Tensor,
@@ -211,8 +280,25 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, b_mat: torch.Tensor,
     activation dtype, a (D, N) f32, h0 (B, D, N) f32 or None (zeros) ->
     (y (B, S, D) f32, h_final (B, D, N) f32).  ``dt == 0`` steps leave the
     state exactly as it was."""
-    if not _on_card(x):
-        return ref.mamba_scan_ref(x, dt, b_mat, c_mat, a, h0)
+    return _mamba_scan(x, dt, b_mat, c_mat, a, h0)
+
+
+@custom_op("repro_torch::mamba_scan", mutates_args=(), device_types="cpu",
+           schema="(Tensor x, Tensor dt, Tensor b_mat, Tensor c_mat,"
+                  " Tensor a, Tensor? h0) -> (Tensor, Tensor)")
+def _mamba_scan(x, dt, b_mat, c_mat, a, h0):
+    return ref.mamba_scan_ref(x, dt, b_mat, c_mat, a, h0)
+
+
+@_mamba_scan.register_kernel("cuda")
+def _mamba_scan_cuda(x, dt, b_mat, c_mat, a, h0):
     return ms.mamba_scan(x.contiguous(), dt.contiguous(), b_mat.contiguous(),
                          c_mat.contiguous(), a.float().contiguous(),
                          None if h0 is None else h0.contiguous())
+
+
+@_mamba_scan.register_fake
+def _mamba_scan_fake(x, dt, b_mat, c_mat, a, h0):
+    bsz, s, d = x.shape
+    return (x.new_empty((bsz, s, d), dtype=torch.float32),
+            x.new_empty((bsz, d, b_mat.shape[-1]), dtype=torch.float32))

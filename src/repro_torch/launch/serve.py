@@ -7,8 +7,10 @@ the full config with ``--full`` (random weights drawn from a seeded
 ``torch.Generator`` on the device; nothing is downloaded).
 ``--engine static`` selects the static-batching baseline, ``--engine
 paged`` the paged-KV-pool engine (``--pool-blocks`` sizes the pool below
-the contiguous rectangle, so it may preempt), and ``--precision int8``
-serves int8 weights, activations and KV cache.
+the contiguous rectangle, so it may preempt), ``--artifact`` runs the
+continuous or paged engine's decode loop from its deployment artifact
+(paper C4: exported once, replayed as a CUDA graph on the card), and
+``--precision int8`` serves int8 weights, activations and KV cache.
 """
 from __future__ import annotations
 
@@ -39,6 +41,9 @@ def main() -> None:
                     help="chunked pad-free admission: prompt tokens per"
                          " prefill chunk step")
     ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--artifact", action="store_true",
+                    help="decode via the deployed CompiledArtifact (a CUDA"
+                         " graph on the card)")
     ap.add_argument("--precision", choices=("float", "int8"),
                     default="float",
                     help="int8: QTensor weights, dynamic activation quant"
@@ -61,10 +66,11 @@ def main() -> None:
                                    **common)
     elif args.engine == "paged":
         server = PagedBatchServer(cfg, params, slots=args.slots,
-                                  pool_blocks=args.pool_blocks, **common)
+                                  pool_blocks=args.pool_blocks,
+                                  use_artifact=args.artifact, **common)
     else:
         server = ContinuousBatchServer(cfg, params, slots=args.slots,
-                                       **common)
+                                       use_artifact=args.artifact, **common)
     rng = np.random.RandomState(0)
     prompts = [rng.randint(0, cfg.vocab_size, size=args.prompt_len)
                .astype(np.int32) for _ in range(args.requests)]

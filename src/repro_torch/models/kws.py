@@ -50,6 +50,11 @@ def _conv(conv, x, w, stride, groups):
     """``conv`` (F.conv1d/2d) of channels-first ``x`` with ``w`` already
     in (out, in, *k) order, SAME-padded: in the convolution itself when
     the padding is symmetric, by ``F.pad`` when it is not."""
+    if 0 in x.shape[2:]:
+        # SAME over no input gives no output (XLA takes it; the padded
+        # size would be below the kernel for F.conv*)
+        out = [-(-n // stride) for n in x.shape[2:]]
+        return x.new_zeros((x.shape[0], w.shape[0], *out))
     pads = [same_padding(n, k, stride)
             for n, k in zip(x.shape[2:], w.shape[2:])]
     if all(lo == hi for lo, hi in pads):
@@ -300,7 +305,9 @@ def conv1d_stack_apply(cfg: Conv1DStackConfig, params, feats: torch.Tensor
     for blk in params["blocks"]:
         x = conv1d(x, blk["w"])
         x = F.relu(batchnorm_apply(blk["bn"], x))
-        x = F.max_pool1d(x, 2, 2)
+        # fewer than 2 frames pool to none, as the JAX package's VALID
+        # reduce_window does (its logits are then NaN, as here)
+        x = F.max_pool1d(x, 2, 2) if x.shape[2] >= 2 else x[:, :, :0]
     return _dense(params["head"], x.mean(dim=2))
 
 

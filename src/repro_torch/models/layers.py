@@ -114,7 +114,8 @@ def write_pages(pool: torch.Tensor, new: torch.Tensor, blk: torch.Tensor,
         src = torch.where(active, torch.arange(b, device=active.device),
                           first)
         blk, off, new = blk[src], off[src], new[src]
-        new = torch.where(active[first], new, pool[blk, off])
+        # active.any() is active[first] without reading first on the host
+        new = torch.where(active.any(), new, pool[blk, off])
     pool[blk, off] = new
 
 

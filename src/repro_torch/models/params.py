@@ -237,6 +237,38 @@ class ParamTree(nn.Module):
         return out
 
 
+class TreeView(dict):
+    """A nested dict of weights (``ParamTree.tree()``) read the way the
+    model reads a ``ParamTree``: indexing, ``get`` and ``unstack``.  A
+    deployed decode step (``core/eon_compiler.py``) takes its weights in
+    this form, as inputs of the exported program: the per-layer views are
+    then ops of the program, made on every call, not views kept here."""
+
+    def __init__(self, tree: Dict[str, object]):
+        super().__init__({k: TreeView(v) if isinstance(v, dict) else v
+                          for k, v in tree.items()})
+
+    def unstack(self) -> List[Dict[str, object]]:
+        """Per-layer views of a stacked ``(L, ...)`` subtree."""
+        first = next(iter(self.values()))
+        while isinstance(first, TreeView):
+            first = next(iter(first.values()))
+        n = (first.q if isinstance(first, QTensor) else first).shape[0]
+        return [self._slice(i) for i in range(n)]
+
+    def _slice(self, i: int) -> Dict[str, object]:
+        out: Dict[str, object] = {}
+        for k, v in self.items():
+            if isinstance(v, TreeView):
+                out[k] = v._slice(i)
+            elif isinstance(v, QTensor):
+                out[k] = QTensor(v.q[i], v.scale[i],
+                                 None if v.amax is None else v.amax[i])
+            else:
+                out[k] = v[i]
+        return out
+
+
 # leaves the JAX package's mamba1 layer reads in float32 whatever the
 # activation dtype (``ssm.py:128``, ``:161``): they stay float32
 F32_LEAVES = ("a_log", "d_skip")

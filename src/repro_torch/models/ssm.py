@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import _pytree as pytree
 
 from repro_torch.core.arch import ArchConfig
 from repro_torch.kernels import ops
@@ -27,6 +28,12 @@ from repro_torch.kernels import ops
 class SSMState(NamedTuple):
     conv: torch.Tensor   # (B, d_conv-1, d_inner) rolling conv inputs
     h: torch.Tensor      # (B, d_inner, ssm_state) f32
+
+
+# the name under which ``torch.export`` serializes a deployed decode
+# step's state
+pytree._register_namedtuple(
+    SSMState, serialized_type_name="repro_torch.models.ssm.SSMState")
 
 
 def _mask_dt(dt: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:

@@ -25,8 +25,11 @@ step carries each slot's exact fill as ``kv_len``, so the attention
 kernels read only the live prefix of every slot.
 
 Prompts that cannot fit a slot's capacity are rejected at ``submit``;
-nothing is silently truncated.  The AOT decode artifact of the JAX
-package (``use_artifact``) comes with port slice 9.
+nothing is silently truncated.  ``use_artifact=True`` (continuous and
+paged engines) serves the decode step from its deployment artifact
+(paper C4, ``core/eon_compiler.compile_serve_decode``): the step is
+exported once and, on the card, replayed as a CUDA graph over the
+engine's own weights and cache; the chunk-prefill steps stay eager.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.arch import ArchConfig
+from repro_torch.core.eon_compiler import compile_serve_decode
 from repro_torch.core.quantize import policy_for, quantize_model_params
 from repro_torch.serve.kvcache import (BlockManager, PoolExhausted,
                                        alloc_decode_cache, alloc_paged_cache,
@@ -108,13 +112,6 @@ def _summarize(served: List[Request], wall: float, *, engine: str,
         m["mean_active_slots"] = float(np.mean(occupancy))
         m["slot_utilization"] = float(np.mean(occupancy)) / n_slots
     return m
-
-
-def _no_artifact(use_artifact: bool) -> None:
-    if use_artifact:
-        raise NotImplementedError(
-            "use_artifact=True: the AOT decode artifact comes with port"
-            " slice 9")
 
 
 class _ServerBase:
@@ -268,8 +265,10 @@ class ContinuousBatchServer(_ServerBase):
     prefill tokens per decode step, so a long prompt cannot
     head-of-line-block the active slots' next tokens.  ``max_new_cap``
     clips every request's budget (and sizes the slots); a request stops
-    early at ``eos_id``.  ``device`` is ``cuda`` unless named; ``params``
-    must live there.
+    early at ``eos_id``.  ``use_artifact`` serves the decode step from
+    its artifact (``compile_serve_decode``); ``run()``'s metrics then
+    carry ``artifact_bytes``.  ``device`` is ``cuda`` unless named;
+    ``params`` must live there.
     """
 
     engine = "continuous"
@@ -285,8 +284,8 @@ class ContinuousBatchServer(_ServerBase):
                  use_artifact: bool = False,
                  precision: str = "float",
                  device: Union[str, torch.device, None] = None):
-        _no_artifact(use_artifact)
         super().__init__(cfg, params, precision, device)
+        self.use_artifact = use_artifact
         self.n_slots = int(slots or 4)
         self.max_prompt = int(max_prompt or 32)
         self.chunk = int(prefill_chunk)
@@ -304,6 +303,25 @@ class ContinuousBatchServer(_ServerBase):
     def _init_steps(self) -> None:
         self._init_slot_steps(self.n_slots)
         self.decode = make_slot_decode_step(self.cfg, self.prec)
+        self._deploy_decode()
+
+    def _deploy_decode(self, **paged) -> None:
+        """With ``use_artifact``, replace the decode step by its
+        rehydrated artifact (``paged``: the pool's ``pool_blocks`` and
+        ``block_size``) and call it once with every slot idle: kv_len 0
+        everywhere, so nothing is read or written, and on the card the
+        graph is captured here, over the engine's own weights and cache,
+        rather than inside the first ``run()``."""
+        self.artifact = None
+        if not self.use_artifact:
+            return
+        self.artifact = compile_serve_decode(
+            self.cfg, self.params, slots=self.n_slots,
+            capacity=self.capacity, policy=self.prec, **paged)
+        self.decode = self.artifact.rehydrate()
+        idle = self._tensor(np.zeros((self.n_slots,), np.int32))
+        table = (self._tensor(self.block_table),) if paged else ()
+        self.decode(self.params, self.cache, idle, idle, idle, *table)
 
     # ------------------------------------------------------------------
     def submit(self, prompts: List[np.ndarray],
@@ -399,6 +417,8 @@ class ContinuousBatchServer(_ServerBase):
             # capacity rectangle: the share of it the decode kernel reads
             denom = self.n_slots * self.capacity
             self.metrics["kv_fill_frac"] = float(np.mean(kv_raw) / denom)
+        if self.artifact is not None:
+            self.metrics["artifact_bytes"] = self.artifact.artifact_bytes
         return self.metrics
 
 
@@ -574,6 +594,8 @@ class PagedBatchServer(ContinuousBatchServer):
         # free-block watermark: suppresses per-step re-matching
         self._blocked_state = None
         self._live_hist: List[int] = []
+        self._deploy_decode(pool_blocks=self.pool_blocks,
+                            block_size=self.block_size)
 
     # ------------------------------------------------------------------
     def _set_table_row(self, slot) -> None:
@@ -706,6 +728,9 @@ class PagedBatchServer(ContinuousBatchServer):
         return [s for s in active if s.active]
 
     def _decode_call(self, tok, pos, kvl):
+        # a fresh device copy of the host table each step; a rehydrated
+        # artifact copies it into its captured buffer in stream order, so
+        # no table is rewritten under a step that still reads it
         return self.decode(self.params, self.cache, tok, pos, kvl,
                            self._tensor(self.block_table))
 

@@ -1,6 +1,7 @@
-"""The port stands alone: ``src/repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor the JAX package ``repro``, and no entry point quietly
-runs on the CPU when no GPU is present.
+"""The port stands alone: ``src/repro_torch``, ``chip_smoke.py`` and the
+port's examples (``examples/torch_*.py``) import neither ``jax`` nor the
+JAX package ``repro``, the examples run with ``--device cpu``, and no
+entry point quietly runs on the CPU when no GPU is present.
 """
 import ast
 import dataclasses
@@ -22,8 +23,12 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
+EXAMPLES = ("torch_quickstart.py", "torch_eon_tuner_kws.py")
+
+
 def _port_files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+        [ROOT / "examples" / name for name in EXAMPLES] + \
         [ROOT / "chip_smoke.py"]
 
 
@@ -50,6 +55,18 @@ def test_port_imports_neither_jax_nor_repro():
            for p in files for line, mod in _imported_roots(p)
            if mod in FORBIDDEN]
     assert not bad, "port modules import the JAX side:\n" + "\n".join(bad)
+
+
+@pytest.mark.parametrize("name,expect", [
+    ("torch_quickstart.py", "deploy artifact: "),
+    ("torch_eon_tuner_kws.py", "pass the nano33ble RAM/flash/latency")])
+def test_examples_run_on_the_cpu(name, expect):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, str(ROOT / "examples" / name),
+                           "--device", "cpu"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert expect in proc.stdout
 
 
 def test_no_gpu_no_default_device(monkeypatch):

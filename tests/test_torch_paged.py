@@ -213,8 +213,11 @@ def test_paged_rejects_what_jax_rejects(setup):
     with pytest.raises(ValueError, match="prefill_chunk"):
         PagedBatchServer(tcfg, tp, max_prompt=20, prefill_chunk=24,
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        PagedBatchServer(tcfg, tp, use_artifact=True, device="cpu")
+    # the decode artifact is served, not refused (test_torch_eon_serve.py)
+    art = PagedBatchServer(tcfg, tp, slots=2, max_prompt=20, prefill_chunk=4,
+                           max_new_tokens=4, block_size=8, use_artifact=True,
+                           device="cpu")
+    assert art.artifact.memory["kv_pool_blocks"] == art.pool_blocks
     srv = PagedBatchServer(tcfg, tp, slots=2, max_prompt=20, prefill_chunk=4,
                            max_new_tokens=4, block_size=8, pool_blocks=2,
                            device="cpu")

@@ -155,9 +155,21 @@ def test_slot_recycling_admits_before_drain(setup):
 
 
 def test_unported_options_raise(setup):
+    """What the port refuses raises; ``use_artifact`` no longer does: it
+    serves the eager engine's tokens (test_torch_eon_serve.py holds it
+    against the JAX engines)."""
     _, tcfg, _, tp = setup
-    with pytest.raises(NotImplementedError, match="artifact"):
-        ContinuousBatchServer(tcfg, tp, use_artifact=True, device="cpu")
+    prompts = [np.arange(3, 9, dtype=np.int32), np.arange(2, dtype=np.int32)]
+    out = []
+    for use_artifact in (False, True):
+        srv = ContinuousBatchServer(tcfg, tp, slots=2, max_prompt=8,
+                                    prefill_chunk=4, max_new_tokens=3,
+                                    use_artifact=use_artifact, device="cpu")
+        reqs = srv.submit(prompts)
+        out.append(([r.tokens for r in reqs], srv.run()))
+    assert out[1][0] == out[0][0]
+    assert out[1][1]["artifact_bytes"] > 0
+    assert "artifact_bytes" not in out[0][1]
     # calibrated activations are served (test_torch_calibrated.py)
     srv = ContinuousBatchServer(
         tcfg, tp, device="cpu",
