@@ -23,7 +23,8 @@ Phases, each a hard failure (non-zero exit, no result line):
      and int8 paged with blocks of 64), where the bytes weigh most;
    - ``int8_matmul`` at M in {4, 64} for each (K, N) of the projections,
      (2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048), at M 1 and 16
-     for (2048, 8192), and a ragged case (M 5, K 200, N 300): **bitwise**
+     for (2048, 8192), at M 4 and 64 for gemma3-4b's down projection
+     (10240, 2560), and a ragged case (M 5, K 200, N 300): **bitwise**
      equal to the plain version, each timed row with its share of the
      bound and its factor over ``torch._int_mm``;
    - ``mel_frontend`` on the full-width batch (512 one-second keyword clips,
@@ -53,6 +54,15 @@ Phases, each a hard failure (non-zero exit, no result line):
      magnitude; and a ragged tail with dt = 0, whose final state and real
      outputs must equal **bitwise** the kernel's on the real prefix alone;
      each timed row with its share of the bound.
+   - slices 7 and 8 (``SLICE_LAYOUTS``): both serving kernels at
+     gemma3-4b's heads (Hkv 4, G 2, D 256) on a contiguous cache of 1,600
+     and on the ring layout (decode over a ring of 1,024 that has
+     wrapped; a chunk against ``[ring ∥ chunk]``, positions out of index
+     order, window 1,024), and at G 3 and G 4 (D 128, phase 3's cache),
+     float and int8 K/V, bf16 and f32, each bf16 row timed as above;
+     ``flash_attention``'s forward at B 1, S 2048, Hq 8, Hkv 4, D 256,
+     causal and with a window of 1,024 (f32 too), its backward refusing
+     D 256.
    Attention tolerance, elementwise against the plain version computed in
    f32 from the same inputs (int8 dequantized and rounded as the kernel
    rounds): in bf16, the output's own rounding (2^-8 of its size) plus
@@ -155,13 +165,15 @@ Phases, each a hard failure (non-zero exit, no result line):
    each one's ms a step, and the idle share.  A small float32 config
    trained 3 steps on the card and on the CPU from the same weights must
    agree (``TRAIN_TOL``).
-8. Full-width mamba1 serving: falcon-mamba-7b (64 layers, d_model 4096,
-   d_inner 8192, state 16, dt_rank 256, vocab 65024 padded to 65536,
-   7,276,859,392 parameters), bf16, random weights from a seeded generator
-   on the card, through ``ContinuousBatchServer`` as in phase 3 (4 slots,
-   chunk 64, 32 new tokens, eight prompts of 9 to 512 tokens).  Every
-   request must return 32 tokens in the padded vocabulary, and
-   ``mamba_scan`` must launch exactly 64 x (chunk steps + decode steps).
+8. Full-width mamba1 serving: falcon-mamba-7b (d_model 4096, d_inner
+   8192, state 16, dt_rank 256, vocab 65024 padded to 65536) at 32 of its
+   64 layers (``MAMBA_LAYERS``: depth cut so that the script keeps within
+   its time as phases 10 and 11 join it; 3,906,867,200 parameters), bf16,
+   random weights from a seeded generator on the card, through
+   ``ContinuousBatchServer`` as in phase 3 (4 slots, chunk 64, 32 new
+   tokens, eight prompts of 9 to 512 tokens).  Every request must return
+   32 tokens in the padded vocabulary, and ``mamba_scan`` must launch
+   exactly 32 x (chunk steps + decode steps).
    Then, as in phase 3 over four seeds, chunk, ragged-chunk and
    decode steps through the kernel and through the plain scan on copies
    of the same state: every layer's scan within ``MAMBA_TOL`` of the
@@ -187,6 +199,27 @@ algorithm under capture, and labels).  A replay launches the captured
 kernels without a wrapper: the kernels a run executed are the wrappers'
 count in it plus the capture's count times the replays, and they must
 equal the eager run's launches, one replay a decode step (or call).
+10. One-shot prefill at full width (``make_prefill_step``): internlm2-1.8b
+   at B 4, S 512 and gemma3-4b at B 1, S 2,048 (past its window, so the
+   rings come from ``_ring_select``), each against the chunked path on
+   the same prompts: the last-token logits within ``PREFILL_LOGIT_ATOL``,
+   every cache entry within ``PREFILL_CACHE_ATOL``, the positions equal,
+   ``flash_attention`` launched once a layer; 32 greedy tokens decoded
+   from ``grow_cache``, teacher-forced with ``ContinuousBatchServer``'s
+   tokens on the same prompts, equal to them on at least
+   ``PREFILL_GREEDY_EQUAL_MIN``.  The exact oracle: a float32 gemma3 of
+   smoke widths with heads of 256 (13 layers, window 8) served and
+   prefilled on the card gives the CPU's greedy tokens.
+11. gemma3-4b at full width (34 layers, d_model 2560, 8/4 heads of 256,
+   window 1,024, vocab 262,144), bf16, seeded weights: four prompts of
+   900 to 1,500 tokens (every ring wraps) with 32 new tokens, 4 slots,
+   chunks of 64, max_prompt 1,536, through ``ContinuousBatchServer``
+   (float) and ``PagedBatchServer`` (int8): every request returns 32
+   tokens, each kernel's launches equal 34 x the steps; the logits
+   against the plain path on copies of the cache as in phase 3 (two
+   seeds, slots filled past the window), at ``GEMMA_LOGIT_ATOL`` and
+   ``GEMMA_INT8_LOGIT_ATOL``.  Then granite-3-8b at full width (40 layers,
+   G 4), float, phase 3's requests, with its launch counts.
 9. The EON tuner (``EONTuner.search``: 8 candidates sampled, screened by
    the MCU estimator for the nano33ble, trained 1 epoch each on 384
    seeded one-second keyword clips of 4 classes and ranked on 128) and a
@@ -195,9 +228,10 @@ equal the eager run's launches, one replay a decode step (or call).
    artifact's logits must equal the artifact's before saving, and the
    eager int8 logits within ``KWS_LOGIT_ATOL``.
 
-Each main path (phases 3, 5 paged and calibrated, 6 inference and fit, 7,
-8, their artifact runs and 9) runs with every launch count set to 0 just
-before it and read just after.  Prints the kernels' JSON line, the card's
+Phases 10 and 11 run before phase 9.  Each main path (phases 3, 5 paged
+and calibrated, 6 inference and fit, 7, 8, their artifact runs, 9, 10 and
+11) runs with every launch count set to 0 just before it and read just
+after.  Prints the kernels' JSON line, the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.  Needs
 one GPU; exits non-zero without one, or without the rest of the
 repository beside it.
@@ -207,6 +241,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -352,6 +387,9 @@ MAMBA_LIBRARY = "none: no single PyTorch call computes a selective scan"
 # 96.1% of the rows there, so at least 90% is required.  64 bf16 layers
 # carry single-ulp differences of the scan's f32 output onward.
 MAMBA_LOGIT_ATOL = 1.0
+# phase 8's depth: 32 of falcon-mamba-7b's 64 layers (PR 17 cut it, so
+# that the script keeps within its time as phases 10 and 11 join it)
+MAMBA_LAYERS = 32
 MAMBA_GREEDY_EQUAL_MIN = 0.9
 
 
@@ -427,7 +465,7 @@ def tol_ratio(out: torch.Tensor, want: torch.Tensor) -> float:
     return float(((out.float() - want).abs() / lim).max())
 
 
-def sdpa_call(q, k, v, qpos, pos, kvl):
+def sdpa_call(q, k, v, qpos, pos, kvl, window=0):
     """One F.scaled_dot_product_attention call over the same function,
     inputs laid out as it wants them beforehand."""
     qs = q.transpose(1, 2).contiguous()
@@ -435,7 +473,10 @@ def sdpa_call(q, k, v, qpos, pos, kvl):
     vs = v.transpose(1, 2).contiguous()
     idx = torch.arange(k.shape[1], device=k.device)
     mask = ((pos[:, None, :] >= 0) & (pos[:, None, :] <= qpos[:, :, None])
-            & (idx[None, None, :] < kvl[:, None, None]))[:, None]
+            & (idx[None, None, :] < kvl[:, None, None]))
+    if window > 0:
+        mask &= pos[:, None, :] > qpos[:, :, None] - window
+    mask = mask[:, None]
     return lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
                                                   enable_gqa=True)
 
@@ -472,7 +513,8 @@ def plain_attention(ref, kind, q, k, v, qpos, pos, kv_len=None,
         v_scale=vs)
 
 
-def make_layout_case(gen, Int8KV, int8, bs, b, c, s, fills, reals, dtype):
+def make_layout_case(gen, Int8KV, int8, bs, b, c, s, fills, reals, dtype,
+                     heads=(HKV, G, D)):
     """A cache of S entries per slot in one layout.  Contiguous (``bs``
     None): slot i holds ``fills[i]`` entries at positions 0.., the rest −1.
     Paged: the slots' live blocks are a scrambled set of pool blocks; the
@@ -482,7 +524,8 @@ def make_layout_case(gen, Int8KV, int8, bs, b, c, s, fills, reals, dtype):
     Returns q, k, v (tensors or ``Int8KV``), query positions, positions,
     kv_len and the block table (None when contiguous)."""
     dev = DEV
-    q = torch.randn(b, c, HKV * G, D, generator=gen, device=dev).to(dtype)
+    hkv, g, d = heads
+    q = torch.randn(b, c, hkv * g, d, generator=gen, device=dev).to(dtype)
     qpos = torch.full((b, c), -1, dtype=torch.int32, device=dev)
     for i, (n, r) in enumerate(zip(fills, reals)):
         qpos[i, :r] = torch.arange(n - r, n, dtype=torch.int32, device=dev)
@@ -512,7 +555,15 @@ def make_layout_case(gen, Int8KV, int8, bs, b, c, s, fills, reals, dtype):
                 pos[blk, :n] = torch.arange(j * bs, j * bs + n,
                                             dtype=torch.int32, device=dev)
         poisoned = order[nxt:]
-    shape = (outer, rows, HKV, D)
+    return (q,) + kv_leaves(gen, Int8KV, int8, (outer, rows, hkv, d),
+                            poisoned, dtype) + (qpos, pos, kvl, table)
+
+
+def kv_leaves(gen, Int8KV, int8, shape, poisoned, dtype) -> tuple:
+    """K and V of ``shape``: random values of ``dtype``, or int8 values
+    with scales amax/127 of about unit size; the ``poisoned`` outer rows
+    NaN (int8: NaN scales)."""
+    dev = DEV
     if int8:
         def leaf():
             scale = torch.rand(shape[:-1], generator=gen, device=dev) \
@@ -525,18 +576,51 @@ def make_layout_case(gen, Int8KV, int8, bs, b, c, s, fills, reals, dtype):
             x = torch.randn(shape, generator=gen, device=dev).to(dtype)
             x[poisoned] = float("nan")
             return x
-    return q, leaf(), leaf(), qpos, pos, kvl, table
+    return leaf(), leaf()
 
 
-def layout_bound_ms(q, k, qpos, pos, kvl, table) -> tuple:
+def make_ring_case(gen, Int8KV, int8, b, c, w, fills, reals, dtype,
+                   heads=(4, 2, 256)):
+    """The ring layout of the sliding-window layers, gemma3's heads by
+    default.  Decode (``c`` 1): slot i's ring of ``w`` rows holds its
+    positions max(0, n - w) .. n - 1 at ``pos % w`` (n = ``fills[i]``, the
+    query at n - 1), read up to min(n, w) rows.  A chunk: the ring holds
+    the n positions before the chunk, and the chunk's ``c`` entries follow
+    it, the first ``reals[i]`` at n .., the pad tail −1: ``[ring ∥
+    chunk]``, positions out of index order, every row read, as the chunk
+    layer's ring branch hands them to the kernel.  The window is ``w``."""
+    dev = DEV
+    hkv, g, d = heads
+    s = w if c == 1 else w + c
+    q = torch.randn(b, c, hkv * g, d, generator=gen, device=dev).to(dtype)
+    qpos = torch.full((b, c), -1, dtype=torch.int32, device=dev)
+    pos = torch.full((b, s), -1, dtype=torch.int32, device=dev)
+    for i, (n, r) in enumerate(zip(fills, reals)):
+        held = torch.arange(max(0, n - w), n, device=dev)
+        pos[i, held % w] = held.to(torch.int32)
+        if c == 1:
+            qpos[i, 0] = n - 1
+        else:
+            qpos[i, :r] = torch.arange(n, n + r, dtype=torch.int32,
+                                       device=dev)
+            pos[i, w:] = qpos[i]
+    kvl = torch.tensor([min(n, w) if c == 1 else s for n in fills],
+                       dtype=torch.int32, device=dev)
+    return (q,) + kv_leaves(gen, Int8KV, int8, (b, s, hkv, d), [], dtype) \
+        + (qpos, pos, kvl, None)
+
+
+def layout_bound_ms(q, k, qpos, pos, kvl, table, window=0) -> tuple:
     """Least time for one call: each input read once (the live K/V rows and
     their int8 scales, their positions, the block-table entries, q and the
     query positions), the output written once; operations 4·D per (query
     row, valid entry, head)."""
     int8 = isinstance(k, tuple)
+    hkv = (k[0] if int8 else k).shape[2]
+    d, g = q.shape[-1], q.shape[2] // hkv
     s = pos.shape[1] if table is None else table.shape[1] * pos.shape[1]
     live = int(kvl.clamp(max=s).sum())
-    per_entry = HKV * (2 * D * (1 if int8 else k.element_size())
+    per_entry = hkv * (2 * d * (1 if int8 else k.element_size())
                        + (8 if int8 else 0)) + 4
     nbytes = (live * per_entry + 2 * q.numel() * q.element_size()
               + qpos.numel() * 4 + kvl.numel() * 4
@@ -547,7 +631,9 @@ def layout_bound_ms(q, k, qpos, pos, kvl, table) -> tuple:
         pos[table.long()].reshape(table.shape[0], -1)
     valid = ((lpos[:, None, :] >= 0) & (lpos[:, None, :] <= qpos[:, :, None])
              & (idx[None, None, :] < kvl[:, None, None]))
-    ops = 4 * D * int(valid.sum()) * HKV * G
+    if window > 0:
+        valid &= lpos[:, None, :] > qpos[:, :, None] - window
+    ops = 4 * d * int(valid.sum()) * hkv * g
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[q.dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -572,44 +658,47 @@ LAYOUTS = {"float": (False, None), "int8": (True, None),
            "int8_paged_bs8": (True, 8)}
 
 
-def wrapper_call(fd, kind, q, k, v, qp, pos, kvl, table):
+def wrapper_call(fd, kind, q, k, v, qp, pos, kvl, table, window=0):
     """The kernel's wrapper alone on inputs laid out beforehand as
     ``ops.decode_attention``/``ops.chunk_attention`` lay them out (for a
     chunk, q grouped by KV head and the positions by row: two copies, and
     a third for the output, that the ops call makes each time)."""
     b, c, hq, d = q.shape
-    g = hq // HKV
     (kq, ks), (vq, vs) = (x if isinstance(x, tuple) else (x, None)
                           for x in (k, v))
+    hkv = kq.shape[2]
+    g = hq // hkv
     if kind == "decode":
-        qg, qr, fn = q.reshape(b, HKV, g, d), qp, fd.flash_decode
+        qg, qr, fn = q.reshape(b, hkv, g, d), qp, fd.flash_decode
     else:
-        qg = q.reshape(b, c, HKV, g, d).permute(0, 2, 1, 3, 4) \
-            .reshape(b, HKV, c * g, d).contiguous()
+        qg = q.reshape(b, c, hkv, g, d).permute(0, 2, 1, 3, 4) \
+            .reshape(b, hkv, c * g, d).contiguous()
         qr = qp[:, :, None].expand(b, c, g).reshape(b, c * g).contiguous()
         fn = fd.flash_chunk_prefill
     return lambda: fn(qg, kq, vq, qr, pos, kvl, k_scale=ks, v_scale=vs,
-                      block_table=table)
+                      block_table=table, window=window)
 
 
 def time_layout_row(ops, ref, kind, kern, q, k, v, qpos, qp, pos, kvl,
-                    table, err, floor_ms) -> dict:
+                    table, err, floor_ms, window=0) -> dict:
     """One timed attention row: the ops call (what the serving path makes)
     after the usual flush and after one that leaves the L2 clean, the
     kernel's wrapper alone, the plain version, SDPA on dense K/V, the
     bound, and beside them the timing floor, the share of the bound and
     the factor over SDPA."""
     def call():
-        return kern(q, k, v, qp, pos, kv_len=kvl, block_table=table)
+        return kern(q, k, v, qp, pos, kv_len=kvl, block_table=table,
+                    window=window)
     ms = time_ms(call)
     clean_ms = time_ms(call, flush=flush_l2_clean)
     alone_ms = time_ms(wrapper_call(ops.fd, kind, q, k, v, qp, pos, kvl,
-                                    table))
+                                    table, window))
     plain_ms = time_ms(lambda: plain_attention(
-        ref, kind, q, k, v, qp, pos, kv_len=kvl, block_table=table))
+        ref, kind, q, k, v, qp, pos, kv_len=kvl, block_table=table,
+        window=window))
     kd, vd, pd = dense_inputs(q, k, v, pos, table)
-    lib_ms = time_ms(sdpa_call(q, kd, vd, qpos, pd, kvl))
-    b_ms, b_by = layout_bound_ms(q, k, qpos, pos, kvl, table)
+    lib_ms = time_ms(sdpa_call(q, kd, vd, qpos, pd, kvl, window))
+    b_ms, b_by = layout_bound_ms(q, k, qpos, pos, kvl, table, window)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             "clean_l2_ms": clean_ms, "wrapper_alone_ms": alone_ms,
@@ -683,6 +772,90 @@ def check_layouts(ops, ref, Int8KV):
     return rows
 
 
+# The serving attention shapes of slices 7 and 8: name -> ((Hkv, G, D),
+# cache rows (the ring's window for a ring), ring layout).  gemma3-4b's
+# global layers read a contiguous cache of its capacity (max_prompt 1536
+# + 32 new tokens, rounded to 1,600), its local layers a ring of 1,024
+# (a chunk: [ring ∥ chunk]); llama3.2-3b and granite-3-8b are phase 3's
+# shapes at G 3 and G 4.
+SLICE_LAYOUTS = {"d256_g2": ((4, 2, 256), 1600, False),
+                 "d256_g2_ring": ((4, 2, 256), 1024, True),
+                 "d128_g3": ((8, 3, 128), 576, False),
+                 "d128_g4": ((8, 4, 128), 576, False)}
+
+
+def check_slice_attention(ops, ref, Int8KV):
+    """Both serving kernels at ``SLICE_LAYOUTS``, float and int8 K/V, bf16
+    and f32, against their plain versions at the kernel tolerance: decode
+    with 4 slots (contiguous: fills 0, 1, 37 and full; ring: 1, 37, 1,024
+    and 1,500, wrapped) and a chunk of 64 with 20 pad rows (contiguous:
+    128 rows short of full; ring: 1,200 positions before it).  Returns the
+    bf16 rows, timed as phase 2's, by layout."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    floor_ms = time_ms(torch.zeros(1, device=DEV).zero_)
+    rows = {"flash_decode": {}, "flash_chunk_prefill": {}}
+    for layout, (heads, s, ring) in SLICE_LAYOUTS.items():
+        window = s if ring else 0
+        for int8 in (False, True):
+            for dtype in (torch.bfloat16, torch.float32):
+                if ring:
+                    cases = {
+                        "flash_decode": ("decode", make_ring_case(
+                            gen, Int8KV, int8, 4, 1, s, [1, 37, s, 1500],
+                            [1] * 4, dtype, heads), ops.decode_attention),
+                        "flash_chunk_prefill": ("chunk", make_ring_case(
+                            gen, Int8KV, int8, 1, 64, s, [1200], [44],
+                            dtype, heads), ops.chunk_attention)}
+                else:
+                    cases = {
+                        "flash_decode": ("decode", make_layout_case(
+                            gen, Int8KV, int8, None, 4, 1, s,
+                            [0, 1, 37, s], [0, 1, 1, 1], dtype, heads),
+                            ops.decode_attention),
+                        "flash_chunk_prefill": ("chunk", make_layout_case(
+                            gen, Int8KV, int8, None, 1, 64, s, [s - 128],
+                            [44], dtype, heads), ops.chunk_attention)}
+                key = layout + ("_int8" if int8 else "")
+                for name, (kind, case, kern) in cases.items():
+                    q, k, v, qpos, pos, kvl, table = case
+                    qp = qpos[:, 0] if kind == "decode" else qpos
+                    out = kern(q, k, v, qp, pos, kv_len=kvl, window=window)
+                    torch.cuda.synchronize()
+                    want = plain_attention(ref, kind, *f32_inputs(q, k, v),
+                                           qp, pos, kv_len=kvl,
+                                           window=window)
+                    err = float((out.float() - want).abs().max())
+                    ratio = tol_ratio(out, want)
+                    hkv, g, d = heads
+                    plan = ops.fd._plan(q.shape[0], hkv, q.shape[1] * g,
+                                        pos.shape[1], dtype, int8, d)
+                    print(f"  {name:20s} {key:18s} {str(dtype):15s} max|err|"
+                          f" {err:.3g}, {ratio:.3f} of the limit"
+                          f"  ({plan.kernel}, {plan.rows} rows a block,"
+                          f" split {plan.split}, grid {plan.grid})")
+                    check(out.dtype == dtype and bool(out.isfinite().all()),
+                          f"{name} {key}: non-finite or wrong dtype")
+                    check(ratio <= 1, f"{name} disagrees with its plain"
+                          f" version, {key} {dtype}: {ratio} of the limit")
+                    zero = out[0, 44:] if kind == "chunk" else \
+                        (None if ring else out[0])
+                    check(zero is None or bool((zero == 0).all()),
+                          f"{name} {key}: empty slot or pad rows not zero")
+                    if dtype != torch.bfloat16:
+                        continue
+                    row = time_layout_row(ops, ref, kind, kern, q, k, v,
+                                          qpos, qp, pos, kvl, table, err,
+                                          floor_ms, window)
+                    rows[name][key] = row
+                    print(f"  {name:20s} {key:18s} kernel {row['ms']:.5f} ms"
+                          f"  plain {row['plain_ms']:.4f} ms  sdpa"
+                          f" {row['library_ms']:.5f} ms  bound"
+                          f" {row['bound_ms']:.6f} ms ({row['bound_by']}):"
+                          f" {row['share_of_bound']:.4f} of the bound,"
+                          f" {row['factor_vs_library']:.2f}x SDPA")
+    return rows
+
+
 MATMUL_SHAPES = ((2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048))
 
 
@@ -703,6 +876,8 @@ def check_int8_matmul(ops, ref, im):
     rows = {}
     shapes = [(m, k, n) for k, n in MATMUL_SHAPES for m in (4, 64)]
     shapes += [(1, 2048, 8192), (16, 2048, 8192)]
+    # gemma3-4b's down projection (phase 11, int8): K 10,240 past 8,192
+    shapes += [(4, 10240, 2560), (64, 10240, 2560)]
     for m, k, n in shapes + [(5, 200, 300)]:
         x = torch.randint(-127, 128, (m, k), generator=gen, device=DEV,
                           dtype=torch.int8)
@@ -1058,6 +1233,61 @@ def check_flash_attention(port):
     return rows
 
 
+# flash_attention's forward at gemma3-4b's one-shot prefill (B 1, S 2048,
+# 8/4 heads of 256): the global layers (causal) and the local ones
+# (window 1,024); name: (B, S, Hq, Hkv, D, causal, window)
+FA_D256_CASES = {"d256_s2048": (1, 2048, 8, 4, 256, True, 0),
+                 "d256_window1024_s2048": (1, 2048, 8, 4, 256, True, 1024)}
+
+
+def check_flash_attention_d256(port):
+    """The forward at ``FA_D256_CASES`` against its plain version at the
+    bf16 limit of ``TOL`` (f32 too, at its limit), timed against the
+    plain version, SDPA and its bound; the backward refuses D 256 with
+    the wrapper's own error.  Returns the bf16 rows by case."""
+    fa, ref = port.fa, port.ref
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    rows = {}
+    for name, (b, s, hq, hkv, d, causal, window) in FA_D256_CASES.items():
+        kw = dict(causal=causal, window=window)
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(b, s, hq, d, generator=gen, device=DEV).to(dtype)
+            k, v = (torch.randn(b, s, hkv, d, generator=gen, device=DEV)
+                    .to(dtype) for _ in range(2))
+            out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                           causal, window)
+            err = float((out.float() - want).abs().max())
+            ratio = tol_ratio(out, want)
+            print(f"  flash_attention {name:22s} {str(dtype):15s} max|err|"
+                  f" {err:.3g} ({ratio:.3f} of the limit)")
+            check(out.dtype == dtype and bool(out.isfinite().all())
+                  and ratio <= 1, f"flash_attention disagrees with its plain"
+                  f" version at {name} {dtype}: {ratio} of the limit")
+        try:
+            fa.flash_attention_bwd(q, k, v, out, lse, out, **kw)
+        except ValueError as e:
+            check("head_dim 256" in str(e), f"backward refusal: {e}")
+        else:
+            fail("flash_attention_bwd took D 256")
+        lib_f, _ = sdpa_train_calls(q, k, v, q, causal, window)
+        ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw), reps=10)
+        plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal,
+                                                           window), reps=10)
+        lib_ms = time_ms(lib_f, reps=10)
+        b_ms, b_by = fa_bounds(b, s, hq, hkv, d, causal,
+                               window)["flash_attention"]
+        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": lib_ms}
+        print(f"  flash_attention     {name:22s} kernel {ms:.4f} ms  plain"
+              f" {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound {b_ms:.5f}"
+              f" ms ({b_by}): {b_ms / ms:.3f} of the bound,"
+              f" {ms / lib_ms:.2f}x sdpa")
+    return rows
+
+
 def scan_inputs(gen, b, s, d, n, dtype, with_h0):
     """The JAX kernel test's distributions, drawn on the card: x, B, C ~
     N(0, 0.5), dt = softplus(N(0, 0.5)), a = -exp(N(0, 0.3)), h0 ~ N(0, 1)
@@ -1398,26 +1628,28 @@ def serve_calibrated(port, cfg, params):
 
 class Steps:
     """The serving path's chunk and decode steps on one 4-slot cache of
-    576 entries: contiguous, or (``paged``) a pool of 36 blocks of 64
-    entries in a scrambled block table; under ``policy``."""
+    ``capacity`` entries (576 by default): contiguous, or (``paged``) a
+    pool of 4 x capacity / 64 blocks of 64 entries in a scrambled block
+    table; under ``policy``."""
 
-    def __init__(self, port, cfg, params, policy, paged: bool, seed: int):
+    def __init__(self, port, cfg, params, policy, paged: bool, seed: int,
+                 capacity: int = 576):
         ss, kc = port.serve_step, port.kvcache
         self.params, self.paged = params, paged
         if paged:
+            n_tbl = capacity // 64
             self._chunk = ss.make_paged_chunk_prefill_step(cfg, policy)
             self._decode = ss.make_paged_decode_step(cfg, policy)
-            self.cache = kc.alloc_paged_cache(cfg, 4, 576, 36, DEV, policy,
-                                              64)
+            self.cache = kc.alloc_paged_cache(cfg, 4, capacity, 4 * n_tbl,
+                                              DEV, policy, 64)
             gen = torch.Generator(device=DEV).manual_seed(seed)
-            self.table = torch.randperm(36, generator=gen, device=DEV) \
-                .to(torch.int32).reshape(4, 9)
-            self.pos_key = "pool_pos"
+            self.table = torch.randperm(4 * n_tbl, generator=gen,
+                                        device=DEV) \
+                .to(torch.int32).reshape(4, n_tbl)
         else:
             self._chunk = ss.make_chunk_prefill_step(cfg, policy)
             self._decode = ss.make_slot_decode_step(cfg, policy)
-            self.cache = kc.alloc_decode_cache(cfg, 4, 576, DEV, policy)
-            self.pos_key = "full_pos"
+            self.cache = kc.alloc_decode_cache(cfg, 4, capacity, DEV, policy)
 
     def chunk(self, cache, slot, toks, poss, kvl):
         if self.paged:
@@ -1521,13 +1753,15 @@ def patched(patches) -> contextlib.ExitStack:
 
 
 def logits_vs_plain(port, cfg, params, atol, greedy_min, paths,
-                    policy=None, paged=False, seeds=(1, 2, 3, 4)):
+                    policy=None, paged=False, seeds=(1, 2, 3, 4),
+                    capacity=576, fill_chunks=(1, 6)):
     """Serving steps through the kernels against the same steps through
     the plain path (``attention_paths``: attention ``rounded_once`` and
     the plain int8 matmul; ``scan_paths``: the plain scan) on a copy of
     the same cache.
 
-    For each seed: slots 1 and 3 are filled with 1..5 chunks, then a full
+    For each seed: slots 1 and 3 are filled with ``fill_chunks`` (1..5
+    by default) chunks of a cache of ``capacity`` entries, then a full
     chunk step (slot 1), a ragged chunk step (slot 3, 1..63 real rows) and
     two decode steps (slots 1 and 3 live, 0 and 2 idle) are compared on
     their live rows.  Inside the kernel runs every kernel call of every
@@ -1547,7 +1781,7 @@ def logits_vs_plain(port, cfg, params, atol, greedy_min, paths,
     readings = []
     for seed in seeds:
         rng = np.random.RandomState(seed)
-        steps = Steps(port, cfg, params, policy, paged, seed)
+        steps = Steps(port, cfg, params, policy, paged, seed, capacity)
         cache = steps.cache
         fill = {0: 0, 1: 0, 2: 0, 3: 0}
 
@@ -1572,7 +1806,7 @@ def logits_vs_plain(port, cfg, params, atol, greedy_min, paths,
 
         with patched(paths.kernel):
             for slot in (1, 3):
-                for _ in range(rng.randint(1, 6)):
+                for _ in range(rng.randint(*fill_chunks)):
                     chunk_run(slot, 64)(cache)
         runs = [("chunk", lambda: chunk_run(1, 64)),
                 ("chunk_ragged", lambda: chunk_run(3, rng.randint(1, 64))),
@@ -1584,9 +1818,10 @@ def logits_vs_plain(port, cfg, params, atol, greedy_min, paths,
                 got = run(cache).float()
             with patched(paths.plain):
                 want = run(copy).float()
-            if steps.pos_key in cache:
-                check(torch.equal(cache[steps.pos_key], copy[steps.pos_key]),
-                      f"{name}: stored positions differ")
+            for key in cache:
+                if key.endswith("_pos"):
+                    check(torch.equal(cache[key], copy[key]),
+                          f"{name}: stored positions {key} differ")
             same = got.argmax(-1) == want.argmax(-1)
             readings.append(dict(
                 seed=seed, step=name, rows=int(got.shape[0]),
@@ -2262,23 +2497,26 @@ def train_small_vs_cpu(port):
 # Phase 8: full-width mamba1 serving
 # ---------------------------------------------------------------------------
 def mamba_config(port):
+    """falcon-mamba-7b at its full width, cut to ``MAMBA_LAYERS`` of its
+    64 layers."""
     cfg = port.configs.get("falcon-mamba-7b")
     check((cfg.n_layers, cfg.d_model, cfg.d_inner, cfg.ssm_state,
            cfg.padded_vocab(), cfg.tie_embeddings)
           == (64, 4096, 8192, 16, 65536, False), f"unexpected config {cfg}")
-    return cfg
+    return dataclasses.replace(cfg, n_layers=MAMBA_LAYERS)
 
 
 def serve_mamba_full(port, cfg):
-    """falcon-mamba-7b at full width through ``ContinuousBatchServer``, as
-    phase 3 serves internlm2: returns the weights, launches and metrics."""
+    """falcon-mamba-7b at full width (``MAMBA_LAYERS`` deep) through
+    ``ContinuousBatchServer``, as phase 3 serves internlm2: returns the
+    weights, launches and metrics."""
     t0 = time.perf_counter()
     params = port.init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
                               DEV)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
     print(f"  weights: {n_params} params in {time.perf_counter() - t0:.1f} s")
-    check(n_params == 7_276_859_392, f"{n_params} parameters")
+    check(n_params == 3_906_867_200, f"{n_params} parameters")
     kw = dict(slots=4, prefill_chunk=64, max_new_tokens=32, max_prompt=512,
               device=DEV)
     warm = port.server.ContinuousBatchServer(cfg, params, **kw)
@@ -2306,7 +2544,8 @@ def serve_mamba_full(port, cfg):
     want.update(mamba_scan=cfg.n_layers * (metrics["decode_steps"]
                                            + metrics["prefill_chunks"]))
     check(launches == want, f"launches {launches} != layers x steps {want}")
-    print(f"  launches {launches} = 64 x (decode steps + chunk steps)")
+    print(f"  launches {launches} = {cfg.n_layers} x (decode steps + chunk"
+          f" steps)")
     print("  metrics " + json.dumps(metrics))
     return params, launches, metrics, eager_run(srv, prompts, reqs, kw,
                                                 launches, metrics)
@@ -2638,6 +2877,288 @@ def tuner_and_project(port) -> tuple:
         ranked=[c.accuracy for c in ranked], project=summary)
 
 
+# ---------------------------------------------------------------------------
+# Phases 10 and 11: slices 7 and 8 (one-shot prefill, the sliding-window
+# ring of gemma3-4b, granite-3-8b)
+# ---------------------------------------------------------------------------
+def init_full(port, cfg, n_params=None):
+    """Seeded weights of a full config on the card, and a warm-up request
+    through ``ContinuousBatchServer`` (the first cuBLAS calls)."""
+    t0 = time.perf_counter()
+    params = port.init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                              DEV)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    print(f"  {cfg.name} weights: {n} params in"
+          f" {time.perf_counter() - t0:.1f} s")
+    check(n_params is None or n == n_params, f"{n} parameters")
+    warm = port.server.ContinuousBatchServer(cfg, params, slots=1,
+                                             prefill_chunk=64, device=DEV)
+    warm.submit([np.arange(9, dtype=np.int32)], max_new_tokens=2)
+    warm.run()
+    return params
+
+
+def serve_run(port, cfg, srv, lens):
+    """Prompts of ``lens`` tokens (seeded), 32 new tokens each, through
+    ``srv``: every request returns 32 tokens in the padded vocabulary, and
+    each kernel's launches equal what the step counts imply (attention:
+    layers x steps; int8: ``int8_matmul`` 7 x layers x steps).  Returns
+    the launches, metrics and tokens."""
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    reqs = srv.submit(prompts)
+    reset_counts(port)
+    torch.cuda.synchronize()
+    metrics = srv.run()
+    torch.cuda.synchronize()
+    launches = read_counts(port)
+    vpad = cfg.padded_vocab()
+    for r in reqs:
+        check(len(r.tokens) == 32, f"request {r.rid}: {len(r.tokens)} tokens")
+        check(all(0 <= t < vpad for t in r.tokens),
+              f"request {r.rid}: token out of [0, {vpad})")
+    steps = metrics["decode_steps"] + metrics["prefill_chunks"]
+    want = {name: 0 for name in launches}
+    want.update(flash_decode=cfg.n_layers * metrics["decode_steps"],
+                flash_chunk_prefill=cfg.n_layers * metrics["prefill_chunks"])
+    if srv.precision == "int8":
+        want["int8_matmul"] = 7 * cfg.n_layers * steps
+    name = f"{cfg.name} {type(srv).__name__} {srv.precision}"
+    check(launches == want, f"{name}: launches {launches} != what the"
+          f" steps imply {want}")
+    print(f"  {name}: launches {launches} = {cfg.n_layers} layers x"
+          f" (decode steps, chunk steps)")
+    print("  metrics " + json.dumps(metrics))
+    return launches, metrics, [list(r.tokens) for r in reqs]
+
+
+# gemma3-4b at full width: four prompts of 900 to 1,500 tokens (past the
+# local layers' window of 1,024, so every ring wraps) and 32 new tokens, 4
+# slots, chunks of 64, max_prompt 1,536 (capacity 1,600)
+GEMMA_LENS = [900, 1100, 1300, 1500]
+GEMMA_KW = dict(slots=4, prefill_chunk=64, max_new_tokens=32,
+                max_prompt=1536, device=DEV)
+GEMMA_PARAMS = 3_879_907_840
+# Twice the largest of the float and int8 paged readings on the H100 (the
+# rule of LOGIT_ATOL), rounded up to a power of two; PERF.md gives them.
+GEMMA_LOGIT_ATOL = 0.5
+GEMMA_INT8_LOGIT_ATOL = 2.0
+# One-shot prefill against the chunked path on the same prompt: the
+# largest |difference| of the last-token logits and of any cache entry
+# (bf16 in another summation order through every layer), twice the
+# largest reading rounded up to a power of two; greedy tokens of a
+# teacher-forced decode from the prefill's cache equal the chunk engine's
+# on at least PREFILL_GREEDY_EQUAL_MIN of them.
+PREFILL_LOGIT_ATOL = 0.5
+PREFILL_CACHE_ATOL = 0.5
+PREFILL_GREEDY_EQUAL_MIN = 0.9
+
+
+def gemma_config(port):
+    cfg = port.configs.get("gemma3-4b")
+    check(cfg.n_layers == 34 and cfg.resolved_head_dim == 256
+          and cfg.sliding_window == 1024 and cfg.padded_vocab() == 262144,
+          f"unexpected config {cfg}")
+    return cfg
+
+
+def serve_gemma(port, cfg):
+    """gemma3-4b at full width, bf16: float through
+    ``ContinuousBatchServer`` and int8 through ``PagedBatchServer``, each
+    held to its launch counts, then its logits against the plain path on
+    copies of the cache, as phase 3 (two seeds; slots filled with 17 to
+    22 chunks, past the window).  Returns the launches and metrics of both
+    runs."""
+    params = init_full(port, cfg, GEMMA_PARAMS)
+    srv = port.server.ContinuousBatchServer(cfg, params, **GEMMA_KW)
+    check(srv.capacity == 1600, f"capacity {srv.capacity} != 1600")
+    launches, metrics, _ = serve_run(port, cfg, srv, GEMMA_LENS)
+    del srv
+    logits_vs_plain(port, cfg, params, GEMMA_LOGIT_ATOL, GREEDY_EQUAL_MIN,
+                    attention_paths(port), seeds=(1, 2), capacity=1600,
+                    fill_chunks=(17, 23))
+    srv = port.server.PagedBatchServer(cfg, params, precision="int8",
+                                       **GEMMA_KW)
+    launches8, metrics8, _ = serve_run(port, cfg, srv, GEMMA_LENS)
+    logits_vs_plain(port, cfg, srv.params, GEMMA_INT8_LOGIT_ATOL,
+                    INT8_GREEDY_EQUAL_MIN, attention_paths(port),
+                    port.quantize.INT8, True, seeds=(1, 2), capacity=1600,
+                    fill_chunks=(17, 23))
+    del srv, params
+    torch.cuda.empty_cache()
+    return launches, metrics, launches8, metrics8
+
+
+def prefill_vs_chunked(port, cfg, params, prompts):
+    """One-shot prefill (``make_prefill_step``, the B prompts at once)
+    against the chunked path on the same prompts: each prompt's chunk
+    steps of 64 into its own slot of a cache, and ``ContinuousBatchServer``
+    serving the prompts with 32 new tokens.  The last-token logits within
+    ``PREFILL_LOGIT_ATOL``, every K/V entry of the cache (the
+    full-attention rows of the prompt, the rings whole) within
+    ``PREFILL_CACHE_ATOL`` and the positions equal; then 32 greedy tokens
+    of a decode from ``grow_cache``, teacher-forced with the engine's
+    tokens, equal the engine's on at least ``PREFILL_GREEDY_EQUAL_MIN`` of
+    them.  ``flash_attention`` must launch once a layer.  Returns the
+    launches and readings."""
+    b, s = len(prompts), len(prompts[0])
+    toks = torch.as_tensor(np.stack(prompts), device=DEV)
+    step = port.serve_step.make_prefill_step(cfg)
+    reset_counts(port)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nxt, logits, cache = step(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = read_counts(port)
+    want = {name: 0 for name in launches}
+    want["flash_attention"] = cfg.n_layers
+    check(launches == want, f"prefill launches {launches} != {want}")
+
+    kc, ss = port.kvcache, port.serve_step
+    chunked = kc.alloc_decode_cache(cfg, b, s + 64, DEV)
+    chunk_step = ss.make_chunk_prefill_step(cfg)
+    last = []
+    for i in range(b):
+        for p in range(0, s, 64):
+            c = min(64, s - p)
+            tk = torch.zeros((1, 64), dtype=torch.int32, device=DEV)
+            ps = torch.full((1, 64), -1, dtype=torch.int32, device=DEV)
+            tk[0, :c] = toks[i, p:p + c]
+            ps[0, :c] = torch.arange(p, p + c, dtype=torch.int32, device=DEV)
+            kvl = torch.tensor([p + 64], dtype=torch.int32, device=DEV)
+            _, lg, _ = chunk_step(params, chunked, tk, ps, i, kvl)
+        last.append(lg[0, c - 1])
+    logit_gap = float((logits.float() - torch.stack(last).float())
+                      .abs().max())
+    cache_gap = 0.0
+    for key, leaf in cache.items():
+        other = chunked[key]
+        if key.endswith("_pos"):
+            check(torch.equal(leaf, other[..., :leaf.shape[-1]]),
+                  f"prefill {key} differs from the chunked path's")
+            continue
+        rows = leaf.shape[-3]
+        cache_gap = max(cache_gap, float(
+            (leaf.float() - other[..., :rows, :, :].float()).abs().max()))
+
+    srv = port.server.ContinuousBatchServer(
+        cfg, params, slots=b, prefill_chunk=64, max_prompt=s,
+        max_new_tokens=32, device=DEV)
+    reqs = srv.submit(list(prompts))
+    srv.run()
+    engine = torch.tensor([r.tokens for r in reqs], device=DEV)
+    grown = port.transformer.grow_cache(cfg, cache, 33)
+    got = [nxt]
+    fns = port.api.model_fns(cfg)
+    with torch.no_grad():
+        for t in range(31):
+            pos = torch.full((b,), s + t, dtype=torch.int32, device=DEV)
+            lg, grown = fns.forward_decode(cfg, params, grown,
+                                           engine[:, t].to(torch.int32), pos)
+            got.append(lg.argmax(-1).to(torch.int32))
+    equal = int((torch.stack(got, 1) == engine).sum())
+    reading = dict(model=cfg.name, batch=b, seq=s, logit_gap=logit_gap,
+                   cache_gap=cache_gap, greedy_equal=equal,
+                   greedy_rows=b * 32, prefill_s=prefill_s)
+    print("  prefill " + json.dumps(reading))
+    check(logit_gap <= PREFILL_LOGIT_ATOL, f"prefill logits: {logit_gap}")
+    check(cache_gap <= PREFILL_CACHE_ATOL, f"prefill cache: {cache_gap}")
+    check(equal >= PREFILL_GREEDY_EQUAL_MIN * b * 32,
+          f"prefill greedy tokens equal on only {equal} of {b * 32}")
+    return launches, reading
+
+
+def small_gemma_config(port):
+    """A float32 gemma3-shaped config at a kernel's head dim: the smoke
+    config's widths with heads of 256, its window of 8, 13 layers (2
+    groups of 5 local and 1 global, and a local tail)."""
+    return dataclasses.replace(port.configs.get_smoke("gemma3-4b"),
+                               head_dim=256, n_layers=13, dtype="float32")
+
+
+def small_gemma_vs_cpu(port):
+    """The exact oracle of the ring: the small float32 gemma3 config on
+    the card gives the CPU plain path's greedy tokens, served through
+    ``ContinuousBatchServer`` (chunks of 4, prompts that wrap the window)
+    and one-shot prefilled, grown and decoded."""
+    cfg = small_gemma_config(port)
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (3, 11, 7, 21)]
+    budgets = [5, 12, 6, 3]
+    host = port.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    served, oneshot = {}, {}
+    for dev in ("cpu", DEV):
+        params = host.to(dev)
+        srv = port.server.ContinuousBatchServer(
+            cfg, params, slots=2, max_prompt=24, prefill_chunk=4,
+            max_new_tokens=12, device=dev)
+        reqs = srv.submit(prompts, max_new_tokens=budgets)
+        srv.run()
+        served[dev] = [r.tokens for r in reqs]
+        step = port.serve_step.make_prefill_step(cfg)
+        fns = port.api.model_fns(cfg)
+        toks = torch.as_tensor(prompts[3][None], device=dev)
+        nxt, _, cache = step(params, {"tokens": toks})
+        cache = port.transformer.grow_cache(cfg, cache, 12)
+        out = [int(nxt[0])]
+        with torch.no_grad():
+            for t in range(10):
+                pos = torch.tensor([21 + t], dtype=torch.int32, device=dev)
+                lg, cache = fns.forward_decode(
+                    cfg, params, cache,
+                    torch.tensor([out[-1]], dtype=torch.int32, device=dev),
+                    pos)
+                out.append(int(lg[0].argmax()))
+        oneshot[dev] = out
+    check(served[DEV] == served["cpu"], f"small gemma3 serving: card"
+          f" {served[DEV]} != cpu {served['cpu']}")
+    check(oneshot[DEV] == oneshot["cpu"], f"small gemma3 prefill: card"
+          f" {oneshot[DEV]} != cpu {oneshot['cpu']}")
+    print(f"  small float32 gemma3 (D 256, window 8), card == cpu tokens:"
+          f" served {served[DEV]}, one-shot prefill {oneshot[DEV]}")
+
+
+def prefill_phase(port):
+    """One-shot prefill at full width: internlm2-1.8b at B 4, S 512 and
+    gemma3-4b at B 1, S 2,048 (past the window: the rings come from
+    ``_ring_from_prefill``), each against the chunked path.  Returns each
+    model's launches and readings."""
+    out = {}
+    for arch, b, s in (("internlm2-1.8b", 4, 512), ("gemma3-4b", 1, 2048)):
+        cfg = port.configs.get(arch)
+        params = init_full(port, cfg)
+        rng = np.random.RandomState(5)
+        prompts = [rng.randint(0, cfg.vocab_size, s).astype(np.int32)
+                   for _ in range(b)]
+        out[arch] = prefill_vs_chunked(port, cfg, params, prompts)
+        del params
+        torch.cuda.empty_cache()
+    small_gemma_vs_cpu(port)
+    return out
+
+
+def serve_granite(port):
+    """granite-3-8b at full width (40 layers, d_model 4096, 32/8 heads of
+    128: G 4), bf16, through ``ContinuousBatchServer`` on phase 3's
+    requests, held to its launch counts."""
+    cfg = port.configs.get("granite-3-8b")
+    check(cfg.n_layers == 40 and cfg.n_heads // cfg.n_kv_heads == 4,
+          f"unexpected config {cfg}")
+    params = init_full(port, cfg, 8_179_224_576)
+    srv = port.server.ContinuousBatchServer(
+        cfg, params, slots=4, prefill_chunk=64, max_new_tokens=32,
+        max_prompt=512, device=DEV)
+    launches, metrics, _ = serve_run(port, cfg, srv,
+                                     [9, 37, 64, 128, 200, 301, 450, 512])
+    del srv, params
+    torch.cuda.empty_cache()
+    return launches, metrics
+
+
 def gpu_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                           "--format=csv,noheader"], capture_output=True,
@@ -2663,7 +3184,7 @@ def load_port():
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import mel_frontend as mf
     from repro_torch.launch import train as launch_train
-    from repro_torch.models import kws, layers
+    from repro_torch.models import api, kws, layers, transformer
     from repro_torch.models.params import init_params
     from repro_torch.serve import kvcache, serve_step, server
     from repro_torch.train import optimizer, train_step
@@ -2675,6 +3196,7 @@ def load_port():
                            launch_train=launch_train,
                            Trainer=Trainer, TrainerConfig=TrainerConfig,
                            layers=layers, init_params=init_params,
+                           api=api, transformer=transformer,
                            kvcache=kvcache, serve_step=serve_step,
                            server=server, core_blocks=core_blocks, tree=tree,
                            Impulse=Impulse, synthetic=synthetic,
@@ -2697,13 +3219,21 @@ def main() -> None:
     print("phase 1: build (one nvcc per source, all at once)")
     t0 = time.perf_counter()
     logs = port.build.build_all()
+    d256_spills = []
     for name, log in logs.items():
         print(f"  {name}:")
+        entry = ""
         for line in log.splitlines():
             if "Compiling entry function" in line:
-                print("   " + line.strip()[:170])
+                entry = line.strip()
+                print("   " + entry[:170])
             elif "registers" in line or "spill" in line:
                 print("   " + line.strip())
+                spill = re.search(r"(\d+) bytes spill stores", line)
+                if "Li256E" in entry and spill and int(spill.group(1)):
+                    d256_spills.append(entry)
+    # the D 256 instantiations were chosen so that none spills
+    check(not d256_spills, f"a D 256 kernel spills: {d256_spills}")
     port.fd._lib()
     port.im._lib()
     port.mf._lib()
@@ -2722,6 +3252,12 @@ def main() -> None:
     mel_rows = check_mel_frontend(port, clips)
     fa_rows = check_flash_attention(port)
     scan_rows = check_mamba_scan(port)
+    print("  slices 7 and 8: D 256 (gemma3), G 3 and G 4 (llama3.2,"
+          " granite)")
+    for name, rows in check_slice_attention(port.ops, port.ref,
+                                            port.quantize.Int8KV).items():
+        layout_rows[name].update(rows)
+    fa_rows["flash_attention"].update(check_flash_attention_d256(port))
 
     print("phase 3: full-width serving, internlm2-1.8b bf16")
     cfg = full_config(port)
@@ -2818,7 +3354,8 @@ def main() -> None:
           f" {train_prof['idle_share']:.3f}  phase"
           f" {time.perf_counter() - t0:.1f} s")
 
-    print("phase 8: full-width mamba1 serving, falcon-mamba-7b bf16")
+    print(f"phase 8: full-width mamba1 serving, falcon-mamba-7b bf16 at"
+          f" {MAMBA_LAYERS} of its 64 layers")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     mcfg = mamba_config(port)
@@ -2843,6 +3380,24 @@ def main() -> None:
     del mparams, run8
     torch.cuda.empty_cache()
 
+    print("phase 10: one-shot prefill at full width, and its exact oracle")
+    t0 = time.perf_counter()
+    prefill = prefill_phase(port)
+    print(f"  phase {time.perf_counter() - t0:.1f} s")
+    print("phase 11: gemma3-4b (the sliding-window ring, D 256) and"
+          " granite-3-8b (G 4) served at full width")
+    t0 = time.perf_counter()
+    gcfg = gemma_config(port)
+    launches_g, metrics_g, launches_g8, metrics_g8 = serve_gemma(port, gcfg)
+    t1 = time.perf_counter()
+    launches_gr, metrics_gr = serve_granite(port)
+    print(f"  tokens_per_s gemma3 float {metrics_g['tokens_per_s']:.2f},"
+          f" int8 paged {metrics_g8['tokens_per_s']:.2f}, granite"
+          f" {metrics_gr['tokens_per_s']:.2f}  ttft_p50_s gemma3"
+          f" {metrics_g['ttft_p50_s']:.4f} / {metrics_g8['ttft_p50_s']:.4f},"
+          f" granite {metrics_gr['ttft_p50_s']:.4f}  gemma3 part"
+          f" {t1 - t0:.1f} s, granite part {time.perf_counter() - t1:.1f} s")
+
     print("phase 9: the EON tuner and the Project API on the card")
     t0 = time.perf_counter()
     launches_tuner, launches_project, tp_summary = tuner_and_project(port)
@@ -2852,6 +3407,10 @@ def main() -> None:
         "int8_continuous_calibrated": art5c, "mamba1_serving": art8,
         "kws_impulse": {"metrics": kws_art_metrics, "profile": kws_art_prof},
         "tuner_and_project": tp_summary}))
+    print("  slices 7 and 8 " + json.dumps({
+        "prefill": {arch: r[1] for arch, r in prefill.items()},
+        "gemma3_continuous": metrics_g, "gemma3_int8_paged": metrics_g8,
+        "granite_continuous": metrics_gr}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     by_path = {name: {"float_continuous": launches[name],
@@ -2868,20 +3427,28 @@ def main() -> None:
                       "kws_impulse_artifact": launches_a6[name],
                       "mamba1_serving_artifact": launches_a8[name],
                       "eon_tuner": launches_tuner[name],
-                      "project": launches_project[name]}
+                      "project": launches_project[name],
+                      "prefill_internlm2":
+                          prefill["internlm2-1.8b"][0][name],
+                      "prefill_gemma3": prefill["gemma3-4b"][0][name],
+                      "gemma3_continuous": launches_g[name],
+                      "gemma3_int8_paged": launches_g8[name],
+                      "granite_continuous": launches_gr[name]}
                for name in REPLACES}
+    serving = (launches, launches8, launches_g, launches_g8, launches_gr)
     kernels = []
     for name in ("flash_decode", "flash_chunk_prefill"):
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name],
-            launches=launches[name] + launches8[name],
+            launches=sum(n[name] for n in serving),
             launches_by_path=by_path[name], **layout_rows[name]["float"],
             layouts=layout_rows[name]))
     kernels.append(dict(
         name="int8_matmul", route="cuda", source=SOURCES["int8_matmul"],
         replaces=REPLACES["int8_matmul"],
-        launches=launches8["int8_matmul"] + launches_cal["int8_matmul"],
+        launches=launches8["int8_matmul"] + launches_cal["int8_matmul"]
+        + launches_g8["int8_matmul"],
         launches_by_path=by_path["int8_matmul"],
         **mm_rows["M4_K2048_N8192"], shapes=mm_rows))
     kernels.append(dict(
@@ -2893,7 +3460,9 @@ def main() -> None:
     for name in ("flash_attention", "flash_attention_bwd"):
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
-            replaces=REPLACES[name], launches=launches_train[name],
+            replaces=REPLACES[name],
+            launches=launches_train[name] + sum(
+                prefill[arch][0][name] for arch in prefill),
             launches_by_path=by_path[name],
             **fa_rows[name]["train_b4_s2048"], shapes=fa_rows[name]))
     kernels.append(dict(

@@ -26,13 +26,11 @@ ALIASES: Dict[str, str] = {
     "qwen2-vl-72b": "qwen2_vl_72b",
 }
 
-PORTED = ("internlm2_1_8b", "falcon_mamba_7b")
+PORTED = ("internlm2_1_8b", "falcon_mamba_7b", "granite_3_8b", "llama3_2_3b",
+          "gemma3_4b")
 
 # the port slice (ROADMAP.md, queue 1) that brings each remaining module
 _LATER: Dict[str, str] = {
-    "granite_3_8b": "slice 7 (two more dense configs)",
-    "llama3_2_3b": "slice 7 (two more dense configs)",
-    "gemma3_4b": "slice 8 (sliding-window ring serving)",
     "zamba2_2_7b": "slice 8 (hybrid serving)",
 }
 

@@ -78,7 +78,8 @@
 //   row drifted beyond the limit.
 //   ptxas (-Xptxas -v, CUDA 12.9, sm_90a), registers at D 128 / D 64, and
 //   the dynamic shared memory: fa_fwd_wgmma_kernel 217 / 168, no spills,
-//   82,944 / 41,984 bytes; fa_dkdv_wgmma_kernel 255 with 68 bytes of spill
+//   82,944 / 41,984 bytes (D 256: 220, no spills, 132,096 bytes, two
+//   blocks a head, each with half of the output's columns); fa_dkdv_wgmma_kernel 255 with 68 bytes of spill
 //   stores and loads / 224, no spills, 100,352 / 51,200 bytes;
 //   fa_dq_wgmma_kernel 197 / 141, no spills, 99,328 / 50,176 bytes;
 //   fa_rowdot_kernel 24.
@@ -745,6 +746,10 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
                                           int tid) {
   constexpr int CPR = D / 8;   // 16-byte chunks a row
   static_assert((kTile * CPR) % kWG == 0, "tile / threads");
+  // at D 256 the 16 chunks' offsets, invariant in the caller's loop over
+  // tiles, would be hoisted out of it and held (the forward then spilled
+  // at 255 registers; with the thread index opaque here, 220 and none)
+  if constexpr (D > 128) asm volatile("" : "+r"(tid));
 #pragma unroll
   for (int it = 0; it < kTile * CPR / kWG; ++it) {
     const int i = tid + it * kWG;
@@ -880,21 +885,33 @@ __device__ __forceinline__ bool tile_edge(int q0, int k0, int S, int causal,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 forward: grid (Hq, B, query tiles), the last query tile first.
-// Thread (warp w, lane l) owns rows q0 + 16 w + l / 4 (+ 8) and, of each
-// 8-column block of S and of the output, columns 2 (l % 4) and + 1.
-// Shared memory: Q, then two stages of (K, V).
+// bf16 forward: grid (Hq x D / DO, B, query tiles), the last query tile
+// first.  A block computes the output columns [c * DO, (c + 1) * DO) of
+// its head, c = blockIdx.x % (D / DO): all of D up to D 128; at D 256 two
+// blocks share a head, each with all of S (the scores are recomputed) and
+// half of the output, since the whole row of 256 f32 a thread (128
+// registers beside S and P's fragments) would spill.  Thread (warp w, lane
+// l) owns rows q0 + 16 w + l / 4 (+ 8) and, of each 8-column block of S
+// and of the output, columns 2 (l % 4) and + 1.  Shared memory: Q, then
+// two stages of (K, the block's DO columns of V).
 // ---------------------------------------------------------------------------
+template <int D>
+__host__ __device__ constexpr int fwd_cols() {
+  return D > 128 ? D / 2 : D;
+}
+
 template <int D>
 __global__ void __launch_bounds__(kWG, 2)
 fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ out,
                     float* __restrict__ lse, int S, int Hq, int Hkv,
                     int causal, int window, float scale_log2) {
-  constexpr uint32_t T = kTile * D * 2;   // bytes of a tile
+  constexpr int DO = fwd_cols<D>(), NC = D / DO;
+  constexpr uint32_t T = kTile * D * 2;     // bytes of a Q or K tile
+  constexpr uint32_t TV = kTile * DO * 2;   // bytes of a V tile
   extern __shared__ uint8_t smem[];
   const uint32_t s_q = smem_base(smem);
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int h = blockIdx.x / NC, cb = blockIdx.x % NC, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kTile;
   const int hk = h / (Hq / Hkv);
   const int tid = threadIdx.x, lane = tid & 31;
@@ -909,24 +926,26 @@ fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int t_lo = k_lo / kTile, t_hi = (k_hi + kTile - 1) / kTile;
 
+  const bf16* v_cols = v + k_base + cb * DO;
   load_tile<D>(s_q, q + q_base, q_rs, q0, S, tid);
   load_tile<D>(s_q + T, k + k_base, k_rs, t_lo * kTile, S, tid);
-  load_tile<D>(s_q + 2 * T, v + k_base, k_rs, t_lo * kTile, S, tid);
+  load_tile<DO>(s_q + 2 * T, v_cols, k_rs, t_lo * kTile, S, tid);
   cp_async_commit();
 
-  float o[D / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[DO / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DO / 2; ++i) o[i] = 0.f;
 
   for (int t = t_lo; t < t_hi; ++t) {
-    const uint32_t s_k = s_q + T * (1 + 2 * ((t - t_lo) & 1)), s_v = s_k + T;
+    const uint32_t s_k = s_q + T + ((t - t_lo) & 1) * (T + TV);
+    const uint32_t s_v = s_k + T;
     cp_async_wait_all();
     fence_async_smem();
     __syncthreads();   // tile t has landed; tile t - 1's stage is free
     if (t + 1 < t_hi) {
-      const uint32_t n_k = s_q + T * (1 + 2 * ((t + 1 - t_lo) & 1));
+      const uint32_t n_k = s_q + T + ((t + 1 - t_lo) & 1) * (T + TV);
       load_tile<D>(n_k, k + k_base, k_rs, (t + 1) * kTile, S, tid);
-      load_tile<D>(n_k + T, v + k_base, k_rs, (t + 1) * kTile, S, tid);
+      load_tile<DO>(n_k + T, v_cols, k_rs, (t + 1) * kTile, S, tid);
     }
     cp_async_commit();
 
@@ -979,7 +998,7 @@ fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // o = o * alpha + P V, P split into bf16 hi + lo
     uint32_t ph[4][4], pl[4][4];
     split_frags(s, ph, pl);
-    gemm_split_add<D>(o, ph, pl, s_v, alpha[0], alpha[1]);
+    gemm_split_add<DO>(o, ph, pl, s_v, alpha[0], alpha[1]);
   }
 
 #pragma unroll
@@ -990,14 +1009,14 @@ fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int qp = row + 8 * i;
     if (qp >= S) continue;
     const float inv = 1.f / fmaxf(li, 1e-30f);
-    bf16* og = out + q_base + qp * q_rs + c0;
+    bf16* og = out + q_base + qp * q_rs + cb * DO + c0;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DO / 8; ++j)
       *reinterpret_cast<uint32_t*>(og + 8 * j) =
           pack_bf16(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
     // a row with no valid key (none exists for rows < S) gets lse = +inf,
     // so the backward's P = exp(s - lse) is 0 there
-    if ((lane & 3) == 0)
+    if ((lane & 3) == 0 && cb == 0)
       lse[((long long)b * Hq + h) * S + qp] =
           li > 0.f ? (m[i] + log2f(li)) * kLn2 : INFINITY;
   }
@@ -1290,10 +1309,11 @@ int launch_fwd_bf16(const void* q, const void* k, const void* v, void* out,
                     void* lse, int B, int S, int Hq, int Hkv, int causal,
                     int window, cudaStream_t st) {
   auto kern = fa_fwd_wgmma_kernel<D>;
-  constexpr int smem = wgmma_smem<D>(5, 0);   // Q, two stages of K, V
+  // Q, two stages of K and of V's fwd_cols<D>() columns
+  constexpr int smem = wgmma_smem<D>(3, 0) + 2 * kTile * fwd_cols<D>() * 2;
   int rc = set_smem(kern, smem);
   if (rc != 0) return rc;
-  const dim3 grid(Hq, B, (S + kTile - 1) / kTile);
+  const dim3 grid(Hq * (D / fwd_cols<D>()), B, (S + kTile - 1) / kTile);
   kern<<<grid, kWG, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out),
@@ -1392,14 +1412,20 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  D: 64 or
-// 128.  q/out (B, S, Hq, D), k/v (B, S, Hkv, D) dense; lse (B, Hq, S) f32.
-// Hq % Hkv == 0.
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  D: 64,
+// 128 or 256 (the backward: 64 or 128).  q/out (B, S, Hq, D), k/v (B, S,
+// Hkv, D) dense; lse (B, Hq, S) f32.  Hq % Hkv == 0.
 int flash_attention_fwd(int dtype, const void* q, const void* k,
                         const void* v, void* out, void* lse, int B, int S,
                         int Hq, int Hkv, int D, int causal, int window,
                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && D == 256)
+    return launch_fwd_bf16<256>(q, k, v, out, lse, B, S, Hq, Hkv, causal,
+                                window, st);
+  if (dtype == 0 && D == 256)
+    return launch_fwd_f32<256>(q, k, v, out, lse, B, S, Hq, Hkv, causal,
+                               window, st);
   if (dtype == 1 && D == 128)
     return launch_fwd_bf16<128>(q, k, v, out, lse, B, S, Hq, Hkv, causal,
                                 window, st);

@@ -52,7 +52,8 @@
 //      file attention by that name):
 //      simt_attn_kernel, CUDA cores, f32: decode, every f32 call, and bf16
 //        calls of <= 16 rows.  16-entry tiles through a 4-stage ring; 2
-//        rows a block (G <= 2) with eight warps, else 16 rows with four.
+//        or 4 rows a block (decode at G <= 2, and at G 3 or 4) with eight
+//        warps, else 16 rows (8 at D 256) with four.
 //        Warp w takes the keys [w * 16/NW, ...) of each tile, lane l the
 //        D/32 columns [l * D/32, ...): a score is a warp sum (all of a
 //        warp's scores summed one butterfly step at a time, so the
@@ -61,7 +62,9 @@
 //        the sweep.  Nothing inside the sweep branches on the row count:
 //        rows past R carry q = 0 and q_pos = -1, so they are masked.
 //      mma_attn_kernel, tensor cores, bf16 chunks of more than 16 rows:
-//        16, 32 or 64 query rows a block, one warp for every 16, 64-entry
+//        16, 32 or 64 query rows a block, one warp for every 16 (two at
+//        D 256, each holding the outputs of half of D: both compute the
+//        group's S, and the registers stay those of D 128), 64-entry
 //        tiles through a 2-stage ring (a deeper one takes so much shared
 //        memory that the clusters of the serving chunk need two waves),
 //        mma.sync.m16n8k16 bf16 with f32 accumulators as in
@@ -96,7 +99,11 @@
 // launch, the kv_len and table reads, one DRAM round trip for the tiles,
 // the sweep's dependent arithmetic, the merge's two cluster syncs.
 //
-// Left for later PRs: head dims 80 and 256 (only 64 and 128 are built);
+// ptxas (-Xptxas -v, sm_90a) at D 256, no spills: mma_attn_kernel
+// 199 registers (int8 K/V 185 to 188), simt_attn_kernel 98 to 118 at 2 rows
+// a block and 228 to 244 at 8.
+//
+// Left for later PRs: head dim 80 (64, 128 and 256 are built);
 // the decode sweep still spends about a microsecond a tile in dependent
 // arithmetic (a layout with a few lanes a key would cut its shuffles);
 // pushing the partials to their owner (one cluster sync, not two); skipping
@@ -380,7 +387,17 @@ __device__ __forceinline__ void cluster_merge(float* part, int cap,
 template <typename T, typename KV, int VPL>
 __device__ __forceinline__ void row_cols(float (&x)[VPL], const KV* row,
                                          float scale) {
-  if constexpr (std::is_same<KV, int8_t>::value) {
+  if constexpr (VPL == 8) {
+    // D 256: two 4-column halves, each read as at D 128
+    float lo[4], hi[4];
+    row_cols<T, KV, 4>(lo, row, scale);
+    row_cols<T, KV, 4>(hi, row + 4, scale);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      x[e] = lo[e];
+      x[4 + e] = hi[e];
+    }
+  } else if constexpr (std::is_same<KV, int8_t>::value) {
     const int8_t* r8 = row;
     if constexpr (VPL == 4) {
       const char4 c = *reinterpret_cast<const char4*>(r8);
@@ -427,7 +444,13 @@ __device__ __forceinline__ void row_cols(float (&x)[VPL], const KV* row,
 
 template <int MR>
 __host__ __device__ constexpr int simt_warps() {
-  return MR <= 2 ? 8 : 4;
+  return MR <= 4 ? 8 : 4;
+}
+// the simt kernel's most rows a block at head dim D: 16, or 8 at D 256
+// (16 rows of 8 columns a lane would hold 256 f32 of q and acc)
+template <int D>
+__host__ __device__ constexpr int simt_max_rows() {
+  return D > 128 ? 8 : 16;
 }
 
 template <typename KV, int D, int MR>
@@ -437,7 +460,8 @@ __host__ __device__ constexpr int simt_smem() {
   return (ring > merge ? ring : merge) + kSlack;
 }
 
-// MR: the block's query rows (2 or 16), row tile blockIdx.z / split
+// MR: the block's query rows (2, 4, or simt_max_rows<D>()), row tile
+// blockIdx.z / split
 template <typename T, typename KV, int D, int MR>
 __global__ void __launch_bounds__(simt_warps<MR>() * 32)
 simt_attn_kernel(const Params p, int split) {
@@ -445,7 +469,7 @@ simt_attn_kernel(const Params p, int split) {
   constexpr int NW = simt_warps<MR>(), THREADS = NW * 32;
   constexpr int VPL = D / 32;            // columns a lane holds
   constexpr int KPW = BK / NW;           // keys a warp takes of a tile
-  constexpr int KB = MR <= 2 ? KPW : 1;  // keys scored at once
+  constexpr int KB = MR <= 4 ? KPW : 1;  // keys scored at once
   constexpr int SB = stage_bytes<KV, D, BK>();
   constexpr bool INT8 = std::is_same<KV, int8_t>::value;
   static_assert(KPW % KB == 0 && D % 32 == 0, "tile shape");
@@ -666,6 +690,16 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
   lo = bf16x2_bits(__floats2bfloat162_rn(r0 - mf.x, r1 - mf.y));
 }
 
+// warps that share a 16-row group of mma_attn_kernel: one, or at D 256
+// two, each holding the output of half of D (64 f32 a lane, as at D 128;
+// all of D would take 128, beside 64 of Q fragments, past 255 registers).
+// Both compute the group's whole S, so their softmax states agree bit for
+// bit.
+template <int D>
+__host__ __device__ constexpr int mma_dw() {
+  return D > 128 ? 2 : 1;
+}
+
 template <typename KV, int D, int NW>
 __host__ __device__ constexpr int mma_smem() {
   constexpr bool int8 = std::is_same<KV, int8_t>::value;
@@ -710,12 +744,14 @@ __device__ __forceinline__ void dequant_tile(const unsigned char* st,
   }
 }
 
-// NW warps, 16 query rows each; row tile blockIdx.z / split
+// NW groups of 16 query rows, mma_dw<D>() warps each (a group's warps
+// split D between them); row tile blockIdx.z / split
 template <typename KV, int D, int NW>
-__global__ void __launch_bounds__(NW * 32)
+__global__ void __launch_bounds__(NW * mma_dw<D>() * 32)
 mma_attn_kernel(const Params p, int split) {
   using T = __nv_bfloat16;
-  constexpr int THREADS = NW * 32, ROWS = NW * 16;
+  constexpr int DW = mma_dw<D>(), DC = D / DW;   // output columns a warp
+  constexpr int THREADS = NW * DW * 32, ROWS = NW * 16;
   constexpr int BK = kMmaBK, STAGES = kMmaStages;
   constexpr int SB = stage_bytes<KV, D, BK>();
   constexpr int RB = D * 2;   // bytes of a bf16 row
@@ -734,7 +770,8 @@ mma_attn_kernel(const Params p, int split) {
   const int b = blockIdx.x, h = blockIdx.y;
   const int rank = blockIdx.z % split, r0 = (blockIdx.z / split) * ROWS;
   const int nrows = min(ROWS, p.R - r0);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = (tid >> 5) / DW, dh = (tid >> 5) % DW;   // group, half
   const int g = lane >> 2, t4 = lane & 3;
 
   // the query tile, swizzled; rows past R are zeros
@@ -765,22 +802,27 @@ mma_attn_kernel(const Params p, int split) {
     cp_async_commit();
   }
 
-  float o[D / 8][4];
+  float o[DC / 8][4];   // columns dh * DC + [0, DC)
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < DC / 8; ++n)
     o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
   const bool live = warp * 16 < nrows;   // the warp holds a row of R
 
-  uint32_t qf[D / 16][4];
+  // the Q fragments stay in registers up to D 128; at D 256 (64 registers)
+  // each k-step reloads its own from the query tile, or the kernel spills
+  constexpr bool QREG = D <= 128;
+  uint32_t qf[QREG ? D / 16 : 1][4];
+  const int qr = warp * 16 + (lane & 15);
   if (sw.tb < sw.te) {
     cp_async_wait<STAGES - 1>();   // the query tile is in
     __syncthreads();
-    const int qr = warp * 16 + (lane & 15);
+    if constexpr (QREG) {
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks)
-      ldmatrix_x4(qf[ks], smem_u32(q_s) +
-                              chunk_off<true>(qr, 2 * ks + (lane >> 4), RB));
+      for (int ks = 0; ks < D / 16; ++ks)
+        ldmatrix_x4(qf[ks], smem_u32(q_s) + chunk_off<true>(
+                                qr, 2 * ks + (lane >> 4), RB));
+    }
   }
 
   for (int t = sw.tb; t < sw.te; ++t) {
@@ -813,14 +855,18 @@ mma_attn_kernel(const Params p, int split) {
       sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < D / 16; ++ks) {
+      if constexpr (!QREG)
+        ldmatrix_x4(qf[0], smem_u32(q_s) + chunk_off<true>(
+                               qr, 2 * ks + (lane >> 4), RB));
+      const uint32_t(&qk)[4] = qf[QREG ? ks : 0];
 #pragma unroll
       for (int n = 0; n < BK / 8; n += 2) {
         uint32_t kb[4];
         const int key = n * 8 + (lane & 7) + ((lane >> 4) << 3);
         ldmatrix_x4(kb, k_t + chunk_off<true>(key, 2 * ks + ((lane >> 3) & 1),
                                               RB));
-        mma_bf16(sc[n], qf[ks], kb[0], kb[1]);
-        mma_bf16(sc[n + 1], qf[ks], kb[2], kb[3]);
+        mma_bf16(sc[n], qk, kb[0], kb[1]);
+        mma_bf16(sc[n + 1], qk, kb[2], kb[3]);
       }
     }
 
@@ -850,7 +896,7 @@ mma_attn_kernel(const Params p, int split) {
     l0 *= a0;
     l1 *= a1;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DC / 8; ++n) {
       o[n][0] *= a0;
       o[n][1] *= a0;
       o[n][2] *= a1;
@@ -876,10 +922,11 @@ mma_attn_kernel(const Params p, int split) {
       split_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ph[3], pm[3], pl[3]);
       const int key = kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
 #pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
+      for (int n = 0; n < DC / 8; n += 2) {
         uint32_t vb[4];
-        ldmatrix_x4_trans(vb, v_t + chunk_off<true>(key, n + (lane >> 4),
-                                                    RB));
+        ldmatrix_x4_trans(
+            vb, v_t + chunk_off<true>(key, dh * (DC / 8) + n + (lane >> 4),
+                                      RB));
         mma_bf16(o[n], ph, vb[0], vb[1]);
         mma_bf16(o[n], pm, vb[0], vb[1]);
         mma_bf16(o[n], pl, vb[0], vb[1]);
@@ -901,8 +948,8 @@ mma_attn_kernel(const Params p, int split) {
   if (split == 1) {
     const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int c = n * 8 + 2 * t4;
+    for (int n = 0; n < DC / 8; ++n) {
+      const int c = dh * DC + n * 8 + 2 * t4;
       if (wr0 < nrows)
         *reinterpret_cast<__nv_bfloat162*>(out + (long long)wr0 * D + c) =
             __floats2bfloat162_rn(o[n][0] * i0, o[n][1] * i0);
@@ -914,14 +961,14 @@ mma_attn_kernel(const Params p, int split) {
   }
   float* part = reinterpret_cast<float*>(smem);   // acc, m, l of ROWS rows
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + 2 * t4;
+  for (int n = 0; n < DC / 8; ++n) {
+    const int c = dh * DC + n * 8 + 2 * t4;
     *reinterpret_cast<float2*>(part + wr0 * D + c) =
         make_float2(o[n][0], o[n][1]);
     *reinterpret_cast<float2*>(part + wr1 * D + c) =
         make_float2(o[n][2], o[n][3]);
   }
-  if (t4 == 0) {
+  if (t4 == 0 && dh == 0) {
     part[ROWS * D + wr0] = m0;
     part[ROWS * D + wr1] = m1;
     part[ROWS * D + ROWS + wr0] = l0;
@@ -979,8 +1026,8 @@ int launch_mma(const Params& p, int B, int split, int smem,
   if (smem < mma_smem<KV, D, NW>())
     return static_cast<int>(cudaErrorInvalidValue);
   const int gz = (p.R + NW * 16 - 1) / (NW * 16) * split;
-  return launch_kernel(mma_attn_kernel<KV, D, NW>, p, B, gz, NW * 32, split,
-                       smem, &raised, st);
+  return launch_kernel(mma_attn_kernel<KV, D, NW>, p, B, gz,
+                       NW * mma_dw<D>() * 32, split, smem, &raised, st);
 }
 
 template <typename T, typename KV, int D>
@@ -993,14 +1040,20 @@ int dispatch_rows(bool mma, int rows, const Params& p, int B, int split,
   }
   if (!mma && rows == 2)
     return launch_simt<T, KV, D, 2>(p, B, split, smem, st);
-  if (!mma && rows == 16)
-    return launch_simt<T, KV, D, 16>(p, B, split, smem, st);
+  if (!mma && rows == 4)
+    return launch_simt<T, KV, D, 4>(p, B, split, smem, st);
+  if (!mma && rows == simt_max_rows<D>())
+    return launch_simt<T, KV, D, simt_max_rows<D>()>(p, B, split, smem, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
 int dispatch_kv(bool int8, int D, bool mma, int rows, const Params& p, int B,
                 int split, int smem, cudaStream_t st) {
+  if (int8 && D == 256)
+    return dispatch_rows<T, int8_t, 256>(mma, rows, p, B, split, smem, st);
+  if (!int8 && D == 256)
+    return dispatch_rows<T, T, 256>(mma, rows, p, B, split, smem, st);
   if (int8 && D == 128)
     return dispatch_rows<T, int8_t, 128>(mma, rows, p, B, split, smem, st);
   if (int8 && D == 64)
@@ -1013,7 +1066,7 @@ int dispatch_kv(bool int8, int D, bool mma, int rows, const Params& p, int B,
 }
 
 // dtype (q, out): 0 = float32, 1 = bfloat16; K/V of that type, or int8
-// when scales are given.  D: 64 or 128.  table null: contiguous.  The plan
+// when scales are given.  D: 64, 128 or 256.  table null: contiguous.  The plan
 // (tensor_cores, rows, bk, stages, split, smem) is the wrapper's _plan:
 // bk and stages must be the chosen kernel's, split 1, 2, 4 or 8, smem at
 // least what the kernel lays out.

@@ -36,7 +36,7 @@ from repro_torch.kernels import build
 LAUNCHES = {"flash_decode": 0, "flash_chunk_prefill": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_void_p])
@@ -76,9 +76,15 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def _simt_warps(rows: int) -> int:
-    """Warps of a CUDA-core block: eight for 2 rows (decode), four for
-    16."""
-    return 8 if rows <= 2 else 4
+    """Warps of a CUDA-core block: eight for 2 or 4 rows (decode), four
+    for more."""
+    return 8 if rows <= 4 else 4
+
+
+def simt_max_rows(d: int) -> int:
+    """Most rows a CUDA-core block takes: 16, or 8 at D 256, where 16 rows
+    of 8 columns a lane would hold 256 f32 of q and acc a thread."""
+    return 8 if d > 128 else 16
 
 
 def _smem(kernel: str, rows: int, d: int, kv_bytes: int, int8: bool) -> int:
@@ -107,7 +113,8 @@ def _plan(b: int, hkv: int, r: int, s: int, dtype: torch.dtype, int8: bool,
     the card).  bf16 calls of more than 16 rows (chunks) take the
     tensor-core kernel with 64, 32 or 16 rows a block, the most that
     still gives one block an SM at the largest split; the rest take the
-    CUDA-core kernel with 2 rows a block (decode at G <= 2) or 16.  The
+    CUDA-core kernel with 2 or 4 rows a block (decode at G <= 2, at G 3
+    or 4) or 16 (8 at D 256).  The
     split is the least power of two that gives the grid at least one
     block an SM, at most 8 (the portable cluster size) and at most the
     KV tiles of a full slot."""
@@ -121,7 +128,7 @@ def _plan(b: int, hkv: int, r: int, s: int, dtype: torch.dtype, int8: bool,
         while rows > 16 and b * hkv * _cdiv(r, rows) * max_split < SMS:
             rows //= 2
     else:
-        rows = 2 if r <= 2 else SIMT_MAX_ROWS
+        rows = next((n for n in (2, 4) if r <= n), simt_max_rows(d))
     tiles = b * hkv * _cdiv(r, rows)
     split = 1
     while split < max_split and tiles * split < SMS:

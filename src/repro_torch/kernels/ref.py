@@ -31,13 +31,14 @@ def int8_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor,
 
     The sum is exact on either device: int32 on the CPU; on the card,
     where ``torch.matmul`` has no integer path, float64, which holds every
-    sum of K <= 8192 int8 products (|sum| < 2^27) exactly."""
+    integer below 2^53, so every partial sum of K < 2^39 int8 products
+    (each at most 2^14 in size) exactly, in any order."""
     if x_q.device.type == "cpu":
         acc = x_q.to(torch.int32) @ w_q.to(torch.int32).t()
     else:
-        if x_q.shape[1] > 8192:
-            raise ValueError(f"K {x_q.shape[1]} > 8192: the float64 sum"
-                             " is exact only up to K = 8192 here")
+        if x_q.shape[1] >= 2 ** 39:
+            raise ValueError(f"K {x_q.shape[1]} >= 2^39: the float64 sum"
+                             " is exact only below it")
         acc = x_q.double() @ w_q.double().t()
     scale = x_scale[:, None] * w_scale[None, :]
     return acc.float() * scale

@@ -11,9 +11,10 @@ write this step's K/V rows **in place** into the cache tensors they are
 given.  Those are views (one layer of the stacked cache, or one slot's
 row of it), so the write lands in the big cache and nothing is copied.
 A cache is float or ``Int8KV`` (the rows are quantized as they are
-written), contiguous ``(B, S, Hkv, D)`` or a paged pool ``(NB, BS, Hkv,
-D)`` addressed through a block table.  The ring (sliding-window) and
-cross-attention branches come with later slices.
+written), contiguous ``(B, S, Hkv, D)``, a paged pool ``(NB, BS, Hkv,
+D)`` addressed through a block table, or (``window > 0``) a sliding-window
+ring ``(B, window, Hkv, D)`` whose entry for position p sits at row
+``p % window``.  The cross-attention branch comes with slice 9.
 """
 from __future__ import annotations
 
@@ -181,7 +182,7 @@ def attention_decode_layer(p: dict, x: torch.Tensor, position: torch.Tensor,
                            cache_k, cache_v, cache_positions: torch.Tensor,
                            write_idx: torch.Tensor, *, n_heads: int,
                            n_kv_heads: int, head_dim: int, rope_variant: str,
-                           rope_theta: float,
+                           rope_theta: float, window: int = 0,
                            policy: Optional[PrecisionPolicy] = None,
                            kv_len: Optional[torch.Tensor] = None,
                            active: Optional[torch.Tensor] = None,
@@ -195,6 +196,11 @@ def attention_decode_layer(p: dict, x: torch.Tensor, position: torch.Tensor,
     step's position stamp (``transformer.forward_decode`` writes it once
     for all layers).  ``kv_len`` (B,) bounds each row's live region by
     index; rows with ``active == False`` are not written.
+
+    ``window > 0`` marks a sliding-window ring cache (B, window, Hkv, D):
+    ``write_idx`` is then ``position % window``, and the ring bounds itself
+    (its fill is a prefix of ``min(position + 1, window)`` rows; an idle
+    slot's ``kv_len == 0`` still wins).
 
     ``block_table`` (B, n) selects the paged layout: the caches are
     (NB, BS, Hkv, D) pools, ``cache_positions`` the (NB, BS) position
@@ -223,17 +229,59 @@ def attention_decode_layer(p: dict, x: torch.Tensor, position: torch.Tensor,
             write_rows(t, rows, write_idx, active)
     _write_kv(cache_k, k, write)
     _write_kv(cache_v, v, write)
+    bound = kv_len
+    if window > 0:
+        s_kv = cache_positions.shape[1]
+        bound = position.to(torch.int32).clamp(max=s_kv - 1) + 1
+        if kv_len is not None:
+            bound = torch.minimum(bound, kv_len.clamp(0, s_kv))
     o = decode_attention(q, cache_k, cache_v, position, cache_positions,
-                         kv_len=kv_len, block_table=block_table)
+                         window=window, kv_len=bound,
+                         block_table=block_table)
     return quant_matmul(o.reshape(b, 1, n_heads * head_dim), p["wo"],
                         policy=policy)
+
+
+def ring_scatter_idx(positions: torch.Tensor, window: int) -> torch.Tensor:
+    """Ring write targets for a prefill chunk.  positions: (B, C) absolute
+    chunk positions (−1 pad).  Returns (B, C) int32 indices into a
+    ``window``-row ring: entry i lands at ``pos % window``; pad entries and
+    entries older than the chunk's last ``window`` real tokens (which would
+    collide with a newer winner of the same chunk) get ``window``, out of
+    bounds, which ``ring_scatter`` drops."""
+    valid = positions >= 0
+    n_valid = valid.sum(dim=1, keepdim=True)
+    i = torch.arange(positions.shape[1], device=positions.device)[None]
+    winner = valid & (i >= n_valid - window)
+    return torch.where(winner, positions % window, window).to(torch.int32)
+
+
+def ring_scatter(cache: torch.Tensor, new: torch.Tensor,
+                 idx: torch.Tensor) -> None:
+    """In place: ``cache[b, idx[b, i]] = new[b, i]`` for every ``idx[b, i]
+    < w``; entries at ``w`` (``ring_scatter_idx``'s out of bounds) are
+    dropped.  cache: (B, w, ...); new: (B, C, ...).  With no host read: a
+    dropped entry repeats its row's first kept write (the same address,
+    the same value), and a row that keeps nothing rewrites its row 0 with
+    what it holds."""
+    b, c = idx.shape
+    w = cache.shape[1]
+    keep = idx < w
+    first = torch.argmax(keep.to(torch.int32), dim=1, keepdim=True)
+    src = torch.where(keep, torch.arange(c, device=idx.device)[None], first)
+    bi = torch.arange(b, device=idx.device)[:, None]
+    any_kept = keep.any(dim=1, keepdim=True)
+    tgt = torch.where(any_kept, idx.gather(1, src).long(), 0)
+    vals = new.to(cache.dtype)[bi, src]
+    mask = any_kept.reshape((b, 1) + (1,) * (vals.dim() - 2))
+    cache[bi, tgt] = torch.where(mask, vals, cache[bi, tgt])
 
 
 def attention_chunk_layer(p: dict, x: torch.Tensor, positions: torch.Tensor,
                           cache_k, cache_v, cache_positions: torch.Tensor,
                           write_idx: torch.Tensor, *, n_heads: int,
                           n_kv_heads: int, head_dim: int, rope_variant: str,
-                          rope_theta: float,
+                          rope_theta: float, window: int = 0,
                           policy: Optional[PrecisionPolicy] = None,
                           kv_len: Optional[torch.Tensor] = None,
                           block_table: Optional[torch.Tensor] = None
@@ -248,7 +296,17 @@ def attention_chunk_layer(p: dict, x: torch.Tensor, positions: torch.Tensor,
     writes are in place, as in ``attention_decode_layer``, into a float
     or ``Int8KV`` cache, contiguous or (``block_table``) paged: row
     ``write_idx + i`` lands at ``(block_table[b, (write_idx + i) // BS],
-    (write_idx + i) % BS)``, pad-tail rows included.  Returns (B, C, d).
+    (write_idx + i) % BS)``, pad-tail rows included.
+
+    ``window > 0`` marks a ring cache (``write_idx`` and ``kv_len`` unused):
+    writing first would let the chunk's early entries overwrite ring rows
+    that its later queries still see, so the chunk attends ``[ring ∥
+    chunk]`` concatenated (positions out of index order; the kernel masks
+    by position and window), and then the chunk's last ``window`` real
+    entries are scattered into their ``pos % window`` rows.  The ring's
+    positions are not written here: ``cache_positions`` is the ring's
+    stamp from before the chunk, which the caller updates once after every
+    layer has run.  Returns (B, C, d).
     """
     b, c, _ = x.shape
     q = quant_matmul(x, p["wq"], policy=policy).reshape(
@@ -260,6 +318,11 @@ def attention_chunk_layer(p: dict, x: torch.Tensor, positions: torch.Tensor,
     q, k = _rope_qk(q, k, positions, rope_variant, rope_theta)
     if not isinstance(cache_k, Int8KV):
         k, v = _fake_quant_kv(policy, k, v)
+    if window > 0:
+        o = _ring_chunk(q, k, v, cache_k, cache_v, positions,
+                        cache_positions, window)
+        return quant_matmul(o.reshape(b, c, n_heads * head_dim), p["wo"],
+                            policy=policy)
     if block_table is not None:
         bs = cache_positions.shape[1]
         tgt = (write_idx[:, None]
@@ -281,6 +344,32 @@ def attention_chunk_layer(p: dict, x: torch.Tensor, positions: torch.Tensor,
                         kv_len=bound, block_table=block_table)
     return quant_matmul(o.reshape(b, c, n_heads * head_dim), p["wo"],
                         policy=policy)
+
+
+def _ring_chunk(q, k, v, cache_k, cache_v, positions, ring_positions,
+                window: int) -> torch.Tensor:
+    """The ring branch of ``attention_chunk_layer``: attend ``[ring ∥
+    chunk]``, then scatter the winners into the ring (values and, for an
+    ``Int8KV`` ring, scales)."""
+    if isinstance(cache_k, Int8KV):
+        qk, qv = quant_kv(k), quant_kv(v)
+        k_all = Int8KV(torch.cat([cache_k.q, qk.q], dim=1),
+                       torch.cat([cache_k.scale, qk.scale], dim=1))
+        v_all = Int8KV(torch.cat([cache_v.q, qv.q], dim=1),
+                       torch.cat([cache_v.scale, qv.scale], dim=1))
+        pairs = ((cache_k.q, qk.q), (cache_k.scale, qk.scale),
+                 (cache_v.q, qv.q), (cache_v.scale, qv.scale))
+    else:
+        k_all = torch.cat([cache_k, k.to(cache_k.dtype)], dim=1)
+        v_all = torch.cat([cache_v, v.to(cache_v.dtype)], dim=1)
+        pairs = ((cache_k, k), (cache_v, v))
+    pos_all = torch.cat([ring_positions, positions.to(ring_positions.dtype)],
+                        dim=1)
+    o = chunk_attention(q, k_all, v_all, positions, pos_all, window=window)
+    idx = ring_scatter_idx(positions, window)
+    for ring, new in pairs:
+        ring_scatter(ring, new, idx)
+    return o
 
 
 # ---------------------------------------------------------------------------

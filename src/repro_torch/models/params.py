@@ -3,8 +3,9 @@
 Every backbone weight is declared once as a ``ParamSpec`` (shape and
 initializer), in the layout of ``repro.models.params``: projection
 weights ``(d_in, d_out)`` applied as ``x @ w``, and per-layer leaves
-stacked along a leading ``(L, ...)`` axis.  The uniform dense decoder and
-the uniform mamba1 trunk (falcon-mamba) are declared.  ``init_params`` draws them
+stacked along a leading ``(L, ...)`` axis.  The uniform dense decoder, the
+uniform mamba1 trunk (falcon-mamba) and the local:global sliding-window
+trunk (gemma3) are declared.  ``init_params`` draws them
 from a ``torch.Generator`` on the target device; ``params_from_numpy``
 carries a tree of numpy arrays (for example the JAX package's own
 ``init_params``) across leaf for leaf.
@@ -23,7 +24,8 @@ they are used (``quant_matmul``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple, Union
+import itertools
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -118,8 +120,32 @@ def layer_pattern(cfg: ArchConfig) -> Dict[str, int]:
     return {"kind": "uniform_dense", "n_layers": cfg.n_layers}
 
 
-_BLOCK_SPECS = {"uniform_dense": dense_block_specs,
-                "uniform_ssm": mamba_block_specs}
+def _uniform_specs(cfg: ArchConfig, pat, block) -> SpecTree:
+    return {"blocks": _stack_tree(block(cfg), pat["n_layers"])}
+
+
+def local_global_specs(cfg: ArchConfig, pat) -> SpecTree:
+    """The sliding-window trunk (gemma3): ``groups.local`` (n_groups,
+    ratio, ...) of windowed blocks, each group closed by one full-attention
+    block of ``groups.global`` (n_groups, ...), then ``tail_local`` (the
+    layers left over, windowed) where there are any."""
+    block = dense_block_specs(cfg)
+    specs: SpecTree = {"groups": {
+        "local": _stack_tree(_stack_tree(block, pat["ratio"]),
+                             pat["n_groups"]),
+        "global": _stack_tree(block, pat["n_groups"])}}
+    if pat["tail_local"]:
+        specs["tail_local"] = _stack_tree(block, pat["tail_local"])
+    return specs
+
+
+_BLOCK_SPECS = {
+    "uniform_dense": lambda cfg, pat: _uniform_specs(cfg, pat,
+                                                     dense_block_specs),
+    "uniform_ssm": lambda cfg, pat: _uniform_specs(cfg, pat,
+                                                   mamba_block_specs),
+    "local_global": local_global_specs,
+}
 
 
 def build_specs(cfg: ArchConfig) -> SpecTree:
@@ -127,13 +153,13 @@ def build_specs(cfg: ArchConfig) -> SpecTree:
     if pat["kind"] not in _BLOCK_SPECS or cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: layer pattern {pat['kind']!r} is not ported yet"
-            " (the port has the uniform dense and uniform mamba1 trunks)")
+            " (the port has the uniform dense, uniform mamba1 and"
+            " local:global trunks)")
     d, vpad = cfg.d_model, cfg.padded_vocab()
     specs: SpecTree = {"embed": ParamSpec((vpad, d)), "final_norm": _norm(d)}
     if not cfg.tie_embeddings:
         specs["unembed"] = ParamSpec((vpad, d))
-    specs["blocks"] = _stack_tree(_BLOCK_SPECS[pat["kind"]](cfg),
-                                  pat["n_layers"])
+    specs.update(_BLOCK_SPECS[pat["kind"]](cfg, pat))
     return specs
 
 
@@ -154,8 +180,8 @@ class QLeaf(nn.Module):
     def qtensor(self) -> QTensor:
         return QTensor(self.q, self.scale, self.amax)
 
-    def layer(self, i: int) -> QTensor:
-        """Layer i of a stacked leaf."""
+    def layer(self, i) -> QTensor:
+        """Layer i (an index or a tuple of them) of a stacked leaf."""
         return QTensor(self.q[i], self.scale[i],
                        None if self.amax is None else self.amax[i])
 
@@ -177,7 +203,7 @@ class ParamTree(nn.Module):
             else:
                 self.register_parameter(
                     key, nn.Parameter(val, requires_grad=trainable))
-        self._per_layer: Optional[List[Dict[str, object]]] = None
+        self._per_layer: Dict[int, list] = {}
 
     def __getitem__(self, key: str):
         val = getattr(self, key)
@@ -197,8 +223,10 @@ class ParamTree(nn.Module):
     def get(self, key: str, default=None):
         return self[key] if key in self else default
 
-    def unstack(self) -> List[Dict[str, object]]:
-        """Per-layer views of a stacked ``(L, ...)`` subtree.
+    def unstack(self, depth: int = 1) -> list:
+        """Per-layer views of a stacked ``(L, ...)`` subtree; with ``depth``
+        2, of a ``(G, R, ...)`` subtree (the local layers of the sliding-
+        window trunk), as a list of G lists of R views.
 
         Serving (frozen leaves, or no autograd) reuses views made once:
         slicing every leaf on every step costs more host time than the
@@ -209,32 +237,59 @@ class ParamTree(nn.Module):
         optimizer update leaves no stale view behind."""
         if torch.is_grad_enabled() and any(
                 p.requires_grad for p in self.parameters()):
-            return self._unbound()
-        if self._per_layer is None:
-            n = next(iter(self.parameters())).shape[0]
-            self._per_layer = [self._slice(i) for i in range(n)]
-        return self._per_layer
+            return self._unbound(depth)
+        if depth not in self._per_layer:
+            shape = next(iter(self.parameters())).shape[:depth]
+            self._per_layer[depth] = _grid(shape, self._slice)
+        return self._per_layer[depth]
 
     def _apply(self, fn, recurse=True):
-        self._per_layer = None      # moved or cast weights: views are stale
+        self._per_layer = {}        # moved or cast weights: views are stale
         return super()._apply(fn, recurse)
 
-    def _unbound(self) -> List[Dict[str, object]]:
-        n = next(iter(self.parameters())).shape[0]
-        layers: List[Dict[str, object]] = [{} for _ in range(n)]
+    def _unbound(self, depth: int = 1) -> list:
+        shape = next(iter(self.parameters())).shape[:depth]
+        layers = _grid(shape, lambda idx: {})
         for k, p in self._parameters.items():
-            for i, view in enumerate(torch.unbind(p)):
-                layers[i][k] = view
+            views = _grid(shape, lambda idx: None)
+            _unbind_into(views, p, depth)
+            for idx in itertools.product(*map(range, shape)):
+                _at(layers, idx)[k] = _at(views, idx)
         for k, m in self._modules.items():
-            for i, sub in enumerate(m._unbound()):
-                layers[i][k] = sub
+            sub = m._unbound(depth)
+            for idx in itertools.product(*map(range, shape)):
+                _at(layers, idx)[k] = _at(sub, idx)
         return layers
 
-    def _slice(self, i: int) -> Dict[str, object]:
-        out: Dict[str, object] = {k: p[i] for k, p in self._parameters.items()}
+    def _slice(self, idx: Tuple[int, ...]) -> Dict[str, object]:
+        out: Dict[str, object] = {k: p[idx]
+                                  for k, p in self._parameters.items()}
         for k, m in self._modules.items():
-            out[k] = m.layer(i) if isinstance(m, QLeaf) else m._slice(i)
+            out[k] = m.layer(idx) if isinstance(m, QLeaf) else m._slice(idx)
         return out
+
+
+def _grid(shape, fn, prefix: Tuple[int, ...] = ()) -> list:
+    """``fn(idx)`` for every index of ``shape``, as nested lists."""
+    if len(shape) == 1:
+        return [fn(prefix + (i,)) for i in range(shape[0])]
+    return [_grid(shape[1:], fn, prefix + (i,)) for i in range(shape[0])]
+
+
+def _at(grid: list, idx: Tuple[int, ...]):
+    for i in idx[:-1]:
+        grid = grid[i]
+    return grid[idx[-1]]
+
+
+def _unbind_into(grid: list, t: torch.Tensor, depth: int) -> None:
+    """Fill ``grid`` (nested lists of ``depth`` levels) with the views of
+    ``t`` along its leading ``depth`` axes, one ``unbind`` a level."""
+    for i, view in enumerate(torch.unbind(t)):
+        if depth == 1:
+            grid[i] = view
+        else:
+            _unbind_into(grid[i], view, depth - 1)
 
 
 class TreeView(dict):
@@ -248,15 +303,16 @@ class TreeView(dict):
         super().__init__({k: TreeView(v) if isinstance(v, dict) else v
                           for k, v in tree.items()})
 
-    def unstack(self) -> List[Dict[str, object]]:
-        """Per-layer views of a stacked ``(L, ...)`` subtree."""
+    def unstack(self, depth: int = 1) -> list:
+        """Per-layer views of a stacked ``(L, ...)`` subtree (``depth`` 2:
+        of a ``(G, R, ...)`` one, as in ``ParamTree.unstack``)."""
         first = next(iter(self.values()))
         while isinstance(first, TreeView):
             first = next(iter(first.values()))
-        n = (first.q if isinstance(first, QTensor) else first).shape[0]
-        return [self._slice(i) for i in range(n)]
+        shape = (first.q if isinstance(first, QTensor) else first).shape
+        return _grid(shape[:depth], self._slice)
 
-    def _slice(self, i: int) -> Dict[str, object]:
+    def _slice(self, i) -> Dict[str, object]:
         out: Dict[str, object] = {}
         for k, v in self.items():
             if isinstance(v, TreeView):

@@ -1,23 +1,32 @@
-"""Decoder-only backbone: the serving and training entry points of the
-dense trunk, and the serving entry points of the uniform mamba1 trunk.
+"""Decoder-only backbone: the serving, prefill and training entry points
+of the uniform dense trunk and the local:global (sliding-window) trunk,
+and the serving and prefill entry points of the uniform mamba1 trunk.
 
 The PyTorch counterpart of ``repro.models.transformer`` on the port's
 paths: ``forward_prefill_chunk`` (one prompt chunk against a live slot
-cache), ``forward_decode`` (one token per slot) and ``forward_train``
-(the whole sequence and the LM loss, differentiable; dense only).  Depth
-is a Python loop over per-layer views of the stacked ``(L, ...)``
-weights, where the JAX package scans; remat wraps each block in
-``torch.utils.checkpoint``.
+cache), ``forward_decode`` (one token per slot), ``forward_prefill`` (a
+whole prompt in one pass, building the decode cache; ``grow_cache`` makes
+room to decode into it) and ``forward_train`` (the whole sequence and the
+LM loss, differentiable; attention trunks only).  Depth is a Python loop
+over per-layer views of the stacked ``(L, ...)`` weights (the local
+layers' ``(groups, ratio, ...)``), where the JAX package scans; remat
+wraps each block in ``torch.utils.checkpoint``.
 
 The dense cache is the dict ``{"k", "v": (L, B, S, Hkv, D), "full_pos":
 (B, S) int32}`` of ``serve/kvcache.py``, or its paged form ``{"k", "v":
 (L, NB, BS, Hkv, D), "pool_pos": (NB, BS)}`` addressed through a block
-table; K/V leaves are float tensors or ``Int8KV`` pairs.  The SSM cache is
+table; K/V leaves are float tensors or ``Int8KV`` pairs.  The local:global
+trunk's global layers keep such leaves as ``global_k``/``global_v``, its
+windowed layers a ring of ``window`` rows a slot (``local_k``/``local_v``,
+``tail_k``/``tail_v``, positions ``local_pos``), written at ``pos %
+window`` and never paged.  The SSM cache is
 ``{"ssm": SSMState(conv (L, B, d_conv-1, d_inner), h (L, B, d_inner,
-ssm_state) f32)}``, slot-addressed on every engine.  Both entry points
-update the cache **in place** and return it: positions, where the cache
-has them, are stamped once before the trunk (every layer attends with
-them), and each layer writes its K/V rows or its state.  ``policy``
+ssm_state) f32)}``, slot-addressed on every engine.  The decode and chunk
+entry points update the cache **in place** and return it: positions,
+where the cache has them, are stamped once before the trunk (every layer
+attends with them; a chunk's ring positions after it, since its ring
+layers attend the ring as it was), and each layer writes its K/V rows or
+its state.  ``policy``
 (``core/quantize.py``) selects float, int8 or its fake-quant simulation,
 as in the JAX package (the SSM family quantizes nothing).
 """
@@ -31,11 +40,12 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.arch import ArchConfig
-from repro_torch.core.quantize import Int8KV, PrecisionPolicy
+from repro_torch.core.quantize import Int8KV, PrecisionPolicy, maybe_quant_kv
 from repro_torch.models.layers import (attention_chunk_layer,
                                        attention_decode_layer,
-                                       attention_layer, rms_norm, swiglu_mlp,
-                                       write_pages, write_rows)
+                                       attention_layer, ring_scatter,
+                                       ring_scatter_idx, rms_norm,
+                                       swiglu_mlp, write_pages, write_rows)
 from repro_torch.models.params import layer_pattern
 from repro_torch.models.ssm import SSMState, mamba1_decode, mamba1_layer
 
@@ -68,7 +78,12 @@ def _maybe_remat(fn: Callable, policy: Optional[str]) -> Callable:
 # ---------------------------------------------------------------------------
 def embed_tokens(params, tokens: torch.Tensor, cfg: ArchConfig
                  ) -> torch.Tensor:
-    return F.embedding(tokens, params["embed"]).to(cfg.activation_dtype)
+    """The token embeddings in the activation dtype; gemma scales them by
+    sqrt(d_model), rounded once to that dtype, as the JAX package does."""
+    x = F.embedding(tokens, params["embed"]).to(cfg.activation_dtype)
+    if cfg.name.startswith("gemma"):
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
 
 
 def unembed(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -100,45 +115,53 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int
 # ---------------------------------------------------------------------------
 # Block bodies
 # ---------------------------------------------------------------------------
-def _attn_kwargs(cfg: ArchConfig):
+def _attn_kwargs(cfg: ArchConfig, window: int = 0):
     return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                 head_dim=cfg.resolved_head_dim, rope_variant=cfg.rope_variant,
-                rope_theta=cfg.rope_theta)
+                rope_theta=cfg.rope_theta, window=window)
 
 
-def dense_block(cfg: ArchConfig, p, x, positions, *, policy=None):
-    """One pre-norm block over a whole sequence: causal attention, then
-    SwiGLU."""
+def dense_block(cfg: ArchConfig, p, x, positions, *, window: int = 0,
+                policy=None):
+    """One pre-norm block over a whole sequence: causal (``window``:
+    sliding-window) attention, then SwiGLU.  Returns (x, (k, v)), the
+    layer's roped K and V for a prefill cache."""
     h = rms_norm(p["attn_norm"], x, cfg.norm_eps)
-    attn_out, _ = attention_layer(p["attn"], h, positions, policy=policy,
-                                  **_attn_kwargs(cfg))
+    attn_out, kv = attention_layer(p["attn"], h, positions, policy=policy,
+                                   **_attn_kwargs(cfg, window))
     x = x + attn_out
     h = rms_norm(p["mlp_norm"], x, cfg.norm_eps)
-    return x + swiglu_mlp(p["mlp"], h, policy)
+    return x + swiglu_mlp(p["mlp"], h, policy), kv
 
 
 def dense_block_decode(cfg: ArchConfig, p, x, position, cache_k, cache_v,
-                       cache_pos, write_idx, *, policy=None, kv_len=None,
-                       active=None, block_table=None):
+                       cache_pos, write_idx, *, window: int = 0, policy=None,
+                       kv_len=None, active=None, block_table=None):
     h = rms_norm(p["attn_norm"], x, cfg.norm_eps)
     x = x + attention_decode_layer(
         p["attn"], h, position, cache_k, cache_v, cache_pos, write_idx,
         policy=policy, kv_len=kv_len, active=active,
-        block_table=block_table, **_attn_kwargs(cfg))
+        block_table=block_table, **_attn_kwargs(cfg, window))
     h = rms_norm(p["mlp_norm"], x, cfg.norm_eps)
     return x + swiglu_mlp(p["mlp"], h, policy)
 
 
 def dense_block_chunk(cfg: ArchConfig, p, x, positions, cache_k, cache_v,
-                      cache_pos, write_idx, *, policy=None, kv_len=None,
-                      block_table=None):
+                      cache_pos, write_idx, *, window: int = 0, policy=None,
+                      kv_len=None, block_table=None):
     h = rms_norm(p["attn_norm"], x, cfg.norm_eps)
     x = x + attention_chunk_layer(
         p["attn"], h, positions, cache_k, cache_v, cache_pos, write_idx,
         policy=policy, kv_len=kv_len, block_table=block_table,
-        **_attn_kwargs(cfg))
+        **_attn_kwargs(cfg, window))
     h = rms_norm(p["mlp_norm"], x, cfg.norm_eps)
     return x + swiglu_mlp(p["mlp"], h, policy)
+
+
+def mamba_block(cfg: ArchConfig, p, x):
+    """One pre-norm mamba1 block over a whole sequence from a zero state;
+    returns (x, final_state)."""
+    return mamba_block_chunk(cfg, p, x, None, None, None)
 
 
 def mamba_block_chunk(cfg: ArchConfig, p, x, state, mask, fill):
@@ -165,10 +188,10 @@ def mamba_block_decode(cfg: ArchConfig, p, x, state, active=None):
 
 
 def _pattern(cfg: ArchConfig) -> str:
-    """The layer pattern of a served trunk: uniform dense or uniform
-    mamba1."""
+    """The layer pattern of a served trunk: uniform dense, uniform mamba1
+    or local:global (sliding-window ring)."""
     kind = layer_pattern(cfg)["kind"]
-    if kind not in ("uniform_dense", "uniform_ssm"):
+    if kind not in ("uniform_dense", "uniform_ssm", "local_global"):
         raise NotImplementedError(
             f"{cfg.name}: layer pattern {kind!r} is not ported yet")
     return kind
@@ -180,42 +203,116 @@ def _store_state(cache: Cache, i: int, state: SSMState) -> None:
         dst[i].copy_(src)
 
 
-def _layer(leaf, i: int):
-    """Layer ``i`` of a stacked K/V leaf (a float tensor or ``Int8KV``)."""
+def _layer(leaf, i):
+    """Layer ``i`` (an index or a tuple of them) of a stacked K/V leaf (a
+    float tensor or ``Int8KV``)."""
     if isinstance(leaf, Int8KV):
         return Int8KV(leaf.q[i], leaf.scale[i])
     return leaf[i]
 
 
 def _positions(cache: Cache, block_table) -> torch.Tensor:
-    """The position leaf the attention reads: the (NB, BS) pool of a
-    paged cache, the (B, S) rows of a contiguous one."""
+    """The position leaf the full-attention layers read: the (NB, BS)
+    pool of a paged cache, the (B, S) rows of a contiguous one."""
     return cache["pool_pos" if block_table is not None else "full_pos"]
 
 
+def _trunk_layers(cfg: ArchConfig, params):
+    """Every attention layer of an attention trunk in order, as (block
+    weights, window, cache prefix, index into the stacked cache leaves):
+    the uniform dense decoder's ``k``/``v`` by layer; the local:global
+    trunk's groups of ``ratio`` windowed layers (``local_k``/``local_v``
+    at (group, i)) each closed by a full-attention layer (``global_k``/
+    ``global_v`` at group), then the windowed tail (``tail_k``/``tail_v``)."""
+    if _pattern(cfg) == "uniform_dense":
+        for i, p in enumerate(params["blocks"].unstack()):
+            yield p, 0, "", i
+        return
+    w = cfg.sliding_window
+    groups = params["groups"]
+    for g, (local, glob) in enumerate(zip(groups["local"].unstack(2),
+                                          groups["global"].unstack())):
+        for r, p in enumerate(local):
+            yield p, w, "local_", (g, r)
+        yield glob, 0, "global_", g
+    if "tail_local" in params:
+        for t, p in enumerate(params["tail_local"].unstack()):
+            yield p, w, "tail_", t
+
+
+def _stacked(kvs, shape):
+    """Stack per-layer (B, S, Hkv, D) tensors into a leaf of leading
+    ``shape``."""
+    return torch.stack(kvs).reshape(tuple(shape) + kvs[0].shape)
+
+
 def trunk_forward(cfg: ArchConfig, params, x, positions, *,
-                  remat: str = "none",
+                  remat: str = "none", collect_cache: bool = False,
                   policy: Optional[PrecisionPolicy] = None):
     """All blocks over a whole sequence, then the final norm; each block
-    rematerialized under ``remat``.  (Collecting a prefill cache comes with
-    one-shot prefill, slice 7.)"""
-    if _pattern(cfg) == "uniform_ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: training the mamba1 trunk needs the scan's"
-            " gradient, which is not ported yet (ROADMAP, later work)")
-    block = _maybe_remat(functools.partial(dense_block, cfg, policy=policy),
-                         remat)
-    for p in params["blocks"].unstack():
-        x = block(p, x, positions)
+    rematerialized under ``remat``.  Returns (x, caches): with
+    ``collect_cache``, each layer's roped K/V (stacked as the decode
+    cache's leaves) or, for the mamba1 trunk, its final ``SSMState``;
+    else None.
+
+    The mamba1 trunk runs only without autograd (one-shot prefill):
+    training it needs the scan's gradient."""
+    kind = _pattern(cfg)
+    if kind == "uniform_ssm":
+        if torch.is_grad_enabled():
+            raise NotImplementedError(
+                f"{cfg.name}: training the mamba1 trunk needs the scan's"
+                " gradient, which is not ported yet; it comes with slice 10"
+                " (ROADMAP queue 1)")
+        states = []
+        for p in params["blocks"].unstack():
+            x, st = mamba_block(cfg, p, x)
+            states.append(st)
+        caches = {"ssm": SSMState(*(torch.stack(t) for t in zip(*states)))}
+        return rms_norm(params["final_norm"], x, cfg.norm_eps), \
+            (caches if collect_cache else None)
+    blocks = {}
+    kvs: Dict[str, list] = {}
+    for p, window, prefix, _ in _trunk_layers(cfg, params):
+        if window not in blocks:
+            blocks[window] = _maybe_remat(functools.partial(
+                dense_block, cfg, window=window, policy=policy), remat)
+        x, (k, v) = blocks[window](p, x, positions)
+        if collect_cache:
+            kvs.setdefault(prefix + "k", []).append(k)
+            kvs.setdefault(prefix + "v", []).append(v)
+    caches = None
+    if collect_cache:
+        pat = layer_pattern(cfg)
+        shapes = {"k": (pat.get("n_layers"),),
+                  "local_k": (pat.get("n_groups"), pat.get("ratio")),
+                  "global_k": (pat.get("n_groups"),),
+                  "tail_k": (pat.get("tail_local"),)}
+        caches = {key: _stacked(val, shapes[key[:-1] + "k"])
+                  for key, val in kvs.items()}
+    return rms_norm(params["final_norm"], x, cfg.norm_eps), caches
+
+
+def _attention_trunk(cfg: ArchConfig, params, x, cache: Cache, block,
+                     full_pos) -> torch.Tensor:
+    """Run ``block(p, x, cache_k, cache_v, cache_pos, window)`` over every
+    attention layer, each on its own layer of the cache; full-attention
+    layers read ``full_pos``, windowed ones the ring's ``local_pos``."""
+    for p, window, prefix, i in _trunk_layers(cfg, params):
+        pos = cache["local_pos"] if window else full_pos
+        x = block(p, x, _layer(cache[prefix + "k"], i),
+                  _layer(cache[prefix + "v"], i), pos, window)
     return rms_norm(params["final_norm"], x, cfg.norm_eps)
 
 
 def trunk_decode(cfg: ArchConfig, params, x, position, cache: Cache, *,
-                 write_full, policy: Optional[PrecisionPolicy] = None,
+                 write_full, write_local=None,
+                 policy: Optional[PrecisionPolicy] = None,
                  kv_len: Optional[torch.Tensor] = None,
                  active: Optional[torch.Tensor] = None,
                  block_table: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One-token pass through all blocks, writing each layer's K/V row or
+    """One-token pass through all blocks, writing each layer's K/V row
+    (ring layers at ``write_local``, slot-addressed on every engine) or
     (SSM) its state, the latter only on ``active`` rows."""
     if _pattern(cfg) == "uniform_ssm":
         conv, h = cache["ssm"]
@@ -224,13 +321,15 @@ def trunk_decode(cfg: ArchConfig, params, x, position, cache: Cache, *,
                                        active=active)
             _store_state(cache, i, st)
         return rms_norm(params["final_norm"], x, cfg.norm_eps)
-    pos = _positions(cache, block_table)
-    for i, p in enumerate(params["blocks"].unstack()):
-        x = dense_block_decode(cfg, p, x, position, _layer(cache["k"], i),
-                               _layer(cache["v"], i), pos, write_full,
-                               policy=policy, kv_len=kv_len, active=active,
-                               block_table=block_table)
-    return rms_norm(params["final_norm"], x, cfg.norm_eps)
+
+    def block(p, x, ck, cv, pos, window):
+        return dense_block_decode(
+            cfg, p, x, position, ck, cv, pos,
+            write_local if window else write_full, window=window,
+            policy=policy, kv_len=kv_len, active=active,
+            block_table=None if window else block_table)
+    return _attention_trunk(cfg, params, x, cache, block,
+                            _positions(cache, block_table))
 
 
 def trunk_prefill_chunk(cfg: ArchConfig, params, x, positions,
@@ -241,7 +340,8 @@ def trunk_prefill_chunk(cfg: ArchConfig, params, x, positions,
                         ) -> torch.Tensor:
     """C-token pass through all blocks against the live slot cache.  An
     SSM row carries its state through the chunk: the pad tail (position
-    −1) is masked out of the recurrence and the conv window."""
+    −1) is masked out of the recurrence and the conv window.  Ring layers
+    attend ``[ring ∥ chunk]`` and then scatter the chunk's winners in."""
     if _pattern(cfg) == "uniform_ssm":
         mask = positions >= 0
         fill = mask.sum(dim=1, dtype=torch.int32)
@@ -251,13 +351,14 @@ def trunk_prefill_chunk(cfg: ArchConfig, params, x, positions,
                                       mask, fill)
             _store_state(cache, i, st)
         return rms_norm(params["final_norm"], x, cfg.norm_eps)
-    pos = _positions(cache, block_table)
-    for i, p in enumerate(params["blocks"].unstack()):
-        x = dense_block_chunk(cfg, p, x, positions, _layer(cache["k"], i),
-                              _layer(cache["v"], i), pos, write_full,
-                              policy=policy, kv_len=kv_len,
-                              block_table=block_table)
-    return rms_norm(params["final_norm"], x, cfg.norm_eps)
+
+    def block(p, x, ck, cv, pos, window):
+        return dense_block_chunk(
+            cfg, p, x, positions, ck, cv, pos, write_full, window=window,
+            policy=policy, kv_len=kv_len,
+            block_table=None if window else block_table)
+    return _attention_trunk(cfg, params, x, cache, block,
+                            _positions(cache, block_table))
 
 
 # ---------------------------------------------------------------------------
@@ -293,7 +394,8 @@ def forward_train(cfg: ArchConfig, params, inputs: Dict[str, torch.Tensor],
     b, s = tokens.shape
     x = embed_tokens(params, tokens, cfg)
     positions = default_positions(b, s, tokens.device)
-    x = trunk_forward(cfg, params, x, positions, remat=remat, policy=policy)
+    x, _ = trunk_forward(cfg, params, x, positions, remat=remat,
+                         policy=policy)
     logits = unembed(params, x, cfg)
     return lm_loss(logits, inputs["labels"], cfg.vocab_size)
 
@@ -317,16 +419,20 @@ def forward_decode(cfg: ArchConfig, params, cache: Cache,
     in place.
     """
     x = embed_tokens(params, token[:, None], cfg)
+    w = cfg.sliding_window
     write_full = position if write_idx is None else write_idx
+    write_local = position % w if w else write_full
     active = None if kv_len is None else kv_len > 0
     if "pool_pos" in cache:
         _write_pool_pos(cache["pool_pos"], position[:, None], write_full,
                         block_table, active)
     elif "full_pos" in cache:
         _write_pos(cache["full_pos"], position, write_full, active)
+    if "local_pos" in cache:
+        _write_pos(cache["local_pos"], position, write_local, active)
     x = trunk_decode(cfg, params, x, position, cache, write_full=write_full,
-                     policy=policy, kv_len=kv_len, active=active,
-                     block_table=block_table)
+                     write_local=write_local, policy=policy, kv_len=kv_len,
+                     active=active, block_table=block_table)
     return unembed(params, x, cfg)[:, 0], cache
 
 
@@ -381,4 +487,122 @@ def forward_prefill_chunk(cfg: ArchConfig, params, cache: Cache,
     x = trunk_prefill_chunk(cfg, params, x, positions, cache,
                             write_full=write_full, policy=policy,
                             kv_len=kv_len, block_table=block_table)
+    if "local_pos" in cache:
+        # after the trunk: every ring layer attended the ring's old stamp
+        ring_scatter(cache["local_pos"], positions,
+                     ring_scatter_idx(positions, cfg.sliding_window))
     return unembed(params, x, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# One-shot prefill and its cache
+# ---------------------------------------------------------------------------
+@torch.no_grad()
+def forward_prefill(cfg: ArchConfig, params, inputs: Dict[str, torch.Tensor],
+                    policy: Optional[PrecisionPolicy] = None
+                    ) -> Tuple[torch.Tensor, Cache]:
+    """The whole prompt in one pass: inputs["tokens"] (B, S).  Returns
+    (last-token logits (B, V_pad), cache): the decode cache of exactly S
+    rows (``grow_cache`` adds room to decode into), its K/V in the
+    ``policy``'s representation (``Int8KV`` under native int8, their
+    quantize-dequantize round trip under fake-quant), quantized after the
+    cache is built.
+
+    Only the default positions 0..S-1 are taken, as in ``forward_train``:
+    the attention kernel masks by index.  Inputs that bring ``positions``
+    or ``embeddings`` raise."""
+    for key in ("positions", "embeddings"):
+        if key in inputs:
+            raise NotImplementedError(
+                f"forward_prefill with inputs[{key!r}] is not ported yet; it"
+                " comes with slice 9 (the VLM/M-RoPE frontend)")
+    tokens = inputs["tokens"]
+    b, s = tokens.shape
+    x = embed_tokens(params, tokens, cfg)
+    positions = default_positions(b, s, tokens.device)
+    x, caches = trunk_forward(cfg, params, x, positions, collect_cache=True,
+                              policy=policy)
+    logits = unembed(params, x[:, -1:, :], cfg)[:, 0]
+    return logits, _cache_from_prefill(cfg, caches, positions, policy)
+
+
+def _ring_select(pos1d: torch.Tensor, w: int):
+    """Per-row ring placement of a prefill: pos1d (B, S) absolute
+    positions, −1 marking pad entries.  The ring keeps each row's w most
+    recent real entries at row ``pos % w``.  Returns (src (B, w), the
+    source index into S of each ring row; has (B, w), whether the row is
+    filled; local_pos (B, w) int32, its position or −1)."""
+    max_pos = pos1d.max(dim=1, keepdim=True).values
+    keep = (pos1d >= 0) & (pos1d > max_pos - w)
+    slot_of = torch.where(keep, pos1d % w, w)
+    slot_ids = torch.arange(w, dtype=pos1d.dtype,
+                            device=pos1d.device)[None, :, None]
+    match = slot_of[:, None, :] == slot_ids                    # (B, w, S)
+    src = torch.argmax(match.to(torch.int32), dim=-1)          # first match
+    has = match.any(dim=-1)
+    local_pos = torch.where(has, pos1d.gather(1, src), -1).to(torch.int32)
+    return src, has, local_pos
+
+
+def _ring_from_prefill(k: torch.Tensor, src: torch.Tensor,
+                       has: torch.Tensor) -> torch.Tensor:
+    """Gather (..., B, S, Hkv, D) into the ring layout (..., B, w, Hkv, D)
+    by ``_ring_select``'s placement; leading stacked axes are kept, empty
+    rows are zeros (their position is −1)."""
+    b, w = src.shape
+    shape_idx = (1,) * (k.dim() - 4) + (b, w, 1, 1)
+    idx = src.reshape(shape_idx).expand(k.shape[:-3] + (w,) + k.shape[-2:])
+    out = torch.gather(k, k.dim() - 3, idx)
+    return torch.where(has.reshape(shape_idx), out, out.new_zeros(()))
+
+
+def _cache_from_prefill(cfg: ArchConfig, caches, positions: torch.Tensor,
+                        policy: Optional[PrecisionPolicy] = None) -> Cache:
+    """The decode cache from a prefill's collected K/V (or SSM states):
+    contiguous leaves and ``full_pos`` for the full-attention layers, the
+    rings (``_ring_select``) and ``local_pos`` for the windowed ones; then
+    the K/V leaves in the policy's representation."""
+    kind = _pattern(cfg)
+    if kind == "uniform_ssm":
+        return {"ssm": caches["ssm"]}
+    if kind == "uniform_dense":
+        cache = {"k": caches["k"], "v": caches["v"], "full_pos": positions}
+    else:
+        src, has, local_pos = _ring_select(positions, cfg.sliding_window)
+        cache = {key: _ring_from_prefill(caches[key], src, has)
+                 for key in ("local_k", "local_v")}
+        cache["global_k"], cache["global_v"] = (caches["global_k"],
+                                                caches["global_v"])
+        for key in ("tail_k", "tail_v"):
+            if key in caches:
+                cache[key] = _ring_from_prefill(caches[key], src, has)
+        cache["full_pos"] = positions
+        cache["local_pos"] = local_pos
+    # quantized after the ring is gathered (a gather commutes with the
+    # per-entry quantization), so one path covers every layout
+    return {key: (maybe_quant_kv(policy, val) if not key.endswith("_pos")
+                  else val.contiguous())
+            for key, val in cache.items()}
+
+
+def _grow_axis(t: torch.Tensor, axis: int, extra: int,
+               value: float = 0) -> torch.Tensor:
+    pad = [0, 0] * (t.dim() - axis % t.dim() - 1) + [0, extra]
+    return F.pad(t, pad, value=value)
+
+
+def grow_cache(cfg: ArchConfig, cache: Cache, extra: int) -> Cache:
+    """The cache with ``extra`` more rows on the full-attention leaves
+    (zeros, positions −1), to decode into; rings and SSM states keep their
+    size."""
+    out = dict(cache)
+    for key in ("k", "v", "global_k", "global_v"):
+        if key in out:
+            leaf = out[key]
+            out[key] = (Int8KV(_grow_axis(leaf.q, -3, extra),
+                               _grow_axis(leaf.scale, -2, extra))
+                        if isinstance(leaf, Int8KV)
+                        else _grow_axis(leaf, -3, extra))
+    if "full_pos" in out:
+        out["full_pos"] = _grow_axis(out["full_pos"], -1, extra, -1)
+    return out

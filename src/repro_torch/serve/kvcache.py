@@ -2,8 +2,8 @@
 static engines are built on, and the **paged KV pool** (block table +
 ``BlockManager``) the paged engine is built on.
 
-The counterpart of ``repro.serve.kvcache`` for the uniform dense decoder
-and the uniform mamba1 trunk:
+The counterpart of ``repro.serve.kvcache`` for the uniform dense decoder,
+the local:global sliding-window trunk and the uniform mamba1 trunk:
 
 * ``kv_cache_bytes``      — footprint arithmetic.
 * ``alloc_decode_cache``  — zero-filled ``slots`` x ``capacity`` decode
@@ -51,12 +51,18 @@ from repro_torch.models.ssm import SSMState
 Cache = Dict[str, object]
 
 # slot (batch) axis of each leaf of a slot-addressed decode cache: the
-# uniform dense decoder's, or the uniform mamba1 trunk's (conv and h)
-SLOT_AXES = {"k": 1, "v": 1, "full_pos": 0, "ssm": 1}
+# uniform dense decoder's, the uniform mamba1 trunk's (conv and h), and the
+# local:global trunk's (rings stacked (groups, ratio, B, w, ...) and
+# (tail, B, w, ...), full-attention leaves (groups, B, S, ...))
+SLOT_AXES = {"k": 1, "v": 1, "full_pos": 0, "ssm": 1,
+             "local_k": 2, "local_v": 2, "tail_k": 1, "tail_v": 1,
+             "global_k": 1, "global_v": 1, "local_pos": 0}
 
-# the leaves that live in the paged pool, by layer pattern (the SSM state
-# is slot-addressed on every engine: nothing of that trunk is paged)
-_PAGED_KEYS = {"uniform_dense": ("k", "v"), "uniform_ssm": ()}
+# the leaves that live in the paged pool, by layer pattern: the
+# full-attention K/V; the rings and the SSM state are slot-addressed on
+# every engine (O(window) or O(state) a slot, no capacity tail to reclaim)
+_PAGED_KEYS = {"uniform_dense": ("k", "v"), "uniform_ssm": (),
+               "local_global": ("global_k", "global_v")}
 
 
 def kv_cache_bytes(cfg: ArchConfig, batch: int, seq_len: int,
@@ -124,16 +130,39 @@ def _kv_leaf(shape, cfg: ArchConfig, device, policy) -> object:
     return torch.zeros(shape, dtype=cfg.activation_dtype, device=device)
 
 
+def _ring_leaves(cfg: ArchConfig, slots: int, device, policy) -> Cache:
+    """The local:global trunk's empty rings: ``local_k``/``local_v``
+    (groups, ratio, slots, window, Hkv, D), ``tail_k``/``tail_v`` (tail,
+    slots, window, Hkv, D) where there is a tail, and ``local_pos``
+    (slots, window) at −1."""
+    pat = layer_pattern(cfg)
+    w = cfg.sliding_window
+    row = (slots, w, cfg.n_kv_heads, cfg.resolved_head_dim)
+    leaves: Cache = {}
+    for key, lead in (("local", (pat["n_groups"], pat["ratio"])),
+                      ("tail", (pat["tail_local"],))):
+        if lead[-1]:
+            for kv in "kv":
+                leaves[f"{key}_{kv}"] = _kv_leaf(lead + row, cfg, device,
+                                                 policy)
+    leaves["local_pos"] = torch.full((slots, w), -1, dtype=torch.int32,
+                                     device=device)
+    return leaves
+
+
 def alloc_decode_cache(cfg: ArchConfig, slots: int, capacity: int,
                        device: Union[str, torch.device, None] = None,
                        policy: Optional[PrecisionPolicy] = None) -> Cache:
     """All-empty decode cache on ``device`` (``cuda`` unless named): K/V
     zeros (L, slots, capacity, Hkv, D) in the activation dtype (``Int8KV``
     under a native int8 KV ``policy``), positions (slots, capacity) int32
-    at −1.  The uniform mamba1 trunk's is ``{"ssm": SSMState(conv (L,
-    slots, d_conv − 1, d_inner) in the activation dtype, h (L, slots,
-    d_inner, ssm_state) f32)}``, zeros under every policy, independent of
-    ``capacity``."""
+    at −1.  The local:global trunk's full-attention leaves are
+    ``global_k``/``global_v`` (groups, slots, capacity, Hkv, D) beside
+    ``full_pos``, and its rings those of ``_ring_leaves``, of the window's
+    size whatever the capacity.  The uniform mamba1 trunk's is ``{"ssm":
+    SSMState(conv (L, slots, d_conv − 1, d_inner) in the activation dtype,
+    h (L, slots, d_inner, ssm_state) f32)}``, zeros under every policy,
+    independent of ``capacity``."""
     kind = _pattern(cfg)
     device = resolve_device(device)
     if kind == "uniform_ssm":
@@ -143,14 +172,18 @@ def alloc_decode_cache(cfg: ArchConfig, slots: int, capacity: int,
                         dtype=cfg.activation_dtype, device=device),
             torch.zeros(lead + (cfg.d_inner, cfg.ssm_state),
                         dtype=torch.float32, device=device))}
-    kv_shape = (cfg.n_layers, slots, capacity, cfg.n_kv_heads,
-                cfg.resolved_head_dim)
-    return {
-        "k": _kv_leaf(kv_shape, cfg, device, policy),
-        "v": _kv_leaf(kv_shape, cfg, device, policy),
-        "full_pos": torch.full((slots, capacity), -1, dtype=torch.int32,
-                               device=device),
-    }
+    row = (slots, capacity, cfg.n_kv_heads, cfg.resolved_head_dim)
+    full_pos = torch.full((slots, capacity), -1, dtype=torch.int32,
+                          device=device)
+    if kind == "uniform_dense":
+        return {"k": _kv_leaf((cfg.n_layers,) + row, cfg, device, policy),
+                "v": _kv_leaf((cfg.n_layers,) + row, cfg, device, policy),
+                "full_pos": full_pos}
+    lead = (layer_pattern(cfg)["n_groups"],)
+    return {**_ring_leaves(cfg, slots, device, policy),
+            "global_k": _kv_leaf(lead + row, cfg, device, policy),
+            "global_v": _kv_leaf(lead + row, cfg, device, policy),
+            "full_pos": full_pos}
 
 
 def _tensors(leaf) -> Tuple[torch.Tensor, ...]:
@@ -209,15 +242,10 @@ def release_slot(big_cache: Cache, slot: int) -> Cache:
 # ---------------------------------------------------------------------------
 def paged_cache_keys(cfg: ArchConfig) -> Tuple[str, ...]:
     """Cache keys that live in the paged pool: the full-attention K/V
-    leaves, ``k`` and ``v`` of the uniform dense decoder, and nothing of
-    the pure mamba1 trunk, whose state is slot-addressed.  The ring and
-    hybrid families of the JAX package come with port slice 8."""
-    kind = layer_pattern(cfg)["kind"]
-    if kind not in _PAGED_KEYS:
-        raise NotImplementedError(
-            f"{cfg.name}: paged cache of layer pattern {kind!r} comes with"
-            " port slice 8 (ring, hybrid)")
-    return _PAGED_KEYS[kind]
+    leaves (``k``/``v`` of the uniform dense decoder, ``global_k``/
+    ``global_v`` of the local:global trunk), and nothing of the pure
+    mamba1 trunk, whose state is slot-addressed."""
+    return _PAGED_KEYS[_pattern(cfg)]
 
 
 def alloc_paged_cache(cfg: ArchConfig, slots: int, capacity: int,
@@ -225,14 +253,16 @@ def alloc_paged_cache(cfg: ArchConfig, slots: int, capacity: int,
                       device: Union[str, torch.device, None] = None,
                       policy: Optional[PrecisionPolicy] = None,
                       block_size: Optional[int] = None) -> Cache:
-    """All-empty paged decode cache: K/V pools (L, num_blocks, BS, Hkv, D)
-    (``Int8KV`` under a native int8 KV policy) and a (num_blocks, BS)
-    ``pool_pos`` pool at −1.  BS defaults to ``kv_block_size(capacity)``
-    and may be any divisor of ``capacity`` that is at least 8.  The uniform
-    dense decoder has no slot-addressed leaf, so ``slots`` sizes nothing
-    there; the pure mamba1 trunk pages nothing, and its cache is the
-    ``slots``-row SSM state of ``alloc_decode_cache``.  The block table is
-    host state of the server."""
+    """All-empty paged decode cache: the full-attention K/V as pools (L,
+    num_blocks, BS, Hkv, D) (``Int8KV`` under a native int8 KV policy) and
+    a (num_blocks, BS) ``pool_pos`` pool at −1.  BS defaults to
+    ``kv_block_size(capacity)`` and may be any divisor of ``capacity`` that
+    is at least 8.  The uniform dense decoder has no slot-addressed leaf,
+    so ``slots`` sizes nothing there; the local:global trunk keeps its
+    ``slots`` rings (``_ring_leaves``) beside its pooled ``global_k``/
+    ``global_v``; the pure mamba1 trunk pages nothing, and its cache is
+    the ``slots``-row SSM state of ``alloc_decode_cache``.  The block
+    table is host state of the server."""
     keys = paged_cache_keys(cfg)
     bs = block_size or kv_block_size(capacity)
     if capacity % bs or bs < 8:
@@ -240,8 +270,13 @@ def alloc_paged_cache(cfg: ArchConfig, slots: int, capacity: int,
                          " and be >= 8")
     if not keys:
         return alloc_decode_cache(cfg, slots, capacity, device, policy)
+    device = resolve_device(device)
     pool = alloc_decode_cache(cfg, num_blocks, bs, device, policy)
-    return {"k": pool["k"], "v": pool["v"], "pool_pos": pool["full_pos"]}
+    cache = (_ring_leaves(cfg, slots, device, policy)
+             if _pattern(cfg) == "local_global" else {})
+    cache.update({k: pool[k] for k in keys})
+    cache["pool_pos"] = pool["full_pos"]
+    return cache
 
 
 def abstract_paged_cache(cfg: ArchConfig, slots: int, capacity: int,
@@ -260,11 +295,12 @@ def kv_pool_block_bytes(cfg: ArchConfig, capacity: int,
     """Device bytes one physical KV block occupies across the pool leaves
     (K/V values, Int8KV scales and its ``pool_pos`` row); 0 where nothing
     is paged."""
-    if not paged_cache_keys(cfg):
+    keys = paged_cache_keys(cfg)
+    if not keys:
         return 0
     bs = block_size or kv_block_size(capacity)
-    return decode_cache_nbytes(abstract_paged_cache(cfg, 1, bs, 1, policy,
-                                                    bs))
+    pool = abstract_paged_cache(cfg, 1, bs, 1, policy, bs)
+    return decode_cache_nbytes({k: pool[k] for k in keys + ("pool_pos",)})
 
 
 class PoolExhausted(RuntimeError):

@@ -1,7 +1,9 @@
-"""serve_step factories: chunked prefill into one slot, and one-token
-decode over every slot, on the contiguous or the paged cache.
+"""serve_step factories: one-shot prefill, chunked prefill into one slot,
+and one-token decode over every slot, on the contiguous or the paged
+cache.
 
-The counterparts of ``repro.serve.serve_step``'s slot and paged steps.
+The counterparts of ``repro.serve.serve_step``'s prefill, slot and paged
+steps.
 Each step closes over its ``PrecisionPolicy``, runs under
 ``torch.no_grad`` and updates the cache in place.  Greedy next tokens are
 the argmax over the **padded** vocabulary, as in the JAX package.
@@ -21,6 +23,22 @@ from repro_torch.core.arch import ArchConfig
 from repro_torch.core.quantize import PrecisionPolicy
 from repro_torch.models.api import model_fns
 from repro_torch.serve.kvcache import paged_cache_keys, take_slot
+
+
+def make_prefill_step(cfg: ArchConfig,
+                      policy: Optional[PrecisionPolicy] = None):
+    """One-shot prefill: ``step(params, inputs) -> (next_token (B,),
+    logits (B, V_pad), cache)``, the whole prompt ``inputs["tokens"]`` (B,
+    S) in one pass; the cache holds exactly S rows (``transformer.
+    grow_cache`` makes room to decode)."""
+    fns = model_fns(cfg)
+
+    @torch.no_grad()
+    def prefill_step(params, inputs):
+        logits, cache = fns.forward_prefill(cfg, params, inputs, policy)
+        return logits.argmax(dim=-1).to(torch.int32), logits, cache
+
+    return prefill_step
 
 
 def make_chunk_prefill_step(cfg: ArchConfig,

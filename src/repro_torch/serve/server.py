@@ -44,6 +44,7 @@ from repro_torch import resolve_device
 from repro_torch.core.arch import ArchConfig
 from repro_torch.core.eon_compiler import compile_serve_decode
 from repro_torch.core.quantize import policy_for, quantize_model_params
+from repro_torch.models.params import layer_pattern
 from repro_torch.serve.kvcache import (BlockManager, PoolExhausted,
                                        alloc_decode_cache, alloc_paged_cache,
                                        decode_cache_nbytes, kv_block_size,
@@ -530,11 +531,14 @@ class PagedBatchServer(ContinuousBatchServer):
       front and re-prefilled over ``prompt ++ generated``
       (preempt-and-recompute; greedy decoding makes it token-exact).
 
-    The SSM state stays slot-addressed and is reset at admission: a pure
+    Sliding-window rings and the SSM state stay slot-addressed and are
+    reset at admission; only the full-attention K/V are paged.  A pure
     mamba1 trunk pages nothing, so there the engine is plain continuous
     batching with the pool bookkeeping off (no blocks, no prefix sharing,
     nothing to preempt for).  Prefix sharing needs every layer's state in
-    the pool, so only the uniform dense decoder shares.
+    the pool, so only the uniform dense decoder shares; a ring trunk
+    pages and preempts (re-prefilling rebuilds its rings) but shares no
+    prefix.
 
     The other options are those of ``ContinuousBatchServer``.
     """
@@ -569,9 +573,13 @@ class PagedBatchServer(ContinuousBatchServer):
         self.pool_blocks = int(pool_blocks or self.n_slots * self.n_table)
         if self.pool_blocks < 1:
             raise ValueError("pool_blocks must be >= 1")
+        # a prefix is shared only where every layer's decode state lives
+        # in the pool (the uniform dense decoder): a ring or an SSM state
+        # is slot-local and must be rebuilt by an actual prefill
+        share = prefix_cache and layer_pattern(self.cfg)["kind"] \
+            == "uniform_dense"
         self.manager = BlockManager(self.pool_blocks, self.block_size,
-                                    prefix_cache=prefix_cache
-                                    and bool(self.paged_keys))
+                                    prefix_cache=share)
         self._block_bytes = kv_pool_block_bytes(
             self.cfg, self.capacity, self.prec, self.block_size)
         self._chunk_step = make_paged_chunk_prefill_step(self.cfg, self.prec)
@@ -580,10 +588,14 @@ class PagedBatchServer(ContinuousBatchServer):
             self.cfg, self.n_slots, self.capacity, self.pool_blocks,
             self.device, self.prec, self.block_size)
         # pool leaves need no scrub, since a new tenant's writes precede
-        # its kv_len; the pure mamba1 trunk's slot-addressed state is reset
-        # at admission as in the contiguous engine
-        self._empty_row = {} if self.paged_keys else alloc_decode_cache(
-            self.cfg, 1, self.capacity, self.device, self.prec)
+        # its kv_len; the slot-addressed leaves (rings, ring positions, the
+        # mamba1 trunk's state) are reset at admission as in the contiguous
+        # engine
+        pooled = set(self.paged_keys) | {"pool_pos"}
+        self._empty_row = {
+            k: v for k, v in alloc_paged_cache(
+                self.cfg, 1, self.capacity, 1, self.device, self.prec,
+                self.block_size).items() if k not in pooled}
         self._cur = np.zeros((self.n_slots,), np.int32)
         # host mirror of the block table (0 = unmapped: always a valid
         # block id; dead entries are fenced by kv_len, not by the table)

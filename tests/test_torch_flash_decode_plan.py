@@ -114,7 +114,7 @@ def test_plan_limits_over_a_sweep():
                                     assert (p.bk, p.stages) == (
                                         fd.MMA_BK, fd.MMA_STAGES)
                                 else:
-                                    assert p.rows in (2, 16)
+                                    assert p.rows in (2, 4, 16)
                                     assert (p.bk, p.stages) == (
                                         fd.SIMT_BK, fd.SIMT_STAGES)
 
@@ -133,11 +133,13 @@ def test_serving_shapes_fill_the_card(kind, int8):
 
 def test_kernel_and_rows_follow_dtype_and_rows():
     """bf16 calls of more than 16 rows take the tensor cores; f32 calls and
-    up to 16 rows the CUDA cores, 2 rows a block for up to 2 rows."""
+    up to 16 rows the CUDA cores, 2 rows a block for up to 2 rows, 4 for
+    3 and 4."""
     p = fd._plan
     assert p(4, 8, 2, 576, torch.float32, False).kernel == "simt"
     assert p(4, 8, 2, 576, torch.bfloat16, True).rows == 2
-    assert p(4, 8, 4, 576, torch.bfloat16, False).rows == 16
+    assert p(4, 8, 4, 576, torch.bfloat16, False).rows == 4
+    assert p(4, 8, 5, 576, torch.bfloat16, False).rows == 16
     assert p(1, 8, 16, 576, torch.bfloat16, False).kernel == "simt"
     assert p(1, 8, 17, 576, torch.bfloat16, False).kernel == "mma"
     assert p(1, 8, 128, 576, torch.float32, False).kernel == "simt"

@@ -60,7 +60,7 @@ def test_arch_config_matches_jax(getter):
 
 def test_unported_arch_raises():
     with pytest.raises(NotImplementedError, match="slice 8"):
-        tconfigs.get("gemma3-4b")
+        tconfigs.get("zamba2-2.7b")
     with pytest.raises(NotImplementedError, match="slice"):
         tconfigs.get_smoke("dbrx-132b")
 

@@ -134,7 +134,8 @@ def test_registry_matches_jax():
     got, want = treg.describe(), jreg.describe()
     assert list(got) == list(want) == treg.list_architectures()
     ported = [a for a in got if tconfigs.comes_with(a) is None]
-    assert sorted(ported) == ["falcon-mamba-7b", "internlm2-1.8b"]
+    assert sorted(ported) == ["falcon-mamba-7b", "gemma3-4b", "granite-3-8b",
+                              "internlm2-1.8b", "llama3.2-3b"]
     for arch in got:
         if arch in ported:
             assert got[arch] == want[arch], arch
