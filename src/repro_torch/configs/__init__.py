@@ -27,12 +27,11 @@ ALIASES: Dict[str, str] = {
 }
 
 PORTED = ("internlm2_1_8b", "falcon_mamba_7b", "granite_3_8b", "llama3_2_3b",
-          "gemma3_4b")
+          "gemma3_4b", "zamba2_2_7b")
 
 # the port slice (ROADMAP.md, queue 1) that brings each remaining module
-_LATER: Dict[str, str] = {
-    "zamba2_2_7b": "slice 8 (hybrid serving)",
-}
+# other than slice 9's
+_LATER: Dict[str, str] = {}
 
 
 def _name(arch_id: str) -> str:

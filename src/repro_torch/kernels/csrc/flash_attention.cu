@@ -84,6 +84,16 @@
 //   fa_dq_wgmma_kernel 197 / 141, no spills, 99,328 / 50,176 bytes;
 //   fa_rowdot_kernel 24.
 //
+// Head dim 80 (zamba2's shared block, forward only: one-shot prefill).
+// Both forwards compute on tiles of D 128 and read the tensors' rows of
+// DG 80: the 10 real 16-byte chunks of a row are loaded (cp.async, or the
+// f32 kernel's 16-byte loads), the 6 past them are zeros read from
+// nowhere, the output columns past 80 are never written, and the softmax
+// scale is 1/sqrt(80).  Bytes stay D 80's; the products pay 128 / 80 =
+// 1.6 times (a 64 + 16 split of the K-major blocks and m64n80k16 for P V
+// would not, a later redesign).  The backward at D 80 waits for training
+// the hybrid trunk (slice 10).
+//
 // f32: the CUDA-core kernels (fa_fwd_kernel, fa_dkdv_kernel, fa_dq_kernel),
 // the design of the first port, kept for f32 alone: tensor cores would
 // mean TF32, which the f32 card-against-CPU training check cannot take.
@@ -143,21 +153,23 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Stage rows [row0, row0 + ROWS) of one head of a (B, S, H, D) tensor into
-// shared memory as f32 times `mul`: dst[r * LD + d].  `src` points at
-// (b, 0, h, 0); consecutive rows are `rs` elements apart.  Rows at index
-// >= S are zeros.  16-byte loads, neighbouring threads on neighbouring
-// addresses.
-template <typename T, int D, int LD, int ROWS>
+// Stage rows [row0, row0 + ROWS) of one head of a (B, S, H, DG) tensor
+// into shared memory as f32 times `mul`: dst[r * LD + d], D columns.
+// `src` points at (b, 0, h, 0); consecutive rows are `rs` elements apart.
+// Rows at index >= S, and the columns past DG (DG < D: head dim 80 on
+// tiles of 128), are zeros.  16-byte loads, neighbouring threads on
+// neighbouring addresses.
+template <typename T, int D, int LD, int ROWS, int DG = D>
 __device__ __forceinline__ void stage_rows(float* dst, const T* src,
                                            long long rs, int row0, int S,
                                            float mul, int tid) {
   constexpr int N = Vec<T>::N;
   constexpr int VPR = D / N;   // 16-byte loads per row
+  static_assert(DG <= D && DG % N == 0, "rows of whole loads");
   for (int i = tid; i < ROWS * VPR; i += kThreads) {
     const int r = i / VPR, c = (i % VPR) * N;
     float f[N];
-    if (row0 + r < S) {
+    if (row0 + r < S && (DG == D || c < DG)) {
       const uint4 raw =
           *reinterpret_cast<const uint4*>(src + (row0 + r) * rs + c);
       Vec<T>::unpack(raw, f);
@@ -183,7 +195,9 @@ __device__ __forceinline__ bool key_ok(int kp, int qp, int S, int causal,
 // ty*8 .. ty*8+7 of the tile; in the score phase keys tx + 16 j of the key
 // tile, in the P.V phase output columns cg*64 + tx*4 .. +3.
 // ---------------------------------------------------------------------------
-template <typename T, int D, int BK>
+// D is the width the block computes on, DG the tensors' head dim (DG < D:
+// the columns past DG are zeros and never written)
+template <typename T, int D, int BK, int DG = D>
 __global__ void __launch_bounds__(kThreads)
 fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, T* __restrict__ out,
@@ -203,11 +217,11 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const long long q_rs = (long long)Hq * D, k_rs = (long long)Hkv * D;
-  const long long q_base = (long long)b * S * q_rs + (long long)h * D;
-  const long long k_base = (long long)b * S * k_rs + (long long)hk * D;
+  const long long q_rs = (long long)Hq * DG, k_rs = (long long)Hkv * DG;
+  const long long q_base = (long long)b * S * q_rs + (long long)h * DG;
+  const long long k_base = (long long)b * S * k_rs + (long long)hk * DG;
 
-  stage_rows<T, D, LD, kBQ>(q_s, q + q_base, q_rs, q0, S, scale, tid);
+  stage_rows<T, D, LD, kBQ, DG>(q_s, q + q_base, q_rs, q0, S, scale, tid);
 
   float m[8], l[8], acc[8][4 * CG];
 #pragma unroll
@@ -223,8 +237,8 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   for (int k0 = (k_lo / BK) * BK; k0 < k_hi; k0 += BK) {
     __syncthreads();   // the previous tile is consumed; q_s is ready
-    stage_rows<T, D, LD, BK>(k_s, k + k_base, k_rs, k0, S, 1.f, tid);
-    stage_rows<T, D, LD, BK>(v_s, v + k_base, k_rs, k0, S, 1.f, tid);
+    stage_rows<T, D, LD, BK, DG>(k_s, k + k_base, k_rs, k0, S, 1.f, tid);
+    stage_rows<T, D, LD, BK, DG>(v_s, v + k_base, k_rs, k0, S, 1.f, tid);
     __syncthreads();
 
     float s[8][KPT];
@@ -315,7 +329,8 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int cg = 0; cg < CG; ++cg)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        o[cg * 64 + tx * 4 + e] = from_f32<T>(acc[i][cg * 4 + e] * inv);
+        if (DG == D || cg * 64 + tx * 4 + e < DG)
+          o[cg * 64 + tx * 4 + e] = from_f32<T>(acc[i][cg * 4 + e] * inv);
     // a row with no valid key (none exists for rows < S) gets lse = +inf,
     // so the backward's P = exp(s - lse) is 0 there
     if (tx == 0)
@@ -735,16 +750,18 @@ __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
   return gmma_desc(tile + kk * 16 * 128, kTile * 128, kAtom);
 }
 
-// Rows [row0, row0 + kTile) of one head of a (B, S, H, D) bf16 tensor into
-// the swizzled tile at `dst` (1024-byte aligned): D / 64 column blocks of
-// kTile rows of 128 bytes; the 16-byte chunk c of row r sits at chunk
-// c ^ (r % 8), wgmma's 128-byte swizzle.  `src` points at (b, 0, h, 0);
-// rows are `rs` elements apart; rows >= S are zeros.
-template <int D>
+// Rows [row0, row0 + kTile) of one head of a (B, S, H, DG) bf16 tensor
+// into the swizzled tile at `dst` (1024-byte aligned): D / 64 column
+// blocks of kTile rows of 128 bytes; the 16-byte chunk c of row r sits at
+// chunk c ^ (r % 8), wgmma's 128-byte swizzle.  `src` points at (b, 0, h,
+// 0); rows are `rs` elements apart; rows >= S, and the chunks past DG
+// (DG < D: head dim 80 on tiles of 128), are zeros, read from nowhere.
+template <int D, int DG = D>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
                                           long long rs, int row0, int S,
                                           int tid) {
   constexpr int CPR = D / 8;   // 16-byte chunks a row
+  static_assert(DG <= D && DG % 8 == 0, "rows of whole chunks");
   static_assert((kTile * CPR) % kWG == 0, "tile / threads");
   // at D 256 the 16 chunks' offsets, invariant in the caller's loop over
   // tiles, would be hoisted out of it and held (the forward then spilled
@@ -754,10 +771,10 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
   for (int it = 0; it < kTile * CPR / kWG; ++it) {
     const int i = tid + it * kWG;
     const int r = i / CPR, c = i % CPR;
-    const bool ok = row0 + r < S;
+    const bool ok = row0 + r < S && (DG == D || c < DG / 8);
     cp_async16(dst + (c >> 3) * (kTile * 128) + r * 128 +
                    (((c & 7) ^ (r & 7)) << 4),
-               src + (ok ? row0 + r : 0) * rs + c * 8, ok);
+               src + (ok ? (row0 + r) * rs + c * 8 : 0), ok);
   }
 }
 
@@ -900,7 +917,9 @@ __host__ __device__ constexpr int fwd_cols() {
   return D > 128 ? D / 2 : D;
 }
 
-template <int D>
+// D is the width the block computes on, DG the tensors' head dim (DG < D:
+// zero columns past DG, never written)
+template <int D, int DG = D>
 __global__ void __launch_bounds__(kWG, 2)
 fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ out,
@@ -917,9 +936,11 @@ fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tid = threadIdx.x, lane = tid & 31;
   const int row = q0 + (tid >> 5) * 16 + (lane >> 2);
   const int c0 = (lane & 3) * 2;
-  const long long q_rs = (long long)Hq * D, k_rs = (long long)Hkv * D;
-  const long long q_base = (long long)b * S * q_rs + (long long)h * D;
-  const long long k_base = (long long)b * S * k_rs + (long long)hk * D;
+  const long long q_rs = (long long)Hq * DG, k_rs = (long long)Hkv * DG;
+  const long long q_base = (long long)b * S * q_rs + (long long)h * DG;
+  const long long k_base = (long long)b * S * k_rs + (long long)hk * DG;
+  // the real columns of the block's DO columns of V (DG < D: one block)
+  constexpr int DOG = DO - (D - DG);
 
   // live key tiles: below the diagonal (causal), inside the window
   const int k_hi = causal ? min(S, q0 + kTile) : S;
@@ -927,9 +948,9 @@ fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int t_lo = k_lo / kTile, t_hi = (k_hi + kTile - 1) / kTile;
 
   const bf16* v_cols = v + k_base + cb * DO;
-  load_tile<D>(s_q, q + q_base, q_rs, q0, S, tid);
-  load_tile<D>(s_q + T, k + k_base, k_rs, t_lo * kTile, S, tid);
-  load_tile<DO>(s_q + 2 * T, v_cols, k_rs, t_lo * kTile, S, tid);
+  load_tile<D, DG>(s_q, q + q_base, q_rs, q0, S, tid);
+  load_tile<D, DG>(s_q + T, k + k_base, k_rs, t_lo * kTile, S, tid);
+  load_tile<DO, DOG>(s_q + 2 * T, v_cols, k_rs, t_lo * kTile, S, tid);
   cp_async_commit();
 
   float o[DO / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
@@ -944,8 +965,8 @@ fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();   // tile t has landed; tile t - 1's stage is free
     if (t + 1 < t_hi) {
       const uint32_t n_k = s_q + T + ((t + 1 - t_lo) & 1) * (T + TV);
-      load_tile<D>(n_k, k + k_base, k_rs, (t + 1) * kTile, S, tid);
-      load_tile<DO>(n_k + T, v_cols, k_rs, (t + 1) * kTile, S, tid);
+      load_tile<D, DG>(n_k, k + k_base, k_rs, (t + 1) * kTile, S, tid);
+      load_tile<DO, DOG>(n_k + T, v_cols, k_rs, (t + 1) * kTile, S, tid);
     }
     cp_async_commit();
 
@@ -1012,8 +1033,9 @@ fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* og = out + q_base + qp * q_rs + cb * DO + c0;
 #pragma unroll
     for (int j = 0; j < DO / 8; ++j)
-      *reinterpret_cast<uint32_t*>(og + 8 * j) =
-          pack_bf16(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+      if (DOG == DO || 8 * j + c0 < DOG)
+        *reinterpret_cast<uint32_t*>(og + 8 * j) =
+            pack_bf16(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
     // a row with no valid key (none exists for rows < S) gets lse = +inf,
     // so the backward's P = exp(s - lse) is 0 there
     if ((lane & 3) == 0 && cb == 0)
@@ -1287,11 +1309,13 @@ int set_smem(K kernel, int bytes) {
 
 double scale_of(int D) { return 1.0 / sqrt(static_cast<double>(D)); }
 
-template <int D>
+// D: the width the kernel computes on; DG: the tensors' head dim, which
+// sets the softmax scale
+template <int D, int DG = D>
 int launch_fwd_f32(const void* q, const void* k, const void* v, void* out,
                    void* lse, int B, int S, int Hq, int Hkv, int causal,
                    int window, cudaStream_t st) {
-  auto kern = fa_fwd_kernel<float, D, kFwdBK>;
+  auto kern = fa_fwd_kernel<float, D, kFwdBK, DG>;
   constexpr int smem = fwd_smem<D>();
   int rc = set_smem(kern, smem);
   if (rc != 0) return rc;
@@ -1300,15 +1324,15 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, void* out,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out),
       static_cast<float*>(lse), S, Hq, Hkv, causal, window,
-      static_cast<float>(scale_of(D)));
+      static_cast<float>(scale_of(DG)));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, int DG = D>
 int launch_fwd_bf16(const void* q, const void* k, const void* v, void* out,
                     void* lse, int B, int S, int Hq, int Hkv, int causal,
                     int window, cudaStream_t st) {
-  auto kern = fa_fwd_wgmma_kernel<D>;
+  auto kern = fa_fwd_wgmma_kernel<D, DG>;
   // Q, two stages of K and of V's fwd_cols<D>() columns
   constexpr int smem = wgmma_smem<D>(3, 0) + 2 * kTile * fwd_cols<D>() * 2;
   int rc = set_smem(kern, smem);
@@ -1318,7 +1342,7 @@ int launch_fwd_bf16(const void* q, const void* k, const void* v, void* out,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out),
       static_cast<float*>(lse), S, Hq, Hkv, causal, window,
-      static_cast<float>(scale_of(D) * 1.4426950408889634));
+      static_cast<float>(scale_of(DG) * 1.4426950408889634));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1413,13 +1437,20 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  D: 64,
-// 128 or 256 (the backward: 64 or 128).  q/out (B, S, Hq, D), k/v (B, S,
-// Hkv, D) dense; lse (B, Hq, S) f32.  Hq % Hkv == 0.
+// 80, 128 or 256 (the backward: 64 or 128).  q/out (B, S, Hq, D), k/v (B,
+// S, Hkv, D) dense; lse (B, Hq, S) f32.  Hq % Hkv == 0.
 int flash_attention_fwd(int dtype, const void* q, const void* k,
                         const void* v, void* out, void* lse, int B, int S,
                         int Hq, int Hkv, int D, int causal, int window,
                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // head dim 80 (zamba2's shared block) on tiles of 128
+  if (dtype == 1 && D == 80)
+    return launch_fwd_bf16<128, 80>(q, k, v, out, lse, B, S, Hq, Hkv,
+                                    causal, window, st);
+  if (dtype == 0 && D == 80)
+    return launch_fwd_f32<128, 80>(q, k, v, out, lse, B, S, Hq, Hkv, causal,
+                                   window, st);
   if (dtype == 1 && D == 256)
     return launch_fwd_bf16<256>(q, k, v, out, lse, B, S, Hq, Hkv, causal,
                                 window, st);

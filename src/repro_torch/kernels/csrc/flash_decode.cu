@@ -99,11 +99,24 @@
 // launch, the kv_len and table reads, one DRAM round trip for the tiles,
 // the sweep's dependent arithmetic, the merge's two cluster syncs.
 //
+// Head dim 80 (zamba2's shared block).  80 is 2.5 columns a lane and 10
+// (bf16) or 5 (int8) 16-byte chunks a row, which neither the lane layout
+// nor the 8-chunk swizzle takes.  So the kernels separate the width they
+// compute on (D, the template's tile width: 128) from the cache's (DG,
+// 80): each K/V/q row's 80 real columns are loaded with cp.async and the
+// 48 past them zero-filled with a source size of 0 (no global read), the
+// lanes and output columns past DG are never written, the softmax scale is
+// the real D's (1/sqrt(80), from the D the call passes), and the split's
+// merge walks the DG real columns.  Bytes moved stay D 80's; only the
+// arithmetic pays the padding, 128 / 80 = 1.6 times.  A kernel that
+// computes exactly 80 columns (m16n8k16 on 10 column blocks, 5 lanes' worth
+// of K-major chunks) is left for a later redesign.
+//
 // ptxas (-Xptxas -v, sm_90a) at D 256, no spills: mma_attn_kernel
 // 199 registers (int8 K/V 185 to 188), simt_attn_kernel 98 to 118 at 2 rows
 // a block and 228 to 244 at 8.
 //
-// Left for later PRs: head dim 80 (64, 128 and 256 are built);
+// Left for later PRs: computing D 80 without the padding;
 // the decode sweep still spends about a microsecond a tile in dependent
 // arithmetic (a layout with a few lanes a key would cut its shuffles);
 // pushing the partials to their owner (one cluster sync, not two); skipping
@@ -267,25 +280,30 @@ struct Sweep {
 // Issue the cp.async loads of tile [t0, t0 + BK) of head h into one ring
 // stage: K and V rows (chunk c of row j at chunk_off<SWZ>(j, c)), then the
 // positions and, for int8, the scales (4 bytes each).  Rows at index >=
-// kvl are zero-filled without a read.
-template <typename KV, int D, int BK, int THREADS, bool SWZ>
+// kvl are zero-filled without a read.  The tile's rows are D wide, the
+// cache's DG (DG < D: head dim 80 computed on tiles of 128); the chunks
+// past DG are zero-filled without a read.
+template <typename KV, int D, int BK, int THREADS, bool SWZ, int DG = D>
 __device__ __forceinline__ void load_tile(uint32_t stage, const Params& p,
                                           const Sweep<KV>& sw, int h, int t0,
                                           int tid) {
   constexpr int VEC = 16 / sizeof(KV);   // elements a 16-byte chunk
-  constexpr int CPR = D / VEC;           // chunks a row
-  constexpr int RB = D * sizeof(KV);     // bytes a row
+  constexpr int CPR = D / VEC;           // chunks a tile row
+  constexpr int CPG = DG / VEC;          // chunks of a cache row
+  constexpr int RB = D * sizeof(KV);     // bytes a tile row
   constexpr bool INT8 = std::is_same<KV, int8_t>::value;
+  static_assert(DG <= D && DG % VEC == 0, "cache rows of whole chunks");
   const uint32_t k_dst = stage, v_dst = stage + BK * RB;
   const uint32_t pos_dst = stage + 2 * BK * RB;
-  const long long row_stride = (long long)p.Hkv * D;
+  const long long row_stride = (long long)p.Hkv * DG;
 #pragma unroll 4
   for (int i = tid; i < BK * CPR; i += THREADS) {
     const int j = i / CPR, c = i % CPR, idx = t0 + j;
-    const bool ok = idx < sw.kvl;
+    const bool live = idx < sw.kvl;
+    const bool ok = live && (DG == D || c < CPG);
     int outer = 0, off = 0;
-    if (ok) sw.at.resolve(idx, outer, off);
-    const long long e = off * row_stride + (long long)h * D + c * VEC;
+    if (live) sw.at.resolve(idx, outer, off);
+    const long long e = off * row_stride + (long long)h * DG + c * VEC;
     const uint32_t so = chunk_off<SWZ>(j, c, RB);
     cp_async16(k_dst + so, ok ? sw.kh + outer * p.k_ob + e : sw.kh, ok);
     cp_async16(v_dst + so, ok ? sw.vh + outer * p.v_ob + e : sw.vh, ok);
@@ -321,19 +339,20 @@ __device__ __forceinline__ bool visible(int idx, int kvl, int pos, int qp,
 // Merge the cluster's partials and write this block's share of the
 // outputs.  Each block's `part` holds acc [cap][D], then m [cap], then l
 // [cap] (f32, base 2) for its rows; block `rank` takes the float4 groups
-// [rank * per, (rank + 1) * per) of the nrows x D outputs.  Every remote
-// load of a group is issued before any is used.
-template <typename T, int D, int SPLIT>
+// [rank * per, (rank + 1) * per) of the nrows x DG outputs (rows of DG <=
+// D columns).  Every remote load of a group is issued before any is used.
+template <typename T, int D, int SPLIT, int DG>
 __device__ __forceinline__ void merge_split(float* part, int cap, int nrows,
                                             int rank, T* out, int tid,
                                             int threads) {
+  static_assert(DG % 4 == 0, "float4 groups");
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();   // every block's partials are written and visible
-  const int total = nrows * D / 4;
+  const int total = nrows * DG / 4;
   const int per = (total + SPLIT - 1) / SPLIT;
   const int end = min(total, (rank + 1) * per);
   for (int i = rank * per + tid; i < end; i += threads) {
-    const int r = (4 * i) / D, c = (4 * i) % D;
+    const int r = (4 * i) / DG, c = (4 * i) % DG;
     float mi[SPLIT], li[SPLIT];
     float4 ai[SPLIT];
 #pragma unroll
@@ -358,7 +377,7 @@ __device__ __forceinline__ void merge_split(float* part, int cap, int nrows,
       a.w = fmaf(ai[s].w, w, a.w);
     }
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    T* o = out + (long long)r * D + c;
+    T* o = out + (long long)r * DG + c;
     o[0] = from_f32<T>(a.x * inv);
     o[1] = from_f32<T>(a.y * inv);
     o[2] = from_f32<T>(a.z * inv);
@@ -367,16 +386,17 @@ __device__ __forceinline__ void merge_split(float* part, int cap, int nrows,
   cluster.sync();   // no block leaves while another reads its partials
 }
 
-template <typename T, int D>
+template <typename T, int D, int DG>
 __device__ __forceinline__ void cluster_merge(float* part, int cap,
                                               int nrows, int split, int rank,
                                               T* out, int tid, int threads) {
   if (split == 2)
-    merge_split<T, D, 2>(part, cap, nrows, rank, out, tid, threads);
+    merge_split<T, D, 2, DG>(part, cap, nrows, rank, out, tid, threads);
   else if (split == 4)
-    merge_split<T, D, 4>(part, cap, nrows, rank, out, tid, threads);
+    merge_split<T, D, 4, DG>(part, cap, nrows, rank, out, tid, threads);
   else
-    merge_split<T, D, kMaxSplit>(part, cap, nrows, rank, out, tid, threads);
+    merge_split<T, D, kMaxSplit, DG>(part, cap, nrows, rank, out, tid,
+                                     threads);
 }
 
 // ---------------------------------------------------------------------------
@@ -461,8 +481,9 @@ __host__ __device__ constexpr int simt_smem() {
 }
 
 // MR: the block's query rows (2, 4, or simt_max_rows<D>()), row tile
-// blockIdx.z / split
-template <typename T, typename KV, int D, int MR>
+// blockIdx.z / split.  D is the width the block computes on, DG the
+// cache's and the query's (DG < D: the lanes past DG hold zeros)
+template <typename T, typename KV, int D, int MR, int DG = D>
 __global__ void __launch_bounds__(simt_warps<MR>() * 32)
 simt_attn_kernel(const Params p, int split) {
   constexpr int BK = kSimtBK, STAGES = kSimtStages;
@@ -472,7 +493,8 @@ simt_attn_kernel(const Params p, int split) {
   constexpr int KB = MR <= 4 ? KPW : 1;  // keys scored at once
   constexpr int SB = stage_bytes<KV, D, BK>();
   constexpr bool INT8 = std::is_same<KV, int8_t>::value;
-  static_assert(KPW % KB == 0 && D % 32 == 0, "tile shape");
+  static_assert(KPW % KB == 0 && D % 32 == 0 && DG % VPL == 0,
+                "tile shape");
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -489,7 +511,8 @@ simt_attn_kernel(const Params p, int split) {
   float qv[MR][VPL];
   int qp[MR];
   const long long row0 = ((long long)b * p.Hkv + h) * p.R + r0;
-  const T* qb = static_cast<const T*>(p.q) + row0 * D + lane * VPL;
+  const T* qb = static_cast<const T*>(p.q) + row0 * DG + lane * VPL;
+  const bool lane_live = DG == D || lane * VPL < DG;
 #pragma unroll
   for (int r = 0; r < MR; ++r) {
     qp[r] = -1;
@@ -497,7 +520,7 @@ simt_attn_kernel(const Params p, int split) {
     for (int e = 0; e < VPL; ++e) qv[r][e] = 0.f;
     if (r < nrows) {
       qp[r] = p.q_pos[b * p.qp_sb + (long long)(r0 + r) * p.qp_sr];
-      row_cols<T, T, VPL>(qv[r], qb + r * D, 1.f);
+      if (lane_live) row_cols<T, T, VPL>(qv[r], qb + r * DG, 1.f);
     }
   }
 
@@ -505,8 +528,8 @@ simt_attn_kernel(const Params p, int split) {
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (sw.tb + s < sw.te)
-      load_tile<KV, D, BK, THREADS, false>(ring + s * SB, p, sw, h,
-                                           (sw.tb + s) * BK, tid);
+      load_tile<KV, D, BK, THREADS, false, DG>(ring + s * SB, p, sw, h,
+                                               (sw.tb + s) * BK, tid);
     cp_async_commit();
   }
 
@@ -524,7 +547,7 @@ simt_attn_kernel(const Params p, int split) {
     cp_async_wait<STAGES - 2>();
     __syncthreads();   // tile t is in; every warp is done with tile t - 1
     if (t + STAGES - 1 < sw.te)
-      load_tile<KV, D, BK, THREADS, false>(
+      load_tile<KV, D, BK, THREADS, false, DG>(
           ring + ((i + STAGES - 1) % STAGES) * SB, p, sw, h,
           (t + STAGES - 1) * BK, tid);
     cp_async_commit();
@@ -621,7 +644,7 @@ simt_attn_kernel(const Params p, int split) {
   __syncthreads();
 
   // the block's partial (or, without a split, its output)
-  T* out = static_cast<T*>(p.out) + row0 * D;
+  T* out = static_cast<T*>(p.out) + row0 * DG;
   float* part = wl + NW * MR;   // acc [MR][D], m [MR], l [MR]
   for (int i = tid; i < nrows * D; i += THREADS) {
     const int r = i / D, c = i % D;
@@ -636,7 +659,8 @@ simt_attn_kernel(const Params p, int split) {
       ls = fmaf(wl[w * MR + r], f, ls);
     }
     if (split == 1) {
-      out[i] = from_f32<T>(a / fmaxf(ls, 1e-30f));
+      if (DG == D || c < DG)
+        out[r * DG + c] = from_f32<T>(a / fmaxf(ls, 1e-30f));
     } else {
       part[i] = a;
       if (c == 0) {
@@ -646,7 +670,7 @@ simt_attn_kernel(const Params p, int split) {
     }
   }
   if (split > 1)
-    cluster_merge<T, D>(part, MR, nrows, split, rank, out, tid, THREADS);
+    cluster_merge<T, D, DG>(part, MR, nrows, split, rank, out, tid, THREADS);
 }
 
 // ---------------------------------------------------------------------------
@@ -745,8 +769,9 @@ __device__ __forceinline__ void dequant_tile(const unsigned char* st,
 }
 
 // NW groups of 16 query rows, mma_dw<D>() warps each (a group's warps
-// split D between them); row tile blockIdx.z / split
-template <typename KV, int D, int NW>
+// split D between them); row tile blockIdx.z / split.  D is the tile
+// width, DG the cache's and the query's (DG < D: zero columns past DG)
+template <typename KV, int D, int NW, int DG = D>
 __global__ void __launch_bounds__(NW * mma_dw<D>() * 32)
 mma_attn_kernel(const Params p, int split) {
   using T = __nv_bfloat16;
@@ -774,14 +799,14 @@ mma_attn_kernel(const Params p, int split) {
   const int warp = (tid >> 5) / DW, dh = (tid >> 5) % DW;   // group, half
   const int g = lane >> 2, t4 = lane & 3;
 
-  // the query tile, swizzled; rows past R are zeros
+  // the query tile, swizzled; rows past R and columns past DG are zeros
   const long long row0 = ((long long)b * p.Hkv + h) * p.R + r0;
-  const T* qg = static_cast<const T*>(p.q) + row0 * D;
+  const T* qg = static_cast<const T*>(p.q) + row0 * DG;
   for (int i = tid; i < ROWS * (D / 8); i += THREADS) {
     const int r = i / (D / 8), c = i % (D / 8);
-    const bool ok = r < nrows;
+    const bool ok = r < nrows && (DG == D || c < DG / 8);
     cp_async16(smem_u32(q_s) + chunk_off<true>(r, c, RB),
-               ok ? qg + (long long)r * D + c * 8 : qg, ok);
+               ok ? qg + (long long)r * DG + c * 8 : qg, ok);
   }
   cp_async_commit();
   // this lane's two rows of its warp's 16, and their positions
@@ -797,8 +822,8 @@ mma_attn_kernel(const Params p, int split) {
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (sw.tb + s < sw.te)
-      load_tile<KV, D, BK, THREADS, !INT8>(ring + s * SB, p, sw, h,
-                                           (sw.tb + s) * BK, tid);
+      load_tile<KV, D, BK, THREADS, !INT8, DG>(ring + s * SB, p, sw, h,
+                                               (sw.tb + s) * BK, tid);
     cp_async_commit();
   }
 
@@ -830,7 +855,7 @@ mma_attn_kernel(const Params p, int split) {
     cp_async_wait<STAGES - 2>();
     __syncthreads();   // tile t is in; every warp is done with tile t - 1
     if (t + STAGES - 1 < sw.te)
-      load_tile<KV, D, BK, THREADS, !INT8>(
+      load_tile<KV, D, BK, THREADS, !INT8, DG>(
           ring + ((i + STAGES - 1) % STAGES) * SB, p, sw, h,
           (t + STAGES - 1) * BK, tid);
     cp_async_commit();
@@ -944,17 +969,18 @@ mma_attn_kernel(const Params p, int split) {
   cp_async_wait<0>();
   __syncthreads();   // the ring is free for the partials
 
-  T* out = static_cast<T*>(p.out) + row0 * D;
+  T* out = static_cast<T*>(p.out) + row0 * DG;
   if (split == 1) {
     const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
 #pragma unroll
     for (int n = 0; n < DC / 8; ++n) {
       const int c = dh * DC + n * 8 + 2 * t4;
+      if (DG != D && c >= DG) continue;   // a padded column
       if (wr0 < nrows)
-        *reinterpret_cast<__nv_bfloat162*>(out + (long long)wr0 * D + c) =
+        *reinterpret_cast<__nv_bfloat162*>(out + (long long)wr0 * DG + c) =
             __floats2bfloat162_rn(o[n][0] * i0, o[n][1] * i0);
       if (wr1 < nrows)
-        *reinterpret_cast<__nv_bfloat162*>(out + (long long)wr1 * D + c) =
+        *reinterpret_cast<__nv_bfloat162*>(out + (long long)wr1 * DG + c) =
             __floats2bfloat162_rn(o[n][2] * i1, o[n][3] * i1);
     }
     return;
@@ -974,7 +1000,7 @@ mma_attn_kernel(const Params p, int split) {
     part[ROWS * D + ROWS + wr0] = l0;
     part[ROWS * D + ROWS + wr1] = l1;
   }
-  cluster_merge<T, D>(part, ROWS, nrows, split, rank, out, tid, THREADS);
+  cluster_merge<T, D, DG>(part, ROWS, nrows, split, rank, out, tid, THREADS);
 }
 
 // ---------------------------------------------------------------------------
@@ -1008,48 +1034,60 @@ int launch_kernel(Kern kernel, const Params& p, int B, int gz, int threads,
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-template <typename T, typename KV, int D, int MR>
+template <typename T, typename KV, int D, int MR, int DG>
 int launch_simt(const Params& p, int B, int split, int smem,
                 cudaStream_t st) {
   static int raised = 0;
   if (smem < simt_smem<KV, D, MR>())
     return static_cast<int>(cudaErrorInvalidValue);
   const int gz = (p.R + MR - 1) / MR * split;
-  return launch_kernel(simt_attn_kernel<T, KV, D, MR>, p, B, gz,
+  return launch_kernel(simt_attn_kernel<T, KV, D, MR, DG>, p, B, gz,
                        simt_warps<MR>() * 32, split, smem, &raised, st);
 }
 
-template <typename KV, int D, int NW>
+template <typename KV, int D, int NW, int DG>
 int launch_mma(const Params& p, int B, int split, int smem,
                cudaStream_t st) {
   static int raised = 0;
   if (smem < mma_smem<KV, D, NW>())
     return static_cast<int>(cudaErrorInvalidValue);
   const int gz = (p.R + NW * 16 - 1) / (NW * 16) * split;
-  return launch_kernel(mma_attn_kernel<KV, D, NW>, p, B, gz,
+  return launch_kernel(mma_attn_kernel<KV, D, NW, DG>, p, B, gz,
                        NW * mma_dw<D>() * 32, split, smem, &raised, st);
 }
 
-template <typename T, typename KV, int D>
+// D: the tile width the kernels compute on; DG: the head dim of q, the
+// cache and the output (DG < D pads each row with zero columns)
+template <typename T, typename KV, int D, int DG = D>
 int dispatch_rows(bool mma, int rows, const Params& p, int B, int split,
                   int smem, cudaStream_t st) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (mma && rows == 16) return launch_mma<KV, D, 1>(p, B, split, smem, st);
-    if (mma && rows == 32) return launch_mma<KV, D, 2>(p, B, split, smem, st);
-    if (mma && rows == 64) return launch_mma<KV, D, 4>(p, B, split, smem, st);
+    if (mma && rows == 16)
+      return launch_mma<KV, D, 1, DG>(p, B, split, smem, st);
+    if (mma && rows == 32)
+      return launch_mma<KV, D, 2, DG>(p, B, split, smem, st);
+    if (mma && rows == 64)
+      return launch_mma<KV, D, 4, DG>(p, B, split, smem, st);
   }
   if (!mma && rows == 2)
-    return launch_simt<T, KV, D, 2>(p, B, split, smem, st);
+    return launch_simt<T, KV, D, 2, DG>(p, B, split, smem, st);
   if (!mma && rows == 4)
-    return launch_simt<T, KV, D, 4>(p, B, split, smem, st);
+    return launch_simt<T, KV, D, 4, DG>(p, B, split, smem, st);
   if (!mma && rows == simt_max_rows<D>())
-    return launch_simt<T, KV, D, simt_max_rows<D>()>(p, B, split, smem, st);
+    return launch_simt<T, KV, D, simt_max_rows<D>(), DG>(p, B, split, smem,
+                                                         st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
 int dispatch_kv(bool int8, int D, bool mma, int rows, const Params& p, int B,
                 int split, int smem, cudaStream_t st) {
+  // head dim 80 (zamba2) on tiles of 128
+  if (int8 && D == 80)
+    return dispatch_rows<T, int8_t, 128, 80>(mma, rows, p, B, split, smem,
+                                             st);
+  if (!int8 && D == 80)
+    return dispatch_rows<T, T, 128, 80>(mma, rows, p, B, split, smem, st);
   if (int8 && D == 256)
     return dispatch_rows<T, int8_t, 256>(mma, rows, p, B, split, smem, st);
   if (!int8 && D == 256)
@@ -1066,8 +1104,9 @@ int dispatch_kv(bool int8, int D, bool mma, int rows, const Params& p, int B,
 }
 
 // dtype (q, out): 0 = float32, 1 = bfloat16; K/V of that type, or int8
-// when scales are given.  D: 64, 128 or 256.  table null: contiguous.  The plan
-// (tensor_cores, rows, bk, stages, split, smem) is the wrapper's _plan:
+// when scales are given.  D: 64, 80, 128 or 256.  table null: contiguous.
+// The plan (tensor_cores, rows, bk, stages, split, smem) is the wrapper's
+// _plan:
 // bk and stages must be the chosen kernel's, split 1, 2, 4 or 8, smem at
 // least what the kernel lays out.
 int dispatch(int dtype, int D, const Params& p, int B, int tensor_cores,

@@ -33,10 +33,11 @@ from repro_torch.kernels import build
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# head dims the forward takes, and the backward (whose dK/dV pass already
-# holds 255 registers a thread at D 128: D 256 needs its accumulators
-# split anew)
-_HEAD_DIMS = (64, 128, 256)
+# head dims the forward takes (80 on tiles of 128, zero columns past 80),
+# and the backward (whose dK/dV pass already holds 255 registers a thread
+# at D 128: D 256 needs its accumulators split anew; D 80 comes with
+# training the hybrid trunk)
+_HEAD_DIMS = (64, 80, 128, 256)
 _BWD_HEAD_DIMS = (64, 128)
 _FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                  + [ctypes.c_void_p])
@@ -78,7 +79,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hkv == 0 or hq % hkv:
         raise ValueError(f"Hq {hq} is no multiple of Hkv {hkv}")
     if d not in head_dims:
-        raise ValueError(f"head_dim {d} not in {head_dims}")
+        later = (" (the backward at D 80 and D 256 comes with slice 10,"
+                 " ROADMAP queue 2)" if head_dims == _BWD_HEAD_DIMS else "")
+        raise ValueError(f"head_dim {d} not in {head_dims}{later}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: one of"
                         " float32 or bfloat16")
@@ -104,8 +107,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q (B, S, Hq, D), k/v (B, S, Hkv, D), float32 or bfloat16, contiguous
-    on one CUDA device, D 64, 128 or 256.  Returns the output (B, S, Hq, D)
-    in q's dtype and the rows' log-sum-exp (B, Hq, S) float32."""
+    on one CUDA device, D 64, 80, 128 or 256.  Returns the output (B, S,
+    Hq, D) in q's dtype and the rows' log-sum-exp (B, Hq, S) float32."""
     b, s, hq, hkv, d = _check(q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
@@ -130,7 +133,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients (dq, dk, dv) of ``flash_attention_fwd``'s output
     against ``dout``, from the forward's inputs, output and ``lse``; in the
-    inputs' dtype.  D 64 or 128: D 256 raises."""
+    inputs' dtype.  D 64 or 128: D 80 and 256 raise."""
     b, s, hq, hkv, d = _check(q, k, v, _BWD_HEAD_DIMS, out=out, dout=dout)
     if lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, s) \
             or not lse.is_contiguous() or lse.device != q.device:

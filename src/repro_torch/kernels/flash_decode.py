@@ -36,7 +36,10 @@ from repro_torch.kernels import build
 LAUNCHES = {"flash_decode": 0, "flash_chunk_prefill": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128, 256)
+_HEAD_DIMS = (64, 80, 128, 256)
+# head dims the kernels compute on a wider tile: 80 on tiles of 128, the
+# columns past 80 zero-filled in shared memory and never written out
+_TILE_DIMS = {80: 128}
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_void_p])
@@ -81,10 +84,15 @@ def _simt_warps(rows: int) -> int:
     return 8 if rows <= 4 else 4
 
 
+def tile_dim(d: int) -> int:
+    """The width the kernels compute a row of head dim ``d`` on."""
+    return _TILE_DIMS.get(d, d)
+
+
 def simt_max_rows(d: int) -> int:
     """Most rows a CUDA-core block takes: 16, or 8 at D 256, where 16 rows
     of 8 columns a lane would hold 256 f32 of q and acc a thread."""
-    return 8 if d > 128 else 16
+    return 8 if tile_dim(d) > 128 else 16
 
 
 def _smem(kernel: str, rows: int, d: int, kv_bytes: int, int8: bool) -> int:
@@ -92,7 +100,9 @@ def _smem(kernel: str, rows: int, d: int, kv_bytes: int, int8: bool) -> int:
     ring (K and V tiles, positions, int8 scales a stage), and after the
     sweep the partial (acc, m, l) of the block's rows; the CUDA-core
     kernel also holds its warps' partials, the tensor-core kernel
-    the query tile and, for int8, the dequantized K and V tiles."""
+    the query tile and, for int8, the dequantized K and V tiles.  Every
+    row is ``tile_dim(d)`` wide."""
+    d = tile_dim(d)
     bk, stages = (MMA_BK, MMA_STAGES) if kernel == "mma" \
         else (SIMT_BK, SIMT_STAGES)
     ring = stages * (2 * bk * d * kv_bytes + bk * 4 * (3 if int8 else 1))

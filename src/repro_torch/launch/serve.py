@@ -1,8 +1,8 @@
 """Serving driver: ``python -m repro_torch.launch.serve --arch <id>``.
 
 Runs a serving engine over synthetic prompts on the selected arch
-(``internlm2-1.8b``, ``granite-3-8b``, ``llama3.2-3b``, ``gemma3-4b`` or
-``falcon-mamba-7b``), on the card unless
+(``internlm2-1.8b``, ``granite-3-8b``, ``llama3.2-3b``, ``gemma3-4b``,
+``falcon-mamba-7b`` or ``zamba2-2.7b``), on the card unless
 ``--device cpu`` is given: the smoke config by default,
 the full config with ``--full`` (random weights drawn from a seeded
 ``torch.Generator`` on the device; nothing is downloaded).

@@ -4,10 +4,11 @@ Every backbone weight is declared once as a ``ParamSpec`` (shape and
 initializer), in the layout of ``repro.models.params``: projection
 weights ``(d_in, d_out)`` applied as ``x @ w``, and per-layer leaves
 stacked along a leading ``(L, ...)`` axis.  The uniform dense decoder, the
-uniform mamba1 trunk (falcon-mamba) and the local:global sliding-window
-trunk (gemma3) are declared.  ``init_params`` draws them
-from a ``torch.Generator`` on the target device; ``params_from_numpy``
-carries a tree of numpy arrays (for example the JAX package's own
+uniform mamba1 trunk (falcon-mamba), the local:global sliding-window
+trunk (gemma3) and the hybrid trunk (zamba2: stacked mamba2 groups and
+one shared, unstacked attention block) are declared.  ``init_params``
+draws them from a ``torch.Generator`` on the target device;
+``params_from_numpy`` carries a tree of numpy arrays (for example the JAX package's own
 ``init_params``) across leaf for leaf.
 
 Both return a ``ParamTree``: an ``nn.Module`` whose leaves are
@@ -82,17 +83,39 @@ def mamba1_specs(cfg: ArchConfig) -> SpecTree:
             "out_proj": ParamSpec((di, d))}
 
 
+def mamba2_specs(cfg: ArchConfig) -> SpecTree:
+    """The mamba2 (SSD) layer: B, C and dt projected from the block's
+    input (``wb``, ``wc``, ``dt_w``), one decay, step bias and skip a head
+    (``a_log``, ``dt_bias``, ``d_skip`` of (nh,)), and the gated output's
+    norm scale ``gate_norm``."""
+    d, di, ds, k = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.d_conv
+    nh = cfg.resolved_ssm_heads
+    return {"in_proj": ParamSpec((d, 2 * di)),
+            "conv_w": ParamSpec((k, di), init="conv"),
+            "conv_b": ParamSpec((di,), init="zeros"),
+            "wb": ParamSpec((d, ds)), "wc": ParamSpec((d, ds)),
+            "dt_w": ParamSpec((d, nh)),
+            "dt_bias": ParamSpec((nh,), init="dt_bias"),
+            "a_log": ParamSpec((nh,), init="a_log"),
+            "d_skip": ParamSpec((nh,), init="ones"),
+            "gate_norm": ParamSpec((di,), init="zeros"),
+            "out_proj": ParamSpec((di, d))}
+
+
 def dense_block_specs(cfg: ArchConfig) -> SpecTree:
     return {"attn_norm": _norm(cfg.d_model), "attn": attn_specs(cfg),
             "mlp_norm": _norm(cfg.d_model), "mlp": mlp_specs(cfg)}
 
 
+_MAMBA_SPECS = {"mamba1": mamba1_specs, "mamba2": mamba2_specs}
+
+
 def mamba_block_specs(cfg: ArchConfig) -> SpecTree:
-    if cfg.ssm_variant != "mamba1":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.ssm_variant!r} layer is not ported yet;"
-            " mamba2 comes with slice 8 (hybrid serving)")
-    return {"norm": _norm(cfg.d_model), "mamba": mamba1_specs(cfg)}
+    if cfg.ssm_variant not in _MAMBA_SPECS:
+        raise ValueError(f"{cfg.name}: unknown ssm_variant"
+                         f" {cfg.ssm_variant!r}")
+    return {"norm": _norm(cfg.d_model),
+            "mamba": _MAMBA_SPECS[cfg.ssm_variant](cfg)}
 
 
 def _stack_tree(tree: SpecTree, n: int) -> SpecTree:
@@ -139,12 +162,23 @@ def local_global_specs(cfg: ArchConfig, pat) -> SpecTree:
     return specs
 
 
+def hybrid_specs(cfg: ArchConfig, pat) -> SpecTree:
+    """The hybrid trunk (zamba2): ``groups`` (n_groups, group, ...) of
+    mamba2 blocks, and one dense block ``shared_attn``, unstacked: its
+    weights serve the block that closes every group."""
+    return {"groups": _stack_tree(_stack_tree(mamba_block_specs(cfg),
+                                              pat["group"]),
+                                  pat["n_groups"]),
+            "shared_attn": dense_block_specs(cfg)}
+
+
 _BLOCK_SPECS = {
     "uniform_dense": lambda cfg, pat: _uniform_specs(cfg, pat,
                                                      dense_block_specs),
     "uniform_ssm": lambda cfg, pat: _uniform_specs(cfg, pat,
                                                    mamba_block_specs),
     "local_global": local_global_specs,
+    "hybrid": hybrid_specs,
 }
 
 
@@ -153,8 +187,8 @@ def build_specs(cfg: ArchConfig) -> SpecTree:
     if pat["kind"] not in _BLOCK_SPECS or cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: layer pattern {pat['kind']!r} is not ported yet"
-            " (the port has the uniform dense, uniform mamba1 and"
-            " local:global trunks)")
+            " (the port has the uniform dense, uniform mamba1, local:global"
+            " and hybrid trunks)")
     d, vpad = cfg.d_model, cfg.padded_vocab()
     specs: SpecTree = {"embed": ParamSpec((vpad, d)), "final_norm": _norm(d)}
     if not cfg.tie_embeddings:
@@ -325,9 +359,10 @@ class TreeView(dict):
         return out
 
 
-# leaves the JAX package's mamba1 layer reads in float32 whatever the
-# activation dtype (``ssm.py:128``, ``:161``): they stay float32
-F32_LEAVES = ("a_log", "d_skip")
+# leaves the JAX package's mamba layers read in float32 whatever the
+# activation dtype (``ssm.py:128``, ``:161``; mamba2's step bias too,
+# ``:226``): they stay float32
+F32_LEAVES = ("a_log", "d_skip", "dt_bias")
 
 
 def _leaf_dtype(name: str, ndim: int, dtype: Optional[torch.dtype],
@@ -377,7 +412,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     """Random weights drawn from ``generator`` on ``device`` (``cuda``
     unless named; the generator must live on the same device), each by its
     spec's initializer: scaled normal, zeros (norms, biases), and the
-    mamba1 layer's ones (D skip), ``a_log``, ``dt_bias`` and ``conv``.
+    mamba layers' ones (D skip), ``a_log``, ``dt_bias`` and ``conv``.
     Matrices are stored in ``dtype`` (default: the config's activation
     dtype; float32 masters when ``trainable``, whose leaves then take
     gradients); 1-D leaves and ``F32_LEAVES`` in float32.  torch's

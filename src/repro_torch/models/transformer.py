@@ -1,6 +1,8 @@
 """Decoder-only backbone: the serving, prefill and training entry points
 of the uniform dense trunk and the local:global (sliding-window) trunk,
-and the serving and prefill entry points of the uniform mamba1 trunk.
+and the serving and prefill entry points of the uniform mamba1 trunk and
+of the hybrid trunk (zamba2: groups of mamba2 blocks, each closed by one
+shared attention block).
 
 The PyTorch counterpart of ``repro.models.transformer`` on the port's
 paths: ``forward_prefill_chunk`` (one prompt chunk against a live slot
@@ -21,7 +23,11 @@ windowed layers a ring of ``window`` rows a slot (``local_k``/``local_v``,
 ``tail_k``/``tail_v``, positions ``local_pos``), written at ``pos %
 window`` and never paged.  The SSM cache is
 ``{"ssm": SSMState(conv (L, B, d_conv-1, d_inner), h (L, B, d_inner,
-ssm_state) f32)}``, slot-addressed on every engine.  The decode and chunk
+ssm_state) f32)}``, slot-addressed on every engine.  The hybrid trunk's
+holds ``ssm`` stacked (n_groups, group, B, ...) with mamba2's h (B,
+ssm_heads, head_dim, ssm_state), and beside it one K/V leaf a shared-block
+application, ``attn_k``/``attn_v`` (n_groups, B, S, Hkv, D) with
+``full_pos`` (paged: pools and ``pool_pos``).  The decode and chunk
 entry points update the cache **in place** and return it: positions,
 where the cache has them, are stamped once before the trunk (every layer
 attends with them; a chunk's ring positions after it, since its ring
@@ -47,7 +53,8 @@ from repro_torch.models.layers import (attention_chunk_layer,
                                        ring_scatter_idx, rms_norm,
                                        swiglu_mlp, write_pages, write_rows)
 from repro_torch.models.params import layer_pattern
-from repro_torch.models.ssm import SSMState, mamba1_decode, mamba1_layer
+from repro_torch.models.ssm import (SSMState, mamba1_decode, mamba1_layer,
+                                    mamba2_decode, mamba2_layer)
 
 Cache = Dict[str, object]
 
@@ -158,28 +165,34 @@ def dense_block_chunk(cfg: ArchConfig, p, x, positions, cache_k, cache_v,
     return x + swiglu_mlp(p["mlp"], h, policy)
 
 
+# the layer and the one-token step of each SSM variant
+_MAMBA = {"mamba1": (mamba1_layer, mamba1_decode),
+          "mamba2": (mamba2_layer, mamba2_decode)}
+
+
 def mamba_block(cfg: ArchConfig, p, x):
-    """One pre-norm mamba1 block over a whole sequence from a zero state;
+    """One pre-norm mamba block over a whole sequence from a zero state;
     returns (x, final_state)."""
     return mamba_block_chunk(cfg, p, x, None, None, None)
 
 
 def mamba_block_chunk(cfg: ArchConfig, p, x, state, mask, fill):
-    """One pre-norm mamba1 block over a chunk (or a whole prompt from
-    ``state=None``); returns (x, new_state)."""
+    """One pre-norm mamba block (the config's ``ssm_variant``) over a
+    chunk (or a whole prompt from ``state=None``); returns (x,
+    new_state)."""
     h = rms_norm(p["norm"], x, cfg.norm_eps)
-    y, new_state = mamba1_layer(p["mamba"], h, cfg, state, mask=mask,
-                                fill=fill)
+    y, new_state = _MAMBA[cfg.ssm_variant][0](p["mamba"], h, cfg, state,
+                                              mask=mask, fill=fill)
     return x + y, new_state
 
 
 def mamba_block_decode(cfg: ArchConfig, p, x, state, active=None):
-    """One-token mamba1 block.  Rows with ``active == False`` (idle or
+    """One-token mamba block.  Rows with ``active == False`` (idle or
     mid-prefill serving slots) keep their state: the returned state equals
     ``state`` bit for bit there, so a decode step never advances the
     recurrence of a row another phase owns."""
     h = rms_norm(p["norm"], x, cfg.norm_eps)
-    y, new_state = mamba1_decode(p["mamba"], h, cfg, state)
+    y, new_state = _MAMBA[cfg.ssm_variant][1](p["mamba"], h, cfg, state)
     if active is not None:
         new_state = SSMState(*(
             torch.where(active.reshape((-1,) + (1,) * (n.dim() - 1)), n, o)
@@ -188,17 +201,20 @@ def mamba_block_decode(cfg: ArchConfig, p, x, state, active=None):
 
 
 def _pattern(cfg: ArchConfig) -> str:
-    """The layer pattern of a served trunk: uniform dense, uniform mamba1
-    or local:global (sliding-window ring)."""
+    """The layer pattern of a served trunk: uniform dense, uniform mamba1,
+    local:global (sliding-window ring) or hybrid (mamba2 groups and a
+    shared attention block)."""
     kind = layer_pattern(cfg)["kind"]
-    if kind not in ("uniform_dense", "uniform_ssm", "local_global"):
+    if kind not in ("uniform_dense", "uniform_ssm", "local_global",
+                    "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: layer pattern {kind!r} is not ported yet")
     return kind
 
 
-def _store_state(cache: Cache, i: int, state: SSMState) -> None:
-    """Write layer ``i``'s new (conv, h) into the SSM cache in place."""
+def _store_state(cache: Cache, i, state: SSMState) -> None:
+    """Write layer ``i``'s (an index, or (group, layer) of the hybrid
+    trunk) new (conv, h) into the SSM cache in place."""
     for dst, src in zip(cache["ssm"], state):
         dst[i].copy_(src)
 
@@ -255,20 +271,28 @@ def trunk_forward(cfg: ArchConfig, params, x, positions, *,
     cache's leaves) or, for the mamba1 trunk, its final ``SSMState``;
     else None.
 
-    The mamba1 trunk runs only without autograd (one-shot prefill):
-    training it needs the scan's gradient."""
+    The mamba1 and hybrid trunks run only without autograd (one-shot
+    prefill): training the mamba1 trunk needs the scan's gradient, the
+    hybrid trunk the SSD layer's and ``flash_attention``'s backward at
+    D 80."""
     kind = _pattern(cfg)
+    if kind in ("uniform_ssm", "hybrid") and torch.is_grad_enabled():
+        what = ("the mamba1 trunk needs the scan's gradient"
+                if kind == "uniform_ssm" else "the hybrid trunk needs the"
+                " SSD layer's gradient and flash_attention's backward at"
+                f" D {cfg.resolved_head_dim}")
+        raise NotImplementedError(
+            f"{cfg.name}: training {what}, which is not ported yet; it"
+            " comes with slice 10 (ROADMAP queue 1)")
+    if kind == "hybrid":
+        return _hybrid_forward(cfg, params, x, positions, collect_cache,
+                               policy)
     if kind == "uniform_ssm":
-        if torch.is_grad_enabled():
-            raise NotImplementedError(
-                f"{cfg.name}: training the mamba1 trunk needs the scan's"
-                " gradient, which is not ported yet; it comes with slice 10"
-                " (ROADMAP queue 1)")
         states = []
         for p in params["blocks"].unstack():
             x, st = mamba_block(cfg, p, x)
             states.append(st)
-        caches = {"ssm": SSMState(*(torch.stack(t) for t in zip(*states)))}
+        caches = {"ssm": _stack_states(states, (len(states),))}
         return rms_norm(params["final_norm"], x, cfg.norm_eps), \
             (caches if collect_cache else None)
     blocks = {}
@@ -293,6 +317,52 @@ def trunk_forward(cfg: ArchConfig, params, x, positions, *,
     return rms_norm(params["final_norm"], x, cfg.norm_eps), caches
 
 
+def _stack_states(states, lead) -> SSMState:
+    """Stack per-layer ``SSMState``s into one of leading ``lead``."""
+    return SSMState(*(torch.stack(t).reshape(tuple(lead) + t[0].shape)
+                      for t in zip(*states)))
+
+
+def _hybrid_forward(cfg: ArchConfig, params, x, positions, collect_cache,
+                    policy):
+    """The hybrid trunk over a whole sequence: each group's mamba2 blocks,
+    then the shared attention block.  The caches, with
+    ``collect_cache``: the final states stacked (n_groups, group, ...)
+    and each application's roped K/V as ``attn_k``/``attn_v``."""
+    shared = params["shared_attn"]
+    states, ks, vs = [], [], []
+    groups = params["groups"].unstack(2)
+    for group in groups:
+        for p in group:
+            x, st = mamba_block(cfg, p, x)
+            states.append(st)
+        x, (k, v) = dense_block(cfg, shared, x, positions, policy=policy)
+        ks.append(k)
+        vs.append(v)
+    caches = None
+    if collect_cache:
+        n_groups = len(groups)
+        caches = {"ssm": _stack_states(states, (n_groups, len(groups[0]))),
+                  "attn_k": _stacked(ks, (n_groups,)),
+                  "attn_v": _stacked(vs, (n_groups,))}
+    return rms_norm(params["final_norm"], x, cfg.norm_eps), caches
+
+
+def _hybrid_trunk(cfg: ArchConfig, params, x, cache: Cache, mamba,
+                  attend) -> torch.Tensor:
+    """The hybrid trunk against the serving cache: group g's mamba2 blocks
+    each run ``mamba(p, x, state)`` on their state at (g, j) and write it
+    back; then the shared block ``attend(x, cache_k, cache_v)`` on the
+    group's own K/V, ``attn_k[g]``/``attn_v[g]``."""
+    conv, h = cache["ssm"]
+    for g, group in enumerate(params["groups"].unstack(2)):
+        for j, p in enumerate(group):
+            x, st = mamba(p, x, SSMState(conv[g, j], h[g, j]))
+            _store_state(cache, (g, j), st)
+        x = attend(x, _layer(cache["attn_k"], g), _layer(cache["attn_v"], g))
+    return rms_norm(params["final_norm"], x, cfg.norm_eps)
+
+
 def _attention_trunk(cfg: ArchConfig, params, x, cache: Cache, block,
                      full_pos) -> torch.Tensor:
     """Run ``block(p, x, cache_k, cache_v, cache_pos, window)`` over every
@@ -314,6 +384,15 @@ def trunk_decode(cfg: ArchConfig, params, x, position, cache: Cache, *,
     """One-token pass through all blocks, writing each layer's K/V row
     (ring layers at ``write_local``, slot-addressed on every engine) or
     (SSM) its state, the latter only on ``active`` rows."""
+    if _pattern(cfg) == "hybrid":
+        shared, pos = params["shared_attn"], _positions(cache, block_table)
+        return _hybrid_trunk(
+            cfg, params, x, cache,
+            lambda p, x, st: mamba_block_decode(cfg, p, x, st, active),
+            lambda x, ck, cv: dense_block_decode(
+                cfg, shared, x, position, ck, cv, pos, write_full,
+                policy=policy, kv_len=kv_len, active=active,
+                block_table=block_table))
     if _pattern(cfg) == "uniform_ssm":
         conv, h = cache["ssm"]
         for i, p in enumerate(params["blocks"].unstack()):
@@ -342,9 +421,17 @@ def trunk_prefill_chunk(cfg: ArchConfig, params, x, positions,
     SSM row carries its state through the chunk: the pad tail (position
     −1) is masked out of the recurrence and the conv window.  Ring layers
     attend ``[ring ∥ chunk]`` and then scatter the chunk's winners in."""
+    mask = positions >= 0
+    fill = mask.sum(dim=1, dtype=torch.int32)
+    if _pattern(cfg) == "hybrid":
+        shared, pos = params["shared_attn"], _positions(cache, block_table)
+        return _hybrid_trunk(
+            cfg, params, x, cache,
+            lambda p, x, st: mamba_block_chunk(cfg, p, x, st, mask, fill),
+            lambda x, ck, cv: dense_block_chunk(
+                cfg, shared, x, positions, ck, cv, pos, write_full,
+                policy=policy, kv_len=kv_len, block_table=block_table))
     if _pattern(cfg) == "uniform_ssm":
-        mask = positions >= 0
-        fill = mask.sum(dim=1, dtype=torch.int32)
         conv, h = cache["ssm"]
         for i, p in enumerate(params["blocks"].unstack()):
             x, st = mamba_block_chunk(cfg, p, x, SSMState(conv[i], h[i]),
@@ -567,6 +654,9 @@ def _cache_from_prefill(cfg: ArchConfig, caches, positions: torch.Tensor,
         return {"ssm": caches["ssm"]}
     if kind == "uniform_dense":
         cache = {"k": caches["k"], "v": caches["v"], "full_pos": positions}
+    elif kind == "hybrid":
+        cache = {"ssm": caches["ssm"], "attn_k": caches["attn_k"],
+                 "attn_v": caches["attn_v"], "full_pos": positions}
     else:
         src, has, local_pos = _ring_select(positions, cfg.sliding_window)
         cache = {key: _ring_from_prefill(caches[key], src, has)
@@ -579,9 +669,11 @@ def _cache_from_prefill(cfg: ArchConfig, caches, positions: torch.Tensor,
         cache["full_pos"] = positions
         cache["local_pos"] = local_pos
     # quantized after the ring is gathered (a gather commutes with the
-    # per-entry quantization), so one path covers every layout
-    return {key: (maybe_quant_kv(policy, val) if not key.endswith("_pos")
-                  else val.contiguous())
+    # per-entry quantization), so one path covers every layout; the SSM
+    # state stays float
+    return {key: (maybe_quant_kv(policy, val)
+                  if key.split("_")[-1] in ("k", "v")
+                  else val if key == "ssm" else val.contiguous())
             for key, val in cache.items()}
 
 
@@ -596,7 +688,7 @@ def grow_cache(cfg: ArchConfig, cache: Cache, extra: int) -> Cache:
     (zeros, positions −1), to decode into; rings and SSM states keep their
     size."""
     out = dict(cache)
-    for key in ("k", "v", "global_k", "global_v"):
+    for key in ("k", "v", "global_k", "global_v", "attn_k", "attn_v"):
         if key in out:
             leaf = out[key]
             out[key] = (Int8KV(_grow_axis(leaf.q, -3, extra),

@@ -3,7 +3,8 @@ static engines are built on, and the **paged KV pool** (block table +
 ``BlockManager``) the paged engine is built on.
 
 The counterpart of ``repro.serve.kvcache`` for the uniform dense decoder,
-the local:global sliding-window trunk and the uniform mamba1 trunk:
+the local:global sliding-window trunk, the uniform mamba1 trunk and the
+hybrid trunk (zamba2):
 
 * ``kv_cache_bytes``      — footprint arithmetic.
 * ``alloc_decode_cache``  — zero-filled ``slots`` x ``capacity`` decode
@@ -11,7 +12,8 @@ the local:global sliding-window trunk and the uniform mamba1 trunk:
                             from the config's shapes; with an int8 policy
                             the K/V leaves are ``Int8KV`` pairs.  The SSM
                             cache is one ``SSMState`` of (conv, h) with a
-                            slot axis and no positions.
+                            slot axis and no positions; the hybrid trunk's
+                            sits beside its shared block's K/V.
 * ``take_slot`` / ``put_slot`` / ``release_slot`` — the slot API.  Where the
   JAX package slices and splices immutable arrays, ``take_slot`` returns
   **views** of one slot's row, so a chunk step run on them writes straight
@@ -51,18 +53,27 @@ from repro_torch.models.ssm import SSMState
 Cache = Dict[str, object]
 
 # slot (batch) axis of each leaf of a slot-addressed decode cache: the
-# uniform dense decoder's, the uniform mamba1 trunk's (conv and h), and the
+# uniform dense decoder's, the uniform mamba1 trunk's (conv and h), the
 # local:global trunk's (rings stacked (groups, ratio, B, w, ...) and
-# (tail, B, w, ...), full-attention leaves (groups, B, S, ...))
-SLOT_AXES = {"k": 1, "v": 1, "full_pos": 0, "ssm": 1,
+# (tail, B, w, ...), full-attention leaves (groups, B, S, ...)), and the
+# hybrid trunk's shared-block K/V (groups, B, S, ...).  The SSM state's is
+# the axis before its conv window's (d_conv − 1, d_inner): 1 for the
+# mamba1 trunk's (L, B, ...), 2 for the hybrid's (groups, group, B, ...)
+SLOT_AXES = {"k": 1, "v": 1, "full_pos": 0,
              "local_k": 2, "local_v": 2, "tail_k": 1, "tail_v": 1,
-             "global_k": 1, "global_v": 1, "local_pos": 0}
+             "global_k": 1, "global_v": 1, "local_pos": 0,
+             "attn_k": 1, "attn_v": 1}
+
+
+def _slot_axis(key: str, leaf) -> int:
+    return leaf.conv.dim() - 3 if key == "ssm" else SLOT_AXES[key]
 
 # the leaves that live in the paged pool, by layer pattern: the
 # full-attention K/V; the rings and the SSM state are slot-addressed on
 # every engine (O(window) or O(state) a slot, no capacity tail to reclaim)
 _PAGED_KEYS = {"uniform_dense": ("k", "v"), "uniform_ssm": (),
-               "local_global": ("global_k", "global_v")}
+               "local_global": ("global_k", "global_v"),
+               "hybrid": ("attn_k", "attn_v")}
 
 
 def kv_cache_bytes(cfg: ArchConfig, batch: int, seq_len: int,
@@ -150,6 +161,22 @@ def _ring_leaves(cfg: ArchConfig, slots: int, device, policy) -> Cache:
     return leaves
 
 
+def _ssm_state(cfg: ArchConfig, lead: Tuple[int, ...], device) -> SSMState:
+    """A zero SSM state of leading axes ``lead`` (layers..., slots): conv
+    (d_conv − 1, d_inner) in the activation dtype; h in f32, mamba1's
+    (d_inner, ssm_state), mamba2's (ssm_heads, d_inner // ssm_heads,
+    ssm_state)."""
+    if cfg.ssm_variant == "mamba2":
+        nh = cfg.resolved_ssm_heads
+        h = (nh, cfg.d_inner // nh, cfg.ssm_state)
+    else:
+        h = (cfg.d_inner, cfg.ssm_state)
+    return SSMState(
+        torch.zeros(lead + (cfg.d_conv - 1, cfg.d_inner),
+                    dtype=cfg.activation_dtype, device=device),
+        torch.zeros(lead + h, dtype=torch.float32, device=device))
+
+
 def alloc_decode_cache(cfg: ArchConfig, slots: int, capacity: int,
                        device: Union[str, torch.device, None] = None,
                        policy: Optional[PrecisionPolicy] = None) -> Cache:
@@ -162,28 +189,48 @@ def alloc_decode_cache(cfg: ArchConfig, slots: int, capacity: int,
     size whatever the capacity.  The uniform mamba1 trunk's is ``{"ssm":
     SSMState(conv (L, slots, d_conv − 1, d_inner) in the activation dtype,
     h (L, slots, d_inner, ssm_state) f32)}``, zeros under every policy,
-    independent of ``capacity``."""
-    kind = _pattern(cfg)
+    independent of ``capacity``.  The hybrid trunk's is the ``ssm`` state
+    stacked (n_groups, group, slots, ...), mamba2's h (slots, ssm_heads,
+    d_inner // ssm_heads, ssm_state), beside the shared block's
+    ``attn_k``/``attn_v`` (n_groups, slots, capacity, Hkv, D) and
+    ``full_pos``."""
     device = resolve_device(device)
+    return {**_slot_leaves(cfg, slots, device, policy),
+            **_full_leaves(cfg, slots, capacity, device, policy, "full_pos")}
+
+
+def _slot_leaves(cfg: ArchConfig, slots: int, device, policy) -> Cache:
+    """The leaves that are slot-addressed on every engine: the rings of
+    the local:global trunk, the SSM state of the mamba1 and hybrid
+    trunks."""
+    kind = _pattern(cfg)
+    pat = layer_pattern(cfg)
+    if kind == "local_global":
+        return _ring_leaves(cfg, slots, device, policy)
     if kind == "uniform_ssm":
-        lead = (cfg.n_layers, slots)
-        return {"ssm": SSMState(
-            torch.zeros(lead + (cfg.d_conv - 1, cfg.d_inner),
-                        dtype=cfg.activation_dtype, device=device),
-            torch.zeros(lead + (cfg.d_inner, cfg.ssm_state),
-                        dtype=torch.float32, device=device))}
-    row = (slots, capacity, cfg.n_kv_heads, cfg.resolved_head_dim)
-    full_pos = torch.full((slots, capacity), -1, dtype=torch.int32,
-                          device=device)
-    if kind == "uniform_dense":
-        return {"k": _kv_leaf((cfg.n_layers,) + row, cfg, device, policy),
-                "v": _kv_leaf((cfg.n_layers,) + row, cfg, device, policy),
-                "full_pos": full_pos}
-    lead = (layer_pattern(cfg)["n_groups"],)
-    return {**_ring_leaves(cfg, slots, device, policy),
-            "global_k": _kv_leaf(lead + row, cfg, device, policy),
-            "global_v": _kv_leaf(lead + row, cfg, device, policy),
-            "full_pos": full_pos}
+        return {"ssm": _ssm_state(cfg, (cfg.n_layers, slots), device)}
+    if kind == "hybrid":
+        return {"ssm": _ssm_state(cfg, (pat["n_groups"], pat["group"], slots),
+                                  device)}
+    return {}
+
+
+def _full_leaves(cfg: ArchConfig, outer: int, rows: int, device, policy,
+                 pos_key: str) -> Cache:
+    """The full-attention K/V leaves (those a paged cache pools), stacked
+    over their layers, of ``outer`` slots (or pool blocks) of ``rows``
+    entries, and their positions at −1 under ``pos_key``; nothing for
+    the pure mamba1 trunk."""
+    keys = _PAGED_KEYS[_pattern(cfg)]
+    if not keys:
+        return {}
+    pat = layer_pattern(cfg)
+    lead = (pat.get("n_layers") or pat["n_groups"],)
+    shape = lead + (outer, rows, cfg.n_kv_heads, cfg.resolved_head_dim)
+    leaves: Cache = {k: _kv_leaf(shape, cfg, device, policy) for k in keys}
+    leaves[pos_key] = torch.full((outer, rows), -1, dtype=torch.int32,
+                                 device=device)
+    return leaves
 
 
 def _tensors(leaf) -> Tuple[torch.Tensor, ...]:
@@ -210,7 +257,7 @@ def take_slot(big_cache: Cache, slot: int, pooled: Sequence[str] = ()
     """Slot ``slot``'s row of the big cache as a batch-1 cache of **views**:
     writes to it land in the big cache.  Leaves named in ``pooled`` (a
     paged cache's pool, shared by every slot) are passed whole."""
-    return {key: t if key in pooled else _row(t, SLOT_AXES[key], slot)
+    return {key: t if key in pooled else _row(t, _slot_axis(key, t), slot)
             for key, t in big_cache.items()}
 
 
@@ -220,7 +267,7 @@ def put_slot(big_cache: Cache, small_cache: Cache, slot: int) -> Cache:
     ``alloc_decode_cache(cfg, 1, ...)`` resets the slot for admission
     (positions −1, SSM state zeroed)."""
     for key, leaf in small_cache.items():
-        rows = _tensors(_row(big_cache[key], SLOT_AXES[key], slot))
+        rows = _tensors(_row(big_cache[key], _slot_axis(key, leaf), slot))
         for dst, src in zip(rows, _tensors(leaf)):
             dst.copy_(src)
     return big_cache
@@ -243,8 +290,9 @@ def release_slot(big_cache: Cache, slot: int) -> Cache:
 def paged_cache_keys(cfg: ArchConfig) -> Tuple[str, ...]:
     """Cache keys that live in the paged pool: the full-attention K/V
     leaves (``k``/``v`` of the uniform dense decoder, ``global_k``/
-    ``global_v`` of the local:global trunk), and nothing of the pure
-    mamba1 trunk, whose state is slot-addressed."""
+    ``global_v`` of the local:global trunk, ``attn_k``/``attn_v`` of the
+    hybrid trunk's shared block), and nothing of the pure mamba1 trunk,
+    whose state is slot-addressed."""
     return _PAGED_KEYS[_pattern(cfg)]
 
 
@@ -260,23 +308,18 @@ def alloc_paged_cache(cfg: ArchConfig, slots: int, capacity: int,
     is at least 8.  The uniform dense decoder has no slot-addressed leaf,
     so ``slots`` sizes nothing there; the local:global trunk keeps its
     ``slots`` rings (``_ring_leaves``) beside its pooled ``global_k``/
-    ``global_v``; the pure mamba1 trunk pages nothing, and its cache is
-    the ``slots``-row SSM state of ``alloc_decode_cache``.  The block
-    table is host state of the server."""
-    keys = paged_cache_keys(cfg)
+    ``global_v``; the hybrid trunk its ``slots``-row SSM state beside its
+    pooled ``attn_k``/``attn_v``; the pure mamba1 trunk pages nothing, and
+    its cache is the ``slots``-row SSM state of ``alloc_decode_cache``.
+    The block table is host state of the server."""
     bs = block_size or kv_block_size(capacity)
     if capacity % bs or bs < 8:
         raise ValueError(f"block size {bs} must divide capacity {capacity}"
                          " and be >= 8")
-    if not keys:
-        return alloc_decode_cache(cfg, slots, capacity, device, policy)
     device = resolve_device(device)
-    pool = alloc_decode_cache(cfg, num_blocks, bs, device, policy)
-    cache = (_ring_leaves(cfg, slots, device, policy)
-             if _pattern(cfg) == "local_global" else {})
-    cache.update({k: pool[k] for k in keys})
-    cache["pool_pos"] = pool["full_pos"]
-    return cache
+    # a pool is a cache of num_blocks slots of BS rows
+    return {**_slot_leaves(cfg, slots, device, policy),
+            **_full_leaves(cfg, num_blocks, bs, device, policy, "pool_pos")}
 
 
 def abstract_paged_cache(cfg: ArchConfig, slots: int, capacity: int,

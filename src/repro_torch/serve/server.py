@@ -536,9 +536,10 @@ class PagedBatchServer(ContinuousBatchServer):
     mamba1 trunk pages nothing, so there the engine is plain continuous
     batching with the pool bookkeeping off (no blocks, no prefix sharing,
     nothing to preempt for).  Prefix sharing needs every layer's state in
-    the pool, so only the uniform dense decoder shares; a ring trunk
-    pages and preempts (re-prefilling rebuilds its rings) but shares no
-    prefix.
+    the pool, so only the uniform dense decoder shares; a ring trunk, or
+    the hybrid trunk (its shared block's K/V paged, its SSM states not),
+    pages and preempts (re-prefilling rebuilds its rings or states) but
+    shares no prefix.
 
     The other options are those of ``ContinuousBatchServer``.
     """
@@ -589,8 +590,7 @@ class PagedBatchServer(ContinuousBatchServer):
             self.device, self.prec, self.block_size)
         # pool leaves need no scrub, since a new tenant's writes precede
         # its kv_len; the slot-addressed leaves (rings, ring positions, the
-        # mamba1 trunk's state) are reset at admission as in the contiguous
-        # engine
+        # SSM states) are reset at admission as in the contiguous engine
         pooled = set(self.paged_keys) | {"pool_pos"}
         self._empty_row = {
             k: v for k, v in alloc_paged_cache(

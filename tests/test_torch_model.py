@@ -59,10 +59,10 @@ def test_arch_config_matches_jax(getter):
 
 
 def test_unported_arch_raises():
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        tconfigs.get("zamba2-2.7b")
-    with pytest.raises(NotImplementedError, match="slice"):
-        tconfigs.get_smoke("dbrx-132b")
+    with pytest.raises(NotImplementedError, match="slice 9"):
+        tconfigs.get("dbrx-132b")
+    with pytest.raises(NotImplementedError, match="slice 9"):
+        tconfigs.get_smoke("qwen2-vl-72b")
 
 
 def test_init_params_tree_matches_jax():

@@ -135,7 +135,7 @@ def test_registry_matches_jax():
     assert list(got) == list(want) == treg.list_architectures()
     ported = [a for a in got if tconfigs.comes_with(a) is None]
     assert sorted(ported) == ["falcon-mamba-7b", "gemma3-4b", "granite-3-8b",
-                              "internlm2-1.8b", "llama3.2-3b"]
+                              "internlm2-1.8b", "llama3.2-3b", "zamba2-2.7b"]
     for arch in got:
         if arch in ported:
             assert got[arch] == want[arch], arch
