@@ -249,10 +249,37 @@ equal the eager run's launches, one replay a decode step (or call).
    artifact's logits must equal the artifact's before saving, and the
    eager int8 logits within ``KWS_LOGIT_ATOL``.
 
-Phases 10, 11 and 12 run before phase 9.  Each main path (phases 3, 5
+13. The MoE decoders at full width, bf16, seeded weights, depth cut to
+   fit the card (``MOE_LAYERS``): phi3.5-moe-42b-a6.6b at 24 of its 32
+   layers (d_model 4096, 32/8 heads of 128, 16 experts of d_ff 6400, top
+   2; 31,475,830,784 parameters, 58.6 GiB) serves phase 3's requests
+   through ``ContinuousBatchServer`` (float) and phase 5's shared-prefix
+   requests through ``PagedBatchServer`` (int8, a pool of 16 blocks; the
+   prefix cache must hit), each held to its launch counts (``int8_matmul``
+   4 a layer: the experts stay float); its logits against the plain path
+   on copies of the cache as in phase 3, with the expert choices of every
+   MoE call of both paths compared and counted; a profile of its decode
+   and chunk steps.  dbrx-132b at 8 of its 40 layers (d_model 6144, 48/8
+   heads: G 6, 16 experts of d_ff 10752, top 4; 27,305,809,920
+   parameters) serves phase 3's requests (float), its logits against the
+   plain path, and is prefilled in one shot at B 1, S 2,048 against the
+   chunked path, each side's dropped rows reported (the one-shot call
+   routes T = 2,048 rows a layer, a chunk 64, so their capacities
+   differ).  phi3.5-moe at 2 layers trains 3 steps of B 1 x S 2,048 (f32
+   masters, AdamW, remat "full"): step ms, losses, peak memory, the
+   attention kernels' launches.  The exact oracle: a small float32 config
+   of each (head dim 128, G 4 and G 6) on the card gives the CPU's tokens
+   (continuous; int8 paged, preempting; one-shot prefill), and its decode
+   step captured as a CUDA graph gives the eager tokens.  Phase 2 holds
+   both serving kernels at G 6 (contiguous and paged with blocks of 64,
+   float and int8), ``int8_matmul`` at the MoE decoders' attention
+   projections (K 4,096 and 6,144) and both training attention kernels at
+   B 1, S 2,048, 32/8 and 48/8 heads.
+
+Phases 10 to 13 run before phase 9.  Each main path (phases 3, 5
 paged and calibrated, 6 inference and fit, 7, 8, their artifact runs, 9,
-10, 11 and 12) runs with every launch count set to 0 just before it and
-read just after.  Prints the kernels' JSON line, the card's
+10, 11, 12 and 13) runs with every launch count set to 0 just before it
+and read just after.  Prints the kernels' JSON line, the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.  Needs
 one GPU; exits non-zero without one, or without the rest of the
 repository beside it.
@@ -366,7 +393,11 @@ FA_CASES = {"train_b4_s2048": (4, 2048, 16, 8, 128, True, 0),
             "ragged_s1000": (4, 1000, 16, 8, 128, True, 0),
             "full_s2048": (4, 2048, 16, 8, 128, False, 0),
             "window256_s2048": (4, 2048, 16, 8, 128, True, 256),
-            "d64_s2048": (4, 2048, 16, 8, 64, True, 0)}
+            "d64_s2048": (4, 2048, 16, 8, 64, True, 0),
+            # phase 13: phi3.5-moe's training (32/8 heads, G 4) and
+            # dbrx-132b's one-shot prefill (48/8 heads, G 6), B 1 x S 2048
+            "g4_b1_s2048": (1, 2048, 32, 8, 128, True, 0),
+            "g6_b1_s2048": (1, 2048, 48, 8, 128, True, 0)}
 # the query tile of the bf16 dK/dV pass (kTile in flash_attention.cu)
 FA_FAULT_CASE, FA_TILE_Q = "train_b4_s2048", 64
 # the kernels of the bf16 path (the f32 CUDA-core kernels are named
@@ -799,13 +830,17 @@ def check_layouts(ops, ref, Int8KV):
 # with every slot full)).  gemma3-4b's global layers read a contiguous
 # cache of its capacity (max_prompt 1536 + 32 new tokens, rounded to
 # 1,600), its local layers a ring of 1,024 (a chunk: [ring ∥ chunk]);
-# llama3.2-3b and granite-3-8b are phase 3's shapes at G 3 and G 4;
+# llama3.2-3b and granite-3-8b are phase 3's shapes at G 3 and G 4
+# (phi3.5-moe's too); dbrx-132b's (phase 13) at G 6, contiguous and
+# paged, a chunk of 64 then 384 rows a KV head;
 # zamba2-2.7b's shared block (phase 12) has 32/32 heads of 80 over phase
 # 3's capacity of 576.
 SLICE_LAYOUTS = {"d256_g2": ((4, 2, 256), 1600, "contiguous"),
                  "d256_g2_ring": ((4, 2, 256), 1024, "ring"),
                  "d128_g3": ((8, 3, 128), 576, "contiguous"),
                  "d128_g4": ((8, 4, 128), 576, "contiguous"),
+                 "d128_g6": ((8, 6, 128), 576, "contiguous"),
+                 "d128_g6_paged_bs64": ((8, 6, 128), 576, "paged64"),
                  "d80_g1": ((32, 1, 80), 576, "contiguous"),
                  "d80_g1_paged_bs64": ((32, 1, 80), 576, "paged64"),
                  "d80_g1_full": ((32, 1, 80), 576, "full")}
@@ -919,6 +954,12 @@ def check_int8_matmul(ops, ref, im):
     # gemma3's
     shapes += [(4, 10240, 2560), (64, 10240, 2560), (4, 2560, 2560),
                (64, 2560, 2560), (4, 2560, 10240), (64, 2560, 10240)]
+    # the MoE decoders' attention projections (phase 13, int8; the experts
+    # stay float): phi3.5-moe's q/o (4096, 4096) and k/v (4096, 1024),
+    # dbrx-132b's (6144, 6144) and (6144, 1024)
+    shapes += [(m, k, n) for k, n in ((4096, 4096), (4096, 1024),
+                                      (6144, 6144), (6144, 1024))
+               for m in (4, 64)]
     for m, k, n in shapes + [(5, 200, 300)]:
         x = torch.randint(-127, 128, (m, k), generator=gen, device=DEV,
                           dtype=torch.int8)
@@ -1818,8 +1859,26 @@ def logits_vs_plain(port, cfg, params, atol, greedy_min, paths,
     compared rows.  Where the paths have one, the same steps through the
     plain path in float64 (attention rounded once) give the noise floor of
     both measures: what a difference of summation order alone does to the
-    logits."""
+    logits.
+
+    An MoE config's plain paths take the kernel path's expert ids and
+    drops, call for call (``MoEPin``): a choice that flips on a near tie
+    would send the rows on different trajectories, and the logits would
+    then differ by what the random experts make of it, not by the
+    kernels' error.  Each plain path's own choices are counted where they
+    differ from the ids it took."""
     wiring = paths.wiring
+    pins = {key: MoEPin(port) for key in ("kernel", "plain", "plain64")} \
+        if cfg.is_moe else None
+
+    def pinned(key):
+        if pins is None:
+            return contextlib.nullcontext()
+        if key == "kernel":
+            return pins[key].patch()
+        kernel = pins["kernel"]
+        return pins[key].patch(lambda i: kernel.ids[i],
+                               lambda i: kernel.keeps[i])
 
     def ints(a):
         return torch.as_tensor(np.asarray(a, np.int32), device=DEV)
@@ -1860,9 +1919,9 @@ def logits_vs_plain(port, cfg, params, atol, greedy_min, paths,
         for name, make in runs:
             run = make()
             copy, copy64 = Steps.copy(cache), Steps.copy(cache)
-            with patched(paths.kernel):
+            with patched(paths.kernel), pinned("kernel"):
                 got = run(cache).float()
-            with patched(paths.plain):
+            with patched(paths.plain), pinned("plain"):
                 want = run(copy).float()
             for key in cache:
                 if key.endswith("_pos"):
@@ -1874,13 +1933,24 @@ def logits_vs_plain(port, cfg, params, atol, greedy_min, paths,
                 fill=[fill[1], fill[3]],
                 max_abs_gap=float((got - want).abs().max()),
                 logit_std=float(want.std()), argmax_equal=int(same.sum())))
+            if pins is not None:
+                check(len(pins["kernel"].ids) == len(pins["plain"].ids)
+                      == cfg.n_layers and pins["plain"].count("unmatched")
+                      == 0, f"{name}: the plain path's routing not pinned")
+                readings[-1].update(
+                    routing_choices=pins["plain"].count("choices"),
+                    routing_differ=pins["plain"].count("differ"),
+                    rows_dropped=pins["kernel"].drops()[0])
             if paths.plain64 is not None:
-                with patched(paths.plain64):
+                with patched(paths.plain64), pinned("plain64"):
                     alt = run(copy64).float()
                 readings[-1].update(
                     f64_gap=float((alt - want).abs().max()),
                     f64_argmax_equal=int((alt.argmax(-1) == want.argmax(-1))
                                          .sum()))
+                if pins is not None:
+                    readings[-1]["f64_routing_differ"] = \
+                        pins["plain64"].count("differ")
             print("  logits " + json.dumps(readings[-1]))
     worst_gap = max(r["max_abs_gap"] for r in readings)
     equal = sum(r["argmax_equal"] for r in readings)
@@ -1889,6 +1959,14 @@ def logits_vs_plain(port, cfg, params, atol, greedy_min, paths,
           f" {len(readings)} steps (atol {atol}); greedy tokens equal"
           f" on {equal} of {rows} rows; every layer's kernel call within"
           f" {json.dumps(wiring)} of the kernel limit")
+    if pins is not None:
+        print(f"  routing (the plain paths take the kernel path's expert"
+              f" ids): the plain path's own top k differs in"
+              f" {sum(r['routing_differ'] for r in readings)} of"
+              f" {sum(r['routing_choices'] for r in readings)} choices"
+              f" (every row of every MoE layer, pad rows and idle slots"
+              f" too), the float64 path's in"
+              f" {sum(r.get('f64_routing_differ', 0) for r in readings)}")
     if paths.plain64 is not None:
         print(f"  noise floor, plain f32 vs plain f64 attention: largest gap"
               f" {max(r['f64_gap'] for r in readings):.4g}, greedy tokens"
@@ -2015,6 +2093,18 @@ def profile_step(name: str, step, n: int, quiet: bool = False) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 5: the int8 paged path
 # ---------------------------------------------------------------------------
+def shared_prefix_prompts(cfg) -> list:
+    """Phase 5's eight prompts (seeded): four share a 256-token prefix."""
+    rng = np.random.RandomState(0)
+    prefix = rng.randint(0, cfg.vocab_size, 256).astype(np.int32)
+    spec = [(True, 44), (False, 450), (False, 512), (False, 200),
+            (True, 100), (True, 37), (True, 150), (False, 64)]
+    return [np.concatenate([prefix, rng.randint(0, cfg.vocab_size, n)
+                            .astype(np.int32)]) if shared
+            else rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+            for shared, n in spec]
+
+
 def serve_int8_paged(port, cfg, params):
     """Full-width int8 serving through ``PagedBatchServer`` with a pool
     that preempts and prompts that share a prefix; returns the server (its
@@ -2026,14 +2116,7 @@ def serve_int8_paged(port, cfg, params):
     warm.run()
     del warm
 
-    rng = np.random.RandomState(0)
-    prefix = rng.randint(0, cfg.vocab_size, 256).astype(np.int32)
-    spec = [(True, 44), (False, 450), (False, 512), (False, 200),
-            (True, 100), (True, 37), (True, 150), (False, 64)]
-    prompts = [np.concatenate([prefix, rng.randint(0, cfg.vocab_size, n)
-                               .astype(np.int32)]) if shared
-               else rng.randint(0, cfg.vocab_size, n).astype(np.int32)
-               for shared, n in spec]
+    prompts = shared_prefix_prompts(cfg)
     srv = port.server.PagedBatchServer(cfg, params, pool_blocks=16, **kw)
     check((srv.capacity, srv.block_size, srv.n_table) == (576, 64, 9),
           f"capacity/block/table {srv.capacity}/{srv.block_size}/"
@@ -2952,15 +3035,17 @@ def attention_layers(port, cfg) -> int:
     return pat["n_groups"] if pat["kind"] == "hybrid" else cfg.n_layers
 
 
-def serve_run(port, cfg, srv, lens):
-    """Prompts of ``lens`` tokens (seeded), 32 new tokens each, through
-    ``srv``: every request returns 32 tokens in the padded vocabulary, and
-    each kernel's launches equal what the step counts imply (attention:
-    attention layers x steps; int8: ``int8_matmul`` 7 x attention layers
-    x steps).  Returns the launches, metrics and tokens."""
-    rng = np.random.RandomState(0)
-    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
-               for n in lens]
+def serve_run(port, cfg, srv, lens, prompts=None):
+    """Prompts of ``lens`` tokens (seeded; or ``prompts``), 32 new tokens
+    each, through ``srv``: every request returns 32 tokens in the padded
+    vocabulary, and each kernel's launches equal what the step counts
+    imply (attention: attention layers x steps; int8: ``int8_matmul`` 7 x
+    attention layers x steps, 4 in an MoE block, whose experts stay
+    float).  Returns the launches, metrics and tokens."""
+    if prompts is None:
+        rng = np.random.RandomState(0)
+        prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in lens]
     reqs = srv.submit(prompts)
     reset_counts(port)
     torch.cuda.synchronize()
@@ -2978,7 +3063,7 @@ def serve_run(port, cfg, srv, lens):
     want.update(flash_decode=n_attn * metrics["decode_steps"],
                 flash_chunk_prefill=n_attn * metrics["prefill_chunks"])
     if srv.precision == "int8":
-        want["int8_matmul"] = 7 * n_attn * steps
+        want["int8_matmul"] = (4 if cfg.is_moe else 7) * n_attn * steps
     name = f"{cfg.name} {type(srv).__name__} {srv.precision}"
     check(launches == want, f"{name}: launches {launches} != what the"
           f" steps imply {want}")
@@ -3064,10 +3149,35 @@ def prefill_vs_chunked(port, cfg, params, prompts, limits=PREFILL_LIMITS):
     b, s = len(prompts), len(prompts[0])
     toks = torch.as_tensor(np.stack(prompts), device=DEV)
     step = port.serve_step.make_prefill_step(cfg)
+    # MoE: the chunked path and the engine's chunks take the one-shot
+    # call's expert ids and drops, the teacher-forced decode the engine's
+    # (``MoEPin``; B 1, whole chunks); a free chunked run is reported
+    pins = {key: MoEPin(port) for key in ("oneshot", "chunked", "engine",
+                                          "decode", "free")} \
+        if cfg.is_moe else {}
+    check(not pins or (b == 1 and s % 64 == 0), f"MoE prefill at B {b}, S"
+          f" {s}: the routing is pinned for B 1 and whole chunks only")
+    n_layers, n_chunks, k = cfg.n_layers, s // 64, cfg.experts_per_tok
+
+    def pinned(key, source=None):
+        if not pins:
+            return contextlib.nullcontext()
+        if source is None:
+            return pins[key].patch()
+        return pins[key].patch(*source)
+
+    def oneshot_rows(j, rec, width):
+        c = j // n_layers
+        if c >= n_chunks:
+            return None
+        return rec[j % n_layers][64 * width * c:64 * width * (c + 1)]
+    from_oneshot = (lambda j: oneshot_rows(j, pins["oneshot"].ids, 1),
+                    lambda j: oneshot_rows(j, pins["oneshot"].keeps, k))
     reset_counts(port)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    nxt, logits, cache = step(params, {"tokens": toks})
+    with pinned("oneshot"):
+        nxt, logits, cache = step(params, {"tokens": toks})
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     launches = read_counts(port)
@@ -3076,47 +3186,65 @@ def prefill_vs_chunked(port, cfg, params, prompts, limits=PREFILL_LIMITS):
     check(launches == want, f"prefill launches {launches} != {want}")
 
     kc, ss = port.kvcache, port.serve_step
-    chunked = kc.alloc_decode_cache(cfg, b, s + 64, DEV)
     chunk_step = ss.make_chunk_prefill_step(cfg)
-    last = []
-    for i in range(b):
-        for p in range(0, s, 64):
-            c = min(64, s - p)
-            tk = torch.zeros((1, 64), dtype=torch.int32, device=DEV)
-            ps = torch.full((1, 64), -1, dtype=torch.int32, device=DEV)
-            tk[0, :c] = toks[i, p:p + c]
-            ps[0, :c] = torch.arange(p, p + c, dtype=torch.int32, device=DEV)
-            kvl = torch.tensor([p + 64], dtype=torch.int32, device=DEV)
-            _, lg, _ = chunk_step(params, chunked, tk, ps, i, kvl)
-        last.append(lg[0, c - 1])
-    logit_gap = float((logits.float() - torch.stack(last).float())
-                      .abs().max())
-    cache_gap, state_gap, cache_max = 0.0, 0.0, 0.0
-    for key, leaf in cache.items():
-        other = chunked[key]
-        if key == "ssm":
-            state_gap = max(float((a.float() - b.float()).abs().max())
-                            for a, b in zip(leaf, other))
-            continue
-        if key.endswith("_pos"):
-            check(torch.equal(leaf, other[..., :leaf.shape[-1]]),
-                  f"prefill {key} differs from the chunked path's")
-            continue
-        rows = leaf.shape[-3]
-        want = other[..., :rows, :, :].float()
-        cache_gap = max(cache_gap, float((leaf.float() - want).abs().max()))
-        cache_max = max(cache_max, float(want.abs().max()))
+
+    def chunked_path():
+        """Each prompt's chunk steps into its slot: the cache and the
+        last-token logits."""
+        chunked = kc.alloc_decode_cache(cfg, b, s + 64, DEV)
+        last = []
+        for i in range(b):
+            for p in range(0, s, 64):
+                c = min(64, s - p)
+                tk = torch.zeros((1, 64), dtype=torch.int32, device=DEV)
+                ps = torch.full((1, 64), -1, dtype=torch.int32, device=DEV)
+                tk[0, :c] = toks[i, p:p + c]
+                ps[0, :c] = torch.arange(p, p + c, dtype=torch.int32,
+                                         device=DEV)
+                kvl = torch.tensor([p + 64], dtype=torch.int32, device=DEV)
+                _, lg, _ = chunk_step(params, chunked, tk, ps, i, kvl)
+            last.append(lg[0, c - 1])
+        return chunked, torch.stack(last)
+
+    def gaps(chunked, last):
+        """(logit gap, K/V gap, K/V largest value, SSM state gap) against
+        the one-shot call; the positions must be equal."""
+        cache_gap, state_gap, cache_max = 0.0, 0.0, 0.0
+        for key, leaf in cache.items():
+            other = chunked[key]
+            if key == "ssm":
+                state_gap = max(float((a.float() - b.float()).abs().max())
+                                for a, b in zip(leaf, other))
+                continue
+            if key.endswith("_pos"):
+                check(torch.equal(leaf, other[..., :leaf.shape[-1]]),
+                      f"prefill {key} differs from the chunked path's")
+                continue
+            rows = leaf.shape[-3]
+            want = other[..., :rows, :, :].float()
+            cache_gap = max(cache_gap,
+                            float((leaf.float() - want).abs().max()))
+            cache_max = max(cache_max, float(want.abs().max()))
+        logit_gap = float((logits.float() - last.float()).abs().max())
+        return logit_gap, cache_gap, cache_max, state_gap
+
+    with pinned("chunked", from_oneshot):
+        logit_gap, cache_gap, cache_max, state_gap = gaps(*chunked_path())
 
     srv = port.server.ContinuousBatchServer(
         cfg, params, slots=b, prefill_chunk=64, max_prompt=s,
         max_new_tokens=32, device=DEV)
     reqs = srv.submit(list(prompts))
-    srv.run()
+    with pinned("engine", from_oneshot):
+        srv.run()
     engine = torch.tensor([r.tokens for r in reqs], device=DEV)
     grown = port.transformer.grow_cache(cfg, cache, 33)
     got = [nxt]
     fns = port.api.model_fns(cfg)
-    with torch.no_grad():
+    skip = n_chunks * n_layers
+    from_engine = (lambda j: pins["engine"].ids[skip + j],
+                   lambda j: pins["engine"].keeps[skip + j])
+    with torch.no_grad(), pinned("decode", from_engine):
         for t in range(31):
             pos = torch.full((b,), s + t, dtype=torch.int32, device=DEV)
             lg, grown = fns.forward_decode(cfg, params, grown,
@@ -3129,6 +3257,28 @@ def prefill_vs_chunked(port, cfg, params, prompts, limits=PREFILL_LIMITS):
                    prefill_s=prefill_s)
     if "ssm" in cache:
         reading["state_gap"] = state_gap
+    if pins:
+        # T = B x S rows a layer against T = 64 a chunk: the capacities
+        # differ, so where the one-shot call drops rows the free chunked
+        # path, which drops its own, differs, and near ties flip its
+        # choices; the pinned paths take the one-shot call's
+        with pinned("free"):
+            free = gaps(*chunked_path())
+        free_ids = pins["free"].ids
+        reading.update(
+            oneshot_dropped_routed=pins["oneshot"].drops(),
+            chunked_dropped_routed=pins["chunked"].drops(),
+            free_dropped_routed=pins["free"].drops(),
+            free_logit_gap=free[0], free_cache_gap=free[1],
+            free_routing_differ=sum(
+                int((free_ids[j] != from_oneshot[0](j)).sum())
+                for j in range(len(free_ids))),
+            **{f"routing_{key}": [pins[key].count("differ"),
+                                  pins[key].count("choices")]
+               for key in ("chunked", "engine", "decode")})
+        check(all(pins[key].count("unmatched") == 0
+                  for key in ("chunked", "engine", "decode")),
+              "a pinned path dropped a row the one-shot call kept")
     print("  prefill " + json.dumps(reading))
     check(logit_gap <= limits["logit"], f"prefill logits: {logit_gap}")
     check(cache_gap <= limits["cache"], f"prefill cache: {cache_gap}")
@@ -3137,6 +3287,62 @@ def prefill_vs_chunked(port, cfg, params, prompts, limits=PREFILL_LIMITS):
     check(equal >= limits["greedy"] * b * 32,
           f"prefill greedy tokens equal on only {equal} of {b * 32}")
     return launches, reading
+
+
+class MoEPin:
+    """The MoE layers' routing and capacity drops in one run, recorded or
+    taken from another run: inside ``patch(ids, keeps)`` the i-th
+    ``route_topk`` call returns the expert ids ``ids(i)`` gives (its own
+    where ``ids`` is None), weighted by the softmax of its own logits at
+    them, and the i-th ``_dispatch_indices`` call keeps only rows that
+    ``keeps(i)`` keeps.  Every call's ids and keep mask are recorded
+    (``ids``, ``keeps``); ``differ`` counts the ``choices`` taken where
+    the call's own top k differs, ``unmatched`` the rows a given mask
+    keeps that this call's capacity drops.  The counts stay on the card
+    until read."""
+
+    def __init__(self, port):
+        self.moe = port.moe
+        self.route, self.dispatch = port.moe.route_topk, \
+            port.moe._dispatch_indices
+        self.ids, self.keeps = [], []
+
+    def count(self, name) -> int:
+        return int(sum(getattr(self, name), torch.zeros((), device=DEV)))
+
+    @contextlib.contextmanager
+    def patch(self, ids=None, keeps=None):
+        self.ids, self.keeps = [], []
+        self.differ, self.choices, self.unmatched = [], [], []
+
+        def route(logits, k):
+            own, w = self.route(logits, k)
+            take = None if ids is None else ids(len(self.ids))
+            if take is not None:
+                self.differ.append((own != take).sum())
+                self.choices.append(take.numel())
+                own = take
+                w = torch.softmax(logits.float().gather(-1, take), dim=-1)
+            self.ids.append(own)
+            return own, w
+
+        def dispatch(logits, k, e, capacity):
+            flat_e, slot_c, keep, w = self.dispatch(logits, k, e, capacity)
+            take = None if keeps is None else keeps(len(self.keeps))
+            if take is not None:
+                self.unmatched.append((take & ~keep).sum())
+                keep = keep & take
+                slot_c = torch.where(keep, slot_c, capacity)
+            self.keeps.append(keep)
+            return flat_e, slot_c, keep, w
+        with mock.patch.object(self.moe, "route_topk", route), \
+                mock.patch.object(self.moe, "_dispatch_indices", dispatch):
+            yield self
+
+    def drops(self) -> list:
+        """[rows dropped, rows routed] over the recorded calls."""
+        return [int(sum((~k).sum() for k in self.keeps)),
+                sum(k.numel() for k in self.keeps)]
 
 
 def small_gemma_config(port):
@@ -3378,6 +3584,283 @@ def zamba_phase(port):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: slice 9 part 1 (the MoE decoders)
+# ---------------------------------------------------------------------------
+PHI, DBRX = "phi3.5-moe-42b-a6.6b", "dbrx-132b"
+# Depth cuts, widths untouched: phi3.5-moe takes 2.42 GiB of bf16 weights
+# a layer (16 experts of 4096 x 6400, three banks), so all 32 layers (77.5
+# GiB and 0.5 GiB of embeddings) leave no room for a cache on an 80 GB
+# card: 24 layers, 58.6 GiB.  dbrx-132b takes 6.07 GiB a layer and 2.3 GiB
+# of embeddings: 8 of its 40 layers, 50.9 GiB.
+MOE_LAYERS = {PHI: 24, DBRX: 8}
+MOE_PARAMS = {PHI: 31_475_830_784, DBRX: 27_305_809_920}
+# (layers, d_model, heads, KV heads, d_ff, experts, top-k) of the full
+# configs
+MOE_WIDTHS = {PHI: (32, 4096, 32, 8, 6400, 16, 2),
+              DBRX: (40, 6144, 48, 8, 10752, 16, 4)}
+# phase 3's eight requests, 4 slots, chunks of 64, 32 new tokens
+MOE_KW = dict(slots=4, prefill_chunk=64, max_new_tokens=32, max_prompt=512,
+              device=DEV)
+# Logits against the plain path, the plain path taking the kernel path's
+# expert ids and drops (``MoEPin``): left free, a near tie's flipped
+# choice sends a row down another expert, and at 24 random layers the
+# logits then differ by up to 6.5 (std 1.28), the plain path against
+# itself in float64 as much.  By the rule of LOGIT_ATOL, twice the
+# largest reading on the H100 (phi3.5-moe 0.4141 float, 0.4746 int8;
+# dbrx 0.6753), rounded up to a power of two; PERF.md gives them.  Greedy
+# tokens equal on 91.9% (float), 88.8% (int8) and 92% (dbrx) of the rows,
+# the plain path's own f32-vs-f64 floor 92.2%, 91.7% and 93%: at least
+# 85% and 80% are required.
+MOE_LOGIT_ATOL = {PHI: 1.0, DBRX: 2.0}
+MOE_INT8_LOGIT_ATOL = 1.0
+MOE_GREEDY_EQUAL_MIN = 0.85
+MOE_INT8_GREEDY_EQUAL_MIN = 0.8
+# One-shot prefill against the chunked path, the chunked path taking the
+# one-shot call's expert ids and drops (the one-shot call drops 526 of
+# its 65,536 rows, the chunks none of theirs; left free the gaps read 9.1
+# and 9.1): logits 0.4756, K/V 0.7471 (values up to 8.69), greedy 30 of
+# 32, by the same rule.
+MOE_PREFILL_LIMITS = dict(logit=1.0, cache=2.0, greedy=0.85)
+# Training phi3.5-moe: 2 of 32 layers (2,869,055,488 parameters: f32
+# masters, gradients and AdamW's two moments take about 46 GB), B 1 x S
+# 2,048, remat "full", 3 steps
+MOE_TRAIN_LAYERS, MOE_TRAIN_PARAMS, MOE_TRAIN_STEPS = 2, 2_869_055_488, 3
+
+
+def moe_config(port, arch, layers=None):
+    """The full config, checked against its published widths, at
+    ``layers`` (default ``MOE_LAYERS``) of its depth."""
+    cfg = port.configs.get(arch)
+    got = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff,
+           cfg.n_experts, cfg.experts_per_tok)
+    check(got == MOE_WIDTHS[arch] and cfg.resolved_head_dim == 128,
+          f"unexpected config {cfg}")
+    return dataclasses.replace(cfg, n_layers=layers or MOE_LAYERS[arch])
+
+
+def routing_summary(readings) -> dict:
+    return dict(choices=sum(r["routing_choices"] for r in readings),
+                differ=sum(r["routing_differ"] for r in readings),
+                f64_differ=sum(r.get("f64_routing_differ", 0)
+                               for r in readings),
+                max_logit_gap=max(r["max_abs_gap"] for r in readings),
+                greedy_equal=sum(r["argmax_equal"] for r in readings),
+                rows=sum(r["rows"] for r in readings))
+
+
+def serve_phi(port):
+    """phi3.5-moe at full width and 24 layers, bf16: phase 3's requests
+    through ``ContinuousBatchServer`` (float) and phase 5's shared-prefix
+    requests through ``PagedBatchServer`` (int8, a pool of 16 blocks),
+    each held to its launch counts, its logits against the plain path on
+    copies of the cache (the plain path taking the kernel path's expert
+    ids and drops, its own choices counted where they differ); the prefix
+    cache must hit.  A profile of its float decode and chunk steps."""
+    cfg = moe_config(port, PHI)
+    params = init_full(port, cfg, MOE_PARAMS[PHI])
+    srv = port.server.ContinuousBatchServer(cfg, params, **MOE_KW)
+    check(srv.capacity == 576, f"capacity {srv.capacity} != 576")
+    launches, metrics, _ = serve_run(port, cfg, srv, ZAMBA_LENS)
+    del srv
+    logits = logits_vs_plain(port, cfg, params, MOE_LOGIT_ATOL[PHI],
+                             MOE_GREEDY_EQUAL_MIN, attention_paths(port),
+                             seeds=(1, 2, 3))
+    prof = profile_steps(port, cfg, params)
+    srv = port.server.PagedBatchServer(cfg, params, pool_blocks=16,
+                                       precision="int8", **MOE_KW)
+    launches8, metrics8, _ = serve_run(port, cfg, srv, None,
+                                       shared_prefix_prompts(cfg))
+    check(metrics8["prefix_hit_blocks"] >= 1, f"no prefix hit: {metrics8}")
+    logits8 = logits_vs_plain(port, cfg, srv.params, MOE_INT8_LOGIT_ATOL,
+                              MOE_INT8_GREEDY_EQUAL_MIN,
+                              attention_paths(port), port.quantize.INT8,
+                              True, seeds=(1, 2))
+    del srv, params
+    torch.cuda.empty_cache()
+    return dict(launches=launches, metrics=metrics, launches8=launches8,
+                metrics8=metrics8, profile=prof,
+                routing=routing_summary(logits),
+                routing_int8=routing_summary(logits8))
+
+
+def serve_dbrx(port):
+    """dbrx-132b at full width and 8 layers, bf16 (G 6): phase 3's
+    requests through ``ContinuousBatchServer``, its logits against the
+    plain path (one seed, the routing pinned as phi3.5-moe's), and
+    one-shot prefill at B 1, S 2,048 against the chunked path, with the
+    rows each side drops."""
+    cfg = moe_config(port, DBRX)
+    params = init_full(port, cfg, MOE_PARAMS[DBRX])
+    srv = port.server.ContinuousBatchServer(cfg, params, **MOE_KW)
+    launches, metrics, _ = serve_run(port, cfg, srv, ZAMBA_LENS)
+    del srv
+    logits = logits_vs_plain(port, cfg, params, MOE_LOGIT_ATOL[DBRX],
+                             MOE_GREEDY_EQUAL_MIN, attention_paths(port),
+                             seeds=(1,))
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, cfg.vocab_size, 2048).astype(np.int32)]
+    prefill = prefill_vs_chunked(port, cfg, params, prompts,
+                                 MOE_PREFILL_LIMITS)
+    del params
+    torch.cuda.empty_cache()
+    return dict(launches=launches, metrics=metrics, prefill=prefill,
+                routing=routing_summary(logits))
+
+
+def train_phi(port):
+    """phi3.5-moe at full width and 2 layers: f32 masters from a seeded
+    generator on the card, bf16 activations, ``make_train_step`` (remat
+    "full", AdamW) for 3 steps of B 1 x S 2,048 from the Markov stream:
+    finite losses, ``flash_attention`` launched 2 x 2 a step (forward and
+    recomputed forward) and its backward 2.  Step ms, tokens/s, losses,
+    peak memory."""
+    cfg = moe_config(port, PHI, MOE_TRAIN_LAYERS)
+    params = port.init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                              DEV, trainable=True)
+    n = sum(p.numel() for p in params.parameters())
+    check(n == MOE_TRAIN_PARAMS, f"{n} trainable parameters")
+    opt_state = port.optimizer.adamw_init(params)
+    step = port.train_step.make_train_step(
+        cfg, remat="full", opt=port.optimizer.AdamWConfig(lr=TRAIN_LR))
+    tokens = port.synthetic.token_stream(TRAIN_TOKENS, TRAIN_STREAM_VOCAB,
+                                         seed=1)
+    batches = port.synthetic.lm_batches(tokens, 1, TRAIN_SEQ, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(port)
+    losses, times = [], []
+    for _ in range(MOE_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        _, _, m = step(params, opt_state, next(batches))
+        losses.append(float(m["loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = read_counts(port)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"training losses {losses}")
+    want = {name: 0 for name in launches}
+    want.update(flash_attention=2 * MOE_TRAIN_LAYERS * MOE_TRAIN_STEPS,
+                flash_attention_bwd=MOE_TRAIN_LAYERS * MOE_TRAIN_STEPS)
+    check(launches == want, f"training launches {launches} != {want}")
+    metrics = dict(params=n, losses=losses, step_ms_all=times,
+                   step_ms=float(np.median(times[1:])),
+                   tokens_per_s=TRAIN_SEQ / np.median(times[1:]) * 1e3,
+                   peak_memory_bytes=peak)
+    print("  training " + json.dumps(metrics))
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return launches, metrics
+
+
+def small_moe_config(port, arch):
+    """The smoke config in float32 at the kernels' head dim (128, d_model
+    256) with the full config's head group: G 4 (phi3.5-moe), G 6
+    (dbrx)."""
+    g = MOE_WIDTHS[arch][2] // MOE_WIDTHS[arch][3]
+    return dataclasses.replace(port.configs.get_smoke(arch), d_model=256,
+                               n_heads=g, n_kv_heads=1, head_dim=128,
+                               dtype="float32")
+
+
+def small_moe_vs_cpu(port):
+    """The exact oracle of each MoE decoder: its small float32 config on
+    the card gives the CPU plain path's greedy tokens, served through
+    ``ContinuousBatchServer`` (chunks of 4) and, int8, through
+    ``PagedBatchServer`` (blocks of 8, a pool that preempts), and one-shot
+    prefilled, grown and decoded; and on the card its decode step, with
+    the routing, captured as a CUDA graph (``use_artifact``) gives the
+    eager tokens, one replay a decode step."""
+    rng = np.random.RandomState(2)
+    budgets = [5, 12, 6, 3]
+    out = {}
+    for arch in (PHI, DBRX):
+        cfg = small_moe_config(port, arch)
+        prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in (3, 11, 7, 21)]
+        host = port.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        kw = dict(slots=2, max_prompt=24, prefill_chunk=4,
+                  max_new_tokens=12)
+        runs = {}
+        for dev in ("cpu", DEV):
+            params = host.to(dev)
+            srv = port.server.ContinuousBatchServer(cfg, params, device=dev,
+                                                    **kw)
+            reqs = srv.submit(prompts, max_new_tokens=budgets)
+            srv.run()
+            served = [r.tokens for r in reqs]
+            srv = port.server.PagedBatchServer(
+                cfg, params, slots=3, max_prompt=24, prefill_chunk=4,
+                max_new_tokens=12, block_size=8, pool_blocks=7,
+                precision="int8", device=dev)
+            reqs = srv.submit(prompts, max_new_tokens=budgets)
+            metrics = srv.run()
+            check(metrics["preemptions"] > 0, "the small int8 pool never"
+                  " preempted")
+            paged = [r.tokens for r in reqs]
+            toks = torch.as_tensor(prompts[3][None], device=dev)
+            nxt, _, cache = port.serve_step.make_prefill_step(cfg)(
+                params, {"tokens": toks})
+            cache = port.transformer.grow_cache(cfg, cache, 12)
+            oneshot = [int(nxt[0])]
+            with torch.no_grad():
+                for t in range(10):
+                    lg, cache = port.transformer.forward_decode(
+                        cfg, params, cache,
+                        torch.tensor([oneshot[-1]], dtype=torch.int32,
+                                     device=dev),
+                        torch.tensor([21 + t], dtype=torch.int32,
+                                     device=dev))
+                    oneshot.append(int(lg[0].argmax()))
+            runs[dev] = (served, paged, oneshot)
+        srv = port.server.ContinuousBatchServer(
+            cfg, host.to(DEV), device=DEV, use_artifact=True, **kw)
+        reqs = srv.submit(prompts, max_new_tokens=budgets)
+        metrics = srv.run()
+        graph = [r.tokens for r in reqs]
+        check(runs[DEV] == runs["cpu"], f"small {arch}: card {runs[DEV]}"
+              f" != cpu {runs['cpu']}")
+        check(graph == runs[DEV][0] and isinstance(srv.decode,
+                                                   port.eon.GraphStep)
+              and srv.decode.replays == metrics["decode_steps"],
+              f"small {arch} from the CUDA graph: {graph} != eager"
+              f" {runs[DEV][0]}")
+        out[arch] = runs[DEV]
+        print(f"  small float32 {arch} (G {cfg.n_heads}, D 128), card =="
+              f" cpu tokens: served {runs[DEV][0]}, int8 paged"
+              f" {runs[DEV][1]}, one-shot prefill {runs[DEV][2]}; the"
+              f" decode step as a CUDA graph gives the served tokens over"
+              f" {metrics['decode_steps']} replays")
+    return out
+
+
+def moe_phase(port):
+    """Phase 13: phi3.5-moe and dbrx-132b served (and dbrx prefilled) at
+    full width, phi3.5-moe trained at 2 layers, then the small float32
+    oracles.  Returns the readings by part."""
+    t0 = time.perf_counter()
+    phi = serve_phi(port)
+    t1 = time.perf_counter()
+    dbrx = serve_dbrx(port)
+    t2 = time.perf_counter()
+    train = train_phi(port)
+    small_moe_vs_cpu(port)
+    print(f"  tokens_per_s phi3.5-moe float"
+          f" {phi['metrics']['tokens_per_s']:.2f},"
+          f" int8 paged {phi['metrics8']['tokens_per_s']:.2f} (prefix hit"
+          f" blocks {phi['metrics8']['prefix_hit_blocks']}), dbrx"
+          f" {dbrx['metrics']['tokens_per_s']:.2f}; routing choices"
+          f" differing from the plain path: phi3.5-moe"
+          f" {phi['routing']['differ']} of {phi['routing']['choices']}"
+          f" (int8 {phi['routing_int8']['differ']} of"
+          f" {phi['routing_int8']['choices']}), dbrx"
+          f" {dbrx['routing']['differ']} of {dbrx['routing']['choices']};"
+          f" training step {train[1]['step_ms']:.1f} ms, peak"
+          f" {train[1]['peak_memory_bytes'] / 2**30:.2f} GiB; phi3.5-moe"
+          f" part {t1 - t0:.1f} s, dbrx part {t2 - t1:.1f} s, phase"
+          f" {time.perf_counter() - t0:.1f} s")
+    return dict(phi=phi, dbrx=dbrx, train=train)
+
+
 def gpu_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                           "--format=csv,noheader"], capture_output=True,
@@ -3403,7 +3886,7 @@ def load_port():
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import mel_frontend as mf
     from repro_torch.launch import train as launch_train
-    from repro_torch.models import api, kws, layers
+    from repro_torch.models import api, kws, layers, moe
     from repro_torch.models import params as model_params
     from repro_torch.models import transformer
     from repro_torch.models.params import init_params
@@ -3418,7 +3901,7 @@ def load_port():
                            Trainer=Trainer, TrainerConfig=TrainerConfig,
                            layers=layers, init_params=init_params,
                            params=model_params,
-                           api=api, transformer=transformer,
+                           api=api, transformer=transformer, moe=moe,
                            kvcache=kvcache, serve_step=serve_step,
                            server=server, core_blocks=core_blocks, tree=tree,
                            Impulse=Impulse, synthetic=synthetic,
@@ -3628,6 +4111,12 @@ def main() -> None:
           " block of D 80) served and prefilled at full width")
     (launches_z, metrics_z, launches_z8, metrics_z8, prefill_z,
      prof_z) = zamba_phase(port)
+    print("phase 13: the MoE decoders, phi3.5-moe-42b-a6.6b (24 of 32"
+          " layers) and dbrx-132b (8 of 40), served, prefilled and trained"
+          " at full width")
+    moe = moe_phase(port)
+    phi, dbrx, (launches_mt, metrics_mt) = moe["phi"], moe["dbrx"], \
+        moe["train"]
 
     print("phase 9: the EON tuner and the Project API on the card")
     t0 = time.perf_counter()
@@ -3645,6 +4134,15 @@ def main() -> None:
     print("  slice 8 part 2 " + json.dumps({
         "zamba2_continuous": metrics_z, "zamba2_int8_paged": metrics_z8,
         "prefill_zamba2": prefill_z[1], "zamba2_step_profile": prof_z}))
+    print("  slice 9 part 1 " + json.dumps({
+        "phi3.5_moe_continuous": phi["metrics"],
+        "phi3.5_moe_int8_paged": phi["metrics8"],
+        "phi3.5_moe_step_profile": phi["profile"],
+        "phi3.5_moe_routing": phi["routing"],
+        "phi3.5_moe_int8_routing": phi["routing_int8"],
+        "dbrx_continuous": dbrx["metrics"], "dbrx_routing": dbrx["routing"],
+        "prefill_dbrx": dbrx["prefill"][1],
+        "phi3.5_moe_training": metrics_mt}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     by_path = {name: {"float_continuous": launches[name],
@@ -3670,10 +4168,16 @@ def main() -> None:
                       "granite_continuous": launches_gr[name],
                       "zamba2_continuous": launches_z[name],
                       "zamba2_int8_paged": launches_z8[name],
-                      "prefill_zamba2": prefill_z[0][name]}
+                      "prefill_zamba2": prefill_z[0][name],
+                      "phi3.5_moe_continuous": phi["launches"][name],
+                      "phi3.5_moe_int8_paged": phi["launches8"][name],
+                      "dbrx_continuous": dbrx["launches"][name],
+                      "prefill_dbrx": dbrx["prefill"][0][name],
+                      "phi3.5_moe_training": launches_mt[name]}
                for name in REPLACES}
     serving = (launches, launches8, launches_g, launches_g8, launches_gr,
-               launches_z, launches_z8)
+               launches_z, launches_z8, phi["launches"], phi["launches8"],
+               dbrx["launches"])
     kernels = []
     for name in ("flash_decode", "flash_chunk_prefill"):
         kernels.append(dict(
@@ -3686,7 +4190,8 @@ def main() -> None:
         name="int8_matmul", route="cuda", source=SOURCES["int8_matmul"],
         replaces=REPLACES["int8_matmul"],
         launches=launches8["int8_matmul"] + launches_cal["int8_matmul"]
-        + launches_g8["int8_matmul"] + launches_z8["int8_matmul"],
+        + launches_g8["int8_matmul"] + launches_z8["int8_matmul"]
+        + phi["launches8"]["int8_matmul"],
         launches_by_path=by_path["int8_matmul"],
         **mm_rows["M4_K2048_N8192"], shapes=mm_rows))
     kernels.append(dict(
@@ -3700,7 +4205,8 @@ def main() -> None:
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name],
             launches=launches_train[name] + prefill_z[0][name] + sum(
-                prefill[arch][0][name] for arch in prefill),
+                prefill[arch][0][name] for arch in prefill)
+            + dbrx["prefill"][0][name] + launches_mt[name],
             launches_by_path=by_path[name],
             **fa_rows[name]["train_b4_s2048"], shapes=fa_rows[name]))
     kernels.append(dict(

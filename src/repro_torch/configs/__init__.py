@@ -27,7 +27,7 @@ ALIASES: Dict[str, str] = {
 }
 
 PORTED = ("internlm2_1_8b", "falcon_mamba_7b", "granite_3_8b", "llama3_2_3b",
-          "gemma3_4b", "zamba2_2_7b")
+          "gemma3_4b", "zamba2_2_7b", "phi3_5_moe_42b", "dbrx_132b")
 
 # the port slice (ROADMAP.md, queue 1) that brings each remaining module
 # other than slice 9's
@@ -43,7 +43,8 @@ def comes_with(arch_id: str) -> Optional[str]:
     mod_name = _name(arch_id)
     if mod_name in PORTED:
         return None
-    return _LATER.get(mod_name, "slice 9 (the remaining modules)")
+    return _LATER.get(mod_name, "slice 9 (the enc-dec backbone and the VLM"
+                      " frontend)")
 
 
 def _module(arch_id: str):

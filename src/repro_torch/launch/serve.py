@@ -2,7 +2,8 @@
 
 Runs a serving engine over synthetic prompts on the selected arch
 (``internlm2-1.8b``, ``granite-3-8b``, ``llama3.2-3b``, ``gemma3-4b``,
-``falcon-mamba-7b`` or ``zamba2-2.7b``), on the card unless
+``falcon-mamba-7b``, ``zamba2-2.7b``, ``phi3.5-moe-42b-a6.6b`` or
+``dbrx-132b``), on the card unless
 ``--device cpu`` is given: the smoke config by default,
 the full config with ``--full`` (random weights drawn from a seeded
 ``torch.Generator`` on the device; nothing is downloaded).

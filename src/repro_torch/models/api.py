@@ -2,7 +2,7 @@
 
 The counterpart of ``repro.models.api.ModelFns`` on the port's paths:
 training, one-shot prefill, decode and chunk prefill, in the JAX order,
-for the uniform dense decoder, the local:global sliding-window trunk
+for the uniform dense and MoE decoders, the local:global sliding-window trunk
 (gemma3) and (prefill and serving only) the mamba1 trunk of the ``ssm``
 family and the hybrid trunk (zamba2).
 """

@@ -4,8 +4,10 @@ Every backbone weight is declared once as a ``ParamSpec`` (shape and
 initializer), in the layout of ``repro.models.params``: projection
 weights ``(d_in, d_out)`` applied as ``x @ w``, and per-layer leaves
 stacked along a leading ``(L, ...)`` axis.  The uniform dense decoder, the
-uniform mamba1 trunk (falcon-mamba), the local:global sliding-window
-trunk (gemma3) and the hybrid trunk (zamba2: stacked mamba2 groups and
+uniform MoE decoder (phi3.5-moe, dbrx: each block's experts a (d, E)
+router and (E, d, f) / (E, f, d) banks), the uniform mamba1 trunk
+(falcon-mamba), the local:global sliding-window trunk (gemma3) and the
+hybrid trunk (zamba2: stacked mamba2 groups and
 one shared, unstacked attention block) are declared.  ``init_params``
 draws them from a ``torch.Generator`` on the target device;
 ``params_from_numpy`` carries a tree of numpy arrays (for example the JAX package's own
@@ -68,6 +70,14 @@ def mlp_specs(cfg: ArchConfig) -> SpecTree:
             "w_down": ParamSpec((f, d))}
 
 
+def moe_specs(cfg: ArchConfig) -> SpecTree:
+    """The experts of an MoE block: the (d, E) router and the (E, d, f) /
+    (E, f, d) SwiGLU banks."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {"router": ParamSpec((d, e)), "w_gate": ParamSpec((e, d, f)),
+            "w_up": ParamSpec((e, d, f)), "w_down": ParamSpec((e, f, d))}
+
+
 def mamba1_specs(cfg: ArchConfig) -> SpecTree:
     d, di, ds, k = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.d_conv
     dt_rank = max(d // 16, 1)
@@ -105,6 +115,11 @@ def mamba2_specs(cfg: ArchConfig) -> SpecTree:
 def dense_block_specs(cfg: ArchConfig) -> SpecTree:
     return {"attn_norm": _norm(cfg.d_model), "attn": attn_specs(cfg),
             "mlp_norm": _norm(cfg.d_model), "mlp": mlp_specs(cfg)}
+
+
+def moe_block_specs(cfg: ArchConfig) -> SpecTree:
+    return {"attn_norm": _norm(cfg.d_model), "attn": attn_specs(cfg),
+            "mlp_norm": _norm(cfg.d_model), "moe": moe_specs(cfg)}
 
 
 _MAMBA_SPECS = {"mamba1": mamba1_specs, "mamba2": mamba2_specs}
@@ -177,6 +192,8 @@ _BLOCK_SPECS = {
                                                      dense_block_specs),
     "uniform_ssm": lambda cfg, pat: _uniform_specs(cfg, pat,
                                                    mamba_block_specs),
+    "uniform_moe": lambda cfg, pat: _uniform_specs(cfg, pat,
+                                                   moe_block_specs),
     "local_global": local_global_specs,
     "hybrid": hybrid_specs,
 }
@@ -187,8 +204,8 @@ def build_specs(cfg: ArchConfig) -> SpecTree:
     if pat["kind"] not in _BLOCK_SPECS or cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: layer pattern {pat['kind']!r} is not ported yet"
-            " (the port has the uniform dense, uniform mamba1, local:global"
-            " and hybrid trunks)")
+            " (the port has the uniform dense, uniform MoE, uniform mamba1,"
+            " local:global and hybrid trunks)")
     d, vpad = cfg.d_model, cfg.padded_vocab()
     specs: SpecTree = {"embed": ParamSpec((vpad, d)), "final_norm": _norm(d)}
     if not cfg.tie_embeddings:
@@ -405,6 +422,18 @@ def _draw(spec: ParamSpec, generator: torch.Generator, device
     return x.mul_(spec.scale)
 
 
+def _draw_by_layer(spec: ParamSpec, generator: torch.Generator, device,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """A stacked leaf drawn one layer at a time into a tensor of ``dtype``:
+    an expert bank's float32 draw of all layers at once would take twice
+    its bf16 bytes again (40 GB for one of phi3.5-moe's at 24 layers)."""
+    out = torch.empty(spec.shape, dtype=dtype, device=device)
+    layer = dataclasses.replace(spec, shape=spec.shape[1:])
+    for i in range(spec.shape[0]):
+        out[i] = _draw(layer, generator, device)
+    return out
+
+
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device: Union[str, torch.device, None] = None,
                 dtype: Optional[torch.dtype] = None,
@@ -415,23 +444,25 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     mamba layers' ones (D skip), ``a_log``, ``dt_bias`` and ``conv``.
     Matrices are stored in ``dtype`` (default: the config's activation
     dtype; float32 masters when ``trainable``, whose leaves then take
-    gradients); 1-D leaves and ``F32_LEAVES`` in float32.  torch's
+    gradients); 1-D leaves and ``F32_LEAVES`` in float32.  The experts'
+    leaves are drawn one layer at a time.  torch's
     generator cannot reproduce ``jax.random``: parity tests carry the JAX
     package's weights across with ``params_from_numpy`` instead."""
     device = resolve_device(device)
     if trainable:
         dtype = dtype or torch.float32
 
-    def build(tree: SpecTree) -> Dict[str, object]:
+    def build(tree: SpecTree, by_layer: bool = False) -> Dict[str, object]:
         # sorted keys: the leaf order of jax.tree.flatten
         out: Dict[str, object] = {}
         for k in sorted(tree):
             if isinstance(tree[k], dict):
-                out[k] = build(tree[k])
+                out[k] = build(tree[k], by_layer or k == "moe")
                 continue
             spec = tree[k]
             dt = _leaf_dtype(k, len(spec.shape), dtype, cfg.activation_dtype)
-            out[k] = _draw(spec, generator, device).to(dt)
+            out[k] = (_draw_by_layer(spec, generator, device, dt) if by_layer
+                      else _draw(spec, generator, device).to(dt))
         return out
 
     return ParamTree(build(build_specs(cfg)), trainable)

@@ -1,5 +1,7 @@
 """Decoder-only backbone: the serving, prefill and training entry points
-of the uniform dense trunk and the local:global (sliding-window) trunk,
+of the uniform dense trunk, the uniform MoE trunk (each block's SwiGLU
+replaced by routed experts, ``models/moe.py``) and the local:global
+(sliding-window) trunk,
 and the serving and prefill entry points of the uniform mamba1 trunk and
 of the hybrid trunk (zamba2: groups of mamba2 blocks, each closed by one
 shared attention block).
@@ -14,19 +16,19 @@ over per-layer views of the stacked ``(L, ...)`` weights (the local
 layers' ``(groups, ratio, ...)``), where the JAX package scans; remat
 wraps each block in ``torch.utils.checkpoint``.
 
-The dense cache is the dict ``{"k", "v": (L, B, S, Hkv, D), "full_pos":
-(B, S) int32}`` of ``serve/kvcache.py``, or its paged form ``{"k", "v":
-(L, NB, BS, Hkv, D), "pool_pos": (NB, BS)}`` addressed through a block
-table; K/V leaves are float tensors or ``Int8KV`` pairs.  The local:global
-trunk's global layers keep such leaves as ``global_k``/``global_v``, its
-windowed layers a ring of ``window`` rows a slot (``local_k``/``local_v``,
-``tail_k``/``tail_v``, positions ``local_pos``), written at ``pos %
-window`` and never paged.  The SSM cache is
-``{"ssm": SSMState(conv (L, B, d_conv-1, d_inner), h (L, B, d_inner,
-ssm_state) f32)}``, slot-addressed on every engine.  The hybrid trunk's
-holds ``ssm`` stacked (n_groups, group, B, ...) with mamba2's h (B,
-ssm_heads, head_dim, ssm_state), and beside it one K/V leaf a shared-block
-application, ``attn_k``/``attn_v`` (n_groups, B, S, Hkv, D) with
+The dense (and MoE) cache is the dict ``{"k", "v": (L, B, S, Hkv, D),
+"full_pos": (B, S) int32}`` of ``serve/kvcache.py``, or its paged form
+``{"k", "v": (L, NB, BS, Hkv, D), "pool_pos": (NB, BS)}`` addressed
+through a block table; K/V leaves are float tensors or ``Int8KV``
+pairs.  The local:global trunk's global layers keep such leaves as
+``global_k``/``global_v``, its windowed layers a ring of ``window`` rows
+a slot (``local_k``/``local_v``, ``tail_k``/``tail_v``, positions
+``local_pos``), written at ``pos % window`` and never paged.  The SSM
+cache is ``{"ssm": SSMState(conv (L, B, d_conv-1, d_inner), h (L, B,
+d_inner, ssm_state) f32)}``, slot-addressed on every engine.  The hybrid
+trunk's holds ``ssm`` stacked (n_groups, group, B, ...) with mamba2's h
+(B, ssm_heads, head_dim, ssm_state), and beside it one K/V leaf a
+shared-block application, ``attn_k``/``attn_v`` (n_groups, B, S, Hkv, D) with
 ``full_pos`` (paged: pools and ``pool_pos``).  The decode and chunk
 entry points update the cache **in place** and return it: positions,
 where the cache has them, are stamped once before the trunk (every layer
@@ -52,6 +54,7 @@ from repro_torch.models.layers import (attention_chunk_layer,
                                        attention_layer, ring_scatter,
                                        ring_scatter_idx, rms_norm,
                                        swiglu_mlp, write_pages, write_rows)
+from repro_torch.models.moe import moe_layer
 from repro_torch.models.params import layer_pattern
 from repro_torch.models.ssm import (SSMState, mamba1_decode, mamba1_layer,
                                     mamba2_decode, mamba2_layer)
@@ -165,6 +168,56 @@ def dense_block_chunk(cfg: ArchConfig, p, x, positions, cache_k, cache_v,
     return x + swiglu_mlp(p["mlp"], h, policy)
 
 
+def moe_block(cfg: ArchConfig, p, x, positions, *, window: int = 0,
+              policy=None):
+    """``dense_block`` with the experts (``moe_layer``) in place of the
+    SwiGLU: the router and the banks stay float under every policy."""
+    h = rms_norm(p["attn_norm"], x, cfg.norm_eps)
+    attn_out, kv = attention_layer(p["attn"], h, positions, policy=policy,
+                                   **_attn_kwargs(cfg, window))
+    x = x + attn_out
+    h = rms_norm(p["mlp_norm"], x, cfg.norm_eps)
+    return x + moe_layer(p["moe"], h, cfg), kv
+
+
+def moe_block_decode(cfg: ArchConfig, p, x, position, cache_k, cache_v,
+                     cache_pos, write_idx, *, window: int = 0, policy=None,
+                     kv_len=None, active=None, block_table=None):
+    """One token a slot; every slot is routed, the idle ones too (they
+    take capacity, as in the reference's step)."""
+    h = rms_norm(p["attn_norm"], x, cfg.norm_eps)
+    x = x + attention_decode_layer(
+        p["attn"], h, position, cache_k, cache_v, cache_pos, write_idx,
+        policy=policy, kv_len=kv_len, active=active,
+        block_table=block_table, **_attn_kwargs(cfg, window))
+    h = rms_norm(p["mlp_norm"], x, cfg.norm_eps)
+    return x + moe_layer(p["moe"], h, cfg)
+
+
+def moe_block_chunk(cfg: ArchConfig, p, x, positions, cache_k, cache_v,
+                    cache_pos, write_idx, *, window: int = 0, policy=None,
+                    kv_len=None, block_table=None):
+    """A chunk against the cache; its pad rows are routed and take
+    capacity, as in the reference's step."""
+    h = rms_norm(p["attn_norm"], x, cfg.norm_eps)
+    x = x + attention_chunk_layer(
+        p["attn"], h, positions, cache_k, cache_v, cache_pos, write_idx,
+        policy=policy, kv_len=kv_len, block_table=block_table,
+        **_attn_kwargs(cfg, window))
+    h = rms_norm(p["mlp_norm"], x, cfg.norm_eps)
+    return x + moe_layer(p["moe"], h, cfg)
+
+
+# the attention trunks' block bodies (whole sequence, decode, chunk), by
+# layer pattern: the MoE decoder's, every other attention trunk's
+_BODIES = {"uniform_moe": (moe_block, moe_block_decode, moe_block_chunk)}
+_DENSE_BODIES = (dense_block, dense_block_decode, dense_block_chunk)
+
+
+def _bodies(cfg: ArchConfig):
+    return _BODIES.get(_pattern(cfg), _DENSE_BODIES)
+
+
 # the layer and the one-token step of each SSM variant
 _MAMBA = {"mamba1": (mamba1_layer, mamba1_decode),
           "mamba2": (mamba2_layer, mamba2_decode)}
@@ -201,12 +254,12 @@ def mamba_block_decode(cfg: ArchConfig, p, x, state, active=None):
 
 
 def _pattern(cfg: ArchConfig) -> str:
-    """The layer pattern of a served trunk: uniform dense, uniform mamba1,
-    local:global (sliding-window ring) or hybrid (mamba2 groups and a
-    shared attention block)."""
+    """The layer pattern of a served trunk: uniform dense, uniform MoE,
+    uniform mamba1, local:global (sliding-window ring) or hybrid (mamba2
+    groups and a shared attention block)."""
     kind = layer_pattern(cfg)["kind"]
-    if kind not in ("uniform_dense", "uniform_ssm", "local_global",
-                    "hybrid"):
+    if kind not in ("uniform_dense", "uniform_moe", "uniform_ssm",
+                    "local_global", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: layer pattern {kind!r} is not ported yet")
     return kind
@@ -236,11 +289,11 @@ def _positions(cache: Cache, block_table) -> torch.Tensor:
 def _trunk_layers(cfg: ArchConfig, params):
     """Every attention layer of an attention trunk in order, as (block
     weights, window, cache prefix, index into the stacked cache leaves):
-    the uniform dense decoder's ``k``/``v`` by layer; the local:global
+    the uniform dense and MoE decoders' ``k``/``v`` by layer; the local:global
     trunk's groups of ``ratio`` windowed layers (``local_k``/``local_v``
     at (group, i)) each closed by a full-attention layer (``global_k``/
     ``global_v`` at group), then the windowed tail (``tail_k``/``tail_v``)."""
-    if _pattern(cfg) == "uniform_dense":
+    if _pattern(cfg) in ("uniform_dense", "uniform_moe"):
         for i, p in enumerate(params["blocks"].unstack()):
             yield p, 0, "", i
         return
@@ -297,10 +350,11 @@ def trunk_forward(cfg: ArchConfig, params, x, positions, *,
             (caches if collect_cache else None)
     blocks = {}
     kvs: Dict[str, list] = {}
+    body = _bodies(cfg)[0]
     for p, window, prefix, _ in _trunk_layers(cfg, params):
         if window not in blocks:
             blocks[window] = _maybe_remat(functools.partial(
-                dense_block, cfg, window=window, policy=policy), remat)
+                body, cfg, window=window, policy=policy), remat)
         x, (k, v) = blocks[window](p, x, positions)
         if collect_cache:
             kvs.setdefault(prefix + "k", []).append(k)
@@ -401,8 +455,10 @@ def trunk_decode(cfg: ArchConfig, params, x, position, cache: Cache, *,
             _store_state(cache, i, st)
         return rms_norm(params["final_norm"], x, cfg.norm_eps)
 
+    body = _bodies(cfg)[1]
+
     def block(p, x, ck, cv, pos, window):
-        return dense_block_decode(
+        return body(
             cfg, p, x, position, ck, cv, pos,
             write_local if window else write_full, window=window,
             policy=policy, kv_len=kv_len, active=active,
@@ -439,8 +495,10 @@ def trunk_prefill_chunk(cfg: ArchConfig, params, x, positions,
             _store_state(cache, i, st)
         return rms_norm(params["final_norm"], x, cfg.norm_eps)
 
+    body = _bodies(cfg)[2]
+
     def block(p, x, ck, cv, pos, window):
-        return dense_block_chunk(
+        return body(
             cfg, p, x, positions, ck, cv, pos, write_full, window=window,
             policy=policy, kv_len=kv_len,
             block_table=None if window else block_table)
@@ -652,7 +710,7 @@ def _cache_from_prefill(cfg: ArchConfig, caches, positions: torch.Tensor,
     kind = _pattern(cfg)
     if kind == "uniform_ssm":
         return {"ssm": caches["ssm"]}
-    if kind == "uniform_dense":
+    if kind in ("uniform_dense", "uniform_moe"):
         cache = {"k": caches["k"], "v": caches["v"], "full_pos": positions}
     elif kind == "hybrid":
         cache = {"ssm": caches["ssm"], "attn_k": caches["attn_k"],

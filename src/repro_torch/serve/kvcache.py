@@ -2,9 +2,9 @@
 static engines are built on, and the **paged KV pool** (block table +
 ``BlockManager``) the paged engine is built on.
 
-The counterpart of ``repro.serve.kvcache`` for the uniform dense decoder,
-the local:global sliding-window trunk, the uniform mamba1 trunk and the
-hybrid trunk (zamba2):
+The counterpart of ``repro.serve.kvcache`` for the uniform dense and MoE
+decoders (the same K/V leaves), the local:global sliding-window trunk,
+the uniform mamba1 trunk and the hybrid trunk (zamba2):
 
 * ``kv_cache_bytes``      — footprint arithmetic.
 * ``alloc_decode_cache``  — zero-filled ``slots`` x ``capacity`` decode
@@ -71,7 +71,8 @@ def _slot_axis(key: str, leaf) -> int:
 # the leaves that live in the paged pool, by layer pattern: the
 # full-attention K/V; the rings and the SSM state are slot-addressed on
 # every engine (O(window) or O(state) a slot, no capacity tail to reclaim)
-_PAGED_KEYS = {"uniform_dense": ("k", "v"), "uniform_ssm": (),
+_PAGED_KEYS = {"uniform_dense": ("k", "v"), "uniform_moe": ("k", "v"),
+               "uniform_ssm": (),
                "local_global": ("global_k", "global_v"),
                "hybrid": ("attn_k", "attn_v")}
 
@@ -289,7 +290,7 @@ def release_slot(big_cache: Cache, slot: int) -> Cache:
 # ---------------------------------------------------------------------------
 def paged_cache_keys(cfg: ArchConfig) -> Tuple[str, ...]:
     """Cache keys that live in the paged pool: the full-attention K/V
-    leaves (``k``/``v`` of the uniform dense decoder, ``global_k``/
+    leaves (``k``/``v`` of the uniform dense and MoE decoders, ``global_k``/
     ``global_v`` of the local:global trunk, ``attn_k``/``attn_v`` of the
     hybrid trunk's shared block), and nothing of the pure mamba1 trunk,
     whose state is slot-addressed."""

@@ -536,7 +536,8 @@ class PagedBatchServer(ContinuousBatchServer):
     mamba1 trunk pages nothing, so there the engine is plain continuous
     batching with the pool bookkeeping off (no blocks, no prefix sharing,
     nothing to preempt for).  Prefix sharing needs every layer's state in
-    the pool, so only the uniform dense decoder shares; a ring trunk, or
+    the pool, so only the uniform dense and MoE decoders share; a ring
+    trunk, or
     the hybrid trunk (its shared block's K/V paged, its SSM states not),
     pages and preempts (re-prefilling rebuilds its rings or states) but
     shares no prefix.
@@ -575,10 +576,13 @@ class PagedBatchServer(ContinuousBatchServer):
         if self.pool_blocks < 1:
             raise ValueError("pool_blocks must be >= 1")
         # a prefix is shared only where every layer's decode state lives
-        # in the pool (the uniform dense decoder): a ring or an SSM state
-        # is slot-local and must be rebuilt by an actual prefill
-        share = prefix_cache and layer_pattern(self.cfg)["kind"] \
-            == "uniform_dense"
+        # in the pool (the uniform dense and MoE decoders): a ring or an
+        # SSM state is slot-local and must be rebuilt by an actual
+        # prefill.  The MoE decoder shares as the reference does, though
+        # its capacity drops couple a chunk's tokens, so a shared block's
+        # K/V may differ from a recompute's
+        share = prefix_cache and layer_pattern(self.cfg)["kind"] in (
+            "uniform_dense", "uniform_moe")
         self.manager = BlockManager(self.pool_blocks, self.block_size,
                                     prefix_cache=share)
         self._block_bytes = kv_pool_block_bytes(

@@ -11,10 +11,13 @@ from repro_torch.kernels import int8_matmul as im
 
 SMEM_MAX = 232_448       # bytes of shared memory a block may take (H100)
 # (M, K, N) of the int8 serving path: q/o, k/v, gate/up, down at the
-# decode step's 4 slots and the chunk's 64 tokens
+# decode step's 4 slots and the chunk's 64 tokens; then the MoE decoders'
+# attention projections (their experts stay float), each K and N once at
+# either M: phi3.5-moe's k/v and q/o (K 4,096), dbrx's (K 6,144)
 SERVING = [(m, k, n) for m in (4, 64)
            for k, n in ((2048, 2048), (2048, 1024), (2048, 8192),
-                        (8192, 2048))]
+                        (8192, 2048))] + [
+    (4, 4096, 1024), (64, 4096, 4096), (4, 6144, 1024), (64, 6144, 6144)]
 SWEEP = list(itertools.product((1, 4, 8, 16, 17, 63, 64, 65, 128, 300),
                                (1, 7, 31, 128, 129, 200, 1040, 2048, 8192),
                                (1, 65, 300, 1024, 8192)))

@@ -46,11 +46,25 @@ def setup():
     return jcfg, tcfg, jp, tp
 
 
-@pytest.mark.parametrize("getter", ["get", "get_smoke"])
-def test_arch_config_matches_jax(getter):
-    jc = getattr(jconfigs, getter)(ARCH)
-    tc = getattr(tconfigs, getter)(ARCH)
+# the dense config under its earlier ids, and the two MoE configs
+_CONFIG_CASES = [(ARCH, "get"), (ARCH, "get_smoke")] + [
+    (arch, getter) for arch in ("phi3.5-moe-42b-a6.6b", "dbrx-132b")
+    for getter in ("get", "get_smoke")]
+# the parameter counts of the MoE configs at full width
+_MOE_PARAMS = {"phi3.5-moe-42b-a6.6b": 41_878_028_288,
+               "dbrx-132b": 131_596_025_856}
+
+
+@pytest.mark.parametrize("arch,getter", _CONFIG_CASES,
+                         ids=[g if a == ARCH else f"{a}-{g}"
+                              for a, g in _CONFIG_CASES])
+def test_arch_config_matches_jax(arch, getter):
+    jc = getattr(jconfigs, getter)(arch)
+    tc = getattr(tconfigs, getter)(arch)
     assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    assert tconfigs.comes_with(arch) is None
+    if arch in _MOE_PARAMS and getter == "get":
+        assert tc.param_count() == _MOE_PARAMS[arch]
     for prop in _PROPS:
         assert getattr(tc, prop) == getattr(jc, prop), prop
     assert tc.padded_vocab() == jc.padded_vocab()
@@ -60,9 +74,24 @@ def test_arch_config_matches_jax(getter):
 
 def test_unported_arch_raises():
     with pytest.raises(NotImplementedError, match="slice 9"):
-        tconfigs.get("dbrx-132b")
+        tconfigs.get("seamless-m4t-large-v2")
     with pytest.raises(NotImplementedError, match="slice 9"):
         tconfigs.get_smoke("qwen2-vl-72b")
+
+
+def test_int8_leaves_moe_banks_and_router_float():
+    """As the JAX package's ``QUANT_SCOPES`` (``tests/test_precision.py``):
+    under int8 the attention projections become ``QTensor``s, the
+    experts' router and banks stay float tensors, shared with the float
+    tree."""
+    cfg = tconfigs.get_smoke("dbrx-132b")
+    params = tinit(cfg, torch.Generator().manual_seed(1), "cpu")
+    qp = tq.quantize_model_params(params, tq.INT8)
+    assert isinstance(qp["blocks"]["attn"]["wq"], tq.QTensor)
+    for name in ("router", "w_gate", "w_up", "w_down"):
+        leaf = qp["blocks"]["moe"][name]
+        assert isinstance(leaf, torch.Tensor) and leaf.is_floating_point()
+        assert leaf.data_ptr() == params["blocks"]["moe"][name].data_ptr()
 
 
 def test_init_params_tree_matches_jax():

@@ -187,7 +187,10 @@ def test_idle_slot_state_is_bit_identical_across_decode(setup):
     for leaf in tcache["ssm"]:
         leaf.copy_(torch.from_numpy(
             rng.randn(*leaf.shape).astype(np.float32) * 0.5))
-    jcache = {"ssm": jssm.SSMState(*(jnp.asarray(t.numpy())
+    # copies: on the CPU ``jnp.asarray`` may alias the numpy view of the
+    # port's cache, which the port's decode then updates in place while
+    # the JAX step, dispatched asynchronously, may still be reading it
+    jcache = {"ssm": jssm.SSMState(*(jnp.array(t.numpy())
                                      for t in tcache["ssm"]))}
     before = [t.clone() for t in tcache["ssm"]]
     tok = np.array([3, 7, 11], np.int32)
