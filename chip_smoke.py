@@ -87,8 +87,10 @@ Phases, each a hard failure (non-zero exit, no result line):
    ``int8_matmul`` rows stand the timing floor (a kernel that writes one
    float) and the kernel's time after a flush that leaves the L2 clean.
 3. Serve eight requests through ``ContinuousBatchServer`` at the full
-   width of internlm2-1.8b (24 layers, d_model 2048, 16/8 heads, d_ff 8192,
-   vocab 92544 padded to 94208), bf16, random weights from a seeded
+   width of internlm2-1.8b and 12 of its 24 layers (``SERVE_LAYERS``: a
+   depth cut for the script's time, which phases 3, 4, 5 and their
+   artifact runs share; d_model 2048, 16/8 heads, d_ff 8192, vocab 92544
+   padded to 94208), bf16, random weights from a seeded
    generator on the card: 4 slots, prefill chunk 64, 32 new tokens each,
    max_prompt 512 (capacity 576).  Every request must return 32 tokens in
    the padded vocabulary; each kernel's launch count in that run must equal
@@ -98,10 +100,10 @@ Phases, each a hard failure (non-zero exit, no result line):
    once to bf16 as the kernels round) on copies of the same cache: every
    layer's attention call must be within the kernel tolerance of the plain
    version on its own inputs, and the logits must agree at atol
-   ``LOGIT_ATOL`` (24 bf16 layers amplify single-ulp rounding
-   differences; PERF.md gives the readings behind the limit), with equal
-   greedy tokens on at least 90% of the compared rows.  The main oracle
-   is exact: a small float32 config (head_dim 128) served through the
+   ``LOGIT_ATOL`` (bf16 layers amplify single-ulp rounding differences;
+   PERF.md gives the readings behind the limit, taken at 24 layers), with
+   equal greedy tokens on at least 90% of the compared rows.  The main
+   oracle is exact: a small float32 config (head_dim 128) served through the
    kernels must give the same greedy tokens as the plain path on the CPU.
 4. A profile of decode and chunk steps says where a step's time goes
    (host wall, device busy, kernels per step, attention, ``int8_matmul``,
@@ -113,7 +115,7 @@ Phases, each a hard failure (non-zero exit, no result line):
    share a 256-token prefix.  Every request must return 32 tokens; the run
    must preempt at least once and hit the prefix cache at least once; each
    kernel's launch count must equal what the step counts imply
-   (``int8_matmul``: 7 x 24 x (decode steps + chunk steps)).  The int8
+   (``int8_matmul``: 7 x layers x (decode steps + chunk steps)).  The int8
    logits are held against the plain path (plain attention and plain int8
    matmul) on copies of the same pool as in phase 3, at
    ``INT8_LOGIT_ATOL``, with greedy tokens equal on at least
@@ -172,14 +174,14 @@ Phases, each a hard failure (non-zero exit, no result line):
    trained 3 steps on the card and on the CPU from the same weights must
    agree (``TRAIN_TOL``).
 8. Full-width mamba1 serving: falcon-mamba-7b (d_model 4096, d_inner
-   8192, state 16, dt_rank 256, vocab 65024 padded to 65536) at 32 of its
+   8192, state 16, dt_rank 256, vocab 65024 padded to 65536) at 16 of its
    64 layers (``MAMBA_LAYERS``: depth cut so that the script keeps within
-   its time as phases 10 and 11 join it; 3,906,867,200 parameters), bf16,
+   its time as phases 10 to 14 join it), bf16,
    random weights from a seeded generator on the card, through
    ``ContinuousBatchServer`` as in phase 3 (4 slots, chunk 64, 32 new
    tokens, eight prompts of 9 to 512 tokens).  Every request must return
    32 tokens in the padded vocabulary, and ``mamba_scan`` must launch
-   exactly 32 x (chunk steps + decode steps).
+   exactly 16 x (chunk steps + decode steps).
    Then, as in phase 3 over four seeds, chunk, ragged-chunk and
    decode steps through the kernel and through the plain scan on copies
    of the same state: every layer's scan within ``MAMBA_TOL`` of the
@@ -216,28 +218,32 @@ equal the eager run's launches, one replay a decode step (or call).
    ``PREFILL_GREEDY_EQUAL_MIN``.  The exact oracle: a float32 gemma3 of
    smoke widths with heads of 256 (13 layers, window 8) served and
    prefilled on the card gives the CPU's greedy tokens.
-11. gemma3-4b at full width (34 layers, d_model 2560, 8/4 heads of 256,
-   window 1,024, vocab 262,144), bf16, seeded weights: four prompts of
+11. gemma3-4b at full width and 22 of its 34 layers (``GEMMA_LAYERS``:
+   3 of its 5 groups of 5 windowed layers and a global one, and its tail
+   of 4 windowed layers; a depth cut for the script's time; d_model
+   2560, 8/4 heads of 256, window 1,024, vocab 262,144), bf16, seeded
+   weights: four prompts of
    900 to 1,500 tokens (every ring wraps) with 32 new tokens, 4 slots,
    chunks of 64, max_prompt 1,536, through ``ContinuousBatchServer``
    (float) and ``PagedBatchServer`` (int8): every request returns 32
-   tokens, each kernel's launches equal 34 x the steps; the logits
+   tokens, each kernel's launches equal 22 x the steps; the logits
    against the plain path on copies of the cache as in phase 3 (two
    seeds, slots filled past the window), at ``GEMMA_LOGIT_ATOL`` and
    ``GEMMA_INT8_LOGIT_ATOL``.  Then granite-3-8b at full width (40 layers,
    G 4), float, phase 3's requests, with its launch counts.
-12. zamba2-2.7b at full width and depth (54 layers: 9 groups of 6 mamba2
-   blocks, each closed by one shared attention block of 32/32 heads of
-   80; d_model 2560, 80 SSM heads of 64, state 64, vocab 32,000 padded to
-   32,768; 2,342,681,760 parameters), bf16, seeded weights: phase 3's
+12. zamba2-2.7b at full width and 18 of its 54 layers (``ZAMBA_LAYERS``:
+   3 of its 9 groups of 6 mamba2 blocks, each closed by one shared
+   attention block of 32/32 heads of 80; a depth cut for the script's
+   time; d_model 2560, 80 SSM heads of 64, state 64, vocab 32,000 padded
+   to 32,768; 906,728,160 parameters), bf16, seeded weights: phase 3's
    eight requests through ``ContinuousBatchServer`` (float) and
    ``PagedBatchServer`` (int8), every request 32 tokens, each serving
-   kernel launched 9 times a step and ``int8_matmul`` 63 times a step
+   kernel launched 3 times a step and ``int8_matmul`` 21 times a step
    (int8); the logits against the plain path on copies of the cache as
    in phase 3, at ``ZAMBA_LOGIT_ATOL`` and ``ZAMBA_INT8_LOGIT_ATOL``; a
    profile of its decode and chunk steps; one-shot prefill at B 1, S
    2,048 against the chunked path at ``ZAMBA_PREFILL_LIMITS`` (the SSM
-   states too), ``flash_attention`` launched 9 times.  The
+   states too), ``flash_attention`` launched 3 times.  The
    exact oracle: a float32 zamba2 of smoke depth with heads of 80 served
    (continuous; int8 paged, preempting) and prefilled on the card gives
    the CPU's greedy tokens.
@@ -275,10 +281,40 @@ equal the eager run's launches, one replay a decode step (or call).
    float and int8), ``int8_matmul`` at the MoE decoders' attention
    projections (K 4,096 and 6,144) and both training attention kernels at
    B 1, S 2,048, 32/8 and 48/8 heads.
+14. The encoder-decoder backbone: seamless-m4t-large-v2 at full width
+   and depth (24 encoder and 24 decoder layers, d_model 1024, 16/16 heads
+   of 64, d_ff 8192, vocab 256,206 padded to 258,048; 2,038,556,672
+   parameters), bf16, seeded weights.  Four rows, each an encoder pass
+   over 512 frames (the stub frontend's embeddings from
+   ``api.synthetic_inputs``) and a decoder prompt of 64 tokens: one-shot
+   (``forward_prefill``, ``grow_cache`` by 64, 64 greedy decode steps) and
+   chunked (``init_chunk_cache`` of 128, chunks of 16, the same decode
+   steps teacher-forced with the one-shot run's tokens), in float and
+   then in native int8.  Each run is held to its launch counts (the
+   encoder's and the decoder's ``flash_attention``, self and cross
+   ``flash_decode`` and ``flash_chunk_prefill``, ``int8_matmul``) and
+   leaves the cross caches bitwise unchanged; its logits against the
+   same run with every kernel patched to its plain version, at
+   ``ENCDEC_LOGIT_ATOL`` with greedy tokens equal on at least
+   ``ENCDEC_GREEDY_EQUAL_MIN``; the float one-shot against the float
+   chunked path at ``ENCDEC_CHUNKED_LIMITS`` (the int8 gap printed: the
+   one-shot prefill attends the unquantized K/V, the chunks the quantized
+   cross entries, as in the reference).  The decode loop's tokens/s, the
+   encoder pass's ms and one decode step's profile.  Then training at
+   full depth: f32 masters, AdamW, remat "full", 3 steps of B 2 x S 2,048
+   (S_enc 512): losses, step ms, peak memory, 144 forward and 72 backward
+   attention launches a step.  The exact oracle: the smoke config at
+   d_model 256 (head dim 64) in float32 on the card gives the CPU's
+   greedy tokens, one-shot and chunked.  Phase 2 holds both training
+   attention kernels with keys of another length (B 2, Sq 2,048 on Skv
+   512; Sq 1,000 on Skv 250; the encoder's S 512, all ``causal=False``,
+   16/16 heads of 64), both serving kernels at D 64 and G 1 (the self
+   cache and the cross cache read from position 2^30, float and int8)
+   and ``int8_matmul`` at K 1,024 and 8,192 (M 4, 64 and 2,048).
 
-Phases 10 to 13 run before phase 9.  Each main path (phases 3, 5
+Phases 10 to 14 run before phase 9.  Each main path (phases 3, 5
 paged and calibrated, 6 inference and fit, 7, 8, their artifact runs, 9,
-10, 11, 12 and 13) runs with every launch count set to 0 just before it
+10, 11, 12, 13 and 14) runs with every launch count set to 0 just before it
 and read just after.  Prints the kernels' JSON line, the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.  Needs
 one GPU; exits non-zero without one, or without the rest of the
@@ -287,6 +323,7 @@ repository beside it.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import re
@@ -326,6 +363,10 @@ SOURCES = {"flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
            "mamba_scan": "src/repro_torch/kernels/csrc/mamba_scan.cu"}
 HKV, G, D = 8, 2, 128
 DEV = "cuda"
+# phases 3 to 5 (and their artifact runs) serve internlm2-1.8b at 12 of its
+# 24 layers: PR 20 cut their depth so that the script keeps within its
+# time as phase 14 joins it; phase 7 trains all 24
+SERVE_LAYERS = 12
 # A bf16 output may differ from the f32 plain value by its own rounding,
 # at most 2^-8 of its size, plus the f32 summation-order slack (below 1e-6
 # in the f32 check); an f32 output by that slack alone.
@@ -439,9 +480,10 @@ MAMBA_LIBRARY = "none: no single PyTorch call computes a selective scan"
 # 96.1% of the rows there, so at least 90% is required.  64 bf16 layers
 # carry single-ulp differences of the scan's f32 output onward.
 MAMBA_LOGIT_ATOL = 1.0
-# phase 8's depth: 32 of falcon-mamba-7b's 64 layers (PR 17 cut it, so
-# that the script keeps within its time as phases 10 and 11 join it)
-MAMBA_LAYERS = 32
+# phase 8's depth: 16 of falcon-mamba-7b's 64 layers (PR 17 cut it to 32
+# and PR 20 to 16, so that the script keeps within its time as phases 10
+# to 14 join it)
+MAMBA_LAYERS, MAMBA_PARAMS = 16, 2_221_871_104
 MAMBA_GREEDY_EQUAL_MIN = 0.9
 
 
@@ -843,7 +885,31 @@ SLICE_LAYOUTS = {"d256_g2": ((4, 2, 256), 1600, "contiguous"),
                  "d128_g6_paged_bs64": ((8, 6, 128), 576, "paged64"),
                  "d80_g1": ((32, 1, 80), 576, "contiguous"),
                  "d80_g1_paged_bs64": ((32, 1, 80), 576, "paged64"),
-                 "d80_g1_full": ((32, 1, 80), 576, "full")}
+                 "d80_g1_full": ((32, 1, 80), 576, "full"),
+                 # seamless-m4t-large-v2 (phase 14): 16/16 heads of 64,
+                 # the decoder's self cache, and the cross cache (the
+                 # encoder's 512 entries read whole from position 2^30)
+                 "d64_g1": ((16, 1, 64), 576, "contiguous"),
+                 "d64_g1_cross": ((16, 1, 64), 512, "cross")}
+# the query position of a cross-attention read (``layers.py``)
+CROSS_QUERY_POSITION = 2 ** 30
+
+
+def make_cross_case(gen, Int8KV, int8, b, c, s, reals, dtype, heads):
+    """The cross-attention layout: every slot holds the encoder's ``s``
+    entries at positions 0.., read whole; the real queries sit at
+    ``CROSS_QUERY_POSITION``, the rest of a chunk's rows are pad (−1)."""
+    dev = DEV
+    hkv, g, d = heads
+    q = torch.randn(b, c, hkv * g, d, generator=gen, device=dev).to(dtype)
+    qpos = torch.full((b, c), -1, dtype=torch.int32, device=dev)
+    for i, r in enumerate(reals):
+        qpos[i, :r] = CROSS_QUERY_POSITION
+    pos = torch.arange(s, dtype=torch.int32, device=dev)[None] \
+        .repeat(b, 1)
+    kvl = torch.full((b,), s, dtype=torch.int32, device=dev)
+    return (q,) + kv_leaves(gen, Int8KV, int8, (b, s, hkv, d), [], dtype) \
+        + (qpos, pos, kvl, None)
 
 
 def check_slice_attention(ops, ref, Int8KV, layouts=SLICE_LAYOUTS):
@@ -852,8 +918,9 @@ def check_slice_attention(ops, ref, Int8KV, layouts=SLICE_LAYOUTS):
     with 4 slots (contiguous and paged: fills 0, 1, 37 and full; ring: 1,
     37, 1,024 and 1,500, wrapped; "full": all four full) and a chunk of 64
     with 20 pad rows (contiguous and paged: 128 rows short of full; ring:
-    1,200 positions before it).  Returns the bf16 rows, timed as phase
-    2's, by layout."""
+    1,200 positions before it); "cross": decode with 4 slots and a chunk
+    of 16 at 4 slots with pad tails, every entry read from position 2^30.
+    Returns the bf16 rows, timed as phase 2's, by layout."""
     gen = torch.Generator(device="cuda").manual_seed(17)
     floor_ms = time_ms(torch.zeros(1, device=DEV).zero_)
     rows = {"flash_decode": {}, "flash_chunk_prefill": {}}
@@ -863,7 +930,15 @@ def check_slice_attention(ops, ref, Int8KV, layouts=SLICE_LAYOUTS):
         bs = 64 if kind == "paged64" else None
         for int8 in (False, True):
             for dtype in (torch.bfloat16, torch.float32):
-                if kind == "full":
+                if kind == "cross":
+                    cases = {
+                        "flash_decode": ("decode", make_cross_case(
+                            gen, Int8KV, int8, 4, 1, s, [1] * 4, dtype,
+                            heads), ops.decode_attention),
+                        "flash_chunk_prefill": ("chunk", make_cross_case(
+                            gen, Int8KV, int8, 4, 16, s, [16, 12, 16, 5],
+                            dtype, heads), ops.chunk_attention)}
+                elif kind == "full":
                     cases = {"flash_decode": ("decode", make_layout_case(
                         gen, Int8KV, int8, None, 4, 1, s, [s] * 4, [1] * 4,
                         dtype, heads), ops.decode_attention)}
@@ -909,8 +984,11 @@ def check_slice_attention(ops, ref, Int8KV, layouts=SLICE_LAYOUTS):
                           f"{name} {key}: non-finite or wrong dtype")
                     check(ratio <= 1, f"{name} disagrees with its plain"
                           f" version, {key} {dtype}: {ratio} of the limit")
-                    zero = out[0, 44:] if step == "chunk" else \
-                        (None if kind in ("ring", "full") else out[0])
+                    pad = 12 if kind == "cross" else 44
+                    zero = out[1 if kind == "cross" else 0, pad:] \
+                        if step == "chunk" else \
+                        (None if kind in ("ring", "full", "cross")
+                         else out[0])
                     check(zero is None or bool((zero == 0).all()),
                           f"{name} {key}: empty slot or pad rows not zero")
                     if dtype != torch.bfloat16:
@@ -960,6 +1038,13 @@ def check_int8_matmul(ops, ref, im):
     shapes += [(m, k, n) for k, n in ((4096, 4096), (4096, 1024),
                                       (6144, 6144), (6144, 1024))
                for m in (4, 64)]
+    # seamless-m4t-large-v2 (phase 14, int8): the attention projections
+    # and the cross K/V (1024, 1024), gate/up (1024, 8192), down (8192,
+    # 1024), and the cross K/V over the whole encoder output (M 2,048 = B
+    # 4 x S_enc 512)
+    shapes += [(m, k, n) for k, n in ((1024, 1024), (1024, 8192),
+                                      (8192, 1024))
+               for m in (4, 64)] + [(2048, 1024, 1024)]
     for m, k, n in shapes + [(5, 200, 300)]:
         x = torch.randint(-127, 128, (m, k), generator=gen, device=DEV,
                           dtype=torch.int8)
@@ -1157,14 +1242,17 @@ def fa_pairs(s: int, causal: bool, window: int) -> int:
     return int((hi - lo).sum())
 
 
-def fa_bounds(b, s, hq, hkv, d, causal, window) -> dict:
+def fa_bounds(b, s, hq, hkv, d, causal, window, skv=None) -> dict:
     """Least time of the forward and the backward, bf16: operations 4·D
     per kept (query, key) pair and head (two products), the backward 2.5
     times the forward's, at 989 TFLOP/s; bytes: each input read once,
     each output written once (forward: q, k, v -> out, lse; backward: q,
-    k, v, out, dO, lse -> dQ, dK, dV), at 3.35 TB/s."""
-    ops = 4 * d * fa_pairs(s, causal, window) * b * hq
-    q_bytes, kv_bytes = 2 * b * s * hq * d, 2 * 2 * b * s * hkv * d
+    k, v, out, dO, lse -> dQ, dK, dV), at 3.35 TB/s.  ``skv``: keys of
+    another length than the S queries (every pair kept)."""
+    pairs = s * skv if skv is not None else fa_pairs(s, causal, window)
+    skv = s if skv is None else skv
+    ops = 4 * d * pairs * b * hq
+    q_bytes, kv_bytes = 2 * b * s * hq * d, 2 * 2 * b * skv * hkv * d
     lse = 4 * b * hq * s
     out = {}
     for name, n_ops, n_bytes in (
@@ -1375,6 +1463,101 @@ def check_flash_attention_wide(port, cases):
     return rows
 
 
+# flash_attention with keys of another length (seamless-m4t-large-v2's
+# cross-attention, phase 14: 16/16 heads of 64, causal=False): the
+# training shape (B 2, S 2,048 on S_enc 512), a ragged pair, and the
+# encoder's own bidirectional attention (B 4, S 512); name: (B, Sq, Skv,
+# Hq, Hkv, D)
+FA_CROSS_CASES = {"cross_b2_s2048_skv512": (2, 2048, 512, 16, 16, 64),
+                  "cross_b2_s1000_skv250": (2, 1000, 250, 16, 16, 64),
+                  "encoder_b4_s512": (4, 512, 512, 16, 16, 64)}
+
+
+def check_flash_attention_cross(port, cases=FA_CROSS_CASES):
+    """Both training kernels at ``causal=False`` with Sq != Skv (and the
+    encoder's Sq == Skv), bf16, against their plain versions as
+    ``check_flash_attention`` holds them (the output at the bf16 limit,
+    dQ/dK/dV by ``grad_reading``; f32 at its limit too), timed against
+    the plain versions, SDPA (which takes Sq != Skv) and the bound.
+    Returns each kernel's rows by case."""
+    fa, ref = port.fa, port.ref
+    gen = torch.Generator(device=DEV).manual_seed(19)
+    rows = {"flash_attention": {}, "flash_attention_bwd": {}}
+    for name, (b, sq, skv, hq, hkv, d) in cases.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            q, do = (torch.randn(b, sq, hq, d, generator=gen, device=DEV)
+                     .to(dtype) for _ in range(2))
+            k, v = (torch.randn(b, skv, hkv, d, generator=gen, device=DEV)
+                    .to(dtype) for _ in range(2))
+            out, lse = fa.flash_attention_fwd(q, k, v, causal=False)
+            grads = fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                           causal=False)
+            torch.cuda.synchronize()
+            f32 = [t.float() for t in (q, k, v)]
+            want_out = ref.flash_attention_ref(*f32, False)
+            want = ref.flash_attention_bwd_ref(*f32, out.float(),
+                                               do.float(), False)
+            f_err = float((out.float() - want_out).abs().max())
+            f_ratio = tol_ratio(out, want_out)
+            check(out.dtype == dtype and bool(out.isfinite().all())
+                  and f_ratio <= 1 and tuple(lse.shape) == (b, hq, sq),
+                  f"flash_attention disagrees with its plain version at"
+                  f" {name} {dtype}: {f_ratio} of the limit")
+            g_err, g_ratio = [], []
+            for gname, got, w in zip(("dq", "dk", "dv"), grads, want):
+                check(got.shape == w.shape, f"{gname} {tuple(got.shape)}")
+                g_err.append(float((got.float() - w).abs().max()))
+                if dtype == torch.bfloat16:
+                    ratio = grad_reading(got, w)[1]
+                else:
+                    ratio = float((got - w).abs().max()
+                                  / (2.0 ** -16 * w.abs().max()))
+                g_ratio.append(ratio)
+                check(bool(got.isfinite().all()) and ratio <= 1,
+                      f"flash_attention_bwd {gname} disagrees with the"
+                      f" plain backward at {name} {dtype}: {ratio} of the"
+                      f" limit")
+            print(f"  flash_attention {name:22s} {str(dtype):15s} max|err|"
+                  f" {f_err:.3g} ({f_ratio:.3f} of the limit); backward"
+                  f" dq/dk/dv {g_err[0]:.3g}/{g_err[1]:.3g}/{g_err[2]:.3g}"
+                  f" ({max(g_ratio):.3f} of the limit)")
+            del f32, want_out, want
+        g = hq // hkv
+        qs, ks, vs, dos = (t.transpose(1, 2).contiguous() for t in
+                           (q, k.repeat_interleave(g, 2),
+                            v.repeat_interleave(g, 2), do))
+        leaves = [t.clone().requires_grad_() for t in (qs, ks, vs)]
+        lib_out = F.scaled_dot_product_attention(*leaves)
+        lib = {"flash_attention":
+                   lambda: F.scaled_dot_product_attention(qs, ks, vs),
+               "flash_attention_bwd": lambda: torch.autograd.grad(
+                   lib_out, leaves, dos, retain_graph=True)}
+        kern = {"flash_attention": lambda: fa.flash_attention_fwd(
+                    q, k, v, causal=False),
+                "flash_attention_bwd": lambda: fa.flash_attention_bwd(
+                    q, k, v, out, lse, do, causal=False)}
+        plain = {"flash_attention": lambda: ref.flash_attention_ref(
+                     q, k, v, False),
+                 "flash_attention_bwd": lambda: ref.flash_attention_bwd_ref(
+                     q, k, v, out, do, False)}
+        bounds = fa_bounds(b, sq, hq, hkv, d, False, 0, skv)
+        for kname, err in (("flash_attention", f_err),
+                           ("flash_attention_bwd", max(g_err))):
+            ms = time_ms(kern[kname], reps=10)
+            plain_ms = time_ms(plain[kname], reps=10)
+            lib_ms = time_ms(lib[kname], reps=10)
+            b_ms, b_by = bounds[kname]
+            rows[kname][name] = {"max_abs_err": err, "ms": ms,
+                                 "plain_ms": plain_ms, "bound_ms": b_ms,
+                                 "bound_by": b_by, "library_ms": lib_ms}
+            print(f"  {kname:19s} {name:22s} kernel {ms:.4f} ms  plain"
+                  f" {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound"
+                  f" {b_ms:.5f} ms ({b_by}): {b_ms / ms:.3f} of the"
+                  f" bound, {ms / lib_ms:.2f}x sdpa")
+        del plain, lib, lib_out, leaves
+    return rows
+
+
 def scan_inputs(gen, b, s, d, n, dtype, with_h0):
     """The JAX kernel test's distributions, drawn on the card: x, B, C ~
     N(0, 0.5), dt = softplus(N(0, 0.5)), a = -exp(N(0, 0.3)), h0 ~ N(0, 1)
@@ -1471,11 +1654,12 @@ def read_counts(port) -> dict:
             **port.fa.LAUNCHES, **port.ms.LAUNCHES}
 
 
-def full_config(port):
+def full_config(port, layers=SERVE_LAYERS):
+    """internlm2-1.8b at its full width, cut to ``layers`` of its 24."""
     cfg = port.configs.get("internlm2-1.8b")
     check(cfg.n_layers == 24 and cfg.d_model == 2048
           and cfg.padded_vocab() == 94208, f"unexpected config {cfg}")
-    return cfg
+    return dataclasses.replace(cfg, n_layers=layers)
 
 
 def serve_full(port, cfg):
@@ -1513,7 +1697,8 @@ def serve_full(port, cfg):
     want.update(flash_decode=cfg.n_layers * metrics["decode_steps"],
                 flash_chunk_prefill=cfg.n_layers * metrics["prefill_chunks"])
     check(launches == want, f"launches {launches} != layers x steps {want}")
-    print(f"  launches {launches} = 24 x (decode steps, chunk steps)")
+    print(f"  launches {launches} = {cfg.n_layers} x (decode steps, chunk"
+          f" steps)")
     print("  metrics " + json.dumps(metrics))
     return params, launches, metrics, eager_run(srv, prompts, reqs, kw,
                                                 launches, metrics)
@@ -2140,8 +2325,8 @@ def serve_int8_paged(port, cfg, params):
                 flash_chunk_prefill=cfg.n_layers * metrics["prefill_chunks"],
                 int8_matmul=7 * cfg.n_layers * steps)
     check(launches == want, f"launches {launches} != step counts {want}")
-    print(f"  launches {launches} = 24 x (decode steps, chunk steps),"
-          f" 7 x 24 x all steps")
+    print(f"  launches {launches} = {cfg.n_layers} x (decode steps, chunk"
+          f" steps), 7 x {cfg.n_layers} x all steps")
     kvb = {prec: port.kvcache.kv_cache_bytes(cfg, 4, 576, precision=prec)
            for prec in ("float", "int8")}
     print(f"  kv_cache_bytes of the 4 x 576 rectangle by the formula: int8"
@@ -2645,7 +2830,7 @@ def serve_mamba_full(port, cfg):
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
     print(f"  weights: {n_params} params in {time.perf_counter() - t0:.1f} s")
-    check(n_params == 3_906_867_200, f"{n_params} parameters")
+    check(n_params == MAMBA_PARAMS, f"{n_params} parameters")
     kw = dict(slots=4, prefill_chunk=64, max_new_tokens=32, max_prompt=512,
               device=DEV)
     warm = port.server.ContinuousBatchServer(cfg, params, **kw)
@@ -3079,7 +3264,9 @@ def serve_run(port, cfg, srv, lens, prompts=None):
 GEMMA_LENS = [900, 1100, 1300, 1500]
 GEMMA_KW = dict(slots=4, prefill_chunk=64, max_new_tokens=32,
                 max_prompt=1536, device=DEV)
-GEMMA_PARAMS = 3_879_907_840
+# phase 11's depth: 22 of gemma3-4b's 34 layers (3 of its 5 groups and
+# the tail; PR 20 cut it so that the script keeps within its time)
+GEMMA_LAYERS, GEMMA_PARAMS = 22, 2_747_384_320
 # Twice the largest of the float and int8 paged readings on the H100 (the
 # rule of LOGIT_ATOL), rounded up to a power of two; PERF.md gives them.
 GEMMA_LOGIT_ATOL = 0.5
@@ -3098,11 +3285,13 @@ PREFILL_LIMITS = dict(logit=PREFILL_LOGIT_ATOL, cache=PREFILL_CACHE_ATOL,
 
 
 def gemma_config(port):
+    """gemma3-4b at its full width, cut to ``GEMMA_LAYERS`` of its 34
+    layers."""
     cfg = port.configs.get("gemma3-4b")
     check(cfg.n_layers == 34 and cfg.resolved_head_dim == 256
           and cfg.sliding_window == 1024 and cfg.padded_vocab() == 262144,
           f"unexpected config {cfg}")
-    return cfg
+    return dataclasses.replace(cfg, n_layers=GEMMA_LAYERS)
 
 
 def serve_gemma(port, cfg):
@@ -3441,7 +3630,9 @@ def serve_granite(port):
 ZAMBA_LENS = [9, 37, 64, 128, 200, 301, 450, 512]
 ZAMBA_KW = dict(slots=4, prefill_chunk=64, max_new_tokens=32,
                 max_prompt=512, device=DEV)
-ZAMBA_PARAMS = 2_342_681_760
+# phase 12's depth: 18 of zamba2-2.7b's 54 layers, 3 of its 9 groups
+# (PR 20 cut it so that the script keeps within its time)
+ZAMBA_LAYERS, ZAMBA_PARAMS = 18, 906_728_160
 # The rule of LOGIT_ATOL: twice the largest of the float (and of the int8
 # paged) readings on the H100 (0.2734 and 0.3223), rounded up to a power
 # of two; PERF.md gives them.  Greedy tokens equal on 90.4% of the rows
@@ -3466,14 +3657,15 @@ def zamba_config(port):
           and cfg.resolved_head_dim == 80 and nh == 80
           and cfg.d_inner // nh == 64 and cfg.ssm_state == 64
           and cfg.padded_vocab() == 32768, f"unexpected config {cfg}")
-    return cfg
+    return dataclasses.replace(cfg, n_layers=ZAMBA_LAYERS)
 
 
 def serve_zamba(port, cfg):
     """zamba2-2.7b at full width, bf16: float through
     ``ContinuousBatchServer`` and int8 through ``PagedBatchServer``, each
-    held to its launch counts (9 shared-block applications a step), then
-    its logits against the plain path on copies of the cache, as phase 3;
+    held to its launch counts (one shared-block application a group and
+    step), then its logits against the plain path on copies of the cache,
+    as phase 3;
     a profile of its float decode and chunk steps; one-shot prefill at B
     1, S 2,048 against the chunked path.  Returns the launches and
     metrics of both runs, the prefill's launches and reading, and the
@@ -3861,6 +4053,444 @@ def moe_phase(port):
     return dict(phi=phi, dbrx=dbrx, train=train)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: slice 9 part 2 (the encoder-decoder backbone)
+# ---------------------------------------------------------------------------
+SEAMLESS = "seamless-m4t-large-v2"
+SEAMLESS_PARAMS = 2_038_556_672
+# (decoder layers, encoder layers, d_model, heads, KV heads, head dim,
+# d_ff, padded vocab) of the full config, run at full depth
+SEAMLESS_WIDTHS = (24, 24, 1024, 16, 16, 64, 8192, 258048)
+# 4 rows, each an encoder pass over 512 frames (the stub frontend's
+# embeddings, B 4 x S_enc 512 x 1,024) and a decoder prompt of 64 tokens,
+# then 64 greedy decode steps; the chunked path in chunks of 16 into a
+# cache of 128 (the one-shot cache grown by 64)
+ENCDEC_B, ENCDEC_ENC, ENCDEC_PROMPT, ENCDEC_NEW = 4, 512, 64, 64
+ENCDEC_CHUNK = 16
+# the chunked path's plain run stops after its chunks and this many decode
+# steps (the decode kernel is held over all 64 in the one-shot path)
+ENCDEC_PLAIN_CHUNKED_STEPS = 16
+# Logits of each path (one-shot and chunked, each teacher-forced with the
+# float one-shot run's tokens) against the same path through the plain
+# kernels, and the float one-shot against the float chunked path.  By the
+# rule of LOGIT_ATOL, twice the largest reading on the H100 rounded up to
+# a power of two (float 0.2046, int8 0.6973, one-shot against chunked
+# 0.0869).  Greedy tokens equal on 88.2% to 91.5% (float) and 59.6% to
+# 64.7% (int8) of the rows: random weights leave near ties at the top of
+# 256,206 logits, and under int8 a single-ulp attention difference moves
+# a per-row activation quantizer by a step (the plain path against itself
+# with float64 attention agrees on 86.2%); the small int8 config gives
+# the CPU's tokens exactly (PERF.md gives the readings).
+ENCDEC_LOGIT_ATOL = {"float": 0.5, "int8": 2.0}
+ENCDEC_GREEDY_EQUAL_MIN = {"float": 0.85, "int8": 0.5}
+ENCDEC_CHUNKED_LIMITS = dict(logit=0.25, greedy=0.9)
+# Training at full depth: B 2 x S 2,048 (S_enc 512), remat "full", 3 steps
+ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ, ENCDEC_TRAIN_STEPS = 2, 2048, 3
+# The small float32 config (D 64) on the card against the CPU: greedy
+# tokens equal, logits within twice the largest reading on the H100
+# rounded up to a power of two (float 7.45e-7, int8 3.58e-7)
+ENCDEC_SMALL_LOGIT_ATOL = {"float": 2.0 ** -19, "int8": 2.0 ** -20}
+
+
+def encdec_config(port):
+    cfg = port.configs.get(SEAMLESS)
+    got = (cfg.n_layers, cfg.n_enc_layers, cfg.d_model, cfg.n_heads,
+           cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_ff,
+           cfg.padded_vocab())
+    check(got == SEAMLESS_WIDTHS and cfg.is_encdec, f"unexpected config"
+          f" {cfg}")
+    return cfg
+
+
+def plain_flash_attention(ref, dtype=torch.float32):
+    """The whole-sequence attention's plain version in f32 (or ``dtype``)
+    from the same inputs, rounded once to the working dtype."""
+    def call(q, k, v, *, causal=True, window=0):
+        return ref.flash_attention_ref(q.to(dtype), k.to(dtype), v.to(dtype),
+                                       causal, window).to(q.dtype)
+    return call
+
+
+def encdec_plain(port, dtype=torch.float32) -> list:
+    """Patches that send every kernel of the enc-dec path to its plain
+    version: both attention kernels of the serving layers and
+    ``flash_attention`` in f32 (or ``dtype``) rounded once, the plain int8
+    matmul."""
+    layers, ops, ref = port.layers, port.ops, port.ref
+    return [mock.patch.multiple(
+        layers, flash_attention=plain_flash_attention(ref, dtype),
+        decode_attention=rounded_once(ref, "decode", dtype),
+        chunk_attention=rounded_once(ref, "chunk", dtype)),
+        mock.patch.object(ops, "int8_matmul", ref.int8_matmul_ref)]
+
+
+def encdec_expected(cfg, path: str, int8: bool) -> dict:
+    """The launches of one run of ``path`` ("oneshot": prefill and
+    ``ENCDEC_NEW`` decode steps; "chunked": ``init_chunk_cache``, the
+    chunks, the same decode steps).  A decode step's layer attends twice
+    (self, cross) and runs 9 projections (q, k, v, o; the cross q, o; the
+    MLP's 3); a prefill's decoder layer 11 (the cross K/V too), an
+    encoder layer 7."""
+    n, e = cfg.n_layers, cfg.n_enc_layers
+    chunks = ENCDEC_PROMPT // ENCDEC_CHUNK
+    want = dict(flash_decode=2 * n * ENCDEC_NEW, flash_chunk_prefill=0,
+                int8_matmul=0, mel_frontend=0, flash_attention=e,
+                flash_attention_bwd=0, mamba_scan=0)
+    mm = 7 * e + 9 * n * ENCDEC_NEW
+    if path == "oneshot":
+        want["flash_attention"] += 2 * n
+        mm += 11 * n
+    else:
+        want["flash_chunk_prefill"] = 2 * n * chunks
+        mm += 2 * n + 9 * n * chunks
+    if int8:
+        want["int8_matmul"] = mm
+    return want
+
+
+def encdec_run(port, cfg, params, enc, prompts, policy, path, forced=None,
+               steps=None):
+    """One run of ``path``: the one-shot prefill, ``grow_cache`` by
+    ``ENCDEC_NEW`` and ``steps`` (default ``ENCDEC_NEW``) decode steps,
+    or ``init_chunk_cache`` (capacity prompt + new), chunks of
+    ``ENCDEC_CHUNK`` and the same decode steps.  Each step takes the greedy token, or ``forced[:, t]``
+    (teacher forcing).  The cross caches must come out bitwise unchanged.
+    Returns (logits of the prompt's last row and of each step, tokens fed,
+    decode wall s)."""
+    ed, dev = port.encdec, DEV
+    b, s = prompts.shape
+    steps = ENCDEC_NEW if steps is None else steps
+    with torch.no_grad():
+        if path == "oneshot":
+            last, cache = ed.forward_prefill(
+                cfg, params, {"enc_embeddings": enc, "tokens": prompts},
+                policy)
+            cache = port.transformer.grow_cache(cfg, cache, ENCDEC_NEW)
+        else:
+            cache = ed.init_chunk_cache(cfg, params, enc, s + ENCDEC_NEW,
+                                        policy)
+            for p in range(0, s, ENCDEC_CHUNK):
+                pos = torch.arange(p, p + ENCDEC_CHUNK, dtype=torch.int32,
+                                   device=dev)[None].expand(b, -1)
+                kvl = torch.full((b,), p + ENCDEC_CHUNK, dtype=torch.int32,
+                                 device=dev)
+                lg, cache = ed.forward_prefill_chunk(
+                    cfg, params, cache, prompts[:, p:p + ENCDEC_CHUNK],
+                    pos.contiguous(), policy, kv_len=kvl)
+            last = lg[:, -1]
+        cross = {key: Steps.copy({key: cache[key]})[key]
+                 for key in ("xk", "xv", "enc_pos")}
+        logits = [last]
+        fed = [last.argmax(-1).to(torch.int32) if forced is None
+               else forced[:, 0]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(steps):
+            pos = torch.full((b,), s + t, dtype=torch.int32, device=dev)
+            lg, cache = ed.forward_decode(cfg, params, cache, fed[-1], pos,
+                                          policy=policy, kv_len=pos + 1)
+            logits.append(lg)
+            if t + 1 < steps:
+                fed.append(lg.argmax(-1).to(torch.int32) if forced is None
+                           else forced[:, t + 1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    for key, leaf in cross.items():
+        same = all(torch.equal(a, c) for a, c in zip(
+            leaf if isinstance(leaf, tuple) else (leaf,),
+            cache[key] if isinstance(leaf, tuple) else (cache[key],)))
+        check(same, f"enc-dec {path}: the cross cache {key} was written")
+    return torch.stack(logits), torch.stack(fed, 1), wall
+
+
+def logit_reading(got, want) -> dict:
+    """Largest |got - want| over every step and row, and the rows whose
+    greedy tokens agree."""
+    gap = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    equal = int((got.argmax(-1) == want.argmax(-1)).sum())
+    return dict(max_abs_gap=gap, greedy_equal=equal,
+                rows=got.shape[0] * got.shape[1])
+
+
+def time_encoder(port, cfg, params, enc, policy) -> float:
+    """Median ms of the encoder pass (``encode``) over 3 calls, device
+    time between events."""
+    times = []
+    with torch.no_grad():
+        for _ in range(4):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            port.encdec.encode(cfg, params, enc, policy=policy)
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+    return float(np.median(times[1:]))
+
+
+def serve_encdec(port, cfg):
+    """seamless-m4t-large-v2 at full width and depth, bf16, seeded
+    weights: the one-shot and the chunked paths in float, then in native
+    int8, each held to its launch counts and, teacher-forced with the
+    float one-shot run's tokens, to the same path through the plain
+    kernels; the float one-shot against the float chunked path (the int8
+    gap printed: the one-shot prefill attends the unquantized K/V, the
+    chunks the quantized cross entries).  The decode loop's tokens/s, the
+    encoder pass's ms and a profile of one decode step."""
+    params = port.init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                              DEV)
+    n = sum(p.numel() for p in params.parameters())
+    check(n == SEAMLESS_PARAMS, f"{n} parameters")
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    inputs = port.api.synthetic_inputs(cfg, ENCDEC_B, 4 * ENCDEC_ENC, gen,
+                                       train=False, device=DEV)
+    enc = inputs["enc_embeddings"]
+    prompts = inputs["tokens"][:, :ENCDEC_PROMPT].contiguous()
+    check(tuple(enc.shape) == (ENCDEC_B, ENCDEC_ENC, cfg.d_model),
+          f"frame embeddings {tuple(enc.shape)}")
+    with torch.no_grad():
+        _, warm = port.encdec.forward_prefill(
+            cfg, params, {"enc_embeddings": enc, "tokens": prompts})
+        warm = port.transformer.grow_cache(cfg, warm, 2)
+        for t in range(2):
+            pos = torch.full((ENCDEC_B,), ENCDEC_PROMPT + t,
+                             dtype=torch.int32, device=DEV)
+            port.encdec.forward_decode(cfg, params, warm, prompts[:, t], pos)
+        del warm
+    out = {"launches": {}, "metrics": {}}
+    forced = None
+    runs = {}
+    for precision in ("float", "int8"):
+        t_prec = time.perf_counter()
+        policy = None if precision == "float" else port.quantize.INT8
+        weights = params if policy is None else \
+            port.quantize.quantize_model_params(params, policy)
+        encoder_ms = time_encoder(port, cfg, weights, enc, policy)
+        for path in ("oneshot", "chunked"):
+            key = f"{path}_{precision}"
+            reset_counts(port)
+            torch.cuda.synchronize()
+            logits, fed, wall = encdec_run(port, cfg, weights, enc, prompts,
+                                           policy, path, forced)
+            launches = read_counts(port)
+            want = encdec_expected(cfg, path, policy is not None)
+            check(launches == want, f"enc-dec {key} launches {launches} !="
+                  f" {want}")
+            if forced is None:
+                forced = fed
+            steps = ENCDEC_NEW if path == "oneshot" else \
+                ENCDEC_PLAIN_CHUNKED_STEPS
+            with patched(encdec_plain(port)):
+                plain, _, _ = encdec_run(port, cfg, weights, enc, prompts,
+                                         policy, path, forced, steps)
+            reading = logit_reading(logits[:1 + steps], plain)
+            runs[key] = logits
+            out["launches"][key] = launches
+            out["metrics"][key] = dict(
+                vs_plain=reading, decode_wall_s=wall,
+                tokens_per_s=ENCDEC_B * ENCDEC_NEW / wall,
+                encoder_ms=encoder_ms)
+            if path == "oneshot" and policy is not None:
+                # the noise floor: the plain path against itself with its
+                # attention in float64
+                with patched(encdec_plain(port, torch.float64)):
+                    plain64, _, _ = encdec_run(port, cfg, weights, enc,
+                                               prompts, policy, path, forced)
+                out["metrics"][key]["plain_vs_plain64"] = logit_reading(
+                    plain, plain64)
+                del plain64
+            del plain
+            print(f"  enc-dec {key}: " + json.dumps(out["metrics"][key]))
+            check(reading["max_abs_gap"] <= ENCDEC_LOGIT_ATOL[precision],
+                  f"enc-dec {key} logits against the plain path:"
+                  f" {reading['max_abs_gap']}")
+            check(reading["greedy_equal"] >= ENCDEC_GREEDY_EQUAL_MIN[
+                precision] * reading["rows"], f"enc-dec {key} greedy"
+                f" tokens equal the plain path's on only"
+                f" {reading['greedy_equal']} of {reading['rows']}")
+        gap = logit_reading(runs[f"chunked_{precision}"],
+                            runs[f"oneshot_{precision}"])
+        out["metrics"][f"oneshot_vs_chunked_{precision}"] = gap
+        print(f"  enc-dec one-shot against chunked, {precision}: "
+              + json.dumps(gap))
+        if precision == "float":
+            check(gap["max_abs_gap"] <= ENCDEC_CHUNKED_LIMITS["logit"],
+                  f"enc-dec one-shot against chunked: {gap['max_abs_gap']}")
+            check(gap["greedy_equal"] >= ENCDEC_CHUNKED_LIMITS["greedy"]
+                  * gap["rows"], f"enc-dec one-shot against chunked: greedy"
+                  f" equal on only {gap['greedy_equal']} of {gap['rows']}")
+            out["profile"] = profile_encdec_decode(port, cfg, params, enc,
+                                                   prompts)
+        print(f"  {precision} part {time.perf_counter() - t_prec:.1f} s")
+        del weights
+    del params, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_encdec_decode(port, cfg, params, enc, prompts) -> dict:
+    """Host wall, device busy, idle share and kernels of one float decode
+    step (4 rows, the cache of the one-shot prefill grown by 64), eight
+    steps traced."""
+    ed = port.encdec
+    with torch.no_grad():
+        _, cache = ed.forward_prefill(
+            cfg, params, {"enc_embeddings": enc, "tokens": prompts})
+        cache = port.transformer.grow_cache(cfg, cache, ENCDEC_NEW)
+        tok = prompts[:, -1].contiguous()
+
+        def step(i):
+            pos = torch.full((ENCDEC_B,), ENCDEC_PROMPT + i, dtype=torch.int32,
+                             device=DEV)
+            lg, _ = ed.forward_decode(cfg, params, cache, tok, pos,
+                                      kv_len=pos + 1)
+            return (lg.argmax(-1),)
+        return profile_step("enc-dec float decode", step, 8)
+
+
+def train_encdec(port, cfg):
+    """seamless-m4t-large-v2 at full width and depth: f32 masters from a
+    seeded generator on the card, bf16 activations, ``make_train_step``
+    (remat "full", AdamW) for 3 steps of B 2 x S 2,048 (S_enc 512, the
+    stub frontend's frame embeddings from ``api.synthetic_inputs``):
+    finite losses; ``flash_attention`` launched 2 x 72 a step (the
+    encoder's 24 and the decoder's self and cross 48, and each recomputed)
+    and its backward 72.  Step ms, losses, peak memory."""
+    params = port.init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                              DEV, trainable=True)
+    n = sum(p.numel() for p in params.parameters())
+    check(n == SEAMLESS_PARAMS, f"{n} trainable parameters")
+    opt_state = port.optimizer.adamw_init(params)
+    step = port.train_step.make_train_step(
+        cfg, remat="full", opt=port.optimizer.AdamWConfig(lr=TRAIN_LR))
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(port)
+    losses, times = [], []
+    for _ in range(ENCDEC_TRAIN_STEPS):
+        batch = port.api.synthetic_inputs(cfg, ENCDEC_TRAIN_BATCH,
+                                          ENCDEC_TRAIN_SEQ, gen, device=DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step(params, opt_state, batch)
+        losses.append(float(m["loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = read_counts(port)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"training losses {losses}")
+    attn = cfg.n_enc_layers + 2 * cfg.n_layers
+    want = {name: 0 for name in launches}
+    want.update(flash_attention=2 * attn * ENCDEC_TRAIN_STEPS,
+                flash_attention_bwd=attn * ENCDEC_TRAIN_STEPS)
+    check(launches == want, f"training launches {launches} != {want}")
+    tokens = ENCDEC_TRAIN_BATCH * ENCDEC_TRAIN_SEQ
+    metrics = dict(params=n, losses=losses, step_ms_all=times,
+                   step_ms=float(np.median(times[1:])),
+                   tokens_per_s=tokens / np.median(times[1:]) * 1e3,
+                   peak_memory_bytes=peak)
+    print("  training " + json.dumps(metrics))
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return launches, metrics
+
+
+def small_encdec_config(port):
+    """The smoke config in float32 at d_model 256 (4 heads of 64, the
+    kernels' least head dim; the smoke config's 16 runs only the plain
+    versions)."""
+    return dataclasses.replace(port.configs.get_smoke(SEAMLESS),
+                               d_model=256, dtype="float32")
+
+
+def small_encdec_vs_cpu(port) -> dict:
+    """The exact oracle: the small float32 config on the card gives the
+    CPU plain path's greedy tokens, in float and in native int8 (the same
+    quantized weights), one-shot (prefill, ``grow_cache``, 8 decode
+    steps) and chunked (chunks of 4), logits within
+    ``ENCDEC_SMALL_LOGIT_ATOL``."""
+    cfg = small_encdec_config(port)
+    check(cfg.resolved_head_dim == 64, f"head dim {cfg.resolved_head_dim}")
+    host = port.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    inputs = port.api.synthetic_inputs(cfg, 2, 24, torch.Generator()
+                                       .manual_seed(1), train=False,
+                                       device="cpu")
+    ed = port.encdec
+    readings = {}
+    for precision in ("float", "int8"):
+        policy = None if precision == "float" else port.quantize.INT8
+        weights = host if policy is None else \
+            port.quantize.quantize_model_params(host, policy)
+        runs = {}
+        for dev in ("cpu", DEV):
+            params = weights if dev == "cpu" else \
+                copy.deepcopy(weights).to(dev)
+            enc, toks = (inputs[k].to(dev)
+                         for k in ("enc_embeddings", "tokens"))
+            with torch.no_grad():
+                lg, cache = ed.forward_prefill(
+                    cfg, params, {"enc_embeddings": enc, "tokens": toks},
+                    policy)
+                cache = port.transformer.grow_cache(cfg, cache, 8)
+                logits, fed = [lg], [lg.argmax(-1).to(torch.int32)]
+                for t in range(8):
+                    lg, cache = ed.forward_decode(
+                        cfg, params, cache, fed[-1],
+                        torch.full((2,), 24 + t, dtype=torch.int32,
+                                   device=dev), policy=policy)
+                    logits.append(lg)
+                    fed.append(lg.argmax(-1).to(torch.int32))
+                chunked = ed.init_chunk_cache(cfg, params, enc, 32, policy)
+                for p in range(0, 24, 4):
+                    pos = torch.arange(p, p + 4, dtype=torch.int32,
+                                       device=dev)[None].repeat(2, 1)
+                    lc, chunked = ed.forward_prefill_chunk(
+                        cfg, params, chunked, toks[:, p:p + 4], pos, policy,
+                        kv_len=torch.full((2,), p + 4, dtype=torch.int32,
+                                          device=dev))
+                logits.append(lc[:, -1])
+            runs[dev] = (torch.stack(logits).cpu(), torch.stack(fed).cpu())
+        gap = float((runs[DEV][0] - runs["cpu"][0]).abs().max())
+        readings[precision] = dict(logit_gap=gap,
+                                   tokens=runs[DEV][1].t().tolist())
+        check(torch.equal(runs[DEV][1], runs["cpu"][1]), f"small enc-dec"
+              f" {precision}: card tokens {runs[DEV][1].tolist()} != cpu"
+              f" {runs['cpu'][1].tolist()}")
+        check(gap <= ENCDEC_SMALL_LOGIT_ATOL[precision],
+              f"small enc-dec {precision} logits: {gap}")
+    print("  small float32 enc-dec (D 64), card against cpu: "
+          + json.dumps(readings))
+    return readings
+
+
+def encdec_phase(port):
+    """Phase 14: seamless-m4t-large-v2 served in one shot and in chunks,
+    float and int8, then trained, at full width and depth; then the small
+    float32 oracle.  Returns the readings by part."""
+    t0 = time.perf_counter()
+    cfg = encdec_config(port)
+    serve = serve_encdec(port, cfg)
+    t1 = time.perf_counter()
+    train = train_encdec(port, cfg)
+    t2 = time.perf_counter()
+    small = small_encdec_vs_cpu(port)
+    print(f"  small oracle part {time.perf_counter() - t2:.1f} s")
+    m = serve["metrics"]
+    print(f"  enc-dec decode tokens_per_s float {m['oneshot_float']['tokens_per_s']:.2f}"
+          f" (chunked {m['chunked_float']['tokens_per_s']:.2f}), int8"
+          f" {m['oneshot_int8']['tokens_per_s']:.2f}; encoder pass"
+          f" {m['oneshot_float']['encoder_ms']:.3f} ms float,"
+          f" {m['oneshot_int8']['encoder_ms']:.3f} ms int8; decode step"
+          f" idle share {serve['profile']['idle_share']:.3f},"
+          f" {serve['profile']['kernels_per_step']:g} kernels; training"
+          f" step {train[1]['step_ms']:.1f} ms, peak"
+          f" {train[1]['peak_memory_bytes'] / 2**30:.2f} GiB; serving part"
+          f" {t1 - t0:.1f} s, training part {t2 - t1:.1f} s, phase"
+          f" {time.perf_counter() - t0:.1f} s")
+    return dict(serve=serve, train=train, small=small)
+
+
 def gpu_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                           "--format=csv,noheader"], capture_output=True,
@@ -3886,7 +4516,7 @@ def load_port():
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import mel_frontend as mf
     from repro_torch.launch import train as launch_train
-    from repro_torch.models import api, kws, layers, moe
+    from repro_torch.models import api, encdec, kws, layers, moe
     from repro_torch.models import params as model_params
     from repro_torch.models import transformer
     from repro_torch.models.params import init_params
@@ -3902,6 +4532,7 @@ def load_port():
                            layers=layers, init_params=init_params,
                            params=model_params,
                            api=api, transformer=transformer, moe=moe,
+                           encdec=encdec,
                            kvcache=kvcache, serve_step=serve_step,
                            server=server, core_blocks=core_blocks, tree=tree,
                            Impulse=Impulse, synthetic=synthetic,
@@ -3968,8 +4599,13 @@ def main() -> None:
     print("  slice 8 part 2: D 80 (zamba2)")
     fa_rows["flash_attention"].update(
         check_flash_attention_wide(port, FA_D80_CASES))
+    print("  slice 9 part 2: keys of another length (seamless-m4t: D 64,"
+          " 16/16 heads, causal=False)")
+    for name, rows in check_flash_attention_cross(port).items():
+        fa_rows[name].update(rows)
 
-    print("phase 3: full-width serving, internlm2-1.8b bf16")
+    print(f"phase 3: full-width serving, internlm2-1.8b bf16 at"
+          f" {SERVE_LAYERS} of its 24 layers")
     cfg = full_config(port)
     params, launches, metrics, run3 = serve_full(port, cfg)
     logits_vs_plain(port, cfg, params, LOGIT_ATOL, GREEDY_EQUAL_MIN,
@@ -3986,7 +4622,8 @@ def main() -> None:
     art3["decode"] = decode_side_by_side(port, "float continuous", asrv, 257)
     del asrv
 
-    print("phase 5: full-width int8 paged serving, internlm2-1.8b bf16")
+    print(f"phase 5: full-width int8 paged serving, internlm2-1.8b bf16 at"
+          f" {SERVE_LAYERS} of its 24 layers")
     srv, launches8, metrics8, run5 = serve_int8_paged(port, cfg, params)
     int8 = port.quantize.INT8
     logits_vs_plain(port, cfg, srv.params, INT8_LOGIT_ATOL,
@@ -4054,7 +4691,8 @@ def main() -> None:
     del params, srv, run3, run5
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    launches_train, train_metrics, train_prof = train_full(port, cfg)
+    launches_train, train_metrics, train_prof = train_full(
+        port, full_config(port, 24))
     train_small_vs_cpu(port)
     print(f"  step_ms {train_metrics['step_ms']:.1f}  tokens_per_s"
           f" {train_metrics['tokens_per_s']:.1f}  mfu"
@@ -4094,8 +4732,9 @@ def main() -> None:
     t0 = time.perf_counter()
     prefill = prefill_phase(port)
     print(f"  phase {time.perf_counter() - t0:.1f} s")
-    print("phase 11: gemma3-4b (the sliding-window ring, D 256) and"
-          " granite-3-8b (G 4) served at full width")
+    print(f"phase 11: gemma3-4b (the sliding-window ring, D 256; full"
+          f" width, {GEMMA_LAYERS} of 34 layers) and granite-3-8b (G 4)"
+          f" served")
     t0 = time.perf_counter()
     gcfg = gemma_config(port)
     launches_g, metrics_g, launches_g8, metrics_g8 = serve_gemma(port, gcfg)
@@ -4107,8 +4746,9 @@ def main() -> None:
           f" {metrics_g['ttft_p50_s']:.4f} / {metrics_g8['ttft_p50_s']:.4f},"
           f" granite {metrics_gr['ttft_p50_s']:.4f}  gemma3 part"
           f" {t1 - t0:.1f} s, granite part {time.perf_counter() - t1:.1f} s")
-    print("phase 12: zamba2-2.7b (mamba2 groups and a shared attention"
-          " block of D 80) served and prefilled at full width")
+    print(f"phase 12: zamba2-2.7b (mamba2 groups and a shared attention"
+          f" block of D 80) served and prefilled at full width, {ZAMBA_LAYERS}"
+          f" of 54 layers")
     (launches_z, metrics_z, launches_z8, metrics_z8, prefill_z,
      prof_z) = zamba_phase(port)
     print("phase 13: the MoE decoders, phi3.5-moe-42b-a6.6b (24 of 32"
@@ -4117,6 +4757,12 @@ def main() -> None:
     moe = moe_phase(port)
     phi, dbrx, (launches_mt, metrics_mt) = moe["phi"], moe["dbrx"], \
         moe["train"]
+    print("phase 14: the encoder-decoder backbone, seamless-m4t-large-v2 at"
+          " full width and depth, served in one shot and in chunks (float"
+          " and int8) and trained")
+    encdec = encdec_phase(port)
+    enc_l = encdec["serve"]["launches"]
+    launches_et, metrics_et = encdec["train"]
 
     print("phase 9: the EON tuner and the Project API on the card")
     t0 = time.perf_counter()
@@ -4143,6 +4789,10 @@ def main() -> None:
         "dbrx_continuous": dbrx["metrics"], "dbrx_routing": dbrx["routing"],
         "prefill_dbrx": dbrx["prefill"][1],
         "phi3.5_moe_training": metrics_mt}))
+    print("  slice 9 part 2 " + json.dumps({
+        "encdec": encdec["serve"]["metrics"],
+        "encdec_decode_step_profile": encdec["serve"]["profile"],
+        "encdec_training": metrics_et, "encdec_small_f32": encdec["small"]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     by_path = {name: {"float_continuous": launches[name],
@@ -4173,11 +4823,14 @@ def main() -> None:
                       "phi3.5_moe_int8_paged": phi["launches8"][name],
                       "dbrx_continuous": dbrx["launches"][name],
                       "prefill_dbrx": dbrx["prefill"][0][name],
-                      "phi3.5_moe_training": launches_mt[name]}
+                      "phi3.5_moe_training": launches_mt[name],
+                      **{f"encdec_{key}": n[name]
+                         for key, n in enc_l.items()},
+                      "encdec_training": launches_et[name]}
                for name in REPLACES}
     serving = (launches, launches8, launches_g, launches_g8, launches_gr,
                launches_z, launches_z8, phi["launches"], phi["launches8"],
-               dbrx["launches"])
+               dbrx["launches"]) + tuple(enc_l.values())
     kernels = []
     for name in ("flash_decode", "flash_chunk_prefill"):
         kernels.append(dict(
@@ -4191,7 +4844,8 @@ def main() -> None:
         replaces=REPLACES["int8_matmul"],
         launches=launches8["int8_matmul"] + launches_cal["int8_matmul"]
         + launches_g8["int8_matmul"] + launches_z8["int8_matmul"]
-        + phi["launches8"]["int8_matmul"],
+        + phi["launches8"]["int8_matmul"]
+        + sum(n["int8_matmul"] for n in enc_l.values()),
         launches_by_path=by_path["int8_matmul"],
         **mm_rows["M4_K2048_N8192"], shapes=mm_rows))
     kernels.append(dict(
@@ -4206,7 +4860,8 @@ def main() -> None:
             replaces=REPLACES[name],
             launches=launches_train[name] + prefill_z[0][name] + sum(
                 prefill[arch][0][name] for arch in prefill)
-            + dbrx["prefill"][0][name] + launches_mt[name],
+            + dbrx["prefill"][0][name] + launches_mt[name]
+            + sum(n[name] for n in enc_l.values()) + launches_et[name],
             launches_by_path=by_path[name],
             **fa_rows[name]["train_b4_s2048"], shapes=fa_rows[name]))
     kernels.append(dict(

@@ -27,7 +27,8 @@ ALIASES: Dict[str, str] = {
 }
 
 PORTED = ("internlm2_1_8b", "falcon_mamba_7b", "granite_3_8b", "llama3_2_3b",
-          "gemma3_4b", "zamba2_2_7b", "phi3_5_moe_42b", "dbrx_132b")
+          "gemma3_4b", "zamba2_2_7b", "phi3_5_moe_42b", "dbrx_132b",
+          "seamless_m4t_large_v2")
 
 # the port slice (ROADMAP.md, queue 1) that brings each remaining module
 # other than slice 9's
@@ -43,8 +44,7 @@ def comes_with(arch_id: str) -> Optional[str]:
     mod_name = _name(arch_id)
     if mod_name in PORTED:
         return None
-    return _LATER.get(mod_name, "slice 9 (the enc-dec backbone and the VLM"
-                      " frontend)")
+    return _LATER.get(mod_name, "slice 9 part 3 (the VLM frontend)")
 
 
 def _module(arch_id: str):

@@ -9,16 +9,19 @@
 // training path needs one, so the gradient is a second kernel here.
 //
 // Contract (identical to kernels/ref.py::flash_attention_ref):
-//   q (B, S, Hq, D), k/v (B, S, Hkv, D), dense, of one type T (f32 or bf16);
-//   query head h reads KV head h / (Hq / Hkv) in place (GQA, no repeat copy).
-//   Query row i attends key j when
-//       j < S, (causal ? j <= i : true), (window > 0 ? j > i - window : true)
-//   (index masks: the caller's positions are 0..S-1).  Scores q . k * scale
-//   (scale = D^-1/2) in f32, online softmax (m, l, acc) in f32, l floored
-//   at 1e-30, output in T.  The forward also writes each row's log-sum-exp
-//   lse = m + log(l) in f32 (B, Hq, S), which the backward reads to rebuild
-//   P = exp(s - lse).  Any S: the last tile of rows and of keys is masked
-//   (the TPU kernel asserts S % block == 0).
+//   q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D), dense, of one type T (f32 or
+//   bf16); query head h reads KV head h / (Hq / Hkv) in place (GQA, no
+//   repeat copy).  Query row i < Sq attends key j when
+//       j < Skv, (causal ? j <= i : true), (window > 0 ? j > i - window : true)
+//   (index masks: the caller's positions are 0..S-1).  Skv may differ from
+//   Sq only with causal == 0 and window == 0 (cross-attention: every key
+//   visible); the causal and window paths take Sq == Skv.  Scores q . k *
+//   scale (scale = D^-1/2) in f32, online softmax (m, l, acc) in f32, l
+//   floored at 1e-30, output in T.  The forward also writes each row's
+//   log-sum-exp lse = m + log(l) in f32 (B, Hq, Sq), which the backward
+//   reads to rebuild P = exp(s - lse).  Any Sq and Skv: the last tile of
+//   rows is masked by Sq, the last tile of keys by Skv (the TPU kernel
+//   asserts one S, S % block == 0).
 //
 // Backward, from (q, k, v, o, lse, dO):
 //   Dr = rowsum(dO * o)                 (f32, one warp per row)
@@ -29,7 +32,10 @@
 // the group in registers without atomics; one pass per query tile for dQ.
 // Accumulation in f32; dQ, dK, dV written in T.  The launcher dispatches on
 // the type: bf16 goes to the tensor-core kernels, f32 to the CUDA-core
-// kernels, and nothing else is taken.
+// kernels, and nothing else is taken.  Query tiles run over Sq, key tiles
+// over Skv: the dK/dV pass loops over ceil(Sq / 64) query tiles for each
+// key tile, the dQ pass over ceil(Skv / 64) key tiles; lse, Dr and dQ are
+// sized by Sq, dK and dV by Skv.
 //
 // Bound on the H100: operations.  A causal forward at the training shape
 // (B 4, S 2048, Hq 16, D 128) does 4 * B * Hq * D * S (S + 1) / 2 = 68.75
@@ -77,12 +83,13 @@
 //   (gemm_split_add): one wgmma accumulator carried along a whole causal
 //   row drifted beyond the limit.
 //   ptxas (-Xptxas -v, CUDA 12.9, sm_90a), registers at D 128 / D 64, and
-//   the dynamic shared memory: fa_fwd_wgmma_kernel 217 / 168, no spills,
-//   82,944 / 41,984 bytes (D 256: 220, no spills, 132,096 bytes, two
-//   blocks a head, each with half of the output's columns); fa_dkdv_wgmma_kernel 255 with 68 bytes of spill
-//   stores and loads / 224, no spills, 100,352 / 51,200 bytes;
-//   fa_dq_wgmma_kernel 197 / 141, no spills, 99,328 / 50,176 bytes;
-//   fa_rowdot_kernel 24.
+//   the dynamic shared memory: fa_fwd_wgmma_kernel 220 / 170, no spills,
+//   82,944 / 41,984 bytes (D 256: 225, no spills, 132,096 bytes, two
+//   blocks a head, each with half of the output's columns);
+//   fa_dkdv_wgmma_kernel 255 with 116 bytes of spill stores and loads (68
+//   before Sq and Skv were split) / 226, no spills, 100,352 / 51,200
+//   bytes; fa_dq_wgmma_kernel 199 / 143, no spills, 99,328 / 50,176
+//   bytes; fa_rowdot_kernel 24.
 //
 // Head dim 80 (zamba2's shared block, forward only: one-shot prefill).
 // Both forwards compute on tiles of D 128 and read the tensors' rows of
@@ -166,6 +173,10 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src,
   constexpr int N = Vec<T>::N;
   constexpr int VPR = D / N;   // 16-byte loads per row
   static_assert(DG <= D && DG % N == 0, "rows of whole loads");
+  // at D 256 the loads' offsets, invariant in the caller's loop over key
+  // tiles, would be hoisted out of it and held (the f32 forward then
+  // spilled at 255 registers), as in load_tile
+  if constexpr (D > 128) asm volatile("" : "+r"(tid));
   for (int i = tid; i < ROWS * VPR; i += kThreads) {
     const int r = i / VPR, c = (i % VPR) * N;
     float f[N];
@@ -185,9 +196,11 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src,
   }
 }
 
-__device__ __forceinline__ bool key_ok(int kp, int qp, int S, int causal,
+// key kp visible to query row qp (Skv: the keys' length)
+__device__ __forceinline__ bool key_ok(int kp, int qp, int Skv, int causal,
                                        int window) {
-  return kp < S && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
+  return kp < Skv && (!causal || kp <= qp) &&
+         (window <= 0 || kp > qp - window);
 }
 
 // ---------------------------------------------------------------------------
@@ -201,8 +214,8 @@ template <typename T, int D, int BK, int DG = D>
 __global__ void __launch_bounds__(kThreads)
 fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, T* __restrict__ out,
-           float* __restrict__ lse, int S, int Hq, int Hkv, int causal,
-           int window, float scale) {
+           float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
+           int causal, int window, float scale) {
   constexpr int LD = D + 4;        // f32 row stride of the staged tiles
   constexpr int LDP = kBQ + 4;     // row stride of the transposed P tile
   constexpr int KPT = BK / 16;     // keys a thread scores
@@ -218,10 +231,10 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int hk = h / (Hq / Hkv);
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const long long q_rs = (long long)Hq * DG, k_rs = (long long)Hkv * DG;
-  const long long q_base = (long long)b * S * q_rs + (long long)h * DG;
-  const long long k_base = (long long)b * S * k_rs + (long long)hk * DG;
+  const long long q_base = (long long)b * Sq * q_rs + (long long)h * DG;
+  const long long k_base = (long long)b * Skv * k_rs + (long long)hk * DG;
 
-  stage_rows<T, D, LD, kBQ, DG>(q_s, q + q_base, q_rs, q0, S, scale, tid);
+  stage_rows<T, D, LD, kBQ, DG>(q_s, q + q_base, q_rs, q0, Sq, scale, tid);
 
   float m[8], l[8], acc[8][4 * CG];
 #pragma unroll
@@ -233,12 +246,12 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // live key tiles: below the diagonal (causal), inside the window
-  const int k_hi = causal ? min(S, q0 + kBQ) : S;
+  const int k_hi = causal ? min(Skv, q0 + kBQ) : Skv;
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   for (int k0 = (k_lo / BK) * BK; k0 < k_hi; k0 += BK) {
     __syncthreads();   // the previous tile is consumed; q_s is ready
-    stage_rows<T, D, LD, BK, DG>(k_s, k + k_base, k_rs, k0, S, 1.f, tid);
-    stage_rows<T, D, LD, BK, DG>(v_s, v + k_base, k_rs, k0, S, 1.f, tid);
+    stage_rows<T, D, LD, BK, DG>(k_s, k + k_base, k_rs, k0, Skv, 1.f, tid);
+    stage_rows<T, D, LD, BK, DG>(v_s, v + k_base, k_rs, k0, Skv, 1.f, tid);
     __syncthreads();
 
     float s[8][KPT];
@@ -274,7 +287,7 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < KPT; ++j) {
-        ok[j] = key_ok(k0 + tx + 16 * j, qp, S, causal, window);
+        ok[j] = key_ok(k0 + tx + 16 * j, qp, Skv, causal, window);
         mx = fmaxf(mx, ok[j] ? s[i][j] : kNegInf);
       }
       mx = group16_max(mx);
@@ -322,7 +335,7 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 8; ++i) {
     const float li = group16_sum(l[i]);
     const int row = q0 + ty * 8 + i;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
     const float inv = 1.f / fmaxf(li, 1e-30f);
     T* o = out + q_base + row * q_rs;
 #pragma unroll
@@ -331,17 +344,17 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e)
         if (DG == D || cg * 64 + tx * 4 + e < DG)
           o[cg * 64 + tx * 4 + e] = from_f32<T>(acc[i][cg * 4 + e] * inv);
-    // a row with no valid key (none exists for rows < S) gets lse = +inf,
+    // a row with no valid key (none exists for rows < Sq) gets lse = +inf,
     // so the backward's P = exp(s - lse) is 0 there
     if (tx == 0)
-      lse[((long long)b * Hq + h) * S + row] =
+      lse[((long long)b * Hq + h) * Sq + row] =
           li > 0.f ? m[i] + logf(li) : INFINITY;
   }
 }
 
 // ---------------------------------------------------------------------------
 // Backward 1, either type: Dr[b, h, i] = sum_d dO[b, i, h, d] * o[b, i, h,
-// d], one warp per (b, i, h) row in memory order.
+// d], one warp per (b, i, h) row in memory order (S: the queries' length).
 // ---------------------------------------------------------------------------
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -376,8 +389,8 @@ __global__ void __launch_bounds__(kThreads)
 fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const T* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ dr,
-            T* __restrict__ dk, T* __restrict__ dv, int S, int Hq, int Hkv,
-            int causal, int window, float scale) {
+            T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv, int Hq,
+            int Hkv, int causal, int window, float scale) {
   constexpr int BKV = 32;          // keys per block
   constexpr int LD = D + 4;
   constexpr int LDP = BKV + 4;     // row stride of the P / dS tiles
@@ -397,10 +410,10 @@ fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int G = Hq / Hkv;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const long long q_rs = (long long)Hq * D, k_rs = (long long)Hkv * D;
-  const long long k_base = (long long)b * S * k_rs + (long long)hk * D;
+  const long long k_base = (long long)b * Skv * k_rs + (long long)hk * D;
 
-  stage_rows<T, D, LD, BKV>(k_s, k + k_base, k_rs, k0, S, 1.f, tid);
-  stage_rows<T, D, LD, BKV>(v_s, v + k_base, k_rs, k0, S, 1.f, tid);
+  stage_rows<T, D, LD, BKV>(k_s, k + k_base, k_rs, k0, Skv, 1.f, tid);
+  stage_rows<T, D, LD, BKV>(v_s, v + k_base, k_rs, k0, Skv, 1.f, tid);
 
   float dka[4][4 * CG], dva[4][4 * CG];
 #pragma unroll
@@ -414,19 +427,19 @@ fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // live query tiles: rows at or below the tile's keys (causal), rows whose
   // window still reaches them
   const int q_lo = causal ? (k0 / kBQ) * kBQ : 0;
-  const int q_hi = window > 0 ? min(S, k0 + BKV - 1 + window) : S;
+  const int q_hi = window > 0 ? min(Sq, k0 + BKV - 1 + window) : Sq;
   for (int g = 0; g < G; ++g) {
     const int h = hk * G + g;
-    const long long q_base = (long long)b * S * q_rs + (long long)h * D;
-    const float* lse_h = lse + ((long long)b * Hq + h) * S;
-    const float* dr_h = dr + ((long long)b * Hq + h) * S;
+    const long long q_base = (long long)b * Sq * q_rs + (long long)h * D;
+    const float* lse_h = lse + ((long long)b * Hq + h) * Sq;
+    const float* dr_h = dr + ((long long)b * Hq + h) * Sq;
     for (int q0 = q_lo; q0 < q_hi; q0 += kBQ) {
       __syncthreads();   // the previous tile is consumed; k_s/v_s are ready
-      stage_rows<T, D, LD, kBQ>(q_s, q + q_base, q_rs, q0, S, scale, tid);
-      stage_rows<T, D, LD, kBQ>(do_s, dout + q_base, q_rs, q0, S, 1.f, tid);
+      stage_rows<T, D, LD, kBQ>(q_s, q + q_base, q_rs, q0, Sq, scale, tid);
+      stage_rows<T, D, LD, kBQ>(do_s, dout + q_base, q_rs, q0, Sq, 1.f, tid);
       for (int r = tid; r < kBQ; r += kThreads) {
-        lse_s[r] = q0 + r < S ? lse_h[q0 + r] : 0.f;
-        dr_s[r] = q0 + r < S ? dr_h[q0 + r] : 0.f;
+        lse_s[r] = q0 + r < Sq ? lse_h[q0 + r] : 0.f;
+        dr_s[r] = q0 + r < Sq ? dr_h[q0 + r] : 0.f;
       }
       __syncthreads();
 
@@ -473,7 +486,7 @@ fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const bool ok =
-              qp < S && key_ok(k0 + ty * 4 + i, qp, S, causal, window);
+              qp < Sq && key_ok(k0 + ty * 4 + i, qp, Skv, causal, window);
           p[i] = ok ? expf(s[i][j] - lse_s[r]) : 0.f;
           ds[i] = p[i] * (dp[i][j] - dr_s[r]);
         }
@@ -517,7 +530,7 @@ fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = k0 + ty * 4 + i;
-    if (row >= S) continue;
+    if (row >= Skv) continue;
     T* dko = dk + k_base + row * k_rs;
     T* dvo = dv + k_base + row * k_rs;
 #pragma unroll
@@ -540,8 +553,8 @@ __global__ void __launch_bounds__(kThreads)
 fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ dr,
-          T* __restrict__ dq, int S, int Hq, int Hkv, int causal, int window,
-          float scale) {
+          T* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv, int causal,
+          int window, float scale) {
   constexpr int LD = D + 4;
   constexpr int LDP = kBQ + 4;
   constexpr int KPT = BK / 16;
@@ -558,28 +571,28 @@ fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int hk = h / (Hq / Hkv);
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const long long q_rs = (long long)Hq * D, k_rs = (long long)Hkv * D;
-  const long long q_base = (long long)b * S * q_rs + (long long)h * D;
-  const long long k_base = (long long)b * S * k_rs + (long long)hk * D;
+  const long long q_base = (long long)b * Sq * q_rs + (long long)h * D;
+  const long long k_base = (long long)b * Skv * k_rs + (long long)hk * D;
 
-  stage_rows<T, D, LD, kBQ>(q_s, q + q_base, q_rs, q0, S, scale, tid);
-  stage_rows<T, D, LD, kBQ>(do_s, dout + q_base, q_rs, q0, S, 1.f, tid);
+  stage_rows<T, D, LD, kBQ>(q_s, q + q_base, q_rs, q0, Sq, scale, tid);
+  stage_rows<T, D, LD, kBQ>(do_s, dout + q_base, q_rs, q0, Sq, 1.f, tid);
   float lse_r[8], dr_r[8], acc[8][4 * CG];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int row = q0 + ty * 8 + i;
-    const long long at = ((long long)b * Hq + h) * S + row;
-    lse_r[i] = row < S ? lse[at] : 0.f;
-    dr_r[i] = row < S ? dr[at] : 0.f;
+    const long long at = ((long long)b * Hq + h) * Sq + row;
+    lse_r[i] = row < Sq ? lse[at] : 0.f;
+    dr_r[i] = row < Sq ? dr[at] : 0.f;
 #pragma unroll
     for (int c = 0; c < 4 * CG; ++c) acc[i][c] = 0.f;
   }
 
-  const int k_hi = causal ? min(S, q0 + kBQ) : S;
+  const int k_hi = causal ? min(Skv, q0 + kBQ) : Skv;
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   for (int k0 = (k_lo / BK) * BK; k0 < k_hi; k0 += BK) {
     __syncthreads();
-    stage_rows<T, D, LD, BK>(k_s, k + k_base, k_rs, k0, S, 1.f, tid);
-    stage_rows<T, D, LD, BK>(v_s, v + k_base, k_rs, k0, S, 1.f, tid);
+    stage_rows<T, D, LD, BK>(k_s, k + k_base, k_rs, k0, Skv, 1.f, tid);
+    stage_rows<T, D, LD, BK>(v_s, v + k_base, k_rs, k0, Skv, 1.f, tid);
     __syncthreads();
 
     float s[8][KPT], dp[8][KPT];
@@ -623,7 +636,7 @@ fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < KPT; ++j) {
         const bool ok =
-            qp < S && key_ok(k0 + tx + 16 * j, qp, S, causal, window);
+            qp < Sq && key_ok(k0 + tx + 16 * j, qp, Skv, causal, window);
         const float p = ok ? expf(s[i][j] - lse_r[i]) : 0.f;
         dst_s[(tx + 16 * j) * LDP + ty * 8 + i] = p * (dp[i][j] - dr_r[i]);
       }
@@ -655,7 +668,7 @@ fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int row = q0 + ty * 8 + i;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
     T* o = dq + q_base + row * q_rs;
 #pragma unroll
     for (int cg = 0; cg < CG; ++cg)
@@ -894,9 +907,9 @@ __device__ __forceinline__ void gemm_split_add(float (&acc)[D / 2],
 }
 
 // true when some (row, key) pair of the two tiles is masked
-__device__ __forceinline__ bool tile_edge(int q0, int k0, int S, int causal,
-                                          int window) {
-  return q0 + kTile > S || k0 + kTile > S ||
+__device__ __forceinline__ bool tile_edge(int q0, int k0, int Sq, int Skv,
+                                          int causal, int window) {
+  return q0 + kTile > Sq || k0 + kTile > Skv ||
          (causal && k0 + kTile - 1 > q0) ||
          (window > 0 && k0 <= q0 + kTile - 1 - window);
 }
@@ -923,8 +936,8 @@ template <int D, int DG = D>
 __global__ void __launch_bounds__(kWG, 2)
 fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ out,
-                    float* __restrict__ lse, int S, int Hq, int Hkv,
-                    int causal, int window, float scale_log2) {
+                    float* __restrict__ lse, int Sq, int Skv, int Hq,
+                    int Hkv, int causal, int window, float scale_log2) {
   constexpr int DO = fwd_cols<D>(), NC = D / DO;
   constexpr uint32_t T = kTile * D * 2;     // bytes of a Q or K tile
   constexpr uint32_t TV = kTile * DO * 2;   // bytes of a V tile
@@ -937,20 +950,20 @@ fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int row = q0 + (tid >> 5) * 16 + (lane >> 2);
   const int c0 = (lane & 3) * 2;
   const long long q_rs = (long long)Hq * DG, k_rs = (long long)Hkv * DG;
-  const long long q_base = (long long)b * S * q_rs + (long long)h * DG;
-  const long long k_base = (long long)b * S * k_rs + (long long)hk * DG;
+  const long long q_base = (long long)b * Sq * q_rs + (long long)h * DG;
+  const long long k_base = (long long)b * Skv * k_rs + (long long)hk * DG;
   // the real columns of the block's DO columns of V (DG < D: one block)
   constexpr int DOG = DO - (D - DG);
 
   // live key tiles: below the diagonal (causal), inside the window
-  const int k_hi = causal ? min(S, q0 + kTile) : S;
+  const int k_hi = causal ? min(Skv, q0 + kTile) : Skv;
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int t_lo = k_lo / kTile, t_hi = (k_hi + kTile - 1) / kTile;
 
   const bf16* v_cols = v + k_base + cb * DO;
-  load_tile<D, DG>(s_q, q + q_base, q_rs, q0, S, tid);
-  load_tile<D, DG>(s_q + T, k + k_base, k_rs, t_lo * kTile, S, tid);
-  load_tile<DO, DOG>(s_q + 2 * T, v_cols, k_rs, t_lo * kTile, S, tid);
+  load_tile<D, DG>(s_q, q + q_base, q_rs, q0, Sq, tid);
+  load_tile<D, DG>(s_q + T, k + k_base, k_rs, t_lo * kTile, Skv, tid);
+  load_tile<DO, DOG>(s_q + 2 * T, v_cols, k_rs, t_lo * kTile, Skv, tid);
   cp_async_commit();
 
   float o[DO / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
@@ -965,8 +978,8 @@ fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();   // tile t has landed; tile t - 1's stage is free
     if (t + 1 < t_hi) {
       const uint32_t n_k = s_q + T + ((t + 1 - t_lo) & 1) * (T + TV);
-      load_tile<D, DG>(n_k, k + k_base, k_rs, (t + 1) * kTile, S, tid);
-      load_tile<DO, DOG>(n_k + T, v_cols, k_rs, (t + 1) * kTile, S, tid);
+      load_tile<D, DG>(n_k, k + k_base, k_rs, (t + 1) * kTile, Skv, tid);
+      load_tile<DO, DOG>(n_k + T, v_cols, k_rs, (t + 1) * kTile, Skv, tid);
     }
     cp_async_commit();
 
@@ -982,7 +995,7 @@ fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // online softmax in base 2: x = s * scale * log2(e); masked x = -inf
     const int k0 = t * kTile;
-    const bool edge = tile_edge(q0, k0, S, causal, window);
+    const bool edge = tile_edge(q0, k0, Sq, Skv, causal, window);
     float alpha[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -993,7 +1006,7 @@ fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 2; ++e) {
           float x = s[4 * j + 2 * i + e] * scale_log2;
           if (edge &&
-              !key_ok(k0 + 8 * j + c0 + e, row + 8 * i, S, causal, window))
+              !key_ok(k0 + 8 * j + c0 + e, row + 8 * i, Skv, causal, window))
             x = -INFINITY;
           s[4 * j + 2 * i + e] = x;
           mx = fmaxf(mx, x);
@@ -1028,7 +1041,7 @@ fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     li += __shfl_xor_sync(0xffffffffu, li, 1);
     li += __shfl_xor_sync(0xffffffffu, li, 2);
     const int qp = row + 8 * i;
-    if (qp >= S) continue;
+    if (qp >= Sq) continue;
     const float inv = 1.f / fmaxf(li, 1e-30f);
     bf16* og = out + q_base + qp * q_rs + cb * DO + c0;
 #pragma unroll
@@ -1036,10 +1049,10 @@ fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (DOG == DO || 8 * j + c0 < DOG)
         *reinterpret_cast<uint32_t*>(og + 8 * j) =
             pack_bf16(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
-    // a row with no valid key (none exists for rows < S) gets lse = +inf,
+    // a row with no valid key (none exists for rows < Sq) gets lse = +inf,
     // so the backward's P = exp(s - lse) is 0 there
     if ((lane & 3) == 0 && cb == 0)
-      lse[((long long)b * Hq + h) * S + qp] =
+      lse[((long long)b * Hq + h) * Sq + qp] =
           li > 0.f ? (m[i] + log2f(li)) * kLn2 : INFINITY;
   }
 }
@@ -1059,8 +1072,8 @@ fa_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ dr, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int S, int Hq, int Hkv,
-                     int causal, int window, float scale,
+                     bf16* __restrict__ dv, int Sq, int Skv, int Hq,
+                     int Hkv, int causal, int window, float scale,
                      float scale_log2) {
   constexpr uint32_t T = kTile * D * 2;
   extern __shared__ uint8_t smem[];
@@ -1074,31 +1087,31 @@ fa_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int key = k0 + (tid >> 5) * 16 + (lane >> 2);
   const int c0 = (lane & 3) * 2;
   const long long q_rs = (long long)Hq * D, k_rs = (long long)Hkv * D;
-  const long long k_base = (long long)b * S * k_rs + (long long)hk * D;
+  const long long k_base = (long long)b * Skv * k_rs + (long long)hk * D;
 
   // live query tiles: rows at or below the tile's keys (causal), rows whose
-  // window still reaches them
+  // window still reaches them; every one of the Sq rows without either
   const int q_lo = causal ? k0 : 0;
-  const int q_hi = window > 0 ? min(S, k0 + kTile - 1 + window) : S;
+  const int q_hi = window > 0 ? min(Sq, k0 + kTile - 1 + window) : Sq;
   const int t_lo = q_lo / kTile;
   const int nt = (q_hi + kTile - 1) / kTile - t_lo;
   const int n = G * nt;
 
   auto load_step = [&](int it, int st) {
     const int h = hk * G + it / nt, q0 = (t_lo + it % nt) * kTile;
-    const long long q_base = (long long)b * S * q_rs + (long long)h * D;
+    const long long q_base = (long long)b * Sq * q_rs + (long long)h * D;
     const uint32_t s_q = s_k + T * (2 + 2 * st);
-    load_tile<D>(s_q, q + q_base, q_rs, q0, S, tid);
-    load_tile<D>(s_q + T, dout + q_base, q_rs, q0, S, tid);
+    load_tile<D>(s_q, q + q_base, q_rs, q0, Sq, tid);
+    load_tile<D>(s_q + T, dout + q_base, q_rs, q0, Sq, tid);
     const int r = tid & (kTile - 1);
-    const bool ok = q0 + r < S;
+    const bool ok = q0 + r < Sq;
     const float* src = (tid < kTile ? lse : dr) +
-                       ((long long)b * Hq + h) * S + (ok ? q0 + r : 0);
+                       ((long long)b * Hq + h) * Sq + (ok ? q0 + r : 0);
     cp_async4(smem_u32(rows_s + (2 * st + tid / kTile) * kTile + r), src, ok);
   };
 
-  load_tile<D>(s_k, k + k_base, k_rs, k0, S, tid);
-  load_tile<D>(s_v, v + k_base, k_rs, k0, S, tid);
+  load_tile<D>(s_k, k + k_base, k_rs, k0, Skv, tid);
+  load_tile<D>(s_v, v + k_base, k_rs, k0, Skv, tid);
   load_step(0, 0);
   cp_async_commit();
 
@@ -1134,7 +1147,7 @@ fa_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // P^T = exp(S^T * scale - lse), dS^T = P^T (dP^T - Dr); row: key,
     // column: query row
-    const bool edge = tile_edge(q0, k0, S, causal, window);
+    const bool edge = tile_edge(q0, k0, Sq, Skv, causal, window);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -1143,8 +1156,8 @@ fa_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 2; ++e) {
           const int c = 8 * j + c0 + e, x = 4 * j + 2 * i + e;
           const bool ok =
-              !edge || (q0 + c < S &&
-                        key_ok(key + 8 * i, q0 + c, S, causal, window));
+              !edge || (q0 + c < Sq &&
+                        key_ok(key + 8 * i, q0 + c, Skv, causal, window));
           const float p =
               ok ? exp2f(fmaf(st_[x], scale_log2, -lse_s[c] * kLog2e)) : 0.f;
           st_[x] = p;
@@ -1161,7 +1174,7 @@ fa_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int kp = key + 8 * i;
-    if (kp >= S) continue;
+    if (kp >= Skv) continue;
     bf16* dko = dk + k_base + kp * k_rs + c0;
     bf16* dvo = dv + k_base + kp * k_rs + c0;
 #pragma unroll
@@ -1185,7 +1198,7 @@ fa_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
                    const float* __restrict__ lse,
                    const float* __restrict__ dr, bf16* __restrict__ dq,
-                   int S, int Hq, int Hkv, int causal, int window,
+                   int Sq, int Skv, int Hq, int Hkv, int causal, int window,
                    float scale, float scale_log2) {
   constexpr uint32_t T = kTile * D * 2;
   extern __shared__ uint8_t smem[];
@@ -1198,25 +1211,25 @@ fa_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int row = q0 + (tid >> 5) * 16 + (lane >> 2);
   const int c0 = (lane & 3) * 2;
   const long long q_rs = (long long)Hq * D, k_rs = (long long)Hkv * D;
-  const long long q_base = (long long)b * S * q_rs + (long long)h * D;
-  const long long k_base = (long long)b * S * k_rs + (long long)hk * D;
+  const long long q_base = (long long)b * Sq * q_rs + (long long)h * D;
+  const long long k_base = (long long)b * Skv * k_rs + (long long)hk * D;
 
-  const int k_hi = causal ? min(S, q0 + kTile) : S;
+  const int k_hi = causal ? min(Skv, q0 + kTile) : Skv;
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int t_lo = k_lo / kTile, t_hi = (k_hi + kTile - 1) / kTile;
 
-  load_tile<D>(s_q, q + q_base, q_rs, q0, S, tid);
-  load_tile<D>(s_do, dout + q_base, q_rs, q0, S, tid);
-  load_tile<D>(s_q + 2 * T, k + k_base, k_rs, t_lo * kTile, S, tid);
-  load_tile<D>(s_q + 3 * T, v + k_base, k_rs, t_lo * kTile, S, tid);
+  load_tile<D>(s_q, q + q_base, q_rs, q0, Sq, tid);
+  load_tile<D>(s_do, dout + q_base, q_rs, q0, Sq, tid);
+  load_tile<D>(s_q + 2 * T, k + k_base, k_rs, t_lo * kTile, Skv, tid);
+  load_tile<D>(s_q + 3 * T, v + k_base, k_rs, t_lo * kTile, Skv, tid);
   cp_async_commit();
 
   float lse2[2], drr[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const long long at = ((long long)b * Hq + h) * S + row + 8 * i;
-    lse2[i] = row + 8 * i < S ? lse[at] * kLog2e : 0.f;
-    drr[i] = row + 8 * i < S ? dr[at] : 0.f;
+    const long long at = ((long long)b * Hq + h) * Sq + row + 8 * i;
+    lse2[i] = row + 8 * i < Sq ? lse[at] * kLog2e : 0.f;
+    drr[i] = row + 8 * i < Sq ? dr[at] : 0.f;
   }
   float dqa[D / 2];
 #pragma unroll
@@ -1229,8 +1242,8 @@ fa_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
     if (t + 1 < t_hi) {
       const uint32_t n_k = s_q + T * (2 + 2 * ((t + 1 - t_lo) & 1));
-      load_tile<D>(n_k, k + k_base, k_rs, (t + 1) * kTile, S, tid);
-      load_tile<D>(n_k + T, v + k_base, k_rs, (t + 1) * kTile, S, tid);
+      load_tile<D>(n_k, k + k_base, k_rs, (t + 1) * kTile, Skv, tid);
+      load_tile<D>(n_k + T, v + k_base, k_rs, (t + 1) * kTile, Skv, tid);
     }
     cp_async_commit();
 
@@ -1246,7 +1259,7 @@ fa_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_regs(dp);
 
     const int k0 = t * kTile;
-    const bool edge = tile_edge(q0, k0, S, causal, window);
+    const bool edge = tile_edge(q0, k0, Sq, Skv, causal, window);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -1255,7 +1268,7 @@ fa_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 2; ++e) {
           const int x = 4 * j + 2 * i + e;
           const bool ok = !edge || key_ok(k0 + 8 * j + c0 + e, row + 8 * i,
-                                          S, causal, window);
+                                          Skv, causal, window);
           const float p = ok ? exp2f(fmaf(s[x], scale_log2, -lse2[i])) : 0.f;
           dp[x] = p * (dp[x] - drr[i]);
         }
@@ -1268,7 +1281,7 @@ fa_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int qp = row + 8 * i;
-    if (qp >= S) continue;
+    if (qp >= Sq) continue;
     bf16* o = dq + q_base + qp * q_rs + c0;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
@@ -1313,40 +1326,40 @@ double scale_of(int D) { return 1.0 / sqrt(static_cast<double>(D)); }
 // sets the softmax scale
 template <int D, int DG = D>
 int launch_fwd_f32(const void* q, const void* k, const void* v, void* out,
-                   void* lse, int B, int S, int Hq, int Hkv, int causal,
-                   int window, cudaStream_t st) {
+                   void* lse, int B, int Sq, int Skv, int Hq, int Hkv,
+                   int causal, int window, cudaStream_t st) {
   auto kern = fa_fwd_kernel<float, D, kFwdBK, DG>;
   constexpr int smem = fwd_smem<D>();
   int rc = set_smem(kern, smem);
   if (rc != 0) return rc;
-  const dim3 grid((S + kBQ - 1) / kBQ, Hq, B);
+  const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
   kern<<<grid, kThreads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out),
-      static_cast<float*>(lse), S, Hq, Hkv, causal, window,
+      static_cast<float*>(lse), Sq, Skv, Hq, Hkv, causal, window,
       static_cast<float>(scale_of(DG)));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, int DG = D>
 int launch_fwd_bf16(const void* q, const void* k, const void* v, void* out,
-                    void* lse, int B, int S, int Hq, int Hkv, int causal,
-                    int window, cudaStream_t st) {
+                    void* lse, int B, int Sq, int Skv, int Hq, int Hkv,
+                    int causal, int window, cudaStream_t st) {
   auto kern = fa_fwd_wgmma_kernel<D, DG>;
   // Q, two stages of K and of V's fwd_cols<D>() columns
   constexpr int smem = wgmma_smem<D>(3, 0) + 2 * kTile * fwd_cols<D>() * 2;
   int rc = set_smem(kern, smem);
   if (rc != 0) return rc;
-  const dim3 grid(Hq * (D / fwd_cols<D>()), B, (S + kTile - 1) / kTile);
+  const dim3 grid(Hq * (D / fwd_cols<D>()), B, (Sq + kTile - 1) / kTile);
   kern<<<grid, kWG, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out),
-      static_cast<float*>(lse), S, Hq, Hkv, causal, window,
+      static_cast<float*>(lse), Sq, Skv, Hq, Hkv, causal, window,
       static_cast<float>(scale_of(DG) * 1.4426950408889634));
   return static_cast<int>(cudaGetLastError());
 }
 
-// Dr = rowsum(dO * o), the first kernel of either backward
+// Dr = rowsum(dO * o), the first kernel of either backward (S: Sq)
 template <typename T, int D>
 int launch_rowdot(const void* o, const void* dout, void* dr, int B, int S,
                   int Hq, cudaStream_t st) {
@@ -1363,21 +1376,22 @@ int launch_rowdot(const void* o, const void* dout, void* dr, int B, int S,
 template <int D>
 int launch_bwd_f32(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const void* lse,
-                   void* dr, void* dq, void* dk, void* dv, int B, int S,
-                   int Hq, int Hkv, int causal, int window, cudaStream_t st) {
-  int rc = launch_rowdot<float, D>(o, dout, dr, B, S, Hq, st);
+                   void* dr, void* dq, void* dk, void* dv, int B, int Sq,
+                   int Skv, int Hq, int Hkv, int causal, int window,
+                   cudaStream_t st) {
+  int rc = launch_rowdot<float, D>(o, dout, dr, B, Sq, Hq, st);
   if (rc != 0) return rc;
   const float scale = static_cast<float>(scale_of(D));
   auto kv_kern = fa_dkdv_kernel<float, D>;
   constexpr int kv_smem = dkdv_smem<D>();
   rc = set_smem(kv_kern, kv_smem);
   if (rc != 0) return rc;
-  kv_kern<<<dim3((S + 31) / 32, Hkv, B), kThreads, kv_smem, st>>>(
+  kv_kern<<<dim3((Skv + 31) / 32, Hkv, B), kThreads, kv_smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dr),
-      static_cast<float*>(dk), static_cast<float*>(dv), S, Hq, Hkv, causal,
-      window, scale);
+      static_cast<float*>(dk), static_cast<float*>(dv), Sq, Skv, Hq, Hkv,
+      causal, window, scale);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
 
@@ -1385,38 +1399,37 @@ int launch_bwd_f32(const void* q, const void* k, const void* v,
   constexpr int q_smem = dq_smem<D>();
   rc = set_smem(q_kern, q_smem);
   if (rc != 0) return rc;
-  q_kern<<<dim3((S + kBQ - 1) / kBQ, Hq, B), kThreads, q_smem, st>>>(
+  q_kern<<<dim3((Sq + kBQ - 1) / kBQ, Hq, B), kThreads, q_smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dr),
-      static_cast<float*>(dq), S, Hq, Hkv, causal, window, scale);
+      static_cast<float*>(dq), Sq, Skv, Hq, Hkv, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_bwd_bf16(const void* q, const void* k, const void* v,
                     const void* o, const void* dout, const void* lse,
-                    void* dr, void* dq, void* dk, void* dv, int B, int S,
-                    int Hq, int Hkv, int causal, int window,
+                    void* dr, void* dq, void* dk, void* dv, int B, int Sq,
+                    int Skv, int Hq, int Hkv, int causal, int window,
                     cudaStream_t st) {
-  int rc = launch_rowdot<bf16, D>(o, dout, dr, B, S, Hq, st);
+  int rc = launch_rowdot<bf16, D>(o, dout, dr, B, Sq, Hq, st);
   if (rc != 0) return rc;
   const float scale = static_cast<float>(scale_of(D));
   const float scale_log2 =
       static_cast<float>(scale_of(D) * 1.4426950408889634);
-  const int tiles = (S + kTile - 1) / kTile;
 
   auto kv_kern = fa_dkdv_wgmma_kernel<D>;
   // K, V, two stages of Q, dO; two stages of 64 lse and 64 Dr
   constexpr int kv_smem = wgmma_smem<D>(6, 4 * kTile);
   rc = set_smem(kv_kern, kv_smem);
   if (rc != 0) return rc;
-  kv_kern<<<dim3(Hkv, B, tiles), kWG, kv_smem, st>>>(
+  kv_kern<<<dim3(Hkv, B, (Skv + kTile - 1) / kTile), kWG, kv_smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dr),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, Hq, Hkv, causal,
-      window, scale, scale_log2);
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Skv, Hq, Hkv,
+      causal, window, scale, scale_log2);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
 
@@ -1424,12 +1437,18 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
   constexpr int q_smem = wgmma_smem<D>(6, 0);   // Q, dO, two stages of K, V
   rc = set_smem(q_kern, q_smem);
   if (rc != 0) return rc;
-  q_kern<<<dim3(Hq, B, tiles), kWG, q_smem, st>>>(
+  q_kern<<<dim3(Hq, B, (Sq + kTile - 1) / kTile), kWG, q_smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dr),
-      static_cast<bf16*>(dq), S, Hq, Hkv, causal, window, scale, scale_log2);
+      static_cast<bf16*>(dq), Sq, Skv, Hq, Hkv, causal, window, scale,
+      scale_log2);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Skv != Sq only where every key is visible
+bool lengths_ok(int Sq, int Skv, int causal, int window) {
+  return Sq == Skv || (!causal && window <= 0);
 }
 
 }  // namespace
@@ -1437,62 +1456,67 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  D: 64,
-// 80, 128 or 256 (the backward: 64 or 128).  q/out (B, S, Hq, D), k/v (B,
-// S, Hkv, D) dense; lse (B, Hq, S) f32.  Hq % Hkv == 0.
+// 80, 128 or 256 (the backward: 64 or 128).  q/out (B, Sq, Hq, D), k/v (B,
+// Skv, Hkv, D) dense; lse (B, Hq, Sq) f32.  Hq % Hkv == 0; Skv != Sq only
+// with causal == 0 and window == 0.
 int flash_attention_fwd(int dtype, const void* q, const void* k,
-                        const void* v, void* out, void* lse, int B, int S,
-                        int Hq, int Hkv, int D, int causal, int window,
-                        void* stream) {
+                        const void* v, void* out, void* lse, int B, int Sq,
+                        int Skv, int Hq, int Hkv, int D, int causal,
+                        int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!lengths_ok(Sq, Skv, causal, window))
+    return static_cast<int>(cudaErrorInvalidValue);
   // head dim 80 (zamba2's shared block) on tiles of 128
   if (dtype == 1 && D == 80)
-    return launch_fwd_bf16<128, 80>(q, k, v, out, lse, B, S, Hq, Hkv,
+    return launch_fwd_bf16<128, 80>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv,
                                     causal, window, st);
   if (dtype == 0 && D == 80)
-    return launch_fwd_f32<128, 80>(q, k, v, out, lse, B, S, Hq, Hkv, causal,
-                                   window, st);
+    return launch_fwd_f32<128, 80>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv,
+                                   causal, window, st);
   if (dtype == 1 && D == 256)
-    return launch_fwd_bf16<256>(q, k, v, out, lse, B, S, Hq, Hkv, causal,
-                                window, st);
+    return launch_fwd_bf16<256>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv,
+                                causal, window, st);
   if (dtype == 0 && D == 256)
-    return launch_fwd_f32<256>(q, k, v, out, lse, B, S, Hq, Hkv, causal,
-                               window, st);
+    return launch_fwd_f32<256>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv,
+                               causal, window, st);
   if (dtype == 1 && D == 128)
-    return launch_fwd_bf16<128>(q, k, v, out, lse, B, S, Hq, Hkv, causal,
-                                window, st);
+    return launch_fwd_bf16<128>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv,
+                                causal, window, st);
   if (dtype == 1 && D == 64)
-    return launch_fwd_bf16<64>(q, k, v, out, lse, B, S, Hq, Hkv, causal,
-                               window, st);
+    return launch_fwd_bf16<64>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv,
+                               causal, window, st);
   if (dtype == 0 && D == 128)
-    return launch_fwd_f32<128>(q, k, v, out, lse, B, S, Hq, Hkv, causal,
-                               window, st);
+    return launch_fwd_f32<128>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv,
+                               causal, window, st);
   if (dtype == 0 && D == 64)
-    return launch_fwd_f32<64>(q, k, v, out, lse, B, S, Hq, Hkv, causal,
-                              window, st);
+    return launch_fwd_f32<64>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv,
+                              causal, window, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The forward's tensors, dout (B, S, Hq, D) dense, dr (B, Hq, S) f32
-// scratch; writes dq (B, S, Hq, D) and dk/dv (B, S, Hkv, D) in the input
+// The forward's tensors, dout (B, Sq, Hq, D) dense, dr (B, Hq, Sq) f32
+// scratch; writes dq (B, Sq, Hq, D) and dk/dv (B, Skv, Hkv, D) in the input
 // type.
 int flash_attention_bwd(int dtype, const void* q, const void* k,
                         const void* v, const void* o, const void* dout,
                         const void* lse, void* dr, void* dq, void* dk,
-                        void* dv, int B, int S, int Hq, int Hkv, int D,
-                        int causal, int window, void* stream) {
+                        void* dv, int B, int Sq, int Skv, int Hq, int Hkv,
+                        int D, int causal, int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!lengths_ok(Sq, Skv, causal, window))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1 && D == 128)
-    return launch_bwd_bf16<128>(q, k, v, o, dout, lse, dr, dq, dk, dv, B, S,
-                                Hq, Hkv, causal, window, st);
+    return launch_bwd_bf16<128>(q, k, v, o, dout, lse, dr, dq, dk, dv, B, Sq,
+                                Skv, Hq, Hkv, causal, window, st);
   if (dtype == 1 && D == 64)
-    return launch_bwd_bf16<64>(q, k, v, o, dout, lse, dr, dq, dk, dv, B, S,
-                               Hq, Hkv, causal, window, st);
+    return launch_bwd_bf16<64>(q, k, v, o, dout, lse, dr, dq, dk, dv, B, Sq,
+                               Skv, Hq, Hkv, causal, window, st);
   if (dtype == 0 && D == 128)
-    return launch_bwd_f32<128>(q, k, v, o, dout, lse, dr, dq, dk, dv, B, S,
-                               Hq, Hkv, causal, window, st);
+    return launch_bwd_f32<128>(q, k, v, o, dout, lse, dr, dq, dk, dv, B, Sq,
+                               Skv, Hq, Hkv, causal, window, st);
   if (dtype == 0 && D == 64)
-    return launch_bwd_f32<64>(q, k, v, o, dout, lse, dr, dq, dk, dv, B, S,
-                              Hq, Hkv, causal, window, st);
+    return launch_bwd_f32<64>(q, k, v, o, dout, lse, dr, dq, dk, dv, B, Sq,
+                              Skv, Hq, Hkv, causal, window, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -9,11 +9,13 @@ package lets XLA differentiate its jnp attention).  ``FlashAttention``, an
 the output and the rows' log-sum-exp, the backward launches the gradient
 kernel on them.
 
-Layouts are the model's: q ``(B, S, Hq, D)``, k/v ``(B, S, Hkv, D)``, with
-query head ``h`` reading KV head ``h // (Hq // Hkv)`` in place, so GQA
-needs no repeat copy.  Masks are by index (query row i, key j), which
+Layouts are the model's: q ``(B, Sq, Hq, D)``, k/v ``(B, Skv, Hkv, D)``,
+with query head ``h`` reading KV head ``h // (Hq // Hkv)`` in place, so
+GQA needs no repeat copy.  Masks are by index (query row i, key j), which
 equals the reference's position masks for the default positions 0..S-1.
-Any S is taken.  Each wrapper checks device, dtype, shape and contiguity,
+Any Sq and Skv are taken; Skv may differ from Sq only with
+``causal=False`` and ``window == 0`` (cross-attention, every key
+visible).  Each wrapper checks device, dtype, shape and contiguity,
 launches on PyTorch's current stream and counts the call in ``LAUNCHES``:
 one forward kernel, or one backward (three kernels: the row sums
 ``rowsum(dO * O)``, the dK/dV pass and the dQ pass).  They take CUDA
@@ -39,10 +41,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # training the hybrid trunk)
 _HEAD_DIMS = (64, 80, 128, 256)
 _BWD_HEAD_DIMS = (64, 128)
-_FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+_FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                  + [ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10
-                 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 
 
 def reset_launches() -> None:
@@ -61,21 +63,25 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool, window: int,
            head_dims: Tuple[int, ...] = _HEAD_DIMS,
-           **others: torch.Tensor) -> Tuple[int, int, int, int, int]:
-    """Raise on anything the kernels do not take; returns (B, S, Hq, Hkv,
-    D).  ``others`` are tensors of q's shape and dtype (out, dout)."""
+           **others: torch.Tensor) -> Tuple[int, int, int, int, int, int]:
+    """Raise on anything the kernels do not take; returns (B, Sq, Skv, Hq,
+    Hkv, D).  ``others`` are tensors of q's shape and dtype (out, dout)."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel given a tensor on {dev}")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}: expected"
                          " (B, S, H, D)")
-    b, s, hq, d = q.shape
-    hkv = k.shape[2]
-    if tuple(k.shape) != (b, s, hkv, d) or tuple(v.shape) != tuple(k.shape):
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (b, skv, hkv, d) or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v"
-                         f" {tuple(v.shape)}: expected k/v (B, S, Hkv, D)")
+                         f" {tuple(v.shape)}: expected k/v (B, Skv, Hkv, D)")
+    if skv != sq and (causal or window > 0):
+        raise ValueError(f"q of {sq} rows, k/v of {skv}: another key length"
+                         " is taken only with causal=False and window == 0")
     if hkv == 0 or hq % hkv:
         raise ValueError(f"Hq {hq} is no multiple of Hkv {hkv}")
     if d not in head_dims:
@@ -96,7 +102,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.shape != q.shape or t.dtype != q.dtype:
             raise ValueError(f"{name} {tuple(t.shape)} {t.dtype}: expected"
                              f" q's {tuple(q.shape)} {q.dtype}")
-    return b, s, hq, hkv, d
+    return b, sq, skv, hq, hkv, d
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -106,17 +112,18 @@ def _stream(t: torch.Tensor) -> int:
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q (B, S, Hq, D), k/v (B, S, Hkv, D), float32 or bfloat16, contiguous
-    on one CUDA device, D 64, 80, 128 or 256.  Returns the output (B, S,
-    Hq, D) in q's dtype and the rows' log-sum-exp (B, Hq, S) float32."""
-    b, s, hq, hkv, d = _check(q, k, v)
+    """q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D), float32 or bfloat16,
+    contiguous on one CUDA device, D 64, 80, 128 or 256; Skv != Sq only
+    with ``causal=False`` and ``window == 0``.  Returns the output (B, Sq,
+    Hq, D) in q's dtype and the rows' log-sum-exp (B, Hq, Sq) float32."""
+    b, sq, skv, hq, hkv, d = _check(q, k, v, causal, window)
     out = torch.empty_like(q)
-    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
     rc = _lib().flash_attention_fwd(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), b, s, hq, hkv, d, int(causal),
+        out.data_ptr(), lse.data_ptr(), b, sq, skv, hq, hkv, d, int(causal),
         int(window), _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA"
@@ -133,12 +140,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients (dq, dk, dv) of ``flash_attention_fwd``'s output
     against ``dout``, from the forward's inputs, output and ``lse``; in the
-    inputs' dtype.  D 64 or 128: D 80 and 256 raise."""
-    b, s, hq, hkv, d = _check(q, k, v, _BWD_HEAD_DIMS, out=out, dout=dout)
-    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, s) \
+    inputs' dtype: dq of q's shape, dk/dv of k's.  D 64 or 128: D 80 and
+    256 raise."""
+    b, sq, skv, hq, hkv, d = _check(q, k, v, causal, window, _BWD_HEAD_DIMS,
+                                    out=out, dout=dout)
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, sq) \
             or not lse.is_contiguous() or lse.device != q.device:
         raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}: expected"
-                         f" contiguous float32 {(b, hq, s)} on {q.device}")
+                         f" contiguous float32 {(b, hq, sq)} on {q.device}")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if dq.numel() == 0:
         return dq, dk, dv
@@ -146,7 +155,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = _lib().flash_attention_bwd(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), rowdot.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, hq, hkv, d,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv, hq, hkv, d,
         int(causal), int(window), _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA"

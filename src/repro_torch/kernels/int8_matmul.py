@@ -70,15 +70,22 @@ def _plan(m: int, n: int, k: int) -> Plan:
     channels.  K is split, in whole K tiles, until the grid holds 1.5
     blocks an SM or the split reaches the cluster limit or the K tiles
     run out; the split is then the fewest blocks that cover the K tiles
-    at that many tiles a block, so no block's range is empty.  A split
-    grid stays below 3 * SMS blocks: one wave of either kernel, whose
-    clusters the card holds at 3 (chunk) or 7 (decode) blocks an SM."""
+    at that many tiles a block, so no block's range is empty.  Where that
+    rounding leaves SMs without a block (K 1,024 into N 1,024: 8 K tiles
+    in 4 blocks of 2, 128 blocks), a block takes fewer K tiles while the
+    split stays within the cluster and the wave.  A split grid stays below
+    3 * SMS blocks: one wave of either kernel, whose clusters the card
+    holds at 3 (chunk) or 7 (decode) blocks an SM."""
     decode = m <= DECODE_MAX_M
     mt = 8 if m <= 8 else 16 if decode else 64
     mtiles, nkt = _cdiv(m, mt), _cdiv(k, BK)
     tiles = _cdiv(n, BN) * mtiles
     split = min(MAX_SPLIT, nkt, _cdiv(3 * SMS, 2 * tiles))
     per = _cdiv(nkt, split)
+    while (per > 1 and _cdiv(nkt, per) * tiles < SMS
+           and _cdiv(nkt, per - 1) <= MAX_SPLIT
+           and _cdiv(nkt, per - 1) * tiles < 3 * SMS):
+        per -= 1
     split = _cdiv(nkt, per)
     return Plan("decode" if decode else "chunk", mt, BN, split, per * BK,
                 (split, _cdiv(n, BN), mtiles),

@@ -111,10 +111,12 @@ def quant_matmul(x: torch.Tensor, w, *,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Whole-sequence attention: q (B, S, Hq, D), k/v (B, S, Hkv, D) ->
-    (B, S, Hq, D) in q's dtype.  Index masks: key j is visible to row i
-    when ``j <= i`` (causal) and ``j > i - window`` (window > 0).  GQA is
-    read in place by the kernel (query head h on KV head h // G)."""
+    """Whole-sequence attention: q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D) ->
+    (B, Sq, Hq, D) in q's dtype.  Index masks: key j is visible to row i
+    when ``j <= i`` (causal) and ``j > i - window`` (window > 0).  Skv may
+    differ from Sq only with ``causal=False`` and ``window == 0``
+    (cross-attention: every key visible); otherwise either device raises.
+    GQA is read in place by the kernel (query head h on KV head h // G)."""
     if not _on_card(q):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     return fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),

@@ -47,15 +47,26 @@ def int8_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor,
 # ---------------------------------------------------------------------------
 # flash attention (causal, optional sliding window): the training path
 # ---------------------------------------------------------------------------
+def _check_lengths(sq: int, skv: int, causal: bool, window: int) -> None:
+    """Keys of another length than the queries only where every key is
+    visible: an index mask between two sequences of different length (a
+    diagonal, a window) means nothing."""
+    if sq != skv and (causal or window > 0):
+        raise ValueError(f"queries of {sq} against keys of {skv}: another"
+                         " key length is taken only with causal=False and"
+                         " window == 0")
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int = 0
                         ) -> torch.Tensor:
-    """q: (B, S, Hq, D); k/v: (B, S, Hkv, D).  The JAX package's
+    """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D).  The JAX package's
     ``flash_attention_ref`` after ``ops.flash_attention``'s GQA expansion
     (query head h reads KV head h // (Hq // Hkv)): index masks (key j
     visible to row i when ``j <= i`` if causal, and ``j > i - window`` with
-    a window), f32 math, output in q.dtype.  Autograd through it is the
-    plain backward."""
+    a window), f32 math, output in q.dtype.  Skv may differ from Sq only
+    with ``causal=False`` and ``window == 0`` (cross-attention: every key
+    visible).  Autograd through it is the plain backward."""
     g = q.shape[2] // k.shape[2]
     if g > 1:
         k = k.repeat_interleave(g, dim=2)
@@ -67,13 +78,16 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _attention_probs(q: torch.Tensor, k: torch.Tensor, causal: bool,
                      window: int) -> torch.Tensor:
-    """softmax(q·kᵀ·D^-1/2) under the index masks, (B, H, S, S); q and k
-    (B, S, H, D) with the KV heads expanded."""
-    s, d = q.shape[1], q.shape[3]
+    """softmax(q·kᵀ·D^-1/2) under the index masks, (B, H, Sq, Skv); q (B,
+    Sq, H, D) and k (B, Skv, H, D) with the KV heads expanded."""
+    sq, skv, d = q.shape[1], k.shape[1], q.shape[3]
+    _check_lengths(sq, skv, causal, window)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * (d ** -0.5)
-    idx = torch.arange(s, device=q.device)
+    if not causal and window <= 0:
+        return torch.softmax(scores, dim=-1)
+    idx = torch.arange(sq, device=q.device)
     qp, kp = idx[:, None], idx[None, :]
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    mask = torch.ones((sq, sq), dtype=torch.bool, device=q.device)
     if causal:
         mask = kp <= qp
     if window > 0:
@@ -95,20 +109,21 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
         dV = Pᵀ dO,  dS = P ∘ (dO Vᵀ − Dr),  dQ = D^-1/2 dS K,
         dK = D^-1/2 dSᵀ Q,
 
-    dK and dV summed over the query heads that share a KV head.  Given the
-    f32 output of ``flash_attention_ref`` this is autograd through it."""
-    b, s, h, d = q.shape
-    hkv = k.shape[2]
+    dK and dV summed over the query heads that share a KV head; dq of q's
+    shape (B, Sq, Hq, D), dk/dv of k's (B, Skv, Hkv, D).  Given the f32
+    output of ``flash_attention_ref`` this is autograd through it."""
+    b, _, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
     g = h // hkv
     qf, kf, vf, of, dof = (t.float() for t in (q, k, v, out, dout))
     kf, vf = kf.repeat_interleave(g, dim=2), vf.repeat_interleave(g, dim=2)
     p = _attention_probs(qf, kf, causal, window)
-    rowdot = (dof * of).sum(-1).transpose(1, 2)            # (B, H, S)
+    rowdot = (dof * of).sum(-1).transpose(1, 2)            # (B, H, Sq)
     ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - rowdot[..., None])
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * (d ** -0.5)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * (d ** -0.5)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
-    dk, dv = (t.reshape(b, s, hkv, g, d).sum(3) for t in (dk, dv))
+    dk, dv = (t.reshape(b, skv, hkv, g, d).sum(3) for t in (dk, dv))
     return tuple(t.to(q.dtype) for t in (dq, dk, dv))
 
 

@@ -33,8 +33,16 @@ from repro_torch.train.trainer import Trainer, TrainerConfig
 def build(arch: str, *, smoke: bool, n_micro: int, lr: float,
           grad_compression: Optional[str], remat: str,
           device: torch.device):
-    """(cfg, params, opt_state, train_step) on ``device``."""
+    """(cfg, params, opt_state, train_step) on ``device``.  An enc-dec
+    config raises: its audio frontend is a stub, and the token stream
+    gives no frame embeddings to feed its encoder."""
     cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: the launcher feeds token batches alone; an enc-dec"
+            " config needs frame embeddings for its encoder (the audio"
+            " frontend is a stub): train it through"
+            " train_step.make_train_step with api.synthetic_inputs")
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_params(cfg, gen, device, trainable=True)
     opt_state = adamw_init(params)

@@ -1,17 +1,25 @@
-"""Model API: the entry points of a config's family.
+"""Model API: the entry points of a config's family, and its inputs.
 
 The counterpart of ``repro.models.api.ModelFns`` on the port's paths:
 training, one-shot prefill, decode and chunk prefill, in the JAX order,
 for the uniform dense and MoE decoders, the local:global sliding-window trunk
-(gemma3) and (prefill and serving only) the mamba1 trunk of the ``ssm``
-family and the hybrid trunk (zamba2).
+(gemma3), (prefill and serving only) the mamba1 trunk of the ``ssm``
+family and the hybrid trunk (zamba2), and the encoder-decoder backbone
+(seamless-m4t, ``models/encdec.py``).  ``input_shapes`` and
+``synthetic_inputs`` are the counterparts of ``train_input_specs``,
+``prefill_input_specs`` and ``synthetic_inputs``: an enc-dec batch
+brings the audio frontend's stand-in, precomputed frame embeddings of
+(B, S // ``enc_seq_divisor``, d).
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, Dict, NamedTuple, Tuple, Union
 
+import torch
+
+from repro_torch import resolve_device
 from repro_torch.core.arch import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 
 class ModelFns(NamedTuple):
@@ -23,8 +31,51 @@ class ModelFns(NamedTuple):
 
 def model_fns(cfg: ArchConfig) -> ModelFns:
     if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder backbone is not ported yet")
+        return ModelFns(encdec.forward_train, encdec.forward_prefill,
+                        encdec.forward_decode, encdec.forward_prefill_chunk)
     return ModelFns(transformer.forward_train, transformer.forward_prefill,
                     transformer.forward_decode,
                     transformer.forward_prefill_chunk)
+
+
+def input_shapes(cfg: ArchConfig, batch: int, seq: int, train: bool = True
+                 ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """Each input of a training (``train``) or prefill batch of ``batch``
+    rows of ``seq`` tokens: name -> (shape, dtype), in the JAX package's
+    order (``api.py:43-56``)."""
+    shapes: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
+    if train:
+        shapes["labels"] = ((batch, seq), torch.int32)
+    if cfg.is_encdec:
+        shapes["enc_embeddings"] = (
+            (batch, seq // cfg.enc_seq_divisor, cfg.d_model),
+            cfg.activation_dtype)
+    elif cfg.frontend:
+        raise NotImplementedError(
+            f"{cfg.name}: the embedding frontend's inputs are not ported"
+            " yet; they come with slice 9 part 3 (the VLM frontend)")
+    shapes["tokens"] = ((batch, seq), torch.int32)
+    return shapes
+
+
+def synthetic_inputs(cfg: ArchConfig, batch: int, seq: int,
+                     generator: torch.Generator, train: bool = True,
+                     device: Union[str, torch.device, None] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """Random inputs of ``input_shapes``, drawn from ``generator`` on
+    ``device`` (``cuda`` unless named; the generator lives there too):
+    tokens and labels uniform in [0, vocab_size), frame embeddings a
+    standard normal in float32, cast to the activation dtype, times 0.1
+    (``api.py:106-123``)."""
+    device = resolve_device(device)
+    out: Dict[str, torch.Tensor] = {}
+    for name, (shape, dtype) in input_shapes(cfg, batch, seq, train).items():
+        if dtype == torch.int32:
+            out[name] = torch.randint(0, cfg.vocab_size, shape,
+                                      generator=generator, device=device,
+                                      dtype=torch.int32)
+        else:
+            out[name] = torch.randn(shape, generator=generator,
+                                    device=device).to(dtype) * 0.1
+    return out
+

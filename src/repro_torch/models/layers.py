@@ -14,7 +14,14 @@ A cache is float or ``Int8KV`` (the rows are quantized as they are
 written), contiguous ``(B, S, Hkv, D)``, a paged pool ``(NB, BS, Hkv,
 D)`` addressed through a block table, or (``window > 0``) a sliding-window
 ring ``(B, window, Hkv, D)`` whose entry for position p sits at row
-``p % window``.  The cross-attention branch comes with slice 9.
+``p % window``.
+
+Each of the three attention layers has a cross-attention branch (the
+enc-dec decoder, ``models/encdec.py``): the keys and values are the
+encoder's output projected once (``kv_override`` for a whole sequence,
+the fixed ``xk``/``xv`` cache leaves for decode and chunks), every key is
+visible, the query is not roped (``rope_variant="none"``, or the decode
+branch, which returns before any rope) and nothing is written.
 """
 from __future__ import annotations
 
@@ -63,14 +70,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
-def _rope_qk(q, k, positions, rope_variant: str, rope_theta: float):
+def _rope(x, positions, rope_variant: str, rope_theta: float):
     if rope_variant == "rope":
-        return apply_rope(q, positions, rope_theta), \
-            apply_rope(k, positions, rope_theta)
+        return apply_rope(x, positions, rope_theta)
     if rope_variant == "none":
-        return q, k
+        return x
     raise NotImplementedError(
         f"rope variant {rope_variant!r} is not ported yet")
+
+
+def _rope_qk(q, k, positions, rope_variant: str, rope_theta: float):
+    return (_rope(q, positions, rope_variant, rope_theta),
+            _rope(k, positions, rope_variant, rope_theta))
 
 
 # ---------------------------------------------------------------------------
@@ -155,20 +166,27 @@ def attention_layer(p: dict, x: torch.Tensor, positions: torch.Tensor, *,
     The core is ``ops.flash_attention``, which masks by **index**: the
     reference masks by position, and the two agree only for the default
     positions 0..S-1, which the caller (``transformer.forward_train``)
-    guarantees.  Returns (out (B, S, d), (k, v)).
+    guarantees.
+
+    ``kv_override=(xk, xv)`` (B, S_enc, Hkv, D) is cross-attention
+    (``layers.py:299-305``): the keys and values are taken as given, the
+    query alone is roped (where ``rope_variant`` is not "none"; the enc-dec
+    decoder passes "none"), and the core runs with ``causal=False``, S
+    queries against S_enc keys (the default encoder positions: every key
+    visible).  Returns (out (B, S, d), (k, v)).
     """
-    if kv_override is not None:
-        raise NotImplementedError(
-            "cross-attention (kv_override) is not ported yet; it comes with"
-            " slice 9 (enc-dec)")
     b, s, _ = x.shape
     q = quant_matmul(x, p["wq"], policy=policy).reshape(
         b, s, n_heads, head_dim)
-    k = quant_matmul(x, p["wk"], policy=policy).reshape(
-        b, s, n_kv_heads, head_dim)
-    v = quant_matmul(x, p["wv"], policy=policy).reshape(
-        b, s, n_kv_heads, head_dim)
-    q, k = _rope_qk(q, k, positions, rope_variant, rope_theta)
+    if kv_override is None:
+        k = quant_matmul(x, p["wk"], policy=policy).reshape(
+            b, s, n_kv_heads, head_dim)
+        v = quant_matmul(x, p["wv"], policy=policy).reshape(
+            b, s, n_kv_heads, head_dim)
+        q, k = _rope_qk(q, k, positions, rope_variant, rope_theta)
+    else:
+        k, v = kv_override
+        q = _rope(q, positions, rope_variant, rope_theta)
     o = flash_attention(q, k, v, causal=causal, window=window)
     out = quant_matmul(o.reshape(b, s, n_heads * head_dim), p["wo"],
                        policy=policy)
@@ -186,8 +204,8 @@ def attention_decode_layer(p: dict, x: torch.Tensor, position: torch.Tensor,
                            policy: Optional[PrecisionPolicy] = None,
                            kv_len: Optional[torch.Tensor] = None,
                            active: Optional[torch.Tensor] = None,
-                           block_table: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           block_table: Optional[torch.Tensor] = None,
+                           cross: bool = False) -> torch.Tensor:
     """One decode step.  x: (B, 1, d); position: (B,) absolute position;
     write_idx: (B,) cache row this token's K/V is written to.
 
@@ -205,11 +223,21 @@ def attention_decode_layer(p: dict, x: torch.Tensor, position: torch.Tensor,
     ``block_table`` (B, n) selects the paged layout: the caches are
     (NB, BS, Hkv, D) pools, ``cache_positions`` the (NB, BS) position
     pool, and the token's row is ``(block_table[b, write_idx // BS],
-    write_idx % BS)``.  Returns the layer output (B, 1, d).
+    write_idx % BS)``.
+
+    ``cross=True`` is cross-attention (``layers.py:374-381``): the caches
+    hold the encoder's K/V, ``cache_positions`` its positions; the query,
+    not roped, attends all of it from position 2^30 (no ``kv_len``, no
+    window), and nothing is written.  Returns the layer output (B, 1, d).
     """
     b = x.shape[0]
     q = quant_matmul(x, p["wq"], policy=policy).reshape(
         b, 1, n_heads, head_dim)
+    if cross:
+        o = decode_attention(q, cache_k, cache_v, _far(position, (b,)),
+                             cache_positions)
+        return quant_matmul(o.reshape(b, 1, n_heads * head_dim), p["wo"],
+                            policy=policy)
     k = quant_matmul(x, p["wk"], policy=policy).reshape(
         b, 1, n_kv_heads, head_dim)
     v = quant_matmul(x, p["wv"], policy=policy).reshape(
@@ -240,6 +268,16 @@ def attention_decode_layer(p: dict, x: torch.Tensor, position: torch.Tensor,
                          block_table=block_table)
     return quant_matmul(o.reshape(b, 1, n_heads * head_dim), p["wo"],
                         policy=policy)
+
+
+# the query position of a cross-attention step: past every encoder position
+CROSS_QUERY_POSITION = 2 ** 30
+
+
+def _far(like: torch.Tensor, shape) -> torch.Tensor:
+    """int32 ``CROSS_QUERY_POSITION`` of ``shape`` on ``like``'s device."""
+    return torch.full(shape, CROSS_QUERY_POSITION, dtype=torch.int32,
+                      device=like.device)
 
 
 def ring_scatter_idx(positions: torch.Tensor, window: int) -> torch.Tensor:
@@ -284,8 +322,8 @@ def attention_chunk_layer(p: dict, x: torch.Tensor, positions: torch.Tensor,
                           rope_theta: float, window: int = 0,
                           policy: Optional[PrecisionPolicy] = None,
                           kv_len: Optional[torch.Tensor] = None,
-                          block_table: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          block_table: Optional[torch.Tensor] = None,
+                          cross: bool = False) -> torch.Tensor:
     """One chunk-prefill step: C tokens written unpadded into the slot's
     cache rows ``[write_idx, write_idx + C)`` first, then attending the
     slot's live prefix plus themselves.
@@ -306,11 +344,25 @@ def attention_chunk_layer(p: dict, x: torch.Tensor, positions: torch.Tensor,
     entries are scattered into their ``pos % window`` rows.  The ring's
     positions are not written here: ``cache_positions`` is the ring's
     stamp from before the chunk, which the caller updates once after every
-    layer has run.  Returns (B, C, d).
+    layer has run.
+
+    ``cross=True`` is cross-attention (``layers.py:524-537``): the caches
+    hold the encoder's K/V, ``cache_positions`` its positions, and nothing
+    is written.  The query is roped only where ``rope_variant`` is not
+    "none" (the enc-dec decoder passes "none"); every real query attends
+    all of the encoder from position 2^30, and a pad query (position −1)
+    attends nothing, so its row comes out exactly zero.  Returns (B, C, d).
     """
     b, c, _ = x.shape
     q = quant_matmul(x, p["wq"], policy=policy).reshape(
         b, c, n_heads, head_dim)
+    if cross:
+        q = _rope(q, positions, rope_variant, rope_theta)
+        q_valid = torch.where(positions >= 0, _far(positions, positions.shape),
+                              -1)
+        o = chunk_attention(q, cache_k, cache_v, q_valid, cache_positions)
+        return quant_matmul(o.reshape(b, c, n_heads * head_dim), p["wo"],
+                            policy=policy)
     k = quant_matmul(x, p["wk"], policy=policy).reshape(
         b, c, n_kv_heads, head_dim)
     v = quant_matmul(x, p["wv"], policy=policy).reshape(

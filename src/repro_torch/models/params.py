@@ -6,9 +6,12 @@ weights ``(d_in, d_out)`` applied as ``x @ w``, and per-layer leaves
 stacked along a leading ``(L, ...)`` axis.  The uniform dense decoder, the
 uniform MoE decoder (phi3.5-moe, dbrx: each block's experts a (d, E)
 router and (E, d, f) / (E, f, d) banks), the uniform mamba1 trunk
-(falcon-mamba), the local:global sliding-window trunk (gemma3) and the
-hybrid trunk (zamba2: stacked mamba2 groups and
-one shared, unstacked attention block) are declared.  ``init_params``
+(falcon-mamba), the local:global sliding-window trunk (gemma3), the
+hybrid trunk (zamba2: stacked mamba2 groups and one shared, unstacked
+attention block) and the encoder-decoder backbone (seamless-m4t: stacked
+dense encoder blocks ``enc_blocks`` with ``enc_final_norm``, and decoder
+``blocks`` that add a cross-attention ``xattn`` and its ``xattn_norm``)
+are declared.  ``init_params``
 draws them from a ``torch.Generator`` on the target device;
 ``params_from_numpy`` carries a tree of numpy arrays (for example the JAX package's own
 ``init_params``) across leaf for leaf.
@@ -122,6 +125,20 @@ def moe_block_specs(cfg: ArchConfig) -> SpecTree:
             "mlp_norm": _norm(cfg.d_model), "moe": moe_specs(cfg)}
 
 
+def encoder_block_specs(cfg: ArchConfig) -> SpecTree:
+    return dense_block_specs(cfg)
+
+
+def decoder_xattn_block_specs(cfg: ArchConfig) -> SpecTree:
+    """A dense block and a cross-attention over the encoder's output: its
+    norm ``xattn_norm`` and projections ``xattn`` (``wk``/``wv`` read the
+    encoder's output, ``wq``/``wo`` the decoder's stream)."""
+    s = dense_block_specs(cfg)
+    s["xattn_norm"] = _norm(cfg.d_model)
+    s["xattn"] = attn_specs(cfg)
+    return s
+
+
 _MAMBA_SPECS = {"mamba1": mamba1_specs, "mamba2": mamba2_specs}
 
 
@@ -199,18 +216,31 @@ _BLOCK_SPECS = {
 }
 
 
+def encdec_specs(cfg: ArchConfig) -> SpecTree:
+    """The encoder-decoder backbone: ``enc_blocks`` (n_enc_layers, ...) of
+    dense blocks and ``enc_final_norm``, and decoder ``blocks`` (n_layers,
+    ...) with cross-attention."""
+    return {"enc_blocks": _stack_tree(encoder_block_specs(cfg),
+                                      cfg.n_enc_layers),
+            "enc_final_norm": _norm(cfg.d_model),
+            "blocks": _stack_tree(decoder_xattn_block_specs(cfg),
+                                  cfg.n_layers)}
+
+
 def build_specs(cfg: ArchConfig) -> SpecTree:
     pat = layer_pattern(cfg)
-    if pat["kind"] not in _BLOCK_SPECS or cfg.is_encdec:
+    if pat["kind"] not in _BLOCK_SPECS or (
+            cfg.is_encdec and pat["kind"] != "uniform_dense"):
         raise NotImplementedError(
             f"{cfg.name}: layer pattern {pat['kind']!r} is not ported yet"
             " (the port has the uniform dense, uniform MoE, uniform mamba1,"
-            " local:global and hybrid trunks)")
+            " local:global and hybrid trunks, and the dense enc-dec)")
     d, vpad = cfg.d_model, cfg.padded_vocab()
     specs: SpecTree = {"embed": ParamSpec((vpad, d)), "final_norm": _norm(d)}
     if not cfg.tie_embeddings:
         specs["unembed"] = ParamSpec((vpad, d))
-    specs.update(_BLOCK_SPECS[pat["kind"]](cfg, pat))
+    specs.update(encdec_specs(cfg) if cfg.is_encdec
+                 else _BLOCK_SPECS[pat["kind"]](cfg, pat))
     return specs
 
 

@@ -132,12 +132,14 @@ def _attn_kwargs(cfg: ArchConfig, window: int = 0):
 
 
 def dense_block(cfg: ArchConfig, p, x, positions, *, window: int = 0,
-                policy=None):
+                policy=None, causal: bool = True):
     """One pre-norm block over a whole sequence: causal (``window``:
-    sliding-window) attention, then SwiGLU.  Returns (x, (k, v)), the
-    layer's roped K and V for a prefill cache."""
+    sliding-window; ``causal=False``: bidirectional, the enc-dec encoder's)
+    attention, then SwiGLU.  Returns (x, (k, v)), the layer's roped K and V
+    for a prefill cache."""
     h = rms_norm(p["attn_norm"], x, cfg.norm_eps)
     attn_out, kv = attention_layer(p["attn"], h, positions, policy=policy,
+                                   causal=causal,
                                    **_attn_kwargs(cfg, window))
     x = x + attn_out
     h = rms_norm(p["mlp_norm"], x, cfg.norm_eps)
@@ -534,7 +536,7 @@ def forward_train(cfg: ArchConfig, params, inputs: Dict[str, torch.Tensor],
         if key in inputs:
             raise NotImplementedError(
                 f"forward_train with inputs[{key!r}] is not ported yet; it"
-                " comes with slice 9 (the VLM/M-RoPE frontend)")
+                " comes with slice 9 part 3 (the VLM/M-RoPE frontend)")
     tokens = inputs["tokens"]
     b, s = tokens.shape
     x = embed_tokens(params, tokens, cfg)
@@ -660,7 +662,7 @@ def forward_prefill(cfg: ArchConfig, params, inputs: Dict[str, torch.Tensor],
         if key in inputs:
             raise NotImplementedError(
                 f"forward_prefill with inputs[{key!r}] is not ported yet; it"
-                " comes with slice 9 (the VLM/M-RoPE frontend)")
+                " comes with slice 9 part 3 (the VLM/M-RoPE frontend)")
     tokens = inputs["tokens"]
     b, s = tokens.shape
     x = embed_tokens(params, tokens, cfg)

@@ -120,7 +120,7 @@ def test_refused_shapes_raise(cuda_device):
     def qkv(d, dtype=torch.bfloat16, hq=2, hkv=2):
         return [torch.zeros(1, 8, h, d, dtype=dtype, device=cuda_device)
                 for h in (hq, hkv, hkv)]
-    for d in (32, 80, 320):
+    for d in (32, 96, 320):
         with pytest.raises(ValueError, match="head_dim"):
             tops.flash_attention(*qkv(d))
     with pytest.raises(ValueError, match="multiple"):

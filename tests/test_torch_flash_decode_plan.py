@@ -131,6 +131,27 @@ def test_serving_shapes_fill_the_card(kind, int8):
     assert p.kernel == ("simt" if kind == "decode" else "mma")
 
 
+# seamless-m4t-large-v2 (16/16 heads of 64, G 1): the decode step and a
+# chunk of 16 at 4 slots, against its self cache (capacity 128) and the
+# cross cache (the encoder's 512 entries)
+ENCDEC = {"decode": (4, 16, 1, 128), "chunk": (4, 16, 16, 128),
+          "cross_decode": (4, 16, 1, 512), "cross_chunk": (4, 16, 16, 512)}
+
+
+def test_d64_g1_shapes_fill_the_card():
+    """At D 64 and G 1 every serving call of the enc-dec decoder fills the
+    card in one launch, on the CUDA cores (16 rows or fewer a KV head),
+    float and int8, and its tile ranges cover the cache once."""
+    for name, (b, hkv, r, s) in ENCDEC.items():
+        for int8 in (False, True):
+            p = fd._plan(b, hkv, r, s, torch.bfloat16, int8, 64)
+            assert p.grid[0] * p.grid[1] * p.grid[2] >= fd.SMS, (name, p)
+            assert p.kernel == "simt", (name, p)
+            tiles = [t for lo, hi in fd._tile_ranges(p, s, s)
+                     for t in range(lo, hi)]
+            assert tiles == list(range(_cdiv(s, p.bk))), name
+
+
 def test_kernel_and_rows_follow_dtype_and_rows():
     """bf16 calls of more than 16 rows take the tensor cores; f32 calls and
     up to 16 rows the CUDA cores, 2 rows a block for up to 2 rows, 4 for

@@ -74,6 +74,28 @@ def test_serving_shapes_fill_the_card(m, k, n):
     assert blocks >= im.SMS == 132, p
 
 
+# seamless-m4t-large-v2's projections (d 1,024, d_ff 8,192) at the decode
+# step's 4 slots and a chunk of 64: q/k/v/o and the cross K/V (K 1,024 ->
+# N 1,024), gate/up (-> N 8,192), down (K 8,192 -> N 1,024); and the cross
+# K/V of the whole encoder output (B 4 x S_enc 512 = M 2,048)
+ENCDEC = [(m, k, n) for m in (4, 64)
+          for k, n in ((1024, 1024), (1024, 8192), (8192, 1024))] + [
+    (2048, 1024, 1024)]
+
+
+def test_encdec_shapes_fill_the_card():
+    """The enc-dec backbone's shapes fill the card too, in one wave: K
+    1,024 into N 1,024 splits its 8 K tiles over 8 blocks (256), not 4
+    blocks of 2 (128, four SMs idle)."""
+    for m, k, n in ENCDEC:
+        p = im._plan(m, n, k)
+        blocks = p.grid[0] * p.grid[1] * p.grid[2]
+        assert blocks >= im.SMS, (m, k, n, p)
+        assert p.split == 1 or blocks < 3 * im.SMS, (m, k, n, p)
+        assert (p.split - 1) * p.kchunk < k <= p.split * p.kchunk
+    assert im._plan(4, 1024, 1024).split == 8
+
+
 def test_regime_follows_m_alone():
     """Decode (8 or 16 tokens a tile) for M <= 16, the tensor-core chunk
     tile of 64 tokens above, whatever K and N are."""

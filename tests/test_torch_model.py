@@ -46,13 +46,16 @@ def setup():
     return jcfg, tcfg, jp, tp
 
 
-# the dense config under its earlier ids, and the two MoE configs
+# the dense config under its earlier ids, the two MoE configs and the
+# enc-dec config
 _CONFIG_CASES = [(ARCH, "get"), (ARCH, "get_smoke")] + [
-    (arch, getter) for arch in ("phi3.5-moe-42b-a6.6b", "dbrx-132b")
+    (arch, getter) for arch in ("phi3.5-moe-42b-a6.6b", "dbrx-132b",
+                                "seamless-m4t-large-v2")
     for getter in ("get", "get_smoke")]
-# the parameter counts of the MoE configs at full width
-_MOE_PARAMS = {"phi3.5-moe-42b-a6.6b": 41_878_028_288,
-               "dbrx-132b": 131_596_025_856}
+# the parameter counts of the MoE and enc-dec configs at full width
+_FULL_PARAMS = {"phi3.5-moe-42b-a6.6b": 41_878_028_288,
+               "dbrx-132b": 131_596_025_856,
+               "seamless-m4t-large-v2": 2_038_431_744}
 
 
 @pytest.mark.parametrize("arch,getter", _CONFIG_CASES,
@@ -63,8 +66,8 @@ def test_arch_config_matches_jax(arch, getter):
     tc = getattr(tconfigs, getter)(arch)
     assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
     assert tconfigs.comes_with(arch) is None
-    if arch in _MOE_PARAMS and getter == "get":
-        assert tc.param_count() == _MOE_PARAMS[arch]
+    if arch in _FULL_PARAMS and getter == "get":
+        assert tc.param_count() == _FULL_PARAMS[arch]
     for prop in _PROPS:
         assert getattr(tc, prop) == getattr(jc, prop), prop
     assert tc.padded_vocab() == jc.padded_vocab()
@@ -73,9 +76,9 @@ def test_arch_config_matches_jax(arch, getter):
 
 
 def test_unported_arch_raises():
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        tconfigs.get("seamless-m4t-large-v2")
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    with pytest.raises(NotImplementedError, match="slice 9 part 3"):
+        tconfigs.get("qwen2-vl-72b")
+    with pytest.raises(NotImplementedError, match="slice 9 part 3"):
         tconfigs.get_smoke("qwen2-vl-72b")
 
 

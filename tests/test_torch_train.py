@@ -423,8 +423,9 @@ def test_checkpoint_layout_names_leaves_as_jax(setup, tmp_path):
 
 
 def test_training_path_refuses_what_it_does_not_port(setup):
-    """Positions/embeddings batches, cross-attention and the "dots" remat
-    policies raise, naming the slice that brings them."""
+    """Positions/embeddings batches and the "dots" remat policies raise,
+    naming the slice that brings them; cross-attention (ported with the
+    enc-dec backbone) raises under a causal mask between two lengths."""
     _, tcfg, jp, tokens = setup
     params = _carry(jp)
     batch = _t(_batch(tokens, 1, 8, seed=0))
@@ -437,11 +438,12 @@ def test_training_path_refuses_what_it_does_not_port(setup):
             ttr.forward_train(tcfg, params, batch, remat=policy)
     p = params["blocks"].unstack()[0]["attn"]
     x = torch.zeros(1, 8, 64)
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    kv = torch.zeros(1, 2, 2, 16)
+    with pytest.raises(ValueError, match="causal=False"):
         tlayers.attention_layer(p, x, torch.zeros(1, 8), n_heads=4,
                                 n_kv_heads=2, head_dim=16,
                                 rope_variant="rope", rope_theta=1e4,
-                                kv_override=(x, x))
+                                kv_override=(kv, kv))
 
 
 def test_training_entry_points_need_a_gpu_unless_asked(setup, monkeypatch,
