@@ -311,11 +311,39 @@ equal the eager run's launches, one replay a decode step (or call).
    16/16 heads of 64), both serving kernels at D 64 and G 1 (the self
    cache and the cross cache read from position 2^30, float and int8)
    and ``int8_matmul`` at K 1,024 and 8,192 (M 4, 64 and 2,048).
+15. The VLM: qwen2-vl-72b at full width (d_model 8,192, 64/8 heads of
+   128, d_ff 29,568, vocab 152,064 padded to 153,600, M-RoPE sections
+   (16, 24, 24)) and 16 of its 80 layers (``QWEN_LAYERS``: 33.1 GB of
+   bf16 weights; depth cut for the card's memory and the script's time),
+   seeded weights.  Two rows of 1,200 patch and text embeddings (the stub
+   frontend's) at Qwen2-VL's three-stream positions (text, an image whose
+   patches share one temporal position, text from one past its largest
+   id; one row left-padded at -1): one-shot prefill (``flash_attention``
+   masked by the temporal stream) and 32 decode steps written past the
+   prompt, float and then native int8, each held to its launch counts
+   and, teacher-forced with the float run's tokens, against the same run
+   through the plain kernels at ``QWEN_LOGIT_ATOL`` (greedy
+   ``QWEN_GREEDY_EQUAL_MIN``); text prompts (B 2 x 512) one-shot against
+   chunks of 64 (chunked prefill takes one-stream positions) at
+   ``QWEN_CHUNKED_LIMITS`` (float; the int8 gap printed).  Training at 1
+   layer and full width (3.39 B parameters, f32 masters and AdamW), 3
+   steps of B 1 x S 2,048 embedding batches at an image's positions:
+   losses, step ms, MFU, peak memory, the attention kernels' launches.
+   The exact oracle: the smoke config at d_model 256 (4/2 heads of 64,
+   sections (8, 12, 12)) in float32 on the card gives the CPU's greedy
+   tokens at image positions, float and int8.  Phase 2 holds both
+   training attention kernels masked by position (``FA_POS_CASES``: an
+   image's positions at B 1, S 2,048, 64/8 heads of 128, bf16 and f32;
+   packed rows with pads at B 2, S 1,000, causal and with a window of
+   256; the bound on the visible pairs, SDPA with the same boolean mask
+   on its memory-efficient backend), both serving kernels at G 8 (D 128,
+   contiguous and paged, float and int8) and ``int8_matmul`` at its
+   projections (K 8,192 into N 8,192 and 29,568, K 29,568 into N 8,192).
 
-Phases 10 to 14 run before phase 9.  Each main path (phases 3, 5
+Phases 10 to 15 run before phase 9.  Each main path (phases 3, 5
 paged and calibrated, 6 inference and fit, 7, 8, their artifact runs, 9,
-10, 11, 12, 13 and 14) runs with every launch count set to 0 just before it
-and read just after.  Prints the kernels' JSON line, the card's
+10, 11, 12, 13, 14 and 15) runs with every launch count set to 0 just
+before it and read just after.  Prints the kernels' JSON line, the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.  Needs
 one GPU; exits non-zero without one, or without the rest of the
 repository beside it.
@@ -325,6 +353,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -890,7 +919,11 @@ SLICE_LAYOUTS = {"d256_g2": ((4, 2, 256), 1600, "contiguous"),
                  # the decoder's self cache, and the cross cache (the
                  # encoder's 512 entries read whole from position 2^30)
                  "d64_g1": ((16, 1, 64), 576, "contiguous"),
-                 "d64_g1_cross": ((16, 1, 64), 512, "cross")}
+                 "d64_g1_cross": ((16, 1, 64), 512, "cross"),
+                 # qwen2-vl-72b (phase 15): 64/8 heads of 128, G 8, on
+                 # the 16-row block; a chunk of 64 is 512 rows a KV head
+                 "d128_g8": ((8, 8, 128), 576, "contiguous"),
+                 "d128_g8_paged_bs64": ((8, 8, 128), 576, "paged64")}
 # the query position of a cross-attention read (``layers.py``)
 CROSS_QUERY_POSITION = 2 ** 30
 
@@ -1007,9 +1040,16 @@ def check_slice_attention(ops, ref, Int8KV, layouts=SLICE_LAYOUTS):
 
 
 MATMUL_SHAPES = ((2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048))
+# qwen2-vl-72b's projections (phase 15, int8): q/o (8192, 8192), k/v (8192,
+# 1024; seamless-m4t's down projection's shape, timed with phase 14's),
+# gate/up (8192, 29568), down (29568, 8192)
+QWEN_MATMUL_SHAPES = tuple((m, k, n) for k, n in ((8192, 8192),
+                                                  (8192, 29568),
+                                                  (29568, 8192))
+                           for m in (4, 64))
 
 
-def check_int8_matmul(ops, ref, im):
+def check_int8_matmul(ops, ref, im, only=None):
     """``int8_matmul`` against its plain version, bitwise, at the serving
     shapes (M = 4 slots at decode, M = 64 in a chunk; M 1 and 16, the
     decode regime's ends, at 2048 -> 8192) and a ragged case; returns the
@@ -1018,7 +1058,8 @@ def check_int8_matmul(ops, ref, im):
     timing floor (``time_ms`` of a kernel that writes one float) and the
     kernel's time after a flush that leaves the L2 clean (``time_ms``'s
     flush leaves it full of dirty lines, which the kernel's reads must
-    first write back)."""
+    first write back).  ``only``: those (M, K, N) alone (and the ragged
+    case)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     one = torch.zeros(1, device=DEV)
     floor_ms = time_ms(one.zero_)
@@ -1045,6 +1086,9 @@ def check_int8_matmul(ops, ref, im):
     shapes += [(m, k, n) for k, n in ((1024, 1024), (1024, 8192),
                                       (8192, 1024))
                for m in (4, 64)] + [(2048, 1024, 1024)]
+    shapes += list(QWEN_MATMUL_SHAPES)
+    if only is not None:
+        shapes = [sh for sh in shapes if sh in only]
     for m, k, n in shapes + [(5, 200, 300)]:
         x = torch.randint(-127, 128, (m, k), generator=gen, device=DEV,
                           dtype=torch.int8)
@@ -1299,6 +1343,16 @@ def grad_reading(got: torch.Tensor, want: torch.Tensor) -> tuple:
             float((diff / (2.0 ** -8 * w + FA_GRAD_ATOL * med)).max()))
 
 
+def rounding_share(want: torch.Tensor) -> float:
+    """``grad_reading``'s share of the limit for ``want`` rounded once to
+    bf16: what a backward whose only error is its output's rounding reads.
+    Round to nearest moves a value by up to 2^-8 of itself, the limit's
+    own rounding term, so a large value can read close to 1."""
+    w = want.abs()
+    diff = (want.to(torch.bfloat16).float() - want).abs()
+    return float((diff / (2.0 ** -8 * w + FA_GRAD_ATOL * w.median())).max())
+
+
 def fa_planted_faults(fa, q, k, v, out, lse, do, grads, want, **kw):
     """The gradient check must fail two planted faults (shares of the
     limit, each above 1): dK/dV of a kernel that skips its last query tile
@@ -1349,11 +1403,12 @@ def check_flash_attention(port):
         check(out.dtype == torch.bfloat16 and bool(out.isfinite().all())
               and f_ratio <= 1, f"flash_attention disagrees with its plain"
               f" version at {name}: {f_ratio} of the limit")
-        g_err, g_read = [], []
+        g_err, g_read, g_share = [], [], []
         for gname, got, w in zip(("dq", "dk", "dv"), grads, want):
             reading, ratio = grad_reading(got, w)
             g_err.append(float((got.float() - w).abs().max()))
             g_read.append(reading)
+            g_share.append(ratio)
             check(got.dtype == torch.bfloat16
                   and bool(got.isfinite().all()) and ratio <= 1,
                   f"flash_attention_bwd {gname} disagrees with the plain"
@@ -1362,7 +1417,9 @@ def check_flash_attention(port):
         print(f"  flash_attention {name:16s} max|err| {f_err:.3g}"
               f" ({f_ratio:.3f} of the limit); backward max|err| dq/dk/dv"
               f" {g_err[0]:.3g}/{g_err[1]:.3g}/{g_err[2]:.3g}, beyond the"
-              f" rounding {max(g_read):.3g} of the median value")
+              f" rounding {max(g_read):.3g} of the median value; shares of"
+              f" the limit dq/dk/dv {g_share[0]:.4f}/{g_share[1]:.4f}/"
+              f"{g_share[2]:.4f}")
         if name == FA_FAULT_CASE:
             faults = fa_planted_faults(fa, q, k, v, out, lse, do, grads,
                                        want, **kw)
@@ -1555,6 +1612,189 @@ def check_flash_attention_cross(port, cases=FA_CROSS_CASES):
                   f" {b_ms:.5f} ms ({b_by}): {b_ms / ms:.3f} of the"
                   f" bound, {ms / lib_ms:.2f}x sdpa")
         del plain, lib, lib_out, leaves
+    return rows
+
+
+# flash_attention masked by position (phase 15, qwen2-vl-72b: 64/8 heads of
+# 128): Qwen2-VL's image positions (64 text tokens, an image of 1 x 32 x 32
+# patches on one temporal position, then text from one past its largest
+# id) at B 1, S 2,048, bf16 and f32 (FA_POS_F32); packed rows (B 2, S
+# 1,000, two sequences a row, pads at -1), causal and with a window of
+# 256; name: (B, S, Hq, Hkv, D, causal, window, positions)
+FA_POS_CASES = {
+    "vlm_image_b1_s2048": (1, 2048, 64, 8, 128, True, 0, "image"),
+    "packed_b2_s1000": (2, 1000, 64, 8, 128, True, 0, "packed"),
+    "packed_window256_b2_s1000": (2, 1000, 64, 8, 128, True, 256, "packed")}
+FA_POS_F32 = ("vlm_image_b1_s2048",)
+# the packed rows: each row's second sequence starts at the cut, and its
+# last entries are pads
+FA_PACKED_CUTS, FA_PACKED_PADS = (400, 550), (37, 11)
+
+
+def image_positions(port, segments, b=1):
+    """(B, S, 3) int32 on the card: Qwen2-VL's three streams of one
+    sequence of ``segments`` (``api.mrope_positions``), every row alike."""
+    pos = port.api.mrope_positions(segments, DEV)
+    return pos[None].expand(b, *pos.shape).contiguous()
+
+
+def fa_case_positions(port, kind, b, s):
+    """The (B, S) int32 positions of a ``FA_POS_CASES`` case: the temporal
+    stream of the image layout, or packed rows."""
+    if kind == "image":
+        return image_positions(port, [("text", 64), ("image", (1, 32, 32)),
+                                      ("text", s - 1088)], b)[..., 0] \
+            .contiguous()
+    rows = []
+    for i in range(b):
+        cut, pad = FA_PACKED_CUTS[i % 2], FA_PACKED_PADS[i % 2]
+        row = torch.cat([torch.arange(cut), torch.arange(s - cut)])
+        row[s - pad:] = -1
+        rows.append(row)
+    return torch.stack(rows).to(torch.int32).to(DEV)
+
+
+def fa_pos_bounds(b, s, hq, hkv, d, pairs) -> dict:
+    """``fa_bounds`` for the position masks: operations on the visible
+    (query, key) pairs these positions give (``pairs``, over the batch),
+    bytes as there plus the positions (int32, queries and keys)."""
+    ops = 4 * d * pairs * hq
+    q_bytes, kv_bytes = 2 * b * s * hq * d, 2 * 2 * b * s * hkv * d
+    lse, pos = 4 * b * hq * s, 2 * 4 * b * s
+    out = {}
+    for name, n_ops, n_bytes in (
+            ("flash_attention", ops, 2 * q_bytes + kv_bytes + lse + pos),
+            ("flash_attention_bwd", 2.5 * ops,
+             4 * q_bytes + 2 * kv_bytes + lse + pos)):
+        t_ops = n_ops / PEAK_OPS[torch.bfloat16] * 1e3
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        out[name] = (max(t_ops, t_bytes),
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def sdpa_masked_calls(q, k, v, do, mask):
+    """The library yardstick of the position kernels: SDPA with the same
+    boolean mask (B, 1, S, S) on the KV heads repeated beforehand, and its
+    backward through autograd.  The flash backend takes no mask: the
+    memory-efficient one is asked for."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    g = q.shape[2] // k.shape[2]
+    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in
+                  (q, k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)))
+    dos = do.transpose(1, 2).contiguous()
+
+    def fwd(*args):
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(*args, attn_mask=mask)
+    leaves = [t.clone().requires_grad_() for t in (qs, ks, vs)]
+    out = fwd(*leaves)
+    return (lambda: fwd(qs, ks, vs),
+            lambda: torch.autograd.grad(out, leaves, dos, retain_graph=True))
+
+
+def check_flash_attention_positions(port, cases=FA_POS_CASES):
+    """Both training kernels given per-row positions (the position masks)
+    against their plain versions with the same positions: the output at
+    the limit of ``TOL`` (every row: a pad query's mean of V too, finite),
+    dQ/dK/dV by ``grad_reading`` (f32: 2^-16 of the largest value), at
+    ``cases`` (bf16; ``FA_POS_F32`` in f32 too), each bf16 case also
+    failing ``fa_planted_faults``; each bf16 row timed
+    against the plain versions, SDPA with the same mask and the bound on
+    the visible pairs.  Returns each kernel's rows by case."""
+    fa, ref = port.fa, port.ref
+    gen = torch.Generator(device=DEV).manual_seed(23)
+    rows = {"flash_attention": {}, "flash_attention_bwd": {}}
+    for name, (b, s, hq, hkv, d, causal, window, kind) in cases.items():
+        pos = fa_case_positions(port, kind, b, s)
+        kw = dict(causal=causal, window=window, q_pos=pos, k_pos=pos)
+        dtypes = (torch.float32, torch.bfloat16) if name in FA_POS_F32 \
+            else (torch.bfloat16,)
+        for dtype in dtypes:
+            q, do = (torch.randn(b, s, hq, d, generator=gen, device=DEV)
+                     .to(dtype) for _ in range(2))
+            k, v = (torch.randn(b, s, hkv, d, generator=gen, device=DEV)
+                    .to(dtype) for _ in range(2))
+            out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+            grads = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            torch.cuda.synchronize()
+            f32 = [t.float() for t in (q, k, v)]
+            want_out = ref.flash_attention_ref(*f32, causal, window, pos,
+                                               pos)
+            want = ref.flash_attention_bwd_ref(*f32, out.float(), do.float(),
+                                               causal, window, pos, pos)
+            f_err = float((out.float() - want_out).abs().max())
+            f_ratio = tol_ratio(out, want_out)
+            check(out.dtype == dtype and bool(out.isfinite().all())
+                  and bool(lse.isfinite().all()) and f_ratio <= 1,
+                  f"flash_attention by position disagrees with its plain"
+                  f" version at {name} {dtype}: {f_ratio} of the limit")
+            g_err, g_ratio, detail = [], [], {}
+            for gname, got, w in zip(("dq", "dk", "dv"), grads, want):
+                g_err.append(float((got.float() - w).abs().max()))
+                if dtype == torch.bfloat16:
+                    reading, ratio = grad_reading(got, w)
+                    detail[gname] = dict(share=ratio, reading=reading,
+                                         rounding_share=rounding_share(w))
+                else:
+                    ratio = float((got - w).abs().max()
+                                  / (2.0 ** -16 * w.abs().max()))
+                g_ratio.append(ratio)
+                check(bool(got.isfinite().all()) and ratio <= 1,
+                      f"flash_attention_bwd {gname} by position disagrees"
+                      f" with the plain backward at {name} {dtype}:"
+                      f" {ratio} of the limit")
+            print(f"  flash_attention {name:26s} {str(dtype):15s} max|err|"
+                  f" {f_err:.3g} ({f_ratio:.3f} of the limit); backward"
+                  f" dq/dk/dv {g_err[0]:.3g}/{g_err[1]:.3g}/{g_err[2]:.3g}"
+                  f" ({max(g_ratio):.3f} of the limit)")
+            if dtype == torch.bfloat16:
+                # each gradient's share beside the share of its own
+                # rounding to bf16, and the planted faults by position
+                print(f"  by gradient (share of the limit, reading beyond"
+                      f" the rounding, share of the rounding alone):"
+                      f" {json.dumps(detail)}")
+                faults = fa_planted_faults(fa, q, k, v, out, lse, do, grads,
+                                           want, **kw)
+                print(f"  planted faults at {name}, shares of the limit:"
+                      f" {json.dumps(faults)}")
+                check(min(faults.values()) > 1, f"the gradient check by"
+                      f" position passes a planted fault at {name}:"
+                      f" {faults}")
+            del f32, want_out, want
+        mask = ref.attention_mask(s, s, causal, window, pos, pos)
+        pairs = int(mask.sum())
+        empty = int((~mask.any(-1)).sum())
+        lib_f, lib_b = sdpa_masked_calls(q, k, v, do, mask)
+        kern = {"flash_attention": lambda: fa.flash_attention_fwd(
+                    q, k, v, **kw),
+                "flash_attention_bwd": lambda: fa.flash_attention_bwd(
+                    q, k, v, out, lse, do, **kw)}
+        plain = {"flash_attention": lambda: ref.flash_attention_ref(
+                     q, k, v, causal, window, pos, pos),
+                 "flash_attention_bwd": lambda: ref.flash_attention_bwd_ref(
+                     q, k, v, out, do, causal, window, pos, pos)}
+        lib = {"flash_attention": lib_f, "flash_attention_bwd": lib_b}
+        bounds = fa_pos_bounds(b, s, hq, hkv, d, pairs)
+        for kname, err in (("flash_attention", f_err),
+                           ("flash_attention_bwd", max(g_err))):
+            ms = time_ms(kern[kname], reps=10)
+            plain_ms = time_ms(plain[kname], reps=10)
+            lib_ms = time_ms(lib[kname], reps=10)
+            b_ms, b_by = bounds[kname]
+            rows[kname][name] = {"max_abs_err": err, "ms": ms,
+                                 "plain_ms": plain_ms, "bound_ms": b_ms,
+                                 "bound_by": b_by, "library_ms": lib_ms,
+                                 "visible_pairs": pairs,
+                                 "rows_seeing_no_key": empty,
+                                 "library": "SDPA, memory-efficient"
+                                            " backend, boolean mask"}
+            print(f"  {kname:19s} {name:26s} kernel {ms:.4f} ms  plain"
+                  f" {plain_ms:.4f} ms  sdpa(efficient, mask) {lib_ms:.4f}"
+                  f" ms  bound {b_ms:.5f} ms ({b_by}, {pairs} visible"
+                  f" pairs): {b_ms / ms:.3f} of the bound,"
+                  f" {ms / lib_ms:.2f}x sdpa")
+        del plain, lib, lib_f, lib_b, mask
     return rows
 
 
@@ -4104,10 +4344,12 @@ def encdec_config(port):
 
 def plain_flash_attention(ref, dtype=torch.float32):
     """The whole-sequence attention's plain version in f32 (or ``dtype``)
-    from the same inputs, rounded once to the working dtype."""
-    def call(q, k, v, *, causal=True, window=0):
+    from the same inputs (and positions), rounded once to the working
+    dtype."""
+    def call(q, k, v, *, causal=True, window=0, q_pos=None, k_pos=None):
         return ref.flash_attention_ref(q.to(dtype), k.to(dtype), v.to(dtype),
-                                       causal, window).to(q.dtype)
+                                       causal, window, q_pos,
+                                       k_pos).to(q.dtype)
     return call
 
 
@@ -4491,6 +4733,440 @@ def encdec_phase(port):
     return dict(serve=serve, train=train, small=small)
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: slice 9 part 3 (the VLM, qwen2-vl-72b)
+# ---------------------------------------------------------------------------
+QWEN = "qwen2-vl-72b"
+# (layers, d_model, heads, KV heads, head dim, d_ff, padded vocab, M-RoPE
+# sections) of the full config
+QWEN_WIDTHS = (80, 8192, 64, 8, 128, 29568, 153600, (16, 24, 24))
+# Depth cut for the card's memory and the script's time: 16 of 80 layers
+# (877,674,496 parameters a layer, 1.755 GB in bf16, and the embedding and
+# the unembedding 1,258,291,200 each): 33.1 GB of bf16 weights; the int8
+# tree is made from them and the float tree freed.  Training: 1 layer and
+# the two tables (3.39 B parameters at 16 bytes each: f32 masters, their
+# gradients and AdamW's two moments, 54 GB) at B 1 x S 2,048, S not cut.
+QWEN_LAYERS, QWEN_PARAMS = 16, 16_559_382_528
+QWEN_TRAIN_LAYERS, QWEN_TRAIN_PARAMS = 1, 3_394_265_088
+# Two rows of 1,200: 64 text tokens, an image of 1 x 32 x 32 patches on
+# one temporal position (its h/w grid on the other two streams), 112 text
+# tokens from one past its largest id; and 48 pads at -1 (left), 32 text
+# tokens, an image of 1 x 24 x 40, 160 text tokens.  The stub frontend's
+# embeddings (a normal times 0.1) stand for the text and patch embeddings.
+QWEN_SEGMENTS = ([("text", 64), ("image", (1, 32, 32)), ("text", 112)],
+                 [("text", 32), ("image", (1, 24, 40)), ("text", 160)])
+QWEN_PADS, QWEN_NEW = (0, 48), 32
+# the text prompts of the one-shot against chunked check: B 2 x 512, in
+# chunks of 64 (chunked prefill takes one-stream positions: text only)
+QWEN_TEXT, QWEN_CHUNK = 512, 64
+QWEN_TRAIN_SEGMENTS = [("text", 64), ("image", (1, 32, 32)), ("text", 960)]
+QWEN_TRAIN_STEPS = 3
+# Logits of the image path (one-shot prefill and 32 decode steps, the
+# decode teacher-forced with the float run's tokens) against the same path
+# through the plain kernels; the text one-shot against the chunked path.
+# By the rule of LOGIT_ATOL, twice the largest reading on the H100 rounded
+# up to a power of two (float 0.3572, int8 1.5195, one-shot against
+# chunked 0.4219); greedy tokens equal on 97.0% (float), 68.2% (int8)
+# and 89.4% (one-shot against chunked) of the rows there, so at least
+# 90%, 50% and 85% are required (PERF.md gives the readings).
+QWEN_LOGIT_ATOL = {"float": 1.0, "int8": 4.0}
+QWEN_GREEDY_EQUAL_MIN = {"float": 0.9, "int8": 0.5}
+QWEN_CHUNKED_LIMITS = dict(logit=1.0, greedy=0.85)
+# The small float32 config (D 64) on the card against the CPU: greedy
+# tokens equal, logits within twice the largest reading on the H100
+# rounded up to a power of two (float 6.26e-7, int8 2.38e-7)
+QWEN_SMALL_LOGIT_ATOL = {"float": 2.0 ** -19, "int8": 2.0 ** -21}
+QWEN_SMALL_SEGMENTS = ([("text", 5), ("image", (1, 4, 6)), ("text", 11)],
+                       [("text", 4), ("image", (1, 3, 5)), ("text", 18)])
+QWEN_SMALL_PADS = (0, 3)
+
+
+def free_card() -> None:
+    """Return what the deleted trees held to the card: a weight tree's
+    cached per-layer views refer back to it, so its memory waits for the
+    cycle collector."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def qwen_config(port, layers=QWEN_LAYERS):
+    cfg = port.configs.get(QWEN)
+    got = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.resolved_head_dim, cfg.d_ff, cfg.padded_vocab(),
+           tuple(cfg.mrope_sections))
+    check(got == QWEN_WIDTHS and cfg.rope_variant == "mrope"
+          and cfg.frontend == "vision", f"unexpected config {cfg}")
+    return dataclasses.replace(cfg, n_layers=layers)
+
+
+def mrope_rows(port, segments, pads, dev=None):
+    """(B, S, 3) int32 on ``dev`` (the card unless named): each row's
+    ``api.mrope_positions`` after its left pads (-1 in every stream)."""
+    dev = DEV if dev is None else dev
+    rows = []
+    for seg, pad in zip(segments, pads):
+        pos = port.api.mrope_positions(seg, dev)
+        rows.append(torch.cat([torch.full((pad, 3), -1, dtype=torch.int32,
+                                          device=dev), pos]))
+    check(len({len(r) for r in rows}) == 1, "rows of one length")
+    return torch.stack(rows)
+
+
+def patch_embeddings(cfg, gen, b, s, dev=None):
+    """The stub frontend's embeddings, as ``api.synthetic_inputs`` draws
+    them: a standard normal cast to the activation dtype, times 0.1."""
+    dev = DEV if dev is None else dev
+    return torch.randn(b, s, cfg.d_model, generator=gen, device=dev) \
+        .to(cfg.activation_dtype) * 0.1
+
+
+def qwen_expected(cfg, steps, int8, prefill="oneshot") -> dict:
+    """The launches of one image or text run: the one-shot prefill (one
+    ``flash_attention`` a layer) or ``prefill`` chunks (one
+    ``flash_chunk_prefill`` a layer each), then ``steps`` decode steps; 7
+    ``int8_matmul`` a layer a call under int8."""
+    n = cfg.n_layers
+    want = dict(flash_decode=n * steps, flash_chunk_prefill=0,
+                int8_matmul=0, mel_frontend=0, flash_attention=0,
+                flash_attention_bwd=0, mamba_scan=0)
+    calls = steps + 1
+    if prefill == "oneshot":
+        want["flash_attention"] = n
+    else:
+        want["flash_chunk_prefill"] = n * prefill
+        calls = steps + prefill
+    if int8:
+        want["int8_matmul"] = 7 * n * calls
+    return want
+
+
+def qwen_decode(port, cfg, params, cache, first, start, s, policy, forced,
+                steps, logits):
+    """``steps`` greedy (or ``forced``) decode steps from the prompt's
+    last logits ``first``: row s + t of the cache, position ``start`` + t
+    (one past each row's largest id).  Appends to ``logits``; returns the
+    tokens fed and the loop's wall seconds."""
+    tr = port.transformer
+    b = first.shape[0]
+    fed = [first.argmax(-1).to(torch.int32) if forced is None
+           else forced[:, 0]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(steps):
+        row = torch.full((b,), s + t, dtype=torch.int32, device=first.device)
+        lg, cache = tr.forward_decode(cfg, params, cache, fed[-1],
+                                      (start + t).to(torch.int32), row,
+                                      policy=policy, kv_len=row + 1)
+        logits.append(lg)
+        if t + 1 < steps:
+            fed.append(lg.argmax(-1).to(torch.int32) if forced is None
+                       else forced[:, t + 1])
+    torch.cuda.synchronize()
+    return torch.stack(fed, 1), time.perf_counter() - t0
+
+
+def qwen_image_run(port, cfg, params, emb, pos, policy, forced=None,
+                   steps=QWEN_NEW):
+    """One-shot prefill of the embedding batch at its image positions,
+    ``grow_cache`` by ``QWEN_NEW``, ``steps`` decode steps.  Returns
+    (logits (1 + steps, B, V), tokens fed, prefill s, decode s)."""
+    tr = port.transformer
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = tr.forward_prefill(
+            cfg, params, {"embeddings": emb, "positions": pos}, policy)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        check(torch.equal(cache["full_pos"], pos[..., 0]),
+              "the prefill cache's positions are not the temporal stream")
+        cache = tr.grow_cache(cfg, cache, QWEN_NEW)
+        start = pos[..., 0].max(dim=1).values + 1
+        logits = [last]
+        fed, wall = qwen_decode(port, cfg, params, cache, last, start,
+                                pos.shape[1], policy, forced, steps, logits)
+    return torch.stack(logits), fed, prefill_s, wall
+
+
+def qwen_text_run(port, cfg, params, toks, policy, path, forced):
+    """The text prompts one-shot (``forward_prefill`` on tokens, the
+    default positions: the index kernels) or in chunks of ``QWEN_CHUNK``
+    (``forward_prefill_chunk`` into a slot cache), then ``QWEN_NEW``
+    decode steps teacher-forced with ``forced``.  Returns the logits."""
+    tr, kc = port.transformer, port.kvcache
+    b, s = toks.shape
+    with torch.no_grad():
+        if path == "oneshot":
+            last, cache = tr.forward_prefill(cfg, params, {"tokens": toks},
+                                             policy)
+            cache = tr.grow_cache(cfg, cache, QWEN_NEW)
+        else:
+            cache = kc.alloc_decode_cache(cfg, b, s + QWEN_NEW, DEV, policy)
+            for p in range(0, s, QWEN_CHUNK):
+                ps = torch.arange(p, p + QWEN_CHUNK, dtype=torch.int32,
+                                  device=DEV)[None].repeat(b, 1)
+                kvl = torch.full((b,), p + QWEN_CHUNK, dtype=torch.int32,
+                                 device=DEV)
+                lg, cache = tr.forward_prefill_chunk(
+                    cfg, params, cache, toks[:, p:p + QWEN_CHUNK], ps,
+                    policy, kv_len=kvl)
+            last = lg[:, -1]
+        start = torch.full((b,), s, dtype=torch.int32, device=DEV)
+        logits = [last]
+        fed, _ = qwen_decode(port, cfg, params, cache, last, start, s,
+                             policy, forced, QWEN_NEW, logits)
+    return torch.stack(logits), fed
+
+
+def serve_qwen(port, cfg):
+    """qwen2-vl-72b at full width and ``QWEN_LAYERS`` layers, bf16, seeded
+    weights, float and then native int8: the image batch prefilled in one
+    shot and decoded, held to its launch counts and, teacher-forced with
+    the float run's tokens, against the same run through the plain kernels
+    (``encdec_plain``: the position-masked attention's plain version too);
+    the text prompts one-shot against chunked, each held to its counts.
+    Returns the launches by run and the readings."""
+    t0 = time.perf_counter()
+    params = port.init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                              DEV)
+    n = sum(p.numel() for p in params.parameters())
+    check(n == QWEN_PARAMS, f"{n} parameters")
+    gen = torch.Generator(device=DEV).manual_seed(14)
+    pos = mrope_rows(port, QWEN_SEGMENTS, QWEN_PADS)
+    b, s = pos.shape[:2]
+    emb = patch_embeddings(cfg, gen, b, s)
+    toks = torch.randint(0, cfg.vocab_size, (b, QWEN_TEXT), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    print(f"  weights and inputs in {time.perf_counter() - t0:.1f} s: B {b}"
+          f" x S {s}, temporal positions up to"
+          f" {pos[..., 0].max(dim=1).values.tolist()}")
+    qwen_image_run(port, cfg, params, emb, pos, None, steps=2)    # warm
+    out = {"launches": {}, "metrics": {}}
+    forced = None
+    weights = params
+    for precision in ("float", "int8"):
+        t_prec = time.perf_counter()
+        policy = None if precision == "float" else port.quantize.INT8
+        if policy is not None:
+            weights = port.quantize.quantize_model_params(params, policy)
+            del params
+            free_card()
+        reset_counts(port)
+        logits, fed, prefill_s, wall = qwen_image_run(
+            port, cfg, weights, emb, pos, policy, forced)
+        launches = read_counts(port)
+        want = qwen_expected(cfg, QWEN_NEW, policy is not None)
+        check(launches == want, f"qwen2-vl image {precision} launches"
+              f" {launches} != {want}")
+        if forced is None:
+            forced = fed
+        with patched(encdec_plain(port)):
+            plain, _, _, _ = qwen_image_run(port, cfg, weights, emb, pos,
+                                            policy, forced)
+        reading = logit_reading(logits, plain)
+        key = f"image_{precision}"
+        out["launches"][key] = launches
+        out["metrics"][key] = dict(vs_plain=reading, prefill_s=prefill_s,
+                                   decode_wall_s=wall,
+                                   tokens_per_s=b * QWEN_NEW / wall)
+        print(f"  qwen2-vl {key}: " + json.dumps(out["metrics"][key]))
+        check(reading["max_abs_gap"] <= QWEN_LOGIT_ATOL[precision],
+              f"qwen2-vl {key} logits against the plain path:"
+              f" {reading['max_abs_gap']}")
+        check(reading["greedy_equal"] >= QWEN_GREEDY_EQUAL_MIN[precision]
+              * reading["rows"], f"qwen2-vl {key} greedy tokens equal the"
+              f" plain path's on only {reading['greedy_equal']} of"
+              f" {reading['rows']}")
+        del plain
+        runs, text_forced = {}, None
+        for path in ("oneshot", "chunked"):
+            reset_counts(port)
+            runs[path], fed = qwen_text_run(port, cfg, weights, toks, policy,
+                                            path, text_forced)
+            launches = read_counts(port)
+            want = qwen_expected(cfg, QWEN_NEW, policy is not None,
+                                 "oneshot" if path == "oneshot"
+                                 else QWEN_TEXT // QWEN_CHUNK)
+            check(launches == want, f"qwen2-vl text {path} {precision}"
+                  f" launches {launches} != {want}")
+            out["launches"][f"text_{path}_{precision}"] = launches
+            text_forced = fed if text_forced is None else text_forced
+        gap = logit_reading(runs["chunked"], runs["oneshot"])
+        out["metrics"][f"text_oneshot_vs_chunked_{precision}"] = gap
+        print(f"  qwen2-vl text one-shot against chunked, {precision}: "
+              + json.dumps(gap))
+        if precision == "float":
+            check(gap["max_abs_gap"] <= QWEN_CHUNKED_LIMITS["logit"],
+                  f"qwen2-vl one-shot against chunked: {gap['max_abs_gap']}")
+            check(gap["greedy_equal"] >= QWEN_CHUNKED_LIMITS["greedy"]
+                  * gap["rows"], f"qwen2-vl one-shot against chunked:"
+                  f" greedy equal on only {gap['greedy_equal']} of"
+                  f" {gap['rows']}")
+        del runs
+        print(f"  {precision} part {time.perf_counter() - t_prec:.1f} s")
+    del weights
+    free_card()
+    return out
+
+
+def train_qwen(port):
+    """qwen2-vl-72b at full width and ``QWEN_TRAIN_LAYERS`` layer: f32
+    masters from a seeded generator on the card, bf16 activations,
+    ``make_train_step`` (remat "full", AdamW) for 3 steps of B 1 x S 2,048
+    embedding batches at an image's positions: finite losses,
+    ``flash_attention`` launched twice a layer a step (forward and
+    recomputed forward, masked by position) and its backward once.  Step
+    ms, tokens/s, MFU (6 x the weights the matmuls read x tokens, plus
+    3 x the forward attention's operations on the visible pairs, over 989
+    TFLOP/s) and peak memory."""
+    cfg = qwen_config(port, QWEN_TRAIN_LAYERS)
+    params = port.init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                              DEV, trainable=True)
+    n = sum(p.numel() for p in params.parameters())
+    check(n == QWEN_TRAIN_PARAMS, f"{n} trainable parameters")
+    opt_state = port.optimizer.adamw_init(params)
+    step = port.train_step.make_train_step(
+        cfg, remat="full", opt=port.optimizer.AdamWConfig(lr=TRAIN_LR))
+    pos = mrope_rows(port, [QWEN_TRAIN_SEGMENTS], [0])
+    s = pos.shape[1]
+    gen = torch.Generator(device=DEV).manual_seed(15)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(port)
+    losses, times = [], []
+    for _ in range(QWEN_TRAIN_STEPS):
+        batch = {"embeddings": patch_embeddings(cfg, gen, 1, s),
+                 "positions": pos,
+                 "labels": torch.randint(0, cfg.vocab_size, (1, s),
+                                         generator=gen, device=DEV,
+                                         dtype=torch.int32)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step(params, opt_state, batch)
+        losses.append(float(m["loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = read_counts(port)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"training losses {losses}")
+    layers = cfg.n_layers
+    want = {name: 0 for name in launches}
+    want.update(flash_attention=2 * layers * QWEN_TRAIN_STEPS,
+                flash_attention_bwd=layers * QWEN_TRAIN_STEPS)
+    check(launches == want, f"training launches {launches} != {want}")
+    step_s = float(np.median(times[1:])) / 1e3
+    pairs = int(port.ref.attention_mask(s, s, True, 0, pos[..., 0],
+                                        pos[..., 0]).sum())
+    # N: the matmuls' weights (blocks and unembedding): an embedding batch
+    # reads no token table
+    n_matmul = n - cfg.padded_vocab() * cfg.d_model
+    attn_flops = 3 * 4 * cfg.resolved_head_dim * cfg.n_heads * layers * pairs
+    model_flops = 6 * n_matmul * s + attn_flops
+    metrics = dict(params=n, layers=layers, batch=1, seq=s, losses=losses,
+                   step_ms_all=times, step_ms=step_s * 1e3,
+                   tokens_per_s=s / step_s, visible_pairs=pairs,
+                   mfu=model_flops / step_s / PEAK_OPS[torch.bfloat16],
+                   model_flops_per_step=model_flops, peak_memory_bytes=peak)
+    print("  training " + json.dumps(metrics))
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return launches, metrics
+
+
+def small_qwen_config(port):
+    """The smoke config in float32 at d_model 256: 4/2 heads of 64 (the
+    kernels' least head dim; the smoke config's 16 runs only the plain
+    versions), M-RoPE sections (8, 12, 12)."""
+    return dataclasses.replace(port.configs.get_smoke(QWEN), d_model=256,
+                               n_heads=4, n_kv_heads=2, head_dim=64,
+                               mrope_sections=(8, 12, 12), dtype="float32")
+
+
+def small_qwen_vs_cpu(port) -> dict:
+    """The exact oracle: the small float32 config on the card gives the
+    CPU plain path's greedy tokens on an embedding batch at image
+    positions (one row left-padded), one-shot prefill, ``grow_cache`` and
+    8 decode steps, in float and native int8, logits within
+    ``QWEN_SMALL_LOGIT_ATOL``."""
+    cfg = small_qwen_config(port)
+    check(cfg.resolved_head_dim == 64, f"head dim {cfg.resolved_head_dim}")
+    host = port.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    pos_cpu = mrope_rows(port, QWEN_SMALL_SEGMENTS, QWEN_SMALL_PADS, "cpu")
+    b, s = pos_cpu.shape[:2]
+    emb_cpu = patch_embeddings(cfg, torch.Generator().manual_seed(1), b, s,
+                               "cpu")
+    tr = port.transformer
+    readings = {}
+    for precision in ("float", "int8"):
+        policy = None if precision == "float" else port.quantize.INT8
+        weights = host if policy is None else \
+            port.quantize.quantize_model_params(host, policy)
+        runs = {}
+        for dev in ("cpu", DEV):
+            params = weights if dev == "cpu" else \
+                copy.deepcopy(weights).to(dev)
+            emb, pos = emb_cpu.to(dev), pos_cpu.to(dev)
+            with torch.no_grad():
+                lg, cache = tr.forward_prefill(
+                    cfg, params, {"embeddings": emb, "positions": pos},
+                    policy)
+                cache = tr.grow_cache(cfg, cache, 8)
+                start = pos[..., 0].max(dim=1).values + 1
+                logits, fed = [lg], [lg.argmax(-1).to(torch.int32)]
+                for t in range(8):
+                    row = torch.full((b,), s + t, dtype=torch.int32,
+                                     device=dev)
+                    lg, cache = tr.forward_decode(
+                        cfg, params, cache, fed[-1],
+                        (start + t).to(torch.int32), row, policy=policy,
+                        kv_len=row + 1)
+                    logits.append(lg)
+                    fed.append(lg.argmax(-1).to(torch.int32))
+            runs[dev] = (torch.stack(logits).cpu(), torch.stack(fed).cpu())
+        gap = float((runs[DEV][0] - runs["cpu"][0]).abs().max())
+        readings[precision] = dict(logit_gap=gap,
+                                   tokens=runs[DEV][1].t().tolist())
+        check(torch.equal(runs[DEV][1], runs["cpu"][1]), f"small qwen2-vl"
+              f" {precision}: card tokens {runs[DEV][1].tolist()} != cpu"
+              f" {runs['cpu'][1].tolist()}")
+        check(gap <= QWEN_SMALL_LOGIT_ATOL[precision],
+              f"small qwen2-vl {precision} logits: {gap}")
+    print("  small float32 qwen2-vl (D 64, image positions), card against"
+          " cpu: " + json.dumps(readings))
+    return readings
+
+
+def qwen_phase(port):
+    """Phase 15: qwen2-vl-72b at full width, its image batch prefilled in
+    one shot and decoded, its text prompts one-shot against chunked,
+    float and int8; trained at one layer; then the small float32 oracle.
+    Returns the readings by part."""
+    t0 = time.perf_counter()
+    serve = serve_qwen(port, qwen_config(port))
+    t1 = time.perf_counter()
+    train = train_qwen(port)
+    t2 = time.perf_counter()
+    small = small_qwen_vs_cpu(port)
+    m = serve["metrics"]
+    # a float decode step reads the blocks and the unembedding once; of
+    # the token table it gathers B rows only
+    step_bytes = 2 * (QWEN_PARAMS - QWEN_WIDTHS[6] * QWEN_WIDTHS[1])
+    m["decode_weights_floor_ms"] = step_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"  qwen2-vl float decode step reads {step_bytes} bytes of"
+          f" weights: {m['decode_weights_floor_ms']:.3f} ms at"
+          f" {HBM_BYTES_PER_S:.3g} B/s")
+    print(f"  qwen2-vl prefill (B 2 x 1,200, {QWEN_LAYERS} layers) float"
+          f" {m['image_float']['prefill_s'] * 1e3:.1f} ms, int8"
+          f" {m['image_int8']['prefill_s'] * 1e3:.1f} ms; decode tokens_per_s"
+          f" float {m['image_float']['tokens_per_s']:.2f}, int8"
+          f" {m['image_int8']['tokens_per_s']:.2f}; training step"
+          f" {train[1]['step_ms']:.1f} ms, mfu {train[1]['mfu']:.4f}, peak"
+          f" {train[1]['peak_memory_bytes'] / 2**30:.2f} GiB; serving part"
+          f" {t1 - t0:.1f} s, training part {t2 - t1:.1f} s, small oracle"
+          f" {time.perf_counter() - t2:.1f} s, phase"
+          f" {time.perf_counter() - t0:.1f} s")
+    return dict(serve=serve, train=train, small=small)
+
+
 def gpu_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                           "--format=csv,noheader"], capture_output=True,
@@ -4602,6 +5278,10 @@ def main() -> None:
     print("  slice 9 part 2: keys of another length (seamless-m4t: D 64,"
           " 16/16 heads, causal=False)")
     for name, rows in check_flash_attention_cross(port).items():
+        fa_rows[name].update(rows)
+    print("  slice 9 part 3: masks by position (qwen2-vl: 64/8 heads of"
+          " 128, an image's positions, packed rows with pads)")
+    for name, rows in check_flash_attention_positions(port).items():
         fa_rows[name].update(rows)
 
     print(f"phase 3: full-width serving, internlm2-1.8b bf16 at"
@@ -4763,6 +5443,13 @@ def main() -> None:
     encdec = encdec_phase(port)
     enc_l = encdec["serve"]["launches"]
     launches_et, metrics_et = encdec["train"]
+    print(f"phase 15: the VLM, qwen2-vl-72b at full width and {QWEN_LAYERS}"
+          f" of its 80 layers: an image batch prefilled in one shot and"
+          f" decoded, text one-shot against chunked (float and int8);"
+          f" trained at {QWEN_TRAIN_LAYERS} layer")
+    vlm = qwen_phase(port)
+    vlm_l = vlm["serve"]["launches"]
+    launches_qt, metrics_qt = vlm["train"]
 
     print("phase 9: the EON tuner and the Project API on the card")
     t0 = time.perf_counter()
@@ -4793,6 +5480,9 @@ def main() -> None:
         "encdec": encdec["serve"]["metrics"],
         "encdec_decode_step_profile": encdec["serve"]["profile"],
         "encdec_training": metrics_et, "encdec_small_f32": encdec["small"]}))
+    print("  slice 9 part 3 " + json.dumps({
+        "qwen2vl": vlm["serve"]["metrics"], "qwen2vl_training": metrics_qt,
+        "qwen2vl_small_f32": vlm["small"]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     by_path = {name: {"float_continuous": launches[name],
@@ -4826,11 +5516,15 @@ def main() -> None:
                       "phi3.5_moe_training": launches_mt[name],
                       **{f"encdec_{key}": n[name]
                          for key, n in enc_l.items()},
-                      "encdec_training": launches_et[name]}
+                      "encdec_training": launches_et[name],
+                      **{f"qwen2vl_{key}": n[name]
+                         for key, n in vlm_l.items()},
+                      "qwen2vl_training": launches_qt[name]}
                for name in REPLACES}
     serving = (launches, launches8, launches_g, launches_g8, launches_gr,
                launches_z, launches_z8, phi["launches"], phi["launches8"],
-               dbrx["launches"]) + tuple(enc_l.values())
+               dbrx["launches"]) + tuple(enc_l.values()) \
+        + tuple(vlm_l.values())
     kernels = []
     for name in ("flash_decode", "flash_chunk_prefill"):
         kernels.append(dict(
@@ -4845,7 +5539,8 @@ def main() -> None:
         launches=launches8["int8_matmul"] + launches_cal["int8_matmul"]
         + launches_g8["int8_matmul"] + launches_z8["int8_matmul"]
         + phi["launches8"]["int8_matmul"]
-        + sum(n["int8_matmul"] for n in enc_l.values()),
+        + sum(n["int8_matmul"] for n in enc_l.values())
+        + sum(n["int8_matmul"] for n in vlm_l.values()),
         launches_by_path=by_path["int8_matmul"],
         **mm_rows["M4_K2048_N8192"], shapes=mm_rows))
     kernels.append(dict(
@@ -4861,7 +5556,8 @@ def main() -> None:
             launches=launches_train[name] + prefill_z[0][name] + sum(
                 prefill[arch][0][name] for arch in prefill)
             + dbrx["prefill"][0][name] + launches_mt[name]
-            + sum(n[name] for n in enc_l.values()) + launches_et[name],
+            + sum(n[name] for n in enc_l.values()) + launches_et[name]
+            + sum(n[name] for n in vlm_l.values()) + launches_qt[name],
             launches_by_path=by_path[name],
             **fa_rows[name]["train_b4_s2048"], shapes=fa_rows[name]))
     kernels.append(dict(

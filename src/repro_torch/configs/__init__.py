@@ -1,9 +1,8 @@
 """Architecture config registry: ``get(arch_id)`` returns the FULL config,
 ``get_smoke(arch_id)`` the reduced CPU-sized config of the same family.
 
-Only the architectures whose serving path has been ported have a module
-here; every other id of ``ALIASES`` raises ``NotImplementedError`` naming
-the port slice that brings it.
+Every id of ``ALIASES`` has a module here: the ten configs of the JAX
+package, all ported.
 """
 from __future__ import annotations
 
@@ -28,10 +27,10 @@ ALIASES: Dict[str, str] = {
 
 PORTED = ("internlm2_1_8b", "falcon_mamba_7b", "granite_3_8b", "llama3_2_3b",
           "gemma3_4b", "zamba2_2_7b", "phi3_5_moe_42b", "dbrx_132b",
-          "seamless_m4t_large_v2")
+          "seamless_m4t_large_v2", "qwen2_vl_72b")
 
-# the port slice (ROADMAP.md, queue 1) that brings each remaining module
-# other than slice 9's
+# the port slice (ROADMAP.md, queue 1) that brings each module not yet in
+# PORTED: none is left
 _LATER: Dict[str, str] = {}
 
 
@@ -44,7 +43,7 @@ def comes_with(arch_id: str) -> Optional[str]:
     mod_name = _name(arch_id)
     if mod_name in PORTED:
         return None
-    return _LATER.get(mod_name, "slice 9 part 3 (the VLM frontend)")
+    return _LATER.get(mod_name, "a later slice (ROADMAP.md, queue 1)")
 
 
 def _module(arch_id: str):

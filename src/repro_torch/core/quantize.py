@@ -203,7 +203,15 @@ QUANT_SCOPES = ("attn", "mlp", "xattn")
 def _leaf_qtensor(w: torch.Tensor) -> QTensor:
     """Per-output-channel symmetric int8 over the contraction axis (-2) of
     a (..., K, N) weight, keeping per-layer scales for stacked leaves.
-    The values come back transposed to (..., N, K)."""
+    The values come back transposed to (..., N, K).  A stacked leaf is
+    quantized one layer at a time (the same arithmetic: every scale is a
+    layer's own), so the f32 temporaries are one layer's, not the
+    stack's (a 16-layer stack of qwen2-vl's (8192, 29568) weights would
+    take four f32 copies of 15.5 GB)."""
+    if w.dim() > 2:
+        parts = [_leaf_qtensor(layer) for layer in w]
+        return QTensor(torch.stack([p.q for p in parts]),
+                       torch.stack([p.scale for p in parts]))
     amax = w.float().abs().amax(dim=-2)
     q, scale = _symmetric(w.float(), amax, -2)
     return QTensor(q.transpose(-1, -2).contiguous(), scale)

@@ -101,6 +101,26 @@
 // would not, a later redesign).  The backward at D 80 waits for training
 // the hybrid trunk (slice 10).
 //
+// Position masks (every kernel, a second instantiation: POS = true).
+// Given q_pos (B, Sq) and k_pos (B, Skv) int32, the masks are the JAX
+// reference's full_attention masks (src/repro/models/layers.py:150) instead
+// of the index ones: key j visible to row i when
+//     k_pos[j] >= 0, (causal ? k_pos[j] <= q_pos[i] : true),
+//     (window > 0 ? k_pos[j] > q_pos[i] - window : true)
+// for any Sq and Skv (Qwen2-VL's image patches share one temporal
+// position, so a key after the query by index can be visible; a packed row
+// restarts its positions and pads at -1).  No tile can be skipped by its
+// index: every key tile is visited and every score masked element by
+// element.  A masked score is the reference's finite -1e30, not -inf, so a
+// row that sees no key (a pad query at -1) gets what the reference gives
+// it, uniform weights: the mean of V over all Skv keys, and an lse near
+// -1e30 (the base-2 kernels start m at that value, so such a row's
+// exp2(x - m) is exactly 1).  The backward reads such a row from its lse
+// (below kEmptyLse): its P is 1 / Skv on every key, which dV takes, and
+// its dS is 0, as the reference's where() passes no gradient to a masked
+// score; every other masked pair has P = dS = 0.  The index kernels
+// (POS = false, null position pointers) are unchanged.
+//
 // f32: the CUDA-core kernels (fa_fwd_kernel, fa_dkdv_kernel, fa_dq_kernel),
 // the design of the first port, kept for f32 alone: tensor cores would
 // mean TF32, which the f32 card-against-CPU training check cannot take.
@@ -203,18 +223,34 @@ __device__ __forceinline__ bool key_ok(int kp, int qp, int Skv, int causal,
          (window <= 0 || kp > qp - window);
 }
 
+// key position kp visible to query position qp (the position masks)
+__device__ __forceinline__ bool pos_ok(int kp, int qp, int causal,
+                                       int window) {
+  return kp >= 0 && (!causal || kp <= qp) &&
+         (window <= 0 || kp > qp - window);
+}
+// a row's lse below this saw no key (the position masks' uniform row)
+constexpr float kEmptyLse = 0.5f * kNegInf;
+// row r's position, -1 past the rows (never read there)
+__device__ __forceinline__ int pos_at(const int* __restrict__ pos, int r,
+                                      int n) {
+  return r < n ? __ldg(pos + r) : -1;
+}
+
 // ---------------------------------------------------------------------------
 // f32 forward: grid (query tiles, Hq, B).  Thread (ty, tx) owns query rows
 // ty*8 .. ty*8+7 of the tile; in the score phase keys tx + 16 j of the key
 // tile, in the P.V phase output columns cg*64 + tx*4 .. +3.
 // ---------------------------------------------------------------------------
 // D is the width the block computes on, DG the tensors' head dim (DG < D:
-// the columns past DG are zeros and never written)
-template <typename T, int D, int BK, int DG = D>
+// the columns past DG are zeros and never written); POS: the position
+// masks from q_pos/k_pos (else null, unread)
+template <typename T, int D, int BK, int DG = D, bool POS = false>
 __global__ void __launch_bounds__(kThreads)
 fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, T* __restrict__ out,
-           float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
+           float* __restrict__ lse, const int* __restrict__ q_pos,
+           const int* __restrict__ k_pos, int Sq, int Skv, int Hq, int Hkv,
            int causal, int window, float scale) {
   constexpr int LD = D + 4;        // f32 row stride of the staged tiles
   constexpr int LDP = kBQ + 4;     // row stride of the transposed P tile
@@ -245,13 +281,34 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < 4 * CG; ++c) acc[i][c] = 0.f;
   }
 
-  // live key tiles: below the diagonal (causal), inside the window
-  const int k_hi = causal ? min(Skv, q0 + kBQ) : Skv;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  // live key tiles: below the diagonal (causal), inside the window; with
+  // positions every tile
+  const int k_hi = causal && !POS ? min(Skv, q0 + kBQ) : Skv;
+  const int k_lo = window > 0 && !POS ? max(0, q0 - window + 1) : 0;
+  const int* qp_b = POS ? q_pos + (long long)b * Sq : nullptr;
+  const int* kp_b = POS ? k_pos + (long long)b * Skv : nullptr;
   for (int k0 = (k_lo / BK) * BK; k0 < k_hi; k0 += BK) {
     __syncthreads();   // the previous tile is consumed; q_s is ready
     stage_rows<T, D, LD, BK, DG>(k_s, k + k_base, k_rs, k0, Skv, 1.f, tid);
     stage_rows<T, D, LD, BK, DG>(v_s, v + k_base, k_rs, k0, Skv, 1.f, tid);
+    // the position masks of this thread's 8 rows x KPT keys, bit i KPT + j,
+    // folded before the products: one register stays live across them (the
+    // positions themselves spilled the D 80 forward)
+    uint32_t vis = 0u;
+    if constexpr (POS) {
+      static_assert(8 * KPT <= 32, "one bit a pair");
+      int kpos[KPT];
+#pragma unroll
+      for (int j = 0; j < KPT; ++j)
+        kpos[j] = pos_at(kp_b, k0 + tx + 16 * j, Skv);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int qpos = pos_at(qp_b, q0 + ty * 8 + i, Sq);
+#pragma unroll
+        for (int j = 0; j < KPT; ++j)
+          if (pos_ok(kpos[j], qpos, causal, window)) vis |= 1u << (i * KPT + j);
+      }
+    }
     __syncthreads();
 
     float s[8][KPT];
@@ -287,7 +344,14 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < KPT; ++j) {
-        ok[j] = key_ok(k0 + tx + 16 * j, qp, Skv, causal, window);
+        if constexpr (POS) {
+          // every key in range is weighed; a masked one holds the
+          // reference's finite score, weight 1 in a row that sees no key
+          ok[j] = k0 + tx + 16 * j < Skv;
+          if (!((vis >> (i * KPT + j)) & 1u)) s[i][j] = kNegInf;
+        } else {
+          ok[j] = key_ok(k0 + tx + 16 * j, qp, Skv, causal, window);
+        }
         mx = fmaxf(mx, ok[j] ? s[i][j] : kNegInf);
       }
       mx = group16_max(mx);
@@ -384,13 +448,15 @@ fa_rowdot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 // j), then dV += P^T dO and dK += dS^T (q * scale) as outer products over
 // the rows (thread: keys ty*4 .. +3, columns cg*64 + tx*4 .. +3).
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, bool POS = false>
 __global__ void __launch_bounds__(kThreads)
 fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const T* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ dr,
-            T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv, int Hq,
-            int Hkv, int causal, int window, float scale) {
+            T* __restrict__ dk, T* __restrict__ dv,
+            const int* __restrict__ q_pos, const int* __restrict__ k_pos,
+            int Sq, int Skv, int Hq, int Hkv, int causal, int window,
+            float scale) {
   constexpr int BKV = 32;          // keys per block
   constexpr int LD = D + 4;
   constexpr int LDP = BKV + 4;     // row stride of the P / dS tiles
@@ -425,9 +491,17 @@ fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
   // live query tiles: rows at or below the tile's keys (causal), rows whose
-  // window still reaches them
-  const int q_lo = causal ? (k0 / kBQ) * kBQ : 0;
-  const int q_hi = window > 0 ? min(Sq, k0 + BKV - 1 + window) : Sq;
+  // window still reaches them; with positions every tile
+  const int q_lo = causal && !POS ? (k0 / kBQ) * kBQ : 0;
+  const int q_hi = window > 0 && !POS ? min(Sq, k0 + BKV - 1 + window) : Sq;
+  const int* qp_b = POS ? q_pos + (long long)b * Sq : nullptr;
+  int kpos[4];
+  if constexpr (POS) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      kpos[i] = pos_at(k_pos + (long long)b * Skv, k0 + ty * 4 + i, Skv);
+  }
+  const float inv_skv = 1.f / Skv;
   for (int g = 0; g < G; ++g) {
     const int h = hk * G + g;
     const long long q_base = (long long)b * Sq * q_rs + (long long)h * D;
@@ -485,10 +559,20 @@ fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float p[4], ds[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const bool ok =
-              qp < Sq && key_ok(k0 + ty * 4 + i, qp, Skv, causal, window);
-          p[i] = ok ? expf(s[i][j] - lse_s[r]) : 0.f;
-          ds[i] = p[i] * (dp[i][j] - dr_s[r]);
+          if constexpr (POS) {
+            const bool in = qp < Sq && k0 + ty * 4 + i < Skv;
+            const bool ok =
+                in && pos_ok(kpos[i], pos_at(qp_b, qp, Sq), causal, window);
+            // a row that saw no key weighs every key 1 / Skv, in dV alone
+            p[i] = ok ? expf(s[i][j] - lse_s[r])
+                      : (in && lse_s[r] < kEmptyLse ? inv_skv : 0.f);
+            ds[i] = ok ? p[i] * (dp[i][j] - dr_s[r]) : 0.f;
+          } else {
+            const bool ok =
+                qp < Sq && key_ok(k0 + ty * 4 + i, qp, Skv, causal, window);
+            p[i] = ok ? expf(s[i][j] - lse_s[r]) : 0.f;
+            ds[i] = p[i] * (dp[i][j] - dr_s[r]);
+          }
         }
         *reinterpret_cast<float4*>(p_s + r * LDP + ty * 4) =
             make_float4(p[0], p[1], p[2], p[3]);
@@ -548,13 +632,14 @@ fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ty*8 .. +7; in the score phase keys tx + 16 j of the key tile, in the
 // dS.K phase columns cg*64 + tx*4 .. +3.
 // ---------------------------------------------------------------------------
-template <typename T, int D, int BK>
+template <typename T, int D, int BK, bool POS = false>
 __global__ void __launch_bounds__(kThreads)
 fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ dr,
-          T* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv, int causal,
-          int window, float scale) {
+          T* __restrict__ dq, const int* __restrict__ q_pos,
+          const int* __restrict__ k_pos, int Sq, int Skv, int Hq, int Hkv,
+          int causal, int window, float scale) {
   constexpr int LD = D + 4;
   constexpr int LDP = kBQ + 4;
   constexpr int KPT = BK / 16;
@@ -587,12 +672,20 @@ fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < 4 * CG; ++c) acc[i][c] = 0.f;
   }
 
-  const int k_hi = causal ? min(Skv, q0 + kBQ) : Skv;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_hi = causal && !POS ? min(Skv, q0 + kBQ) : Skv;
+  const int k_lo = window > 0 && !POS ? max(0, q0 - window + 1) : 0;
+  const int* qp_b = POS ? q_pos + (long long)b * Sq : nullptr;
+  const int* kp_b = POS ? k_pos + (long long)b * Skv : nullptr;
   for (int k0 = (k_lo / BK) * BK; k0 < k_hi; k0 += BK) {
     __syncthreads();
     stage_rows<T, D, LD, BK>(k_s, k + k_base, k_rs, k0, Skv, 1.f, tid);
     stage_rows<T, D, LD, BK>(v_s, v + k_base, k_rs, k0, Skv, 1.f, tid);
+    int kpos[KPT];
+    if constexpr (POS) {
+#pragma unroll
+      for (int j = 0; j < KPT; ++j)
+        kpos[j] = pos_at(kp_b, k0 + tx + 16 * j, Skv);
+    }
     __syncthreads();
 
     float s[8][KPT], dp[8][KPT];
@@ -635,8 +728,12 @@ fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int qp = q0 + ty * 8 + i;
 #pragma unroll
       for (int j = 0; j < KPT; ++j) {
-        const bool ok =
-            qp < Sq && key_ok(k0 + tx + 16 * j, qp, Skv, causal, window);
+        bool ok;
+        if constexpr (POS)
+          ok = qp < Sq && k0 + tx + 16 * j < Skv &&
+               pos_ok(kpos[j], pos_at(qp_b, qp, Sq), causal, window);
+        else
+          ok = qp < Sq && key_ok(k0 + tx + 16 * j, qp, Skv, causal, window);
         const float p = ok ? expf(s[i][j] - lse_r[i]) : 0.f;
         dst_s[(tx + 16 * j) * LDP + ty * 8 + i] = p * (dp[i][j] - dr_r[i]);
       }
@@ -688,6 +785,9 @@ constexpr int kTile = 64;          // query rows and keys a tile
 constexpr uint32_t kAtom = 1024;   // 8 swizzled rows of 128 bytes
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+// the reference's masked score -1e30 in the base-2 kernels' units, and the
+// start of their running maximum under the position masks
+constexpr float kMask2 = kNegInf * kLog2e;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -914,6 +1014,36 @@ __device__ __forceinline__ bool tile_edge(int q0, int k0, int Sq, int Skv,
          (window > 0 && k0 <= q0 + kTile - 1 - window);
 }
 
+// The position masks of the 16 columns a thread holds in a 64 x 64 score
+// tile (columns 8 j + c0 + e, bit 2 j + e) against its two rows (i):
+// vis[i] the visible pairs, in the columns inside [0, n).  `col_pos` reads
+// the position of column c (-1 past n), `row_pos` holds the rows'; the
+// rows are queries and the columns keys, or (KEY_ROWS: the dK/dV pass's
+// transposed tile) the other way round.  The positions are read once
+// each and folded into bits, so nothing of them stays live across the
+// softmax.
+template <bool KEY_ROWS, typename ColPos>
+__device__ __forceinline__ void pos_bits(ColPos col_pos, int c_first, int n,
+                                         const int (&row_pos)[2], int c0,
+                                         int causal, int window,
+                                         uint32_t (&vis)[2], uint32_t& in) {
+  vis[0] = vis[1] = in = 0u;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = c_first + 8 * j + c0 + e;
+      const int cp = col_pos(c);
+      const uint32_t bit = 1u << (2 * j + e);
+      if (c < n) in |= bit;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (KEY_ROWS ? pos_ok(row_pos[i], cp, causal, window)
+                     : pos_ok(cp, row_pos[i], causal, window))
+          vis[i] |= bit;
+    }
+}
+
 // ---------------------------------------------------------------------------
 // bf16 forward: grid (Hq x D / DO, B, query tiles), the last query tile
 // first.  A block computes the output columns [c * DO, (c + 1) * DO) of
@@ -932,11 +1062,12 @@ __host__ __device__ constexpr int fwd_cols() {
 
 // D is the width the block computes on, DG the tensors' head dim (DG < D:
 // zero columns past DG, never written)
-template <int D, int DG = D>
+template <int D, int DG = D, bool POS = false>
 __global__ void __launch_bounds__(kWG, 2)
 fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ out,
-                    float* __restrict__ lse, int Sq, int Skv, int Hq,
+                    float* __restrict__ lse, const int* __restrict__ q_pos,
+                    const int* __restrict__ k_pos, int Sq, int Skv, int Hq,
                     int Hkv, int causal, int window, float scale_log2) {
   constexpr int DO = fwd_cols<D>(), NC = D / DO;
   constexpr uint32_t T = kTile * D * 2;     // bytes of a Q or K tile
@@ -955,10 +1086,17 @@ fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // the real columns of the block's DO columns of V (DG < D: one block)
   constexpr int DOG = DO - (D - DG);
 
-  // live key tiles: below the diagonal (causal), inside the window
-  const int k_hi = causal ? min(Skv, q0 + kTile) : Skv;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  // live key tiles: below the diagonal (causal), inside the window; with
+  // positions every tile
+  const int k_hi = causal && !POS ? min(Skv, q0 + kTile) : Skv;
+  const int k_lo = window > 0 && !POS ? max(0, q0 - window + 1) : 0;
   const int t_lo = k_lo / kTile, t_hi = (k_hi + kTile - 1) / kTile;
+  const int* kp_b = POS ? k_pos + (long long)b * Skv : nullptr;
+  int rpos[2] = {0, 0};
+  if constexpr (POS) {
+    rpos[0] = pos_at(q_pos + (long long)b * Sq, row, Sq);
+    rpos[1] = pos_at(q_pos + (long long)b * Sq, row + 8, Sq);
+  }
 
   const bf16* v_cols = v + k_base + cb * DO;
   load_tile<D, DG>(s_q, q + q_base, q_rs, q0, Sq, tid);
@@ -966,7 +1104,10 @@ fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_tile<DO, DOG>(s_q + 2 * T, v_cols, k_rs, t_lo * kTile, Skv, tid);
   cp_async_commit();
 
-  float o[DO / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  // the position masks start at the masked score, so that a row that sees
+  // no key weighs each key exp2(0) = 1
+  constexpr float kStart = POS ? kMask2 : kNegInf;
+  float o[DO / 2], m[2] = {kStart, kStart}, l[2] = {0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < DO / 2; ++i) o[i] = 0.f;
 
@@ -994,8 +1135,13 @@ fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_regs(s);
 
     // online softmax in base 2: x = s * scale * log2(e); masked x = -inf
+    // (position masks: kMask2 in range, -inf past Skv)
     const int k0 = t * kTile;
-    const bool edge = tile_edge(q0, k0, Sq, Skv, causal, window);
+    const bool edge = POS || tile_edge(q0, k0, Sq, Skv, causal, window);
+    uint32_t vis[2], in;
+    if constexpr (POS)
+      pos_bits<false>([&](int c) { return pos_at(kp_b, c, Skv); }, k0, Skv,
+                      rpos, c0, causal, window, vis, in);
     float alpha[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -1005,16 +1151,22 @@ fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float x = s[4 * j + 2 * i + e] * scale_log2;
-          if (edge &&
-              !key_ok(k0 + 8 * j + c0 + e, row + 8 * i, Skv, causal, window))
+          if constexpr (POS) {
+            const uint32_t bit = 1u << (2 * j + e);
+            if (!(vis[i] & bit)) x = (in & bit) ? kMask2 : -INFINITY;
+          } else if (edge && !key_ok(k0 + 8 * j + c0 + e, row + 8 * i, Skv,
+                                     causal, window)) {
             x = -INFINITY;
+          }
           s[4 * j + 2 * i + e] = x;
           mx = fmaxf(mx, x);
         }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       // m starts at kNegInf (finite): a row with no valid key yet keeps
-      // alpha = 1 and p = 0
+      // alpha = 1 and p = 0 (positions: m starts at kMask2, and such a row
+      // weighs its masked keys 1 until a visible key's alpha = 0 drops
+      // them)
       alpha[i] = exp2f(m[i] - mx);
       m[i] = mx;
       float ps = 0.f;
@@ -1065,14 +1217,15 @@ fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // keys on the accumulator's rows, so P^T and dS^T are already the A
 // fragments of dV += P^T dO and dK += dS^T Q.
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, bool POS = false>
 __global__ void __launch_bounds__(kWG, 2)
 fa_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v,
                      const bf16* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ dr, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int Sq, int Skv, int Hq,
+                     bf16* __restrict__ dv, const int* __restrict__ q_pos,
+                     const int* __restrict__ k_pos, int Sq, int Skv, int Hq,
                      int Hkv, int causal, int window, float scale,
                      float scale_log2) {
   constexpr uint32_t T = kTile * D * 2;
@@ -1090,9 +1243,18 @@ fa_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const long long k_base = (long long)b * Skv * k_rs + (long long)hk * D;
 
   // live query tiles: rows at or below the tile's keys (causal), rows whose
-  // window still reaches them; every one of the Sq rows without either
-  const int q_lo = causal ? k0 : 0;
-  const int q_hi = window > 0 ? min(Sq, k0 + kTile - 1 + window) : Sq;
+  // window still reaches them; every one of the Sq rows without either, or
+  // with positions
+  const int q_lo = causal && !POS ? k0 : 0;
+  const int q_hi = window > 0 && !POS ? min(Sq, k0 + kTile - 1 + window)
+                                      : Sq;
+  const int* qp_b = POS ? q_pos + (long long)b * Sq : nullptr;
+  int kpos[2] = {0, 0};
+  if constexpr (POS) {
+    kpos[0] = pos_at(k_pos + (long long)b * Skv, key, Skv);
+    kpos[1] = pos_at(k_pos + (long long)b * Skv, key + 8, Skv);
+  }
+  const float inv_skv = 1.f / Skv;
   const int t_lo = q_lo / kTile;
   const int nt = (q_hi + kTile - 1) / kTile - t_lo;
   const int n = G * nt;
@@ -1146,8 +1308,13 @@ fa_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_regs(dp);
 
     // P^T = exp(S^T * scale - lse), dS^T = P^T (dP^T - Dr); row: key,
-    // column: query row
-    const bool edge = tile_edge(q0, k0, Sq, Skv, causal, window);
+    // column: query row.  Position masks: the query rows' positions (a
+    // masked pair of a row that saw no key weighs 1 / Skv in dV, dS 0)
+    const bool edge = POS || tile_edge(q0, k0, Sq, Skv, causal, window);
+    uint32_t vis[2], in;
+    if constexpr (POS)
+      pos_bits<true>([&](int c) { return pos_at(qp_b, c, Sq); }, q0, Sq,
+                     kpos, c0, causal, window, vis, in);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -1155,13 +1322,26 @@ fa_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int c = 8 * j + c0 + e, x = 4 * j + 2 * i + e;
-          const bool ok =
-              !edge || (q0 + c < Sq &&
-                        key_ok(key + 8 * i, q0 + c, Skv, causal, window));
-          const float p =
-              ok ? exp2f(fmaf(st_[x], scale_log2, -lse_s[c] * kLog2e)) : 0.f;
-          st_[x] = p;
-          dp[x] = p * (dp[x] - dr_s[c]);
+          if constexpr (POS) {
+            const uint32_t bit = 1u << (2 * j + e);
+            const bool ok = vis[i] & bit;
+            const bool empty = (in & bit) && key + 8 * i < Skv &&
+                               lse_s[c] < kEmptyLse;
+            const float p =
+                ok ? exp2f(fmaf(st_[x], scale_log2, -lse_s[c] * kLog2e))
+                   : (empty ? inv_skv : 0.f);
+            st_[x] = p;
+            dp[x] = ok ? p * (dp[x] - dr_s[c]) : 0.f;
+          } else {
+            const bool ok =
+                !edge || (q0 + c < Sq &&
+                          key_ok(key + 8 * i, q0 + c, Skv, causal, window));
+            const float p =
+                ok ? exp2f(fmaf(st_[x], scale_log2, -lse_s[c] * kLog2e))
+                   : 0.f;
+            st_[x] = p;
+            dp[x] = p * (dp[x] - dr_s[c]);
+          }
         }
 
     uint32_t ph[4][4], pl[4][4], dh[4][4], dl[4][4];
@@ -1192,14 +1372,16 @@ fa_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // The block keeps Q and dO and streams K/V tiles through two stages;
 // dQ += dS K with dS split into bf16 hi + lo.
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, bool POS = false>
 __global__ void __launch_bounds__(kWG, 2)
 fa_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
                    const float* __restrict__ lse,
                    const float* __restrict__ dr, bf16* __restrict__ dq,
-                   int Sq, int Skv, int Hq, int Hkv, int causal, int window,
-                   float scale, float scale_log2) {
+                   const int* __restrict__ q_pos,
+                   const int* __restrict__ k_pos, int Sq, int Skv, int Hq,
+                   int Hkv, int causal, int window, float scale,
+                   float scale_log2) {
   constexpr uint32_t T = kTile * D * 2;
   extern __shared__ uint8_t smem[];
   // Q, dO, then two stages of (K, V)
@@ -1214,9 +1396,15 @@ fa_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const long long q_base = (long long)b * Sq * q_rs + (long long)h * D;
   const long long k_base = (long long)b * Skv * k_rs + (long long)hk * D;
 
-  const int k_hi = causal ? min(Skv, q0 + kTile) : Skv;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_hi = causal && !POS ? min(Skv, q0 + kTile) : Skv;
+  const int k_lo = window > 0 && !POS ? max(0, q0 - window + 1) : 0;
   const int t_lo = k_lo / kTile, t_hi = (k_hi + kTile - 1) / kTile;
+  const int* kp_b = POS ? k_pos + (long long)b * Skv : nullptr;
+  int rpos[2] = {0, 0};
+  if constexpr (POS) {
+    rpos[0] = pos_at(q_pos + (long long)b * Sq, row, Sq);
+    rpos[1] = pos_at(q_pos + (long long)b * Sq, row + 8, Sq);
+  }
 
   load_tile<D>(s_q, q + q_base, q_rs, q0, Sq, tid);
   load_tile<D>(s_do, dout + q_base, q_rs, q0, Sq, tid);
@@ -1259,7 +1447,11 @@ fa_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_regs(dp);
 
     const int k0 = t * kTile;
-    const bool edge = tile_edge(q0, k0, Sq, Skv, causal, window);
+    const bool edge = POS || tile_edge(q0, k0, Sq, Skv, causal, window);
+    uint32_t vis[2], in;
+    if constexpr (POS)
+      pos_bits<false>([&](int c) { return pos_at(kp_b, c, Skv); }, k0, Skv,
+                      rpos, c0, causal, window, vis, in);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -1267,8 +1459,12 @@ fa_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int x = 4 * j + 2 * i + e;
-          const bool ok = !edge || key_ok(k0 + 8 * j + c0 + e, row + 8 * i,
-                                          Skv, causal, window);
+          bool ok;
+          if constexpr (POS)
+            ok = vis[i] & (1u << (2 * j + e));
+          else
+            ok = !edge || key_ok(k0 + 8 * j + c0 + e, row + 8 * i, Skv,
+                                 causal, window);
           const float p = ok ? exp2f(fmaf(s[x], scale_log2, -lse2[i])) : 0.f;
           dp[x] = p * (dp[x] - drr[i]);
         }
@@ -1322,13 +1518,19 @@ int set_smem(K kernel, int bytes) {
 
 double scale_of(int D) { return 1.0 / sqrt(static_cast<double>(D)); }
 
+// the position pointers of a launch (null: the index masks)
+struct Pos {
+  const int* q;
+  const int* k;
+};
+
 // D: the width the kernel computes on; DG: the tensors' head dim, which
 // sets the softmax scale
-template <int D, int DG = D>
+template <int D, int DG = D, bool POS = false>
 int launch_fwd_f32(const void* q, const void* k, const void* v, void* out,
-                   void* lse, int B, int Sq, int Skv, int Hq, int Hkv,
-                   int causal, int window, cudaStream_t st) {
-  auto kern = fa_fwd_kernel<float, D, kFwdBK, DG>;
+                   void* lse, Pos pos, int B, int Sq, int Skv, int Hq,
+                   int Hkv, int causal, int window, cudaStream_t st) {
+  auto kern = fa_fwd_kernel<float, D, kFwdBK, DG, POS>;
   constexpr int smem = fwd_smem<D>();
   int rc = set_smem(kern, smem);
   if (rc != 0) return rc;
@@ -1336,16 +1538,16 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, void* out,
   kern<<<grid, kThreads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out),
-      static_cast<float*>(lse), Sq, Skv, Hq, Hkv, causal, window,
-      static_cast<float>(scale_of(DG)));
+      static_cast<float*>(lse), pos.q, pos.k, Sq, Skv, Hq, Hkv, causal,
+      window, static_cast<float>(scale_of(DG)));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int DG = D>
+template <int D, int DG = D, bool POS = false>
 int launch_fwd_bf16(const void* q, const void* k, const void* v, void* out,
-                    void* lse, int B, int Sq, int Skv, int Hq, int Hkv,
-                    int causal, int window, cudaStream_t st) {
-  auto kern = fa_fwd_wgmma_kernel<D, DG>;
+                    void* lse, Pos pos, int B, int Sq, int Skv, int Hq,
+                    int Hkv, int causal, int window, cudaStream_t st) {
+  auto kern = fa_fwd_wgmma_kernel<D, DG, POS>;
   // Q, two stages of K and of V's fwd_cols<D>() columns
   constexpr int smem = wgmma_smem<D>(3, 0) + 2 * kTile * fwd_cols<D>() * 2;
   int rc = set_smem(kern, smem);
@@ -1354,8 +1556,8 @@ int launch_fwd_bf16(const void* q, const void* k, const void* v, void* out,
   kern<<<grid, kWG, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out),
-      static_cast<float*>(lse), Sq, Skv, Hq, Hkv, causal, window,
-      static_cast<float>(scale_of(DG) * 1.4426950408889634));
+      static_cast<float*>(lse), pos.q, pos.k, Sq, Skv, Hq, Hkv, causal,
+      window, static_cast<float>(scale_of(DG) * 1.4426950408889634));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1373,16 +1575,16 @@ int launch_rowdot(const void* o, const void* dout, void* dr, int B, int S,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool POS = false>
 int launch_bwd_f32(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const void* lse,
-                   void* dr, void* dq, void* dk, void* dv, int B, int Sq,
-                   int Skv, int Hq, int Hkv, int causal, int window,
+                   void* dr, void* dq, void* dk, void* dv, Pos pos, int B,
+                   int Sq, int Skv, int Hq, int Hkv, int causal, int window,
                    cudaStream_t st) {
   int rc = launch_rowdot<float, D>(o, dout, dr, B, Sq, Hq, st);
   if (rc != 0) return rc;
   const float scale = static_cast<float>(scale_of(D));
-  auto kv_kern = fa_dkdv_kernel<float, D>;
+  auto kv_kern = fa_dkdv_kernel<float, D, POS>;
   constexpr int kv_smem = dkdv_smem<D>();
   rc = set_smem(kv_kern, kv_smem);
   if (rc != 0) return rc;
@@ -1390,12 +1592,12 @@ int launch_bwd_f32(const void* q, const void* k, const void* v,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dr),
-      static_cast<float*>(dk), static_cast<float*>(dv), Sq, Skv, Hq, Hkv,
-      causal, window, scale);
+      static_cast<float*>(dk), static_cast<float*>(dv), pos.q, pos.k, Sq,
+      Skv, Hq, Hkv, causal, window, scale);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
 
-  auto q_kern = fa_dq_kernel<float, D, kDqBK>;
+  auto q_kern = fa_dq_kernel<float, D, kDqBK, POS>;
   constexpr int q_smem = dq_smem<D>();
   rc = set_smem(q_kern, q_smem);
   if (rc != 0) return rc;
@@ -1403,15 +1605,16 @@ int launch_bwd_f32(const void* q, const void* k, const void* v,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dr),
-      static_cast<float*>(dq), Sq, Skv, Hq, Hkv, causal, window, scale);
+      static_cast<float*>(dq), pos.q, pos.k, Sq, Skv, Hq, Hkv, causal,
+      window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool POS = false>
 int launch_bwd_bf16(const void* q, const void* k, const void* v,
                     const void* o, const void* dout, const void* lse,
-                    void* dr, void* dq, void* dk, void* dv, int B, int Sq,
-                    int Skv, int Hq, int Hkv, int causal, int window,
+                    void* dr, void* dq, void* dk, void* dv, Pos pos, int B,
+                    int Sq, int Skv, int Hq, int Hkv, int causal, int window,
                     cudaStream_t st) {
   int rc = launch_rowdot<bf16, D>(o, dout, dr, B, Sq, Hq, st);
   if (rc != 0) return rc;
@@ -1419,7 +1622,7 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
   const float scale_log2 =
       static_cast<float>(scale_of(D) * 1.4426950408889634);
 
-  auto kv_kern = fa_dkdv_wgmma_kernel<D>;
+  auto kv_kern = fa_dkdv_wgmma_kernel<D, POS>;
   // K, V, two stages of Q, dO; two stages of 64 lse and 64 Dr
   constexpr int kv_smem = wgmma_smem<D>(6, 4 * kTile);
   rc = set_smem(kv_kern, kv_smem);
@@ -1428,12 +1631,12 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dr),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Skv, Hq, Hkv,
-      causal, window, scale, scale_log2);
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), pos.q, pos.k, Sq, Skv,
+      Hq, Hkv, causal, window, scale, scale_log2);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
 
-  auto q_kern = fa_dq_wgmma_kernel<D>;
+  auto q_kern = fa_dq_wgmma_kernel<D, POS>;
   constexpr int q_smem = wgmma_smem<D>(6, 0);   // Q, dO, two stages of K, V
   rc = set_smem(q_kern, q_smem);
   if (rc != 0) return rc;
@@ -1441,14 +1644,72 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dr),
-      static_cast<bf16*>(dq), Sq, Skv, Hq, Hkv, causal, window, scale,
-      scale_log2);
+      static_cast<bf16*>(dq), pos.q, pos.k, Sq, Skv, Hq, Hkv, causal, window,
+      scale, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Skv != Sq only where every key is visible
-bool lengths_ok(int Sq, int Skv, int causal, int window) {
-  return Sq == Skv || (!causal && window <= 0);
+// Skv != Sq only where every key is visible, or where positions mask
+bool lengths_ok(int Sq, int Skv, int causal, int window, Pos pos) {
+  return Sq == Skv || (!causal && window <= 0) || pos.q != nullptr;
+}
+
+// the forward of one type, head dim and mask kind
+template <bool POS>
+int fwd(int dtype, const void* q, const void* k, const void* v, void* out,
+        void* lse, Pos pos, int B, int Sq, int Skv, int Hq, int Hkv, int D,
+        int causal, int window, cudaStream_t st) {
+  // head dim 80 (zamba2's shared block) on tiles of 128
+  if (dtype == 1 && D == 80)
+    return launch_fwd_bf16<128, 80, POS>(q, k, v, out, lse, pos, B, Sq, Skv,
+                                         Hq, Hkv, causal, window, st);
+  if (dtype == 0 && D == 80)
+    return launch_fwd_f32<128, 80, POS>(q, k, v, out, lse, pos, B, Sq, Skv,
+                                        Hq, Hkv, causal, window, st);
+  if (dtype == 1 && D == 256)
+    return launch_fwd_bf16<256, 256, POS>(q, k, v, out, lse, pos, B, Sq, Skv,
+                                          Hq, Hkv, causal, window, st);
+  if (dtype == 0 && D == 256)
+    return launch_fwd_f32<256, 256, POS>(q, k, v, out, lse, pos, B, Sq, Skv,
+                                         Hq, Hkv, causal, window, st);
+  if (dtype == 1 && D == 128)
+    return launch_fwd_bf16<128, 128, POS>(q, k, v, out, lse, pos, B, Sq, Skv,
+                                          Hq, Hkv, causal, window, st);
+  if (dtype == 1 && D == 64)
+    return launch_fwd_bf16<64, 64, POS>(q, k, v, out, lse, pos, B, Sq, Skv,
+                                        Hq, Hkv, causal, window, st);
+  if (dtype == 0 && D == 128)
+    return launch_fwd_f32<128, 128, POS>(q, k, v, out, lse, pos, B, Sq, Skv,
+                                         Hq, Hkv, causal, window, st);
+  if (dtype == 0 && D == 64)
+    return launch_fwd_f32<64, 64, POS>(q, k, v, out, lse, pos, B, Sq, Skv,
+                                       Hq, Hkv, causal, window, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the backward of one type, head dim and mask kind
+template <bool POS>
+int bwd(int dtype, const void* q, const void* k, const void* v,
+        const void* o, const void* dout, const void* lse, void* dr, void* dq,
+        void* dk, void* dv, Pos pos, int B, int Sq, int Skv, int Hq, int Hkv,
+        int D, int causal, int window, cudaStream_t st) {
+  if (dtype == 1 && D == 128)
+    return launch_bwd_bf16<128, POS>(q, k, v, o, dout, lse, dr, dq, dk, dv,
+                                     pos, B, Sq, Skv, Hq, Hkv, causal,
+                                     window, st);
+  if (dtype == 1 && D == 64)
+    return launch_bwd_bf16<64, POS>(q, k, v, o, dout, lse, dr, dq, dk, dv,
+                                    pos, B, Sq, Skv, Hq, Hkv, causal, window,
+                                    st);
+  if (dtype == 0 && D == 128)
+    return launch_bwd_f32<128, POS>(q, k, v, o, dout, lse, dr, dq, dk, dv,
+                                    pos, B, Sq, Skv, Hq, Hkv, causal, window,
+                                    st);
+  if (dtype == 0 && D == 64)
+    return launch_bwd_f32<64, POS>(q, k, v, o, dout, lse, dr, dq, dk, dv,
+                                   pos, B, Sq, Skv, Hq, Hkv, causal, window,
+                                   st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -1457,67 +1718,47 @@ extern "C" {
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  D: 64,
 // 80, 128 or 256 (the backward: 64 or 128).  q/out (B, Sq, Hq, D), k/v (B,
-// Skv, Hkv, D) dense; lse (B, Hq, Sq) f32.  Hq % Hkv == 0; Skv != Sq only
-// with causal == 0 and window == 0.
+// Skv, Hkv, D) dense; lse (B, Hq, Sq) f32.  Hq % Hkv == 0.  q_pos (B, Sq)
+// and k_pos (B, Skv) int32, both or neither: the position masks (null:
+// the index masks, Skv != Sq only with causal == 0 and window == 0).
 int flash_attention_fwd(int dtype, const void* q, const void* k,
-                        const void* v, void* out, void* lse, int B, int Sq,
+                        const void* v, void* out, void* lse,
+                        const void* q_pos, const void* k_pos, int B, int Sq,
                         int Skv, int Hq, int Hkv, int D, int causal,
                         int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!lengths_ok(Sq, Skv, causal, window))
+  const Pos pos{static_cast<const int*>(q_pos),
+                static_cast<const int*>(k_pos)};
+  if ((pos.q == nullptr) != (pos.k == nullptr) ||
+      !lengths_ok(Sq, Skv, causal, window, pos))
     return static_cast<int>(cudaErrorInvalidValue);
-  // head dim 80 (zamba2's shared block) on tiles of 128
-  if (dtype == 1 && D == 80)
-    return launch_fwd_bf16<128, 80>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv,
-                                    causal, window, st);
-  if (dtype == 0 && D == 80)
-    return launch_fwd_f32<128, 80>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv,
-                                   causal, window, st);
-  if (dtype == 1 && D == 256)
-    return launch_fwd_bf16<256>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv,
-                                causal, window, st);
-  if (dtype == 0 && D == 256)
-    return launch_fwd_f32<256>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv,
-                               causal, window, st);
-  if (dtype == 1 && D == 128)
-    return launch_fwd_bf16<128>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv,
-                                causal, window, st);
-  if (dtype == 1 && D == 64)
-    return launch_fwd_bf16<64>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv,
-                               causal, window, st);
-  if (dtype == 0 && D == 128)
-    return launch_fwd_f32<128>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv,
-                               causal, window, st);
-  if (dtype == 0 && D == 64)
-    return launch_fwd_f32<64>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv,
-                              causal, window, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (pos.q != nullptr)
+    return fwd<true>(dtype, q, k, v, out, lse, pos, B, Sq, Skv, Hq, Hkv, D,
+                     causal, window, st);
+  return fwd<false>(dtype, q, k, v, out, lse, pos, B, Sq, Skv, Hq, Hkv, D,
+                    causal, window, st);
 }
 
-// The forward's tensors, dout (B, Sq, Hq, D) dense, dr (B, Hq, Sq) f32
-// scratch; writes dq (B, Sq, Hq, D) and dk/dv (B, Skv, Hkv, D) in the input
-// type.
+// The forward's tensors and positions, dout (B, Sq, Hq, D) dense, dr (B,
+// Hq, Sq) f32 scratch; writes dq (B, Sq, Hq, D) and dk/dv (B, Skv, Hkv, D)
+// in the input type.
 int flash_attention_bwd(int dtype, const void* q, const void* k,
                         const void* v, const void* o, const void* dout,
                         const void* lse, void* dr, void* dq, void* dk,
-                        void* dv, int B, int Sq, int Skv, int Hq, int Hkv,
-                        int D, int causal, int window, void* stream) {
+                        void* dv, const void* q_pos, const void* k_pos, int B,
+                        int Sq, int Skv, int Hq, int Hkv, int D, int causal,
+                        int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!lengths_ok(Sq, Skv, causal, window))
+  const Pos pos{static_cast<const int*>(q_pos),
+                static_cast<const int*>(k_pos)};
+  if ((pos.q == nullptr) != (pos.k == nullptr) ||
+      !lengths_ok(Sq, Skv, causal, window, pos))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 1 && D == 128)
-    return launch_bwd_bf16<128>(q, k, v, o, dout, lse, dr, dq, dk, dv, B, Sq,
-                                Skv, Hq, Hkv, causal, window, st);
-  if (dtype == 1 && D == 64)
-    return launch_bwd_bf16<64>(q, k, v, o, dout, lse, dr, dq, dk, dv, B, Sq,
-                               Skv, Hq, Hkv, causal, window, st);
-  if (dtype == 0 && D == 128)
-    return launch_bwd_f32<128>(q, k, v, o, dout, lse, dr, dq, dk, dv, B, Sq,
-                               Skv, Hq, Hkv, causal, window, st);
-  if (dtype == 0 && D == 64)
-    return launch_bwd_f32<64>(q, k, v, o, dout, lse, dr, dq, dk, dv, B, Sq,
-                              Skv, Hq, Hkv, causal, window, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (pos.q != nullptr)
+    return bwd<true>(dtype, q, k, v, o, dout, lse, dr, dq, dk, dv, pos, B,
+                     Sq, Skv, Hq, Hkv, D, causal, window, st);
+  return bwd<false>(dtype, q, k, v, o, dout, lse, dr, dq, dk, dv, pos, B,
+                    Sq, Skv, Hq, Hkv, D, causal, window, st);
 }
 
 }  // extern "C"

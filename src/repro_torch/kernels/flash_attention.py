@@ -15,7 +15,14 @@ GQA needs no repeat copy.  Masks are by index (query row i, key j), which
 equals the reference's position masks for the default positions 0..S-1.
 Any Sq and Skv are taken; Skv may differ from Sq only with
 ``causal=False`` and ``window == 0`` (cross-attention, every key
-visible).  Each wrapper checks device, dtype, shape and contiguity,
+visible).  Given per-row positions ``q_pos`` (B, Sq) and ``k_pos`` (B,
+Skv) int32, the kernels mask by position instead, as the reference's
+``full_attention`` does (``repro/models/layers.py:150``): key j visible
+to row i when ``k_pos[j] >= 0``, ``k_pos[j] <= q_pos[i]`` (causal) and
+``k_pos[j] > q_pos[i] - window``, for any Sq and Skv; a row that sees no
+key (a pad query at −1) gets the mean of V over all keys and an lse near
+−1e30, the reference's finite mask, and passes the uniform P to dV alone
+in the backward.  Each wrapper checks device, dtype, shape and contiguity,
 launches on PyTorch's current stream and counts the call in ``LAUNCHES``:
 one forward kernel, or one backward (three kernels: the row sums
 ``rowsum(dO * O)``, the dK/dV pass and the dQ pass).  They take CUDA
@@ -25,7 +32,7 @@ tensors only: ``kernels/ops.py`` sends CPU tensors to
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -41,9 +48,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # training the hybrid trunk)
 _HEAD_DIMS = (64, 80, 128, 256)
 _BWD_HEAD_DIMS = (64, 128)
-_FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+_FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                  + [ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+_BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 12
                  + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 
 
@@ -65,9 +72,12 @@ def _lib() -> ctypes.CDLL:
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            causal: bool, window: int,
            head_dims: Tuple[int, ...] = _HEAD_DIMS,
+           q_pos: Optional[torch.Tensor] = None,
+           k_pos: Optional[torch.Tensor] = None,
            **others: torch.Tensor) -> Tuple[int, int, int, int, int, int]:
     """Raise on anything the kernels do not take; returns (B, Sq, Skv, Hq,
-    Hkv, D).  ``others`` are tensors of q's shape and dtype (out, dout)."""
+    Hkv, D).  ``others`` are tensors of q's shape and dtype (out, dout);
+    ``q_pos``/``k_pos``, both or neither, (B, Sq) and (B, Skv) int32."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel given a tensor on {dev}")
@@ -79,9 +89,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if tuple(k.shape) != (b, skv, hkv, d) or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v"
                          f" {tuple(v.shape)}: expected k/v (B, Skv, Hkv, D)")
-    if skv != sq and (causal or window > 0):
+    if (q_pos is None) != (k_pos is None):
+        raise ValueError("q_pos and k_pos come together")
+    if skv != sq and (causal or window > 0) and q_pos is None:
         raise ValueError(f"q of {sq} rows, k/v of {skv}: another key length"
-                         " is taken only with causal=False and window == 0")
+                         " is taken only with causal=False and window == 0,"
+                         " or with positions")
     if hkv == 0 or hq % hkv:
         raise ValueError(f"Hq {hq} is no multiple of Hkv {hkv}")
     if d not in head_dims:
@@ -102,7 +115,19 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.shape != q.shape or t.dtype != q.dtype:
             raise ValueError(f"{name} {tuple(t.shape)} {t.dtype}: expected"
                              f" q's {tuple(q.shape)} {q.dtype}")
+    if q_pos is not None:
+        for name, t, n in (("q_pos", q_pos, sq), ("k_pos", k_pos, skv)):
+            if t.dtype != torch.int32 or tuple(t.shape) != (b, n) \
+                    or t.device != dev or not t.is_contiguous():
+                raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} on"
+                                 f" {t.device}: expected contiguous int32"
+                                 f" {(b, n)} on {dev}")
     return b, sq, skv, hq, hkv, d
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's address, or None (a null pointer: the index masks)."""
+    return None if t is None else t.data_ptr()
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -110,21 +135,26 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True, window: int = 0
+                        *, causal: bool = True, window: int = 0,
+                        q_pos: Optional[torch.Tensor] = None,
+                        k_pos: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D), float32 or bfloat16,
     contiguous on one CUDA device, D 64, 80, 128 or 256; Skv != Sq only
-    with ``causal=False`` and ``window == 0``.  Returns the output (B, Sq,
-    Hq, D) in q's dtype and the rows' log-sum-exp (B, Hq, Sq) float32."""
-    b, sq, skv, hq, hkv, d = _check(q, k, v, causal, window)
+    with ``causal=False`` and ``window == 0``, or with positions ``q_pos``
+    (B, Sq) and ``k_pos`` (B, Skv) int32 (the position masks).  Returns
+    the output (B, Sq, Hq, D) in q's dtype and the rows' log-sum-exp (B,
+    Hq, Sq) float32."""
+    b, sq, skv, hq, hkv, d = _check(q, k, v, causal, window, q_pos=q_pos,
+                                    k_pos=k_pos)
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
     rc = _lib().flash_attention_fwd(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), b, sq, skv, hq, hkv, d, int(causal),
-        int(window), _stream(q))
+        out.data_ptr(), lse.data_ptr(), _ptr(q_pos), _ptr(k_pos), b, sq,
+        skv, hq, hkv, d, int(causal), int(window), _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA"
                            f" error {rc} (q {tuple(q.shape)}, k"
@@ -136,14 +166,17 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool = True,
-                        window: int = 0
+                        window: int = 0,
+                        q_pos: Optional[torch.Tensor] = None,
+                        k_pos: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients (dq, dk, dv) of ``flash_attention_fwd``'s output
-    against ``dout``, from the forward's inputs, output and ``lse``; in the
-    inputs' dtype: dq of q's shape, dk/dv of k's.  D 64 or 128: D 80 and
-    256 raise."""
+    against ``dout``, from the forward's inputs, output and ``lse`` (and
+    its positions); in the inputs' dtype: dq of q's shape, dk/dv of k's.
+    D 64 or 128: D 80 and 256 raise."""
     b, sq, skv, hq, hkv, d = _check(q, k, v, causal, window, _BWD_HEAD_DIMS,
-                                    out=out, dout=dout)
+                                    q_pos=q_pos, k_pos=k_pos, out=out,
+                                    dout=dout)
     if lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, sq) \
             or not lse.is_contiguous() or lse.device != q.device:
         raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}: expected"
@@ -155,8 +188,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = _lib().flash_attention_bwd(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), rowdot.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv, hq, hkv, d,
-        int(causal), int(window), _stream(q))
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(q_pos),
+        _ptr(k_pos), b, sq, skv, hq, hkv, d, int(causal), int(window),
+        _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA"
                            f" error {rc} (q {tuple(q.shape)}, k"
@@ -169,10 +203,12 @@ class FlashAttention(torch.autograd.Function):
     """Attention whose forward and backward are the two kernels."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
-        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+    def forward(ctx, q, k, v, causal: bool, window: int, q_pos, k_pos):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                       q_pos=q_pos, k_pos=k_pos)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
+        ctx.q_pos, ctx.k_pos = q_pos, k_pos
         return out
 
     @staticmethod
@@ -180,11 +216,14 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(
             q, k, v, out, lse, dout.contiguous(), causal=ctx.causal,
-            window=ctx.window)
-        return dq, dk, dv, None, None
+            window=ctx.window, q_pos=ctx.q_pos, k_pos=ctx.k_pos)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Differentiable attention through the kernels (CUDA tensors)."""
-    return FlashAttention.apply(q, k, v, causal, window)
+                    causal: bool = True, window: int = 0,
+                    q_pos: Optional[torch.Tensor] = None,
+                    k_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable attention through the kernels (CUDA tensors); masks
+    by position where ``q_pos``/``k_pos`` are given."""
+    return FlashAttention.apply(q, k, v, causal, window, q_pos, k_pos)

@@ -110,17 +110,28 @@ def quant_matmul(x: torch.Tensor, w, *,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    q_pos: Optional[torch.Tensor] = None,
+                    k_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Whole-sequence attention: q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D) ->
     (B, Sq, Hq, D) in q's dtype.  Index masks: key j is visible to row i
     when ``j <= i`` (causal) and ``j > i - window`` (window > 0).  Skv may
     differ from Sq only with ``causal=False`` and ``window == 0``
     (cross-attention: every key visible); otherwise either device raises.
+    With ``q_pos`` (B, Sq) and ``k_pos`` (B, Skv) int32 the masks are by
+    position instead (the reference's ``full_attention``: ``k_pos >= 0``,
+    ``k_pos <= q_pos``, ``k_pos > q_pos - window``), for any Sq and Skv.
     GQA is read in place by the kernel (query head h on KV head h // G)."""
     if not _on_card(q):
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       q_pos=q_pos, k_pos=k_pos)
+    if q_pos is not None:
+        q_pos = q_pos.to(torch.int32).contiguous()
+    if k_pos is not None:
+        k_pos = k_pos.to(torch.int32).contiguous()
     return fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              causal=causal, window=window)
+                              causal=causal, window=window, q_pos=q_pos,
+                              k_pos=k_pos)
 
 
 def _split(cache):

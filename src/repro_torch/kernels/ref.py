@@ -47,18 +47,21 @@ def int8_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor,
 # ---------------------------------------------------------------------------
 # flash attention (causal, optional sliding window): the training path
 # ---------------------------------------------------------------------------
-def _check_lengths(sq: int, skv: int, causal: bool, window: int) -> None:
+def _check_lengths(sq: int, skv: int, causal: bool, window: int,
+                   positions: bool = False) -> None:
     """Keys of another length than the queries only where every key is
-    visible: an index mask between two sequences of different length (a
-    diagonal, a window) means nothing."""
-    if sq != skv and (causal or window > 0):
+    visible, or where positions say which are: an index mask between two
+    sequences of different length (a diagonal, a window) means nothing."""
+    if sq != skv and (causal or window > 0) and not positions:
         raise ValueError(f"queries of {sq} against keys of {skv}: another"
                          " key length is taken only with causal=False and"
-                         " window == 0")
+                         " window == 0, or with positions")
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True, window: int = 0
+                        causal: bool = True, window: int = 0,
+                        q_pos: Optional[torch.Tensor] = None,
+                        k_pos: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D).  The JAX package's
     ``flash_attention_ref`` after ``ops.flash_attention``'s GQA expansion
@@ -66,60 +69,96 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     visible to row i when ``j <= i`` if causal, and ``j > i - window`` with
     a window), f32 math, output in q.dtype.  Skv may differ from Sq only
     with ``causal=False`` and ``window == 0`` (cross-attention: every key
-    visible).  Autograd through it is the plain backward."""
+    visible).
+
+    With ``q_pos`` (B, Sq) and ``k_pos`` (B, Skv) int the masks are the
+    reference's ``full_attention`` masks (``repro/models/layers.py:150``)
+    instead, by position: key j visible to row i when ``k_pos[j] >= 0``,
+    ``k_pos[j] <= q_pos[i]`` if causal and ``k_pos[j] > q_pos[i] - window``
+    with a window, any Sq and Skv.  A masked score is the finite −1e30, as
+    there, so a row that sees no key (a pad query at −1) gets the mean of V
+    over all Skv keys.  Autograd through it is the plain backward."""
     g = q.shape[2] // k.shape[2]
     if g > 1:
         k = k.repeat_interleave(g, dim=2)
         v = v.repeat_interleave(g, dim=2)
-    p = _attention_probs(q.float(), k.float(), causal, window)
+    p, _ = _attention_probs(q.float(), k.float(), causal, window, q_pos,
+                            k_pos)
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     return out.to(q.dtype)
 
 
-def _attention_probs(q: torch.Tensor, k: torch.Tensor, causal: bool,
-                     window: int) -> torch.Tensor:
-    """softmax(q·kᵀ·D^-1/2) under the index masks, (B, H, Sq, Skv); q (B,
-    Sq, H, D) and k (B, Skv, H, D) with the KV heads expanded."""
-    sq, skv, d = q.shape[1], k.shape[1], q.shape[3]
-    _check_lengths(sq, skv, causal, window)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * (d ** -0.5)
-    if not causal and window <= 0:
-        return torch.softmax(scores, dim=-1)
-    idx = torch.arange(sq, device=q.device)
-    qp, kp = idx[:, None], idx[None, :]
-    mask = torch.ones((sq, sq), dtype=torch.bool, device=q.device)
+def attention_mask(sq: int, skv: int, causal: bool, window: int,
+                   q_pos: Optional[torch.Tensor] = None,
+                   k_pos: Optional[torch.Tensor] = None,
+                   device=None) -> Optional[torch.Tensor]:
+    """The visible (query, key) pairs: (Sq, Skv) bool by index, (B, 1, Sq,
+    Skv) by position (``q_pos`` and ``k_pos`` given), or None when every
+    key is visible (no positions, ``causal=False``, no window)."""
+    if (q_pos is None) != (k_pos is None):
+        raise ValueError("q_pos and k_pos come together")
+    _check_lengths(sq, skv, causal, window, q_pos is not None)
+    if q_pos is not None:
+        qp = q_pos.to(torch.int64)[:, None, :, None]
+        kp = k_pos.to(torch.int64)[:, None, None, :]
+        mask = kp >= 0
+    elif not causal and window <= 0:
+        return None
+    else:
+        idx = torch.arange(sq, device=device)
+        qp, kp = idx[:, None], idx[None, :]
+        mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
     if causal:
-        mask = kp <= qp
+        mask = mask & (kp <= qp)
     if window > 0:
         mask = mask & (kp > qp - window)
-    scores = torch.where(mask, scores, NEG_INF)
-    return torch.softmax(scores, dim=-1)
+    return mask
+
+
+def _attention_probs(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                     window: int, q_pos: Optional[torch.Tensor] = None,
+                     k_pos: Optional[torch.Tensor] = None):
+    """softmax(q·kᵀ·D^-1/2) under ``attention_mask``'s masks, (B, H, Sq,
+    Skv), and the mask (None: every key visible); q (B, Sq, H, D) and k
+    (B, Skv, H, D) with the KV heads expanded."""
+    sq, skv, d = q.shape[1], k.shape[1], q.shape[3]
+    mask = attention_mask(sq, skv, causal, window, q_pos, k_pos, q.device)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * (d ** -0.5)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
+    return torch.softmax(scores, dim=-1), mask
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, out: torch.Tensor,
                             dout: torch.Tensor, causal: bool = True,
-                            window: int = 0):
+                            window: int = 0,
+                            q_pos: Optional[torch.Tensor] = None,
+                            k_pos: Optional[torch.Tensor] = None):
     """The plain version of the backward kernel: (dq, dk, dv) of
     ``flash_attention_ref``'s output against ``dout``, in f32 math,
     returned in q.dtype.  P is rebuilt from q and k; the row sums
     ``Dr = rowsum(dout * out)`` come from the ``out`` given, as the kernel
     takes them from its saved (rounded) output:
 
-        dV = Pᵀ dO,  dS = P ∘ (dO Vᵀ − Dr),  dQ = D^-1/2 dS K,
+        dV = Pᵀ dO,  dS = M ∘ P ∘ (dO Vᵀ − Dr),  dQ = D^-1/2 dS K,
         dK = D^-1/2 dSᵀ Q,
 
-    dK and dV summed over the query heads that share a KV head; dq of q's
-    shape (B, Sq, Hq, D), dk/dv of k's (B, Skv, Hkv, D).  Given the f32
-    output of ``flash_attention_ref`` this is autograd through it."""
+    with M the mask (a masked score is a constant, so no gradient reaches
+    it: a row that sees no key adds its uniform P to dV alone).  dK and dV
+    are summed over the query heads that share a KV head; dq of q's shape
+    (B, Sq, Hq, D), dk/dv of k's (B, Skv, Hkv, D).  Given the f32 output
+    of ``flash_attention_ref`` this is autograd through it."""
     b, _, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = h // hkv
     qf, kf, vf, of, dof = (t.float() for t in (q, k, v, out, dout))
     kf, vf = kf.repeat_interleave(g, dim=2), vf.repeat_interleave(g, dim=2)
-    p = _attention_probs(qf, kf, causal, window)
+    p, mask = _attention_probs(qf, kf, causal, window, q_pos, k_pos)
     rowdot = (dof * of).sum(-1).transpose(1, 2)            # (B, H, Sq)
     ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - rowdot[..., None])
+    if mask is not None:
+        ds = torch.where(mask, ds, 0.0)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * (d ** -0.5)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * (d ** -0.5)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)

@@ -35,7 +35,9 @@ def build(arch: str, *, smoke: bool, n_micro: int, lr: float,
           device: torch.device):
     """(cfg, params, opt_state, train_step) on ``device``.  An enc-dec
     config raises: its audio frontend is a stub, and the token stream
-    gives no frame embeddings to feed its encoder."""
+    gives no frame embeddings to feed its encoder.  A frontend decoder
+    (qwen2-vl) trains on the token batches as the JAX launcher does, its
+    positions the default ones (three equal streams under M-RoPE)."""
     cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
     if cfg.is_encdec:
         raise NotImplementedError(

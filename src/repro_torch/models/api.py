@@ -9,11 +9,13 @@ family and the hybrid trunk (zamba2), and the encoder-decoder backbone
 ``synthetic_inputs`` are the counterparts of ``train_input_specs``,
 ``prefill_input_specs`` and ``synthetic_inputs``: an enc-dec batch
 brings the audio frontend's stand-in, precomputed frame embeddings of
-(B, S // ``enc_seq_divisor``, d).
+(B, S // ``enc_seq_divisor``, d); a frontend decoder's (qwen2-vl) brings
+the vision frontend's, precomputed patch embeddings (B, S, d) in place
+of tokens, and under M-RoPE its (B, S, 3) position streams.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Tuple, Union
+from typing import Callable, Dict, NamedTuple, Sequence, Tuple, Union
 
 import torch
 
@@ -51,9 +53,11 @@ def input_shapes(cfg: ArchConfig, batch: int, seq: int, train: bool = True
             (batch, seq // cfg.enc_seq_divisor, cfg.d_model),
             cfg.activation_dtype)
     elif cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: the embedding frontend's inputs are not ported"
-            " yet; they come with slice 9 part 3 (the VLM frontend)")
+        shapes["embeddings"] = ((batch, seq, cfg.d_model),
+                                cfg.activation_dtype)
+        if cfg.rope_variant == "mrope":
+            shapes["positions"] = ((batch, seq, 3), torch.int32)
+        return shapes
     shapes["tokens"] = ((batch, seq), torch.int32)
     return shapes
 
@@ -64,13 +68,16 @@ def synthetic_inputs(cfg: ArchConfig, batch: int, seq: int,
                      ) -> Dict[str, torch.Tensor]:
     """Random inputs of ``input_shapes``, drawn from ``generator`` on
     ``device`` (``cuda`` unless named; the generator lives there too):
-    tokens and labels uniform in [0, vocab_size), frame embeddings a
-    standard normal in float32, cast to the activation dtype, times 0.1
-    (``api.py:106-123``)."""
+    tokens and labels uniform in [0, vocab_size), positions the index in
+    each stream, frame and patch embeddings a standard normal in float32,
+    cast to the activation dtype, times 0.1 (``api.py:106-123``)."""
     device = resolve_device(device)
     out: Dict[str, torch.Tensor] = {}
     for name, (shape, dtype) in input_shapes(cfg, batch, seq, train).items():
-        if dtype == torch.int32:
+        if name == "positions":
+            out[name] = torch.arange(shape[1], dtype=dtype, device=device)[
+                None, :, None].expand(shape).contiguous()
+        elif dtype == torch.int32:
             out[name] = torch.randint(0, cfg.vocab_size, shape,
                                       generator=generator, device=device,
                                       dtype=torch.int32)
@@ -79,3 +86,29 @@ def synthetic_inputs(cfg: ArchConfig, batch: int, seq: int,
                                     device=device).to(dtype) * 0.1
     return out
 
+
+
+def mrope_positions(segments: Sequence[Tuple[str, object]],
+                    device: Union[str, torch.device, None] = "cpu"
+                    ) -> torch.Tensor:
+    """Qwen2-VL's three-stream (temporal, height, width) position ids of
+    one sequence, the ids the stub vision frontend stands for: each
+    segment is ``("text", n)``, n tokens at the next positions in all three
+    streams, or ``("image", (t, h, w))``, a grid of t x h x w patches at
+    ``start + (i_t, i_h, i_w)`` (every patch of a frame shares one temporal
+    position); the next segment starts one past the largest id so far.
+    Returns (S, 3) int32 on ``device``."""
+    rows, start = [], 0
+    for kind, size in segments:
+        if kind == "text":
+            ids = start + torch.arange(size)
+            rows.append(ids[:, None].expand(size, 3))
+            start += size
+        elif kind == "image":
+            grid = torch.meshgrid(*(torch.arange(n) for n in size),
+                                  indexing="ij")
+            rows.append(start + torch.stack(grid, -1).reshape(-1, 3))
+            start += max(size)
+        else:
+            raise ValueError(f"unknown segment kind {kind!r}")
+    return torch.cat(rows).to(torch.int32).to(device)

@@ -25,7 +25,7 @@ branch, which returns before any rope) and nothing is written.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -70,18 +70,50 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
-def _rope(x, positions, rope_variant: str, rope_theta: float):
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): the head_dim/2 frequencies split into
+    (temporal, height, width) sections, each rotated by its own position
+    stream.  x: (..., S, H, D); positions: (..., S, 3)."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not cover"
+                         f" head_dim / 2 = {d // 2}")
+    freqs = rope_freqs(d, theta, x.device)                        # (D/2,)
+    sec_ids = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(tuple(sections), device=x.device))           # (D/2,)
+    pos = positions.float()[..., sec_ids]                         # (..., S, D/2)
+    angles = (pos * freqs)[..., None, :]                          # (..., S, 1, D/2)
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _rope(x, positions, rope_variant: str, rope_theta: float,
+          mrope_sections=None):
+    """Rotate x (..., S, H, D) by ``positions``: (..., S) for "rope";
+    (..., S, 3) for "mrope", where (..., S) (the decode and chunk layers'
+    text positions) stands for three equal streams."""
+    if rope_variant == "mrope":
+        if positions.dim() == x.dim() - 2:
+            positions = positions[..., None].expand(*positions.shape, 3)
+        return apply_mrope(x, positions, rope_theta, mrope_sections)
     if rope_variant == "rope":
         return apply_rope(x, positions, rope_theta)
     if rope_variant == "none":
         return x
-    raise NotImplementedError(
-        f"rope variant {rope_variant!r} is not ported yet")
+    raise ValueError(f"unknown rope variant {rope_variant!r}")
 
 
-def _rope_qk(q, k, positions, rope_variant: str, rope_theta: float):
-    return (_rope(q, positions, rope_variant, rope_theta),
-            _rope(k, positions, rope_variant, rope_theta))
+def position_encode(q: torch.Tensor, k: torch.Tensor,
+                    positions: torch.Tensor, variant: str, theta: float,
+                    sections=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q and k rotated by ``positions`` under ``variant`` ("mrope", "rope"
+    or "none"), as ``repro.models.layers.position_encode``."""
+    return (_rope(q, positions, variant, theta, sections),
+            _rope(k, positions, variant, theta, sections))
 
 
 # ---------------------------------------------------------------------------
@@ -157,23 +189,31 @@ def _fake_quant_kv(policy, k, v):
 # ---------------------------------------------------------------------------
 def attention_layer(p: dict, x: torch.Tensor, positions: torch.Tensor, *,
                     n_heads: int, n_kv_heads: int, head_dim: int,
-                    rope_variant: str, rope_theta: float, window: int = 0,
+                    rope_variant: str, rope_theta: float,
+                    mrope_sections=None, window: int = 0,
                     causal: bool = True, kv_override=None,
+                    mask_pos: Optional[torch.Tensor] = None,
                     policy: Optional[PrecisionPolicy] = None):
-    """Attention over a whole sequence (``repro.models.layers:273`` on the
-    uniform dense trunk).  x: (B, S, d); positions: (B, S), rotary only.
+    """Attention over a whole sequence (``repro.models.layers:273``).  x:
+    (B, S, d); positions: (B, S), or (B, S, 3) under M-RoPE (the temporal,
+    height and width streams; all three rotate q and k).
 
-    The core is ``ops.flash_attention``, which masks by **index**: the
-    reference masks by position, and the two agree only for the default
-    positions 0..S-1, which the caller (``transformer.forward_train``)
-    guarantees.
+    The core is ``ops.flash_attention``.  The reference masks by position,
+    by the temporal stream ``positions[..., 0]`` (``layers.py:296``,
+    ``:310``).  ``mask_pos`` (B, S) int32 is that stream, given where the
+    caller brought positions: the kernel takes it as both its query and
+    key positions and masks by it (an image's patches share one temporal
+    position; a packed row restarts and pads at −1).  Without it the
+    kernel masks by index, which equals the reference's masks for the
+    default positions 0..S-1, so that the default launch stays the index
+    one.
 
     ``kv_override=(xk, xv)`` (B, S_enc, Hkv, D) is cross-attention
     (``layers.py:299-305``): the keys and values are taken as given, the
     query alone is roped (where ``rope_variant`` is not "none"; the enc-dec
     decoder passes "none"), and the core runs with ``causal=False``, S
-    queries against S_enc keys (the default encoder positions: every key
-    visible).  Returns (out (B, S, d), (k, v)).
+    queries against S_enc keys, every key visible.  Returns (out (B, S,
+    d), (k, v)).
     """
     b, s, _ = x.shape
     q = quant_matmul(x, p["wq"], policy=policy).reshape(
@@ -183,11 +223,14 @@ def attention_layer(p: dict, x: torch.Tensor, positions: torch.Tensor, *,
             b, s, n_kv_heads, head_dim)
         v = quant_matmul(x, p["wv"], policy=policy).reshape(
             b, s, n_kv_heads, head_dim)
-        q, k = _rope_qk(q, k, positions, rope_variant, rope_theta)
+        q, k = position_encode(q, k, positions, rope_variant, rope_theta,
+                               mrope_sections)
     else:
         k, v = kv_override
-        q = _rope(q, positions, rope_variant, rope_theta)
-    o = flash_attention(q, k, v, causal=causal, window=window)
+        q = _rope(q, positions, rope_variant, rope_theta, mrope_sections)
+        mask_pos = None
+    o = flash_attention(q, k, v, causal=causal, window=window, q_pos=mask_pos,
+                        k_pos=mask_pos)
     out = quant_matmul(o.reshape(b, s, n_heads * head_dim), p["wo"],
                        policy=policy)
     return out, (k, v)
@@ -200,14 +243,16 @@ def attention_decode_layer(p: dict, x: torch.Tensor, position: torch.Tensor,
                            cache_k, cache_v, cache_positions: torch.Tensor,
                            write_idx: torch.Tensor, *, n_heads: int,
                            n_kv_heads: int, head_dim: int, rope_variant: str,
-                           rope_theta: float, window: int = 0,
+                           rope_theta: float, mrope_sections=None,
+                           window: int = 0,
                            policy: Optional[PrecisionPolicy] = None,
                            kv_len: Optional[torch.Tensor] = None,
                            active: Optional[torch.Tensor] = None,
                            block_table: Optional[torch.Tensor] = None,
                            cross: bool = False) -> torch.Tensor:
-    """One decode step.  x: (B, 1, d); position: (B,) absolute position;
-    write_idx: (B,) cache row this token's K/V is written to.
+    """One decode step.  x: (B, 1, d); position: (B,) absolute position
+    (under M-RoPE, three equal streams: ``layers.py:386-389``); write_idx:
+    (B,) cache row this token's K/V is written to.
 
     ``cache_k``/``cache_v`` (B, S, Hkv, D), float or ``Int8KV``, are
     written in place; ``cache_positions`` (B, S) must already carry this
@@ -242,7 +287,8 @@ def attention_decode_layer(p: dict, x: torch.Tensor, position: torch.Tensor,
         b, 1, n_kv_heads, head_dim)
     v = quant_matmul(x, p["wv"], policy=policy).reshape(
         b, 1, n_kv_heads, head_dim)
-    q, k = _rope_qk(q, k, position[:, None], rope_variant, rope_theta)
+    q, k = position_encode(q, k, position[:, None], rope_variant,
+                           rope_theta, mrope_sections)
     if not isinstance(cache_k, Int8KV):
         k, v = _fake_quant_kv(policy, k, v)
     if block_table is not None:
@@ -319,7 +365,8 @@ def attention_chunk_layer(p: dict, x: torch.Tensor, positions: torch.Tensor,
                           cache_k, cache_v, cache_positions: torch.Tensor,
                           write_idx: torch.Tensor, *, n_heads: int,
                           n_kv_heads: int, head_dim: int, rope_variant: str,
-                          rope_theta: float, window: int = 0,
+                          rope_theta: float, mrope_sections=None,
+                          window: int = 0,
                           policy: Optional[PrecisionPolicy] = None,
                           kv_len: Optional[torch.Tensor] = None,
                           block_table: Optional[torch.Tensor] = None,
@@ -330,7 +377,8 @@ def attention_chunk_layer(p: dict, x: torch.Tensor, positions: torch.Tensor,
 
     x: (B, C, d); positions: (B, C), −1 marking the pad tail of a ragged
     final chunk (its rows are written, stamped −1 by the caller, and its
-    outputs are ignored).  ``kv_len`` is the post-write fill.  The K/V
+    outputs are ignored); under M-RoPE three equal streams
+    (``layers.py:542-545``).  ``kv_len`` is the post-write fill.  The K/V
     writes are in place, as in ``attention_decode_layer``, into a float
     or ``Int8KV`` cache, contiguous or (``block_table``) paged: row
     ``write_idx + i`` lands at ``(block_table[b, (write_idx + i) // BS],
@@ -357,7 +405,7 @@ def attention_chunk_layer(p: dict, x: torch.Tensor, positions: torch.Tensor,
     q = quant_matmul(x, p["wq"], policy=policy).reshape(
         b, c, n_heads, head_dim)
     if cross:
-        q = _rope(q, positions, rope_variant, rope_theta)
+        q = _rope(q, positions, rope_variant, rope_theta, mrope_sections)
         q_valid = torch.where(positions >= 0, _far(positions, positions.shape),
                               -1)
         o = chunk_attention(q, cache_k, cache_v, q_valid, cache_positions)
@@ -367,7 +415,8 @@ def attention_chunk_layer(p: dict, x: torch.Tensor, positions: torch.Tensor,
         b, c, n_kv_heads, head_dim)
     v = quant_matmul(x, p["wv"], policy=policy).reshape(
         b, c, n_kv_heads, head_dim)
-    q, k = _rope_qk(q, k, positions, rope_variant, rope_theta)
+    q, k = position_encode(q, k, positions, rope_variant, rope_theta,
+                           mrope_sections)
     if not isinstance(cache_k, Int8KV):
         k, v = _fake_quant_kv(policy, k, v)
     if window > 0:

@@ -128,18 +128,20 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int
 def _attn_kwargs(cfg: ArchConfig, window: int = 0):
     return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                 head_dim=cfg.resolved_head_dim, rope_variant=cfg.rope_variant,
-                rope_theta=cfg.rope_theta, window=window)
+                rope_theta=cfg.rope_theta, mrope_sections=cfg.mrope_sections,
+                window=window)
 
 
 def dense_block(cfg: ArchConfig, p, x, positions, *, window: int = 0,
-                policy=None, causal: bool = True):
+                policy=None, causal: bool = True, mask_pos=None):
     """One pre-norm block over a whole sequence: causal (``window``:
     sliding-window; ``causal=False``: bidirectional, the enc-dec encoder's)
-    attention, then SwiGLU.  Returns (x, (k, v)), the layer's roped K and V
-    for a prefill cache."""
+    attention, masked by ``mask_pos`` (B, S), the positions' temporal
+    stream, where given (else by index), then SwiGLU.  Returns (x, (k,
+    v)), the layer's roped K and V for a prefill cache."""
     h = rms_norm(p["attn_norm"], x, cfg.norm_eps)
     attn_out, kv = attention_layer(p["attn"], h, positions, policy=policy,
-                                   causal=causal,
+                                   causal=causal, mask_pos=mask_pos,
                                    **_attn_kwargs(cfg, window))
     x = x + attn_out
     h = rms_norm(p["mlp_norm"], x, cfg.norm_eps)
@@ -171,11 +173,12 @@ def dense_block_chunk(cfg: ArchConfig, p, x, positions, cache_k, cache_v,
 
 
 def moe_block(cfg: ArchConfig, p, x, positions, *, window: int = 0,
-              policy=None):
+              policy=None, mask_pos=None):
     """``dense_block`` with the experts (``moe_layer``) in place of the
     SwiGLU: the router and the banks stay float under every policy."""
     h = rms_norm(p["attn_norm"], x, cfg.norm_eps)
     attn_out, kv = attention_layer(p["attn"], h, positions, policy=policy,
+                                   mask_pos=mask_pos,
                                    **_attn_kwargs(cfg, window))
     x = x + attn_out
     h = rms_norm(p["mlp_norm"], x, cfg.norm_eps)
@@ -319,9 +322,12 @@ def _stacked(kvs, shape):
 
 def trunk_forward(cfg: ArchConfig, params, x, positions, *,
                   remat: str = "none", collect_cache: bool = False,
-                  policy: Optional[PrecisionPolicy] = None):
+                  policy: Optional[PrecisionPolicy] = None,
+                  mask_pos: Optional[torch.Tensor] = None):
     """All blocks over a whole sequence, then the final norm; each block
-    rematerialized under ``remat``.  Returns (x, caches): with
+    rematerialized under ``remat``.  positions: (B, S), or (B, S, 3) under
+    M-RoPE; every attention layer masks by ``mask_pos`` (B, S) int32,
+    their temporal stream, where given, else by index.  Returns (x, caches): with
     ``collect_cache``, each layer's roped K/V (stacked as the decode
     cache's leaves) or, for the mamba1 trunk, its final ``SSMState``;
     else None.
@@ -341,7 +347,7 @@ def trunk_forward(cfg: ArchConfig, params, x, positions, *,
             " comes with slice 10 (ROADMAP queue 1)")
     if kind == "hybrid":
         return _hybrid_forward(cfg, params, x, positions, collect_cache,
-                               policy)
+                               policy, mask_pos)
     if kind == "uniform_ssm":
         states = []
         for p in params["blocks"].unstack():
@@ -356,7 +362,8 @@ def trunk_forward(cfg: ArchConfig, params, x, positions, *,
     for p, window, prefix, _ in _trunk_layers(cfg, params):
         if window not in blocks:
             blocks[window] = _maybe_remat(functools.partial(
-                body, cfg, window=window, policy=policy), remat)
+                body, cfg, window=window, policy=policy,
+                mask_pos=mask_pos), remat)
         x, (k, v) = blocks[window](p, x, positions)
         if collect_cache:
             kvs.setdefault(prefix + "k", []).append(k)
@@ -380,7 +387,7 @@ def _stack_states(states, lead) -> SSMState:
 
 
 def _hybrid_forward(cfg: ArchConfig, params, x, positions, collect_cache,
-                    policy):
+                    policy, mask_pos=None):
     """The hybrid trunk over a whole sequence: each group's mamba2 blocks,
     then the shared attention block.  The caches, with
     ``collect_cache``: the final states stacked (n_groups, group, ...)
@@ -392,7 +399,8 @@ def _hybrid_forward(cfg: ArchConfig, params, x, positions, collect_cache,
         for p in group:
             x, st = mamba_block(cfg, p, x)
             states.append(st)
-        x, (k, v) = dense_block(cfg, shared, x, positions, policy=policy)
+        x, (k, v) = dense_block(cfg, shared, x, positions, policy=policy,
+                                mask_pos=mask_pos)
         ks.append(k)
         vs.append(v)
     caches = None
@@ -511,11 +519,37 @@ def trunk_prefill_chunk(cfg: ArchConfig, params, x, positions,
 # ---------------------------------------------------------------------------
 # Positions
 # ---------------------------------------------------------------------------
-def default_positions(batch: int, seq: int, device=None) -> torch.Tensor:
-    """(batch, seq) int32 positions 0..seq-1 (rope; M-RoPE comes with the
-    VLM slice)."""
+def default_positions(batch: int, seq: int, device=None,
+                      cfg: Optional[ArchConfig] = None) -> torch.Tensor:
+    """(batch, seq) int32 positions 0..seq-1; under ``cfg``'s M-RoPE
+    (batch, seq, 3), three equal streams (``transformer.py:451-455``)."""
     pos = torch.arange(seq, dtype=torch.int32, device=device)
-    return pos[None, :].expand(batch, seq)
+    pos = pos[None, :].expand(batch, seq)
+    if cfg is not None and cfg.rope_variant == "mrope":
+        return pos[..., None].expand(batch, seq, 3)
+    return pos
+
+
+def _trunk_inputs(cfg: ArchConfig, params, inputs: Dict[str, torch.Tensor]):
+    """The first hidden state and the positions of a whole-sequence batch
+    (``transformer.py:463-503``): ``embeddings`` (B, S, d), the stub
+    frontend's, cast to the activation dtype, or ``tokens`` (B, S)
+    embedded; ``positions`` as brought ((B, S), or (B, S, 3) under
+    M-RoPE), else ``default_positions``.  Returns (x, positions,
+    mask_pos): the attention masks by ``mask_pos``, the positions'
+    temporal stream (B, S) as contiguous int32, only where the caller
+    brought them; for the default ones it is None, the index masks (the
+    same masks, the kernels' index launch)."""
+    if "embeddings" in inputs:
+        x = inputs["embeddings"].to(cfg.activation_dtype)
+    else:
+        x = embed_tokens(params, inputs["tokens"], cfg)
+    b, s = x.shape[:2]
+    positions = inputs.get("positions")
+    if positions is None:
+        return x, default_positions(b, s, x.device, cfg), None
+    mask_pos = positions if positions.dim() == 2 else positions[..., 0]
+    return x, positions, mask_pos.to(torch.int32).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -524,25 +558,14 @@ def default_positions(batch: int, seq: int, device=None) -> torch.Tensor:
 def forward_train(cfg: ArchConfig, params, inputs: Dict[str, torch.Tensor],
                   *, remat: str = "full",
                   policy: Optional[PrecisionPolicy] = None):
-    """inputs: tokens (B, S) int, labels (B, S) int (−1 ignored), tensors
-    on the weights' device.  Returns ``lm_loss``'s (loss, metrics); the
-    loss is differentiable in the weights.
-
-    Only the default positions 0..S-1 are taken: the attention kernel masks
-    by index, which equals the reference's position masks only there.
-    Batches that bring ``positions`` or ``embeddings`` (packed sequences,
-    the VLM frontend) raise."""
-    for key in ("positions", "embeddings"):
-        if key in inputs:
-            raise NotImplementedError(
-                f"forward_train with inputs[{key!r}] is not ported yet; it"
-                " comes with slice 9 part 3 (the VLM/M-RoPE frontend)")
-    tokens = inputs["tokens"]
-    b, s = tokens.shape
-    x = embed_tokens(params, tokens, cfg)
-    positions = default_positions(b, s, tokens.device)
+    """inputs: tokens (B, S) int or embeddings (B, S, d); labels (B, S) int
+    (−1 ignored); optionally positions (B, S), or (B, S, 3) under M-RoPE
+    (packed rows, an image's patches); tensors on the weights' device.
+    Returns ``lm_loss``'s (loss, metrics); the loss is differentiable in
+    the weights (and in the embeddings where they require it)."""
+    x, positions, mask_pos = _trunk_inputs(cfg, params, inputs)
     x, _ = trunk_forward(cfg, params, x, positions, remat=remat,
-                         policy=policy)
+                         policy=policy, mask_pos=mask_pos)
     logits = unembed(params, x, cfg)
     return lm_loss(logits, inputs["labels"], cfg.vocab_size)
 
@@ -648,27 +671,17 @@ def forward_prefill_chunk(cfg: ArchConfig, params, cache: Cache,
 def forward_prefill(cfg: ArchConfig, params, inputs: Dict[str, torch.Tensor],
                     policy: Optional[PrecisionPolicy] = None
                     ) -> Tuple[torch.Tensor, Cache]:
-    """The whole prompt in one pass: inputs["tokens"] (B, S).  Returns
+    """The whole prompt in one pass: inputs["tokens"] (B, S) or
+    inputs["embeddings"] (B, S, d), and optionally inputs["positions"]
+    ((B, S), or (B, S, 3) under M-RoPE), as in ``forward_train``.  Returns
     (last-token logits (B, V_pad), cache): the decode cache of exactly S
-    rows (``grow_cache`` adds room to decode into), its K/V in the
-    ``policy``'s representation (``Int8KV`` under native int8, their
-    quantize-dequantize round trip under fake-quant), quantized after the
-    cache is built.
-
-    Only the default positions 0..S-1 are taken, as in ``forward_train``:
-    the attention kernel masks by index.  Inputs that bring ``positions``
-    or ``embeddings`` raise."""
-    for key in ("positions", "embeddings"):
-        if key in inputs:
-            raise NotImplementedError(
-                f"forward_prefill with inputs[{key!r}] is not ported yet; it"
-                " comes with slice 9 part 3 (the VLM/M-RoPE frontend)")
-    tokens = inputs["tokens"]
-    b, s = tokens.shape
-    x = embed_tokens(params, tokens, cfg)
-    positions = default_positions(b, s, tokens.device)
+    rows (``grow_cache`` adds room to decode into), its positions the
+    temporal stream, its K/V in the ``policy``'s representation
+    (``Int8KV`` under native int8, their quantize-dequantize round trip
+    under fake-quant), quantized after the cache is built."""
+    x, positions, mask_pos = _trunk_inputs(cfg, params, inputs)
     x, caches = trunk_forward(cfg, params, x, positions, collect_cache=True,
-                              policy=policy)
+                              policy=policy, mask_pos=mask_pos)
     logits = unembed(params, x[:, -1:, :], cfg)[:, 0]
     return logits, _cache_from_prefill(cfg, caches, positions, policy)
 
@@ -707,9 +720,13 @@ def _cache_from_prefill(cfg: ArchConfig, caches, positions: torch.Tensor,
                         policy: Optional[PrecisionPolicy] = None) -> Cache:
     """The decode cache from a prefill's collected K/V (or SSM states):
     contiguous leaves and ``full_pos`` for the full-attention layers, the
-    rings (``_ring_select``) and ``local_pos`` for the windowed ones; then
-    the K/V leaves in the policy's representation."""
+    rings (``_ring_select``) and ``local_pos`` for the windowed ones, all
+    by the temporal stream of M-RoPE positions (``transformer.py:817``);
+    then the K/V leaves in the policy's representation."""
     kind = _pattern(cfg)
+    if positions.dim() == 3:
+        positions = positions[..., 0]
+    positions = positions.to(torch.int32)
     if kind == "uniform_ssm":
         return {"ssm": caches["ssm"]}
     if kind in ("uniform_dense", "uniform_moe"):

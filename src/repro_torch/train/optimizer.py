@@ -47,6 +47,23 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.stack(sums).sum())
 
 
+# elements of one slice of a leaf's update: its f32 temporaries (about six
+# of them) stay at 256 MB each, where a whole token table of 1.26 B
+# weights would take six of 5 GB beside the weights, the gradients and
+# both moments
+_SLICE = 1 << 26
+
+
+def _slices(tensors):
+    """(p, g, m, v) of one leaf as aligned flat slices of ``_SLICE``
+    elements (views: the in-place updates land in the leaves), or whole
+    where one of them is not contiguous.  The update is elementwise, so
+    the slices give the whole leaf's result bit for bit."""
+    if not all(t.is_contiguous() for t in tensors):
+        return [tensors]
+    return zip(*(t.view(-1).split(_SLICE) for t in tensors))
+
+
 @torch.no_grad()
 def adamw_update(grads, state: Dict[str, Any], params, cfg: AdamWConfig,
                  lr: Union[torch.Tensor, float, None] = None
@@ -70,15 +87,16 @@ def adamw_update(grads, state: Dict[str, Any], params, cfg: AdamWConfig,
     bc2 = 1.0 - torch.tensor(b2, dtype=torch.float32, device=dev) ** stepf
     lr_t = torch.as_tensor(lr, dtype=torch.float32, device=dev)
 
-    for p, g, m, v in zip(leaves(ptree), leaves(grads), leaves(state["m"]),
-                          leaves(state["v"])):
-        g = g.float() * scale
-        m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_((1 - b2) * g.square())
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        if cfg.weight_decay > 0:
-            delta = delta + cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr_t * delta).to(p.dtype))
+    for leaf in zip(leaves(ptree), leaves(grads), leaves(state["m"]),
+                    leaves(state["v"])):
+        for p, g, m, v in _slices(leaf):
+            g = g.float() * scale
+            m.mul_(b1).add_((1 - b1) * g)
+            v.mul_(b2).add_((1 - b2) * g.square())
+            delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+            if cfg.weight_decay > 0:
+                delta = delta + cfg.weight_decay * p.float()
+            p.copy_((p.float() - lr_t * delta).to(p.dtype))
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr_t}
 

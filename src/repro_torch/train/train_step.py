@@ -43,7 +43,10 @@ def make_train_step(cfg: ArchConfig, *, n_microbatch: int = 1,
 
     def loss_and_grads(params, plist, micro):
         loss, _ = fns.forward_train(cfg, params, micro, remat=remat)
-        grads = torch.autograd.grad(loss, plist)
+        # a weight the batch does not reach (the token table under an
+        # embedding batch) gets zeros, as jax.grad gives it
+        grads = torch.autograd.grad(loss, plist, allow_unused=True,
+                                    materialize_grads=True)
         return loss.detach(), grads
 
     def train_step(params, opt_state: Dict[str, Any], batch):

@@ -46,16 +46,17 @@ def setup():
     return jcfg, tcfg, jp, tp
 
 
-# the dense config under its earlier ids, the two MoE configs and the
-# enc-dec config
+# the dense config under its earlier ids, the two MoE configs, the enc-dec
+# config and the VLM
 _CONFIG_CASES = [(ARCH, "get"), (ARCH, "get_smoke")] + [
     (arch, getter) for arch in ("phi3.5-moe-42b-a6.6b", "dbrx-132b",
-                                "seamless-m4t-large-v2")
+                                "seamless-m4t-large-v2", "qwen2-vl-72b")
     for getter in ("get", "get_smoke")]
-# the parameter counts of the MoE and enc-dec configs at full width
+# the parameter counts of the MoE, enc-dec and VLM configs at full width
 _FULL_PARAMS = {"phi3.5-moe-42b-a6.6b": 41_878_028_288,
                "dbrx-132b": 131_596_025_856,
-               "seamless-m4t-large-v2": 2_038_431_744}
+               "seamless-m4t-large-v2": 2_038_431_744,
+               "qwen2-vl-72b": 72_729_231_360}
 
 
 @pytest.mark.parametrize("arch,getter", _CONFIG_CASES,
@@ -76,10 +77,15 @@ def test_arch_config_matches_jax(arch, getter):
 
 
 def test_unported_arch_raises():
-    with pytest.raises(NotImplementedError, match="slice 9 part 3"):
-        tconfigs.get("qwen2-vl-72b")
-    with pytest.raises(NotImplementedError, match="slice 9 part 3"):
-        tconfigs.get_smoke("qwen2-vl-72b")
+    """Named for the refusal it checked until the last config, qwen2-vl,
+    was ported: now no id of ``ALIASES`` raises, each loads the
+    reference's configs and ``comes_with`` returns None."""
+    for arch in tconfigs.ALIASES:
+        assert tconfigs.comes_with(arch) is None, arch
+        for getter in ("get", "get_smoke"):
+            got = getattr(tconfigs, getter)(arch)
+            want = getattr(jconfigs, getter)(arch)
+            assert dataclasses.asdict(got) == dataclasses.asdict(want), arch
 
 
 def test_int8_leaves_moe_banks_and_router_float():

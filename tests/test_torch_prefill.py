@@ -177,18 +177,30 @@ def test_grow_cache_matches_jax():
 
 def test_prefill_step_and_refusals():
     """``make_prefill_step`` returns the greedy token of the logits it
-    returns; ``positions``/``embeddings`` inputs raise naming slice 9 (the
-    kernel masks by index); training the mamba1 trunk raises naming
-    slice 10, while its prefill runs (without autograd)."""
-    _, tcfg, _, tp = _setup("internlm2-1.8b")
+    returns; ``positions`` and ``embeddings`` inputs run (the kernel masks
+    by position; once refused, named for that refusal): the default
+    positions brought by the caller give the logits of none, embeddings
+    of the tokens the logits of the tokens, shifted positions stamp the
+    cache; training the mamba1 trunk raises naming slice 10, while its
+    prefill runs (without autograd)."""
+    jcfg, tcfg, jp, tp = _setup("internlm2-1.8b")
     tok = torch.from_numpy(_tokens(tcfg.vocab_size, 2, 5))
     nxt, logits, cache = make_prefill_step(tcfg)(tp, {"tokens": tok})
     assert torch.equal(nxt, logits.argmax(-1).to(torch.int32))
     assert set(cache) == {"k", "v", "full_pos"}
-    for key, val in (("positions", torch.zeros(2, 5, dtype=torch.int32)),
-                     ("embeddings", torch.zeros(2, 5, 64))):
-        with pytest.raises(NotImplementedError, match="slice 9"):
-            ttr.forward_prefill(tcfg, tp, {"tokens": tok, key: val})
+    idx = ttr.default_positions(2, 5)
+    emb = ttr.embed_tokens(tp, tok, tcfg)
+    for extra in ({"positions": idx}, {"embeddings": emb}):
+        got, _ = ttr.forward_prefill(tcfg, tp, {"tokens": tok, **extra})
+        np.testing.assert_allclose(got.numpy(), logits.numpy(), atol=ATOL)
+    shifted = (idx + 7).contiguous()
+    got, scache = ttr.forward_prefill(tcfg, tp, {"tokens": tok,
+                                                 "positions": shifted})
+    want, jcache = jtr.forward_prefill(jcfg, jp, {
+        "tokens": jnp.asarray(tok.numpy()),
+        "positions": jnp.asarray(shifted.numpy())})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    _assert_cache_close(jcache, scache)
     _, mcfg, _, mp = _setup("falcon-mamba-7b")
     mtok = torch.from_numpy(_tokens(mcfg.vocab_size, 1, 8))
     with pytest.raises(NotImplementedError, match="slice 10"):

@@ -186,3 +186,21 @@ def test_policy_for_and_unported_calibration():
         jq.PrecisionPolicy(weights="int8", activations="calibrated"))
     with pytest.raises(ValueError):
         tq.PrecisionPolicy(activations="static")
+
+
+def test_stacked_leaf_quantized_a_layer_at_a_time_bitwise():
+    """A stacked (L, K, N) leaf is quantized one layer at a time (its f32
+    temporaries one layer's); the values and scales equal, bitwise, the
+    whole stack quantized at once and the JAX package's."""
+    rng = np.random.RandomState(11)
+    w = (rng.randn(3, 2, 40, 24) * 0.05).astype(np.float32)
+    got = tq._leaf_qtensor(torch.from_numpy(w).to(torch.bfloat16))
+    x32 = torch.from_numpy(w).to(torch.bfloat16).float()
+    q, scale = tq._symmetric(x32, x32.abs().amax(dim=-2), -2)
+    assert torch.equal(got.q, q.transpose(-1, -2).contiguous())
+    assert torch.equal(got.scale, scale)
+    assert got.q.is_contiguous() and got.q.shape == (3, 2, 24, 40)
+    jgot = jq._leaf_qtensor(jnp.asarray(w, jnp.bfloat16))
+    np.testing.assert_array_equal(got.q.transpose(-1, -2).numpy(),
+                                  np.asarray(jgot.q))
+    np.testing.assert_array_equal(got.scale.numpy(), np.asarray(jgot.scale))

@@ -423,16 +423,24 @@ def test_checkpoint_layout_names_leaves_as_jax(setup, tmp_path):
 
 
 def test_training_path_refuses_what_it_does_not_port(setup):
-    """Positions/embeddings batches and the "dots" remat policies raise,
-    naming the slice that brings them; cross-attention (ported with the
-    enc-dec backbone) raises under a causal mask between two lengths."""
+    """Positions/embeddings batches run (refused until the VLM slice, the
+    test keeps its name): the default positions brought by the caller
+    give the loss of none, embeddings of the tokens the tokens' loss,
+    both differentiable; the "dots" remat policies raise, naming the
+    slice that brings them; cross-attention (ported with the enc-dec
+    backbone) raises under a causal mask between two lengths."""
     _, tcfg, jp, tokens = setup
     params = _carry(jp)
     batch = _t(_batch(tokens, 1, 8, seed=0))
-    for key, val in (("positions", torch.zeros(1, 8, dtype=torch.int32)),
-                     ("embeddings", torch.zeros(1, 8, 64))):
-        with pytest.raises(NotImplementedError, match="slice 9"):
-            ttr.forward_train(tcfg, params, {**batch, key: val})
+    base, _ = ttr.forward_train(tcfg, params, batch)
+    emb = ttr.embed_tokens(params, batch["tokens"], tcfg).detach()
+    for key, val in (("positions", ttr.default_positions(1, 8)),
+                     ("embeddings", emb.requires_grad_())):
+        loss, _ = ttr.forward_train(tcfg, params, {**batch, key: val})
+        np.testing.assert_allclose(loss.item(), base.item(), atol=1e-6)
+        grads = torch.autograd.grad(loss, leaves(params.tree()),
+                                    allow_unused=True)
+        assert sum(g is not None for g in grads) >= len(grads) - 1
     for policy in ("dots", "dots_no_batch"):
         with pytest.raises(NotImplementedError, match="slice 10"):
             ttr.forward_train(tcfg, params, batch, remat=policy)
@@ -485,3 +493,32 @@ def test_launcher_trains_on_the_cpu(tmp_path, monkeypatch, capsys):
     printed = capsys.readouterr().out
     assert "device=cpu" in printed and "held-out loss" in printed
     assert Checkpointer(tmp_path / "ck").all_steps() == [2, 4]
+
+
+def test_adamw_slices_give_the_whole_leaf_bitwise(monkeypatch):
+    """``adamw_update`` updates each leaf in flat slices (the f32
+    temporaries of a 1.26 B-weight token table stay small); slices of 7
+    elements, none dividing the leaves, give the whole-leaf update bit
+    for bit: weights, both moments."""
+    rng = np.random.RandomState(12)
+    shapes = [(5, 9), (31,), (4, 3, 6)]
+
+    def run(slice_elems):
+        monkeypatch.setattr(topt, "_SLICE", slice_elems)
+        params = {f"w{i}": torch.from_numpy(rng.randn(*s).astype(np.float32))
+                  for i, s in enumerate(shapes)}
+        grads = {k: torch.from_numpy(rng.randn(*v.shape).astype(np.float32))
+                 for k, v in params.items()}
+        state = topt.adamw_init(params)
+        for _ in range(2):
+            topt.adamw_update(grads, state, params, topt.AdamWConfig(lr=1e-2))
+        return params, state
+    rng_state = rng.get_state()
+    whole = run(1 << 26)
+    rng.set_state(rng_state)
+    sliced = run(7)
+    for a, b in zip(leaves(whole[0]) + leaves(whole[1]["m"])
+                    + leaves(whole[1]["v"]),
+                    leaves(sliced[0]) + leaves(sliced[1]["m"])
+                    + leaves(sliced[1]["v"])):
+        assert torch.equal(a, b)

@@ -136,8 +136,8 @@ def test_registry_matches_jax():
     ported = [a for a in got if tconfigs.comes_with(a) is None]
     assert sorted(ported) == ["dbrx-132b", "falcon-mamba-7b", "gemma3-4b",
                               "granite-3-8b", "internlm2-1.8b", "llama3.2-3b",
-                              "phi3.5-moe-42b-a6.6b", "seamless-m4t-large-v2",
-                              "zamba2-2.7b"]
+                              "phi3.5-moe-42b-a6.6b", "qwen2-vl-72b",
+                              "seamless-m4t-large-v2", "zamba2-2.7b"]
     for arch in got:
         if arch in ported:
             assert got[arch] == want[arch], arch
