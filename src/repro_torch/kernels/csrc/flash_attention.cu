@@ -91,15 +91,23 @@
 //   bytes; fa_dq_wgmma_kernel 199 / 143, no spills, 99,328 / 50,176
 //   bytes; fa_rowdot_kernel 24.
 //
-// Head dim 80 (zamba2's shared block, forward only: one-shot prefill).
-// Both forwards compute on tiles of D 128 and read the tensors' rows of
-// DG 80: the 10 real 16-byte chunks of a row are loaded (cp.async, or the
-// f32 kernel's 16-byte loads), the 6 past them are zeros read from
-// nowhere, the output columns past 80 are never written, and the softmax
-// scale is 1/sqrt(80).  Bytes stay D 80's; the products pay 128 / 80 =
-// 1.6 times (a 64 + 16 split of the K-major blocks and m64n80k16 for P V
-// would not, a later redesign).  The backward at D 80 waits for training
-// the hybrid trunk (slice 10).
+// Head dim 80 (zamba2's shared block).  Every kernel, forward and
+// backward, computes on tiles of D 128 and reads the tensors' rows of DG
+// 80: the 10 real 16-byte chunks of a row are loaded (cp.async, or the f32
+// kernels' 16-byte loads), the 6 past them are zeros read from nowhere,
+// the output (dQ, dK, dV) columns past 80 are never written, and the
+// softmax scale is 1/sqrt(80).  Bytes stay D 80's; the products pay 128 /
+// 80 = 1.6 times (a 64 + 16 split of the K-major blocks and m64n80k16 for
+// P V would not, a later redesign).
+//
+// Head dim 256 (gemma3), bf16: two blocks a head in every kernel, each
+// with half of the output's columns (fwd_cols), the scores (S, dP)
+// recomputed by both over the whole of D: the forward's output, the dK/dV
+// pass's dK and dV, the dQ pass's dQ.  A thread then holds 128
+// accumulators, as at D 128; the whole 256 columns of dK and dV would be
+// 256 registers before S and dP.  The tiles are twice D 128's: 198,656
+// bytes of shared memory in the dK/dV pass, 197,632 in the dQ pass (one
+// block an SM).  The f32 kernels take D 256 whole.
 //
 // Position masks (every kernel, a second instantiation: POS = true).
 // Given q_pos (B, Sq) and k_pos (B, Skv) int32, the masks are the JAX
@@ -448,7 +456,7 @@ fa_rowdot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 // j), then dV += P^T dO and dK += dS^T (q * scale) as outer products over
 // the rows (thread: keys ty*4 .. +3, columns cg*64 + tx*4 .. +3).
 // ---------------------------------------------------------------------------
-template <typename T, int D, bool POS = false>
+template <typename T, int D, int DG = D, bool POS = false>
 __global__ void __launch_bounds__(kThreads)
 fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const T* __restrict__ dout,
@@ -475,11 +483,11 @@ fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = blockIdx.x * BKV, hk = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hkv;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const long long q_rs = (long long)Hq * D, k_rs = (long long)Hkv * D;
-  const long long k_base = (long long)b * Skv * k_rs + (long long)hk * D;
+  const long long q_rs = (long long)Hq * DG, k_rs = (long long)Hkv * DG;
+  const long long k_base = (long long)b * Skv * k_rs + (long long)hk * DG;
 
-  stage_rows<T, D, LD, BKV>(k_s, k + k_base, k_rs, k0, Skv, 1.f, tid);
-  stage_rows<T, D, LD, BKV>(v_s, v + k_base, k_rs, k0, Skv, 1.f, tid);
+  stage_rows<T, D, LD, BKV, DG>(k_s, k + k_base, k_rs, k0, Skv, 1.f, tid);
+  stage_rows<T, D, LD, BKV, DG>(v_s, v + k_base, k_rs, k0, Skv, 1.f, tid);
 
   float dka[4][4 * CG], dva[4][4 * CG];
 #pragma unroll
@@ -504,13 +512,15 @@ fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float inv_skv = 1.f / Skv;
   for (int g = 0; g < G; ++g) {
     const int h = hk * G + g;
-    const long long q_base = (long long)b * Sq * q_rs + (long long)h * D;
+    const long long q_base = (long long)b * Sq * q_rs + (long long)h * DG;
     const float* lse_h = lse + ((long long)b * Hq + h) * Sq;
     const float* dr_h = dr + ((long long)b * Hq + h) * Sq;
     for (int q0 = q_lo; q0 < q_hi; q0 += kBQ) {
       __syncthreads();   // the previous tile is consumed; k_s/v_s are ready
-      stage_rows<T, D, LD, kBQ>(q_s, q + q_base, q_rs, q0, Sq, scale, tid);
-      stage_rows<T, D, LD, kBQ>(do_s, dout + q_base, q_rs, q0, Sq, 1.f, tid);
+      stage_rows<T, D, LD, kBQ, DG>(q_s, q + q_base, q_rs, q0, Sq, scale,
+                                    tid);
+      stage_rows<T, D, LD, kBQ, DG>(do_s, dout + q_base, q_rs, q0, Sq, 1.f,
+                                    tid);
       for (int r = tid; r < kBQ; r += kThreads) {
         lse_s[r] = q0 + r < Sq ? lse_h[q0 + r] : 0.f;
         dr_s[r] = q0 + r < Sq ? dr_h[q0 + r] : 0.f;
@@ -621,6 +631,7 @@ fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int cg = 0; cg < CG; ++cg)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
+        if (DG < D && cg * 64 + tx * 4 + e >= DG) continue;
         dko[cg * 64 + tx * 4 + e] = from_f32<T>(dka[i][cg * 4 + e]);
         dvo[cg * 64 + tx * 4 + e] = from_f32<T>(dva[i][cg * 4 + e]);
       }
@@ -632,7 +643,7 @@ fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ty*8 .. +7; in the score phase keys tx + 16 j of the key tile, in the
 // dS.K phase columns cg*64 + tx*4 .. +3.
 // ---------------------------------------------------------------------------
-template <typename T, int D, int BK, bool POS = false>
+template <typename T, int D, int BK, int DG = D, bool POS = false>
 __global__ void __launch_bounds__(kThreads)
 fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ dout,
@@ -655,12 +666,13 @@ fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const long long q_rs = (long long)Hq * D, k_rs = (long long)Hkv * D;
-  const long long q_base = (long long)b * Sq * q_rs + (long long)h * D;
-  const long long k_base = (long long)b * Skv * k_rs + (long long)hk * D;
+  const long long q_rs = (long long)Hq * DG, k_rs = (long long)Hkv * DG;
+  const long long q_base = (long long)b * Sq * q_rs + (long long)h * DG;
+  const long long k_base = (long long)b * Skv * k_rs + (long long)hk * DG;
 
-  stage_rows<T, D, LD, kBQ>(q_s, q + q_base, q_rs, q0, Sq, scale, tid);
-  stage_rows<T, D, LD, kBQ>(do_s, dout + q_base, q_rs, q0, Sq, 1.f, tid);
+  stage_rows<T, D, LD, kBQ, DG>(q_s, q + q_base, q_rs, q0, Sq, scale, tid);
+  stage_rows<T, D, LD, kBQ, DG>(do_s, dout + q_base, q_rs, q0, Sq, 1.f,
+                                tid);
   float lse_r[8], dr_r[8], acc[8][4 * CG];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -678,8 +690,8 @@ fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int* kp_b = POS ? k_pos + (long long)b * Skv : nullptr;
   for (int k0 = (k_lo / BK) * BK; k0 < k_hi; k0 += BK) {
     __syncthreads();
-    stage_rows<T, D, LD, BK>(k_s, k + k_base, k_rs, k0, Skv, 1.f, tid);
-    stage_rows<T, D, LD, BK>(v_s, v + k_base, k_rs, k0, Skv, 1.f, tid);
+    stage_rows<T, D, LD, BK, DG>(k_s, k + k_base, k_rs, k0, Skv, 1.f, tid);
+    stage_rows<T, D, LD, BK, DG>(v_s, v + k_base, k_rs, k0, Skv, 1.f, tid);
     int kpos[KPT];
     if constexpr (POS) {
 #pragma unroll
@@ -771,7 +783,8 @@ fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int cg = 0; cg < CG; ++cg)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        o[cg * 64 + tx * 4 + e] = from_f32<T>(acc[i][cg * 4 + e] * scale);
+        if (DG == D || cg * 64 + tx * 4 + e < DG)
+          o[cg * 64 + tx * 4 + e] = from_f32<T>(acc[i][cg * 4 + e] * scale);
   }
 }
 
@@ -1210,14 +1223,20 @@ fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 backward, dK and dV: grid (Hkv, B, key tiles), the first key tile
-// first.  The block keeps its K and V tiles and walks the (head, query
-// tile) steps of the G heads of its group, streaming Q, dO and the rows'
-// lse and Dr through two stages.  S^T = K Q^T and dP^T = V dO^T put the
-// keys on the accumulator's rows, so P^T and dS^T are already the A
-// fragments of dV += P^T dO and dK += dS^T Q.
+// bf16 backward, dK and dV: grid (Hkv x D / DO, B, key tiles), the first
+// key tile first.  The block keeps its K and V tiles and walks the (head,
+// query tile) steps of the G heads of its group, streaming Q, dO and the
+// rows' lse and Dr through two stages.  S^T = K Q^T and dP^T = V dO^T put
+// the keys on the accumulator's rows, so P^T and dS^T are already the A
+// fragments of dV += P^T dO and dK += dS^T Q.  As in the forward, a block
+// owns the columns [c * DO, (c + 1) * DO) of dK and dV (fwd_cols): all of
+// D up to D 128; at D 256 two blocks share a key tile, each computing S^T
+// and dP^T over the whole of D and keeping half of the accumulators (128
+// f32 a thread, as at D 128: the whole 256 would need 256 registers
+// before S and dP).  D 80 computes on tiles of 128 (DG 80: zero columns
+// past 80, never written).
 // ---------------------------------------------------------------------------
-template <int D, bool POS = false>
+template <int D, int DG = D, bool POS = false>
 __global__ void __launch_bounds__(kWG, 2)
 fa_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v,
@@ -1228,19 +1247,24 @@ fa_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const int* __restrict__ k_pos, int Sq, int Skv, int Hq,
                      int Hkv, int causal, int window, float scale,
                      float scale_log2) {
+  constexpr int DO = fwd_cols<D>(), NC = D / DO;
+  constexpr int DOG = DO - (D - DG);   // the real columns of the block's DO
   constexpr uint32_t T = kTile * D * 2;
+  // the block's DO columns start this far into a tile
+  constexpr uint32_t kCols = (DO / 64) * (kTile * 128);
   extern __shared__ uint8_t smem[];
   // K, V, then two stages of (Q, dO), then two stages of (lse, Dr) rows
   const uint32_t s_k = smem_base(smem), s_v = s_k + T;
   float* rows_s = reinterpret_cast<float*>(smem + (s_k - smem_u32(smem)) +
                                            6 * T);
-  const int hk = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * kTile;
+  const int hk = blockIdx.x / NC, cb = blockIdx.x % NC, b = blockIdx.y;
+  const int k0 = blockIdx.z * kTile;
   const int G = Hq / Hkv;
   const int tid = threadIdx.x, lane = tid & 31;
   const int key = k0 + (tid >> 5) * 16 + (lane >> 2);
   const int c0 = (lane & 3) * 2;
-  const long long q_rs = (long long)Hq * D, k_rs = (long long)Hkv * D;
-  const long long k_base = (long long)b * Skv * k_rs + (long long)hk * D;
+  const long long q_rs = (long long)Hq * DG, k_rs = (long long)Hkv * DG;
+  const long long k_base = (long long)b * Skv * k_rs + (long long)hk * DG;
 
   // live query tiles: rows at or below the tile's keys (causal), rows whose
   // window still reaches them; every one of the Sq rows without either, or
@@ -1261,10 +1285,10 @@ fa_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto load_step = [&](int it, int st) {
     const int h = hk * G + it / nt, q0 = (t_lo + it % nt) * kTile;
-    const long long q_base = (long long)b * Sq * q_rs + (long long)h * D;
+    const long long q_base = (long long)b * Sq * q_rs + (long long)h * DG;
     const uint32_t s_q = s_k + T * (2 + 2 * st);
-    load_tile<D>(s_q, q + q_base, q_rs, q0, Sq, tid);
-    load_tile<D>(s_q + T, dout + q_base, q_rs, q0, Sq, tid);
+    load_tile<D, DG>(s_q, q + q_base, q_rs, q0, Sq, tid);
+    load_tile<D, DG>(s_q + T, dout + q_base, q_rs, q0, Sq, tid);
     const int r = tid & (kTile - 1);
     const bool ok = q0 + r < Sq;
     const float* src = (tid < kTile ? lse : dr) +
@@ -1272,14 +1296,14 @@ fa_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async4(smem_u32(rows_s + (2 * st + tid / kTile) * kTile + r), src, ok);
   };
 
-  load_tile<D>(s_k, k + k_base, k_rs, k0, Skv, tid);
-  load_tile<D>(s_v, v + k_base, k_rs, k0, Skv, tid);
+  load_tile<D, DG>(s_k, k + k_base, k_rs, k0, Skv, tid);
+  load_tile<D, DG>(s_v, v + k_base, k_rs, k0, Skv, tid);
   load_step(0, 0);
   cp_async_commit();
 
-  float dka[D / 2], dva[D / 2];
+  float dka[DO / 2], dva[DO / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) {
+  for (int i = 0; i < DO / 2; ++i) {
     dka[i] = 0.f;
     dva[i] = 0.f;
   }
@@ -1347,18 +1371,20 @@ fa_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     uint32_t ph[4][4], pl[4][4], dh[4][4], dl[4][4];
     split_frags(st_, ph, pl);
     split_frags(dp, dh, dl);
-    gemm_split_add<D>(dva, ph, pl, s_do, 1.f, 1.f);   // dV += P^T dO
-    gemm_split_add<D>(dka, dh, dl, s_q, 1.f, 1.f);    // dK += dS^T Q
+    // dV += P^T dO, dK += dS^T Q on the block's DO columns
+    gemm_split_add<DO>(dva, ph, pl, s_do + cb * kCols, 1.f, 1.f);
+    gemm_split_add<DO>(dka, dh, dl, s_q + cb * kCols, 1.f, 1.f);
   }
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int kp = key + 8 * i;
     if (kp >= Skv) continue;
-    bf16* dko = dk + k_base + kp * k_rs + c0;
-    bf16* dvo = dv + k_base + kp * k_rs + c0;
+    bf16* dko = dk + k_base + kp * k_rs + cb * DO + c0;
+    bf16* dvo = dv + k_base + kp * k_rs + cb * DO + c0;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DO / 8; ++j) {
+      if (DOG < DO && 8 * j + c0 >= DOG) continue;
       *reinterpret_cast<uint32_t*>(dko + 8 * j) = pack_bf16(
           dka[4 * j + 2 * i] * scale, dka[4 * j + 2 * i + 1] * scale);
       *reinterpret_cast<uint32_t*>(dvo + 8 * j) =
@@ -1368,11 +1394,12 @@ fa_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 backward, dQ: grid (Hq, B, query tiles), the last query tile first.
-// The block keeps Q and dO and streams K/V tiles through two stages;
-// dQ += dS K with dS split into bf16 hi + lo.
+// bf16 backward, dQ: grid (Hq x D / DO, B, query tiles), the last query
+// tile first.  The block keeps Q and dO and streams K/V tiles through two
+// stages; dQ += dS K with dS split into bf16 hi + lo, on the block's DO
+// columns of dQ (two blocks a head at D 256, as the dK/dV pass).
 // ---------------------------------------------------------------------------
-template <int D, bool POS = false>
+template <int D, int DG = D, bool POS = false>
 __global__ void __launch_bounds__(kWG, 2)
 fa_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -1382,19 +1409,22 @@ fa_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const int* __restrict__ k_pos, int Sq, int Skv, int Hq,
                    int Hkv, int causal, int window, float scale,
                    float scale_log2) {
+  constexpr int DO = fwd_cols<D>(), NC = D / DO;
+  constexpr int DOG = DO - (D - DG);
   constexpr uint32_t T = kTile * D * 2;
+  constexpr uint32_t kCols = (DO / 64) * (kTile * 128);
   extern __shared__ uint8_t smem[];
   // Q, dO, then two stages of (K, V)
   const uint32_t s_q = smem_base(smem), s_do = s_q + T;
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int h = blockIdx.x / NC, cb = blockIdx.x % NC, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kTile;
   const int hk = h / (Hq / Hkv);
   const int tid = threadIdx.x, lane = tid & 31;
   const int row = q0 + (tid >> 5) * 16 + (lane >> 2);
   const int c0 = (lane & 3) * 2;
-  const long long q_rs = (long long)Hq * D, k_rs = (long long)Hkv * D;
-  const long long q_base = (long long)b * Sq * q_rs + (long long)h * D;
-  const long long k_base = (long long)b * Skv * k_rs + (long long)hk * D;
+  const long long q_rs = (long long)Hq * DG, k_rs = (long long)Hkv * DG;
+  const long long q_base = (long long)b * Sq * q_rs + (long long)h * DG;
+  const long long k_base = (long long)b * Skv * k_rs + (long long)hk * DG;
 
   const int k_hi = causal && !POS ? min(Skv, q0 + kTile) : Skv;
   const int k_lo = window > 0 && !POS ? max(0, q0 - window + 1) : 0;
@@ -1406,10 +1436,10 @@ fa_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     rpos[1] = pos_at(q_pos + (long long)b * Sq, row + 8, Sq);
   }
 
-  load_tile<D>(s_q, q + q_base, q_rs, q0, Sq, tid);
-  load_tile<D>(s_do, dout + q_base, q_rs, q0, Sq, tid);
-  load_tile<D>(s_q + 2 * T, k + k_base, k_rs, t_lo * kTile, Skv, tid);
-  load_tile<D>(s_q + 3 * T, v + k_base, k_rs, t_lo * kTile, Skv, tid);
+  load_tile<D, DG>(s_q, q + q_base, q_rs, q0, Sq, tid);
+  load_tile<D, DG>(s_do, dout + q_base, q_rs, q0, Sq, tid);
+  load_tile<D, DG>(s_q + 2 * T, k + k_base, k_rs, t_lo * kTile, Skv, tid);
+  load_tile<D, DG>(s_q + 3 * T, v + k_base, k_rs, t_lo * kTile, Skv, tid);
   cp_async_commit();
 
   float lse2[2], drr[2];
@@ -1419,9 +1449,9 @@ fa_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     lse2[i] = row + 8 * i < Sq ? lse[at] * kLog2e : 0.f;
     drr[i] = row + 8 * i < Sq ? dr[at] : 0.f;
   }
-  float dqa[D / 2];
+  float dqa[DO / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+  for (int i = 0; i < DO / 2; ++i) dqa[i] = 0.f;
 
   for (int t = t_lo; t < t_hi; ++t) {
     const uint32_t s_k = s_q + T * (2 + 2 * ((t - t_lo) & 1)), s_v = s_k + T;
@@ -1430,8 +1460,9 @@ fa_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
     if (t + 1 < t_hi) {
       const uint32_t n_k = s_q + T * (2 + 2 * ((t + 1 - t_lo) & 1));
-      load_tile<D>(n_k, k + k_base, k_rs, (t + 1) * kTile, Skv, tid);
-      load_tile<D>(n_k + T, v + k_base, k_rs, (t + 1) * kTile, Skv, tid);
+      load_tile<D, DG>(n_k, k + k_base, k_rs, (t + 1) * kTile, Skv, tid);
+      load_tile<D, DG>(n_k + T, v + k_base, k_rs, (t + 1) * kTile, Skv,
+                       tid);
     }
     cp_async_commit();
 
@@ -1471,18 +1502,20 @@ fa_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     uint32_t dh[4][4], dl[4][4];
     split_frags(dp, dh, dl);
-    gemm_split_add<D>(dqa, dh, dl, s_k, 1.f, 1.f);   // dQ += dS K
+    // dQ += dS K on the block's DO columns
+    gemm_split_add<DO>(dqa, dh, dl, s_k + cb * kCols, 1.f, 1.f);
   }
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int qp = row + 8 * i;
     if (qp >= Sq) continue;
-    bf16* o = dq + q_base + qp * q_rs + c0;
+    bf16* o = dq + q_base + qp * q_rs + cb * DO + c0;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(o + 8 * j) = pack_bf16(
-          dqa[4 * j + 2 * i] * scale, dqa[4 * j + 2 * i + 1] * scale);
+    for (int j = 0; j < DO / 8; ++j)
+      if (DOG == DO || 8 * j + c0 < DOG)
+        *reinterpret_cast<uint32_t*>(o + 8 * j) = pack_bf16(
+            dqa[4 * j + 2 * i] * scale, dqa[4 * j + 2 * i + 1] * scale);
   }
 }
 
@@ -1575,16 +1608,18 @@ int launch_rowdot(const void* o, const void* dout, void* dr, int B, int S,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool POS = false>
+// D: the width the kernels compute on; DG: the tensors' head dim, which
+// sets the softmax scale
+template <int D, int DG = D, bool POS = false>
 int launch_bwd_f32(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const void* lse,
                    void* dr, void* dq, void* dk, void* dv, Pos pos, int B,
                    int Sq, int Skv, int Hq, int Hkv, int causal, int window,
                    cudaStream_t st) {
-  int rc = launch_rowdot<float, D>(o, dout, dr, B, Sq, Hq, st);
+  int rc = launch_rowdot<float, DG>(o, dout, dr, B, Sq, Hq, st);
   if (rc != 0) return rc;
-  const float scale = static_cast<float>(scale_of(D));
-  auto kv_kern = fa_dkdv_kernel<float, D, POS>;
+  const float scale = static_cast<float>(scale_of(DG));
+  auto kv_kern = fa_dkdv_kernel<float, D, DG, POS>;
   constexpr int kv_smem = dkdv_smem<D>();
   rc = set_smem(kv_kern, kv_smem);
   if (rc != 0) return rc;
@@ -1597,7 +1632,7 @@ int launch_bwd_f32(const void* q, const void* k, const void* v,
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
 
-  auto q_kern = fa_dq_kernel<float, D, kDqBK, POS>;
+  auto q_kern = fa_dq_kernel<float, D, kDqBK, DG, POS>;
   constexpr int q_smem = dq_smem<D>();
   rc = set_smem(q_kern, q_smem);
   if (rc != 0) return rc;
@@ -1610,24 +1645,26 @@ int launch_bwd_f32(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool POS = false>
+template <int D, int DG = D, bool POS = false>
 int launch_bwd_bf16(const void* q, const void* k, const void* v,
                     const void* o, const void* dout, const void* lse,
                     void* dr, void* dq, void* dk, void* dv, Pos pos, int B,
                     int Sq, int Skv, int Hq, int Hkv, int causal, int window,
                     cudaStream_t st) {
-  int rc = launch_rowdot<bf16, D>(o, dout, dr, B, Sq, Hq, st);
+  int rc = launch_rowdot<bf16, DG>(o, dout, dr, B, Sq, Hq, st);
   if (rc != 0) return rc;
-  const float scale = static_cast<float>(scale_of(D));
+  const float scale = static_cast<float>(scale_of(DG));
   const float scale_log2 =
-      static_cast<float>(scale_of(D) * 1.4426950408889634);
+      static_cast<float>(scale_of(DG) * 1.4426950408889634);
+  constexpr int NC = D / fwd_cols<D>();   // blocks a head (two at D 256)
 
-  auto kv_kern = fa_dkdv_wgmma_kernel<D, POS>;
+  auto kv_kern = fa_dkdv_wgmma_kernel<D, DG, POS>;
   // K, V, two stages of Q, dO; two stages of 64 lse and 64 Dr
   constexpr int kv_smem = wgmma_smem<D>(6, 4 * kTile);
   rc = set_smem(kv_kern, kv_smem);
   if (rc != 0) return rc;
-  kv_kern<<<dim3(Hkv, B, (Skv + kTile - 1) / kTile), kWG, kv_smem, st>>>(
+  kv_kern<<<dim3(Hkv * NC, B, (Skv + kTile - 1) / kTile), kWG, kv_smem,
+            st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dr),
@@ -1636,11 +1673,11 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
 
-  auto q_kern = fa_dq_wgmma_kernel<D, POS>;
+  auto q_kern = fa_dq_wgmma_kernel<D, DG, POS>;
   constexpr int q_smem = wgmma_smem<D>(6, 0);   // Q, dO, two stages of K, V
   rc = set_smem(q_kern, q_smem);
   if (rc != 0) return rc;
-  q_kern<<<dim3(Hq, B, (Sq + kTile - 1) / kTile), kWG, q_smem, st>>>(
+  q_kern<<<dim3(Hq * NC, B, (Sq + kTile - 1) / kTile), kWG, q_smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dr),
@@ -1693,22 +1730,39 @@ int bwd(int dtype, const void* q, const void* k, const void* v,
         const void* o, const void* dout, const void* lse, void* dr, void* dq,
         void* dk, void* dv, Pos pos, int B, int Sq, int Skv, int Hq, int Hkv,
         int D, int causal, int window, cudaStream_t st) {
+  // head dim 80 (zamba2's shared block) on tiles of 128
+  if (dtype == 1 && D == 80)
+    return launch_bwd_bf16<128, 80, POS>(q, k, v, o, dout, lse, dr, dq, dk,
+                                         dv, pos, B, Sq, Skv, Hq, Hkv,
+                                         causal, window, st);
+  if (dtype == 0 && D == 80)
+    return launch_bwd_f32<128, 80, POS>(q, k, v, o, dout, lse, dr, dq, dk,
+                                        dv, pos, B, Sq, Skv, Hq, Hkv, causal,
+                                        window, st);
+  if (dtype == 1 && D == 256)
+    return launch_bwd_bf16<256, 256, POS>(q, k, v, o, dout, lse, dr, dq, dk,
+                                          dv, pos, B, Sq, Skv, Hq, Hkv,
+                                          causal, window, st);
+  if (dtype == 0 && D == 256)
+    return launch_bwd_f32<256, 256, POS>(q, k, v, o, dout, lse, dr, dq, dk,
+                                         dv, pos, B, Sq, Skv, Hq, Hkv,
+                                         causal, window, st);
   if (dtype == 1 && D == 128)
-    return launch_bwd_bf16<128, POS>(q, k, v, o, dout, lse, dr, dq, dk, dv,
-                                     pos, B, Sq, Skv, Hq, Hkv, causal,
-                                     window, st);
+    return launch_bwd_bf16<128, 128, POS>(q, k, v, o, dout, lse, dr, dq, dk,
+                                          dv, pos, B, Sq, Skv, Hq, Hkv,
+                                          causal, window, st);
   if (dtype == 1 && D == 64)
-    return launch_bwd_bf16<64, POS>(q, k, v, o, dout, lse, dr, dq, dk, dv,
-                                    pos, B, Sq, Skv, Hq, Hkv, causal, window,
-                                    st);
+    return launch_bwd_bf16<64, 64, POS>(q, k, v, o, dout, lse, dr, dq, dk,
+                                        dv, pos, B, Sq, Skv, Hq, Hkv, causal,
+                                        window, st);
   if (dtype == 0 && D == 128)
-    return launch_bwd_f32<128, POS>(q, k, v, o, dout, lse, dr, dq, dk, dv,
-                                    pos, B, Sq, Skv, Hq, Hkv, causal, window,
-                                    st);
+    return launch_bwd_f32<128, 128, POS>(q, k, v, o, dout, lse, dr, dq, dk,
+                                         dv, pos, B, Sq, Skv, Hq, Hkv, causal,
+                                         window, st);
   if (dtype == 0 && D == 64)
-    return launch_bwd_f32<64, POS>(q, k, v, o, dout, lse, dr, dq, dk, dv,
-                                   pos, B, Sq, Skv, Hq, Hkv, causal, window,
-                                   st);
+    return launch_bwd_f32<64, 64, POS>(q, k, v, o, dout, lse, dr, dq, dk, dv,
+                                       pos, B, Sq, Skv, Hq, Hkv, causal,
+                                       window, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1717,7 +1771,7 @@ int bwd(int dtype, const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  D: 64,
-// 80, 128 or 256 (the backward: 64 or 128).  q/out (B, Sq, Hq, D), k/v (B,
+// 80, 128 or 256, forward and backward.  q/out (B, Sq, Hq, D), k/v (B,
 // Skv, Hkv, D) dense; lse (B, Hq, Sq) f32.  Hq % Hkv == 0.  q_pos (B, Sq)
 // and k_pos (B, Skv) int32, both or neither: the position masks (null:
 // the index masks, Skv != Sq only with causal == 0 and window == 0).

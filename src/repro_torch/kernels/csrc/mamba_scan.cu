@@ -361,6 +361,312 @@ int dispatch(const void* x, const void* dt, const void* bm, const void* cm,
                                     N, st);
 }
 
+// ---------------------------------------------------------------------------
+// Backward (the TPU kernel has none: XLA differentiates the reference's
+// associative scan).  Contract: kernels/ref.py::mamba_scan_bwd_ref.  With
+// decay[t] = exp(dt[t] a) and g the gradient of h[t], carried from
+// dh_final (zeros when null) down to t = 0:
+//   g[t] = decay[t+1] g[t+1] + dy[t] C[t]
+//   dx[t] = dt[t] sum_n g[t] B[t];  ddt[t] = x[t] sum_n g[t] B[t] +
+//   sum_n g[t] h[t-1] decay[t] a;  dB[t] = sum_d g[t] dt[t] x[t];
+//   dC[t] = sum_d dy[t] h[t];  dA = sum_{b,t} g[t] h[t-1] decay[t] dt[t];
+//   dh0 = decay[0] g[0].
+// The sweep needs h[t-1] in reverse order, and the decay is never
+// inverted (exp(dt a) underflows to 0).  The same lanes as the forward (a
+// quarter of a channel a thread, KPER states in registers) first run the
+// forward recurrence from h0 and store the state entering each chunk of
+// TB steps (`hs`); then, from the last chunk down, each recomputes its
+// chunk's states from that boundary into a scratch trajectory (`traj`, its
+// own KPER floats a step, neighbouring threads on neighbouring addresses)
+// and walks them in reverse.  Both scratches are thread-private, so they
+// need no sync.  Every exponential is computed three times (boundaries,
+// recompute, reverse).
+// The sums over channels (dB, dC) are reduced in fixed orders: across the
+// 8 channels of a warp by shuffles, across the 8 warps of the block in
+// shared memory at the end of each chunk, into per-block partials
+// (B, blocks, S, N) f32; dA's per-row partials (B, D, N) are in registers
+// until the end.  A second kernel sums the partials over the blocks (and
+// dA over B) in block order, so two runs give the same bits (no atomics).
+// dx, ddt, dB and dC are written in the input type, dA and dh0 in f32.
+// Inputs are read straight from global memory (no staging): a first,
+// simple design.
+// Bound on the H100: operations.  20 f32 operations a (t, d, n) (the
+// state and its decay, the carried gradient, the sums of dx, ddt, dA, dB
+// and dC): at falcon-mamba's training shape (B 1, S 2048, D 8192, N 16,
+// bf16) 5.37 GFLOP, 0.080 ms at 67 TFLOP/s; the bytes (x, dt, B, C, dy
+// read once, dx, ddt, dB, dC, dA, dh0 written once) 201 MB, 0.060 ms.
+// This first design reads 3.90 ms there (PERF.md): one block an SM at B 1,
+// each thread's sweep serial, the exponentials computed three times.
+// ---------------------------------------------------------------------------
+constexpr int kWarps = kThreads / 32;
+
+__device__ __forceinline__ float load_f(const float* p) { return *p; }
+__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// steps a backward chunk: the trajectory a thread keeps is TB x KPER
+// floats, and the block's per-step partials of dB and dC 2 x TB x 8 warps
+// x 4 KPER floats (32 KB) of shared memory
+template <int KPER>
+__host__ __device__ constexpr int bwd_steps() {
+  return 128 / KPER;
+}
+
+// the thread's KPER values of row `row` (N apart) at n0: zeros past N or
+// off the channels
+template <int KPER, typename T>
+__device__ __forceinline__ void read_row(const T* p, int live,
+                                         float (&v)[KPER]) {
+#pragma unroll
+  for (int j = 0; j < KPER; ++j) v[j] = j < live ? load_f(p + j) : 0.f;
+}
+
+template <typename T, int KPER>
+__global__ void __launch_bounds__(kThreads)
+mamba_scan_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
+                      const T* __restrict__ bm, const T* __restrict__ cm,
+                      const float* __restrict__ a,
+                      const float* __restrict__ h0,
+                      const float* __restrict__ dy,
+                      const float* __restrict__ dhf, float* __restrict__ hs,
+                      float* __restrict__ traj, T* __restrict__ dx,
+                      T* __restrict__ ddt, float* __restrict__ pdb,
+                      float* __restrict__ pdc, float* __restrict__ pda,
+                      float* __restrict__ dh0, int S, int D, int N) {
+  constexpr int TB = bwd_steps<KPER>();
+  constexpr int NS = kLanes * KPER;
+  __shared__ float red[2][TB][kWarps][NS];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ch = tid / kLanes, q = tid % kLanes;
+  const int b = blockIdx.y, blk = blockIdx.x, nblk = gridDim.x;
+  const int d = blk * kChannels + ch;
+  const bool on = d < D;
+  const int n0 = q * KPER;
+  const int live = on ? max(0, min(KPER, N - n0)) : 0;
+  const long long hoff = (static_cast<long long>(b) * D + d) * N + n0;
+  const int nchunks = (S + TB - 1) / TB;
+  // this thread's KPER floats in the scratches: (b, block, step or
+  // chunk, thread)
+  const long long lane_base = static_cast<long long>(b) * nblk + blk;
+  float* hs_t = hs + (lane_base * nchunks * kThreads + tid) * KPER;
+  float* tr_t = traj + (lane_base * TB * kThreads + tid) * KPER;
+  constexpr long long kStride = static_cast<long long>(kThreads) * KPER;
+
+  float av[KPER], h[KPER];
+  read_row<KPER>(a + static_cast<long long>(on ? d : 0) * N + n0, live, av);
+  if (h0 != nullptr) {
+    read_row<KPER>(h0 + hoff, live, h);
+  } else {
+#pragma unroll
+    for (int j = 0; j < KPER; ++j) h[j] = 0.f;
+  }
+
+  const long long row0 = static_cast<long long>(b) * S;
+  // one forward step at t: h = decay h + dt x B
+  auto forward = [&](int t, float (&hh)[KPER]) {
+    const long long xo = (row0 + t) * D + d;
+    const float dtv = on ? load_f(dt + xo) : 0.f;
+    const float dxv = on ? dtv * load_f(x + xo) : 0.f;
+    float bv[KPER];
+    read_row<KPER>(bm + (row0 + t) * N + n0, live, bv);
+#pragma unroll
+    for (int j = 0; j < KPER; ++j)
+      hh[j] = expf(dtv * av[j]) * hh[j] + dxv * bv[j];
+  };
+
+  // 1. the forward recurrence, storing the state entering each chunk
+  for (int c = 0; c < nchunks; ++c) {
+#pragma unroll
+    for (int j = 0; j < KPER; ++j) hs_t[c * kStride + j] = h[j];
+    const int t1 = min(S, (c + 1) * TB);
+    for (int t = c * TB; t < t1; ++t) forward(t, h);
+  }
+
+  // 2. chunks from the last: recompute, then walk the chunk in reverse
+  float g[KPER], dav[KPER];
+  if (dhf != nullptr) {
+    read_row<KPER>(dhf + hoff, live, g);
+  } else {
+#pragma unroll
+    for (int j = 0; j < KPER; ++j) g[j] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < KPER; ++j) dav[j] = 0.f;
+
+  for (int c = nchunks - 1; c >= 0; --c) {
+    const int t0 = c * TB, tc = min(TB, S - t0);
+    float hstart[KPER], cur[KPER];
+#pragma unroll
+    for (int j = 0; j < KPER; ++j) {
+      hstart[j] = hs_t[c * kStride + j];
+      cur[j] = hstart[j];
+    }
+    for (int tt = 0; tt < tc; ++tt) {
+      forward(t0 + tt, cur);
+#pragma unroll
+      for (int j = 0; j < KPER; ++j) tr_t[tt * kStride + j] = cur[j];
+    }
+    // cur is h[t0 + tc - 1]
+    for (int tt = tc - 1; tt >= 0; --tt) {
+      const int t = t0 + tt;
+      const long long xo = (row0 + t) * D + d;
+      const float dtv = on ? load_f(dt + xo) : 0.f;
+      const float xv = on ? load_f(x + xo) : 0.f;
+      const float dyv = on ? dy[xo] : 0.f;
+      float bv[KPER], cv[KPER], prev[KPER];
+      read_row<KPER>(bm + (row0 + t) * N + n0, live, bv);
+      read_row<KPER>(cm + (row0 + t) * N + n0, live, cv);
+#pragma unroll
+      for (int j = 0; j < KPER; ++j)
+        prev[j] = tt > 0 ? tr_t[(tt - 1) * kStride + j] : hstart[j];
+      float gb = 0.f, gha = 0.f, pb[KPER], pc[KPER];
+#pragma unroll
+      for (int j = 0; j < KPER; ++j) {
+        const float dec = expf(dtv * av[j]);
+        const float gj = fmaf(dyv, cv[j], g[j]);
+        gb = fmaf(gj, bv[j], gb);
+        const float gh = gj * prev[j] * dec;
+        gha = fmaf(gh, av[j], gha);
+        dav[j] = fmaf(gh, dtv, dav[j]);
+        pb[j] = gj * (dtv * xv);
+        pc[j] = dyv * cur[j];
+        g[j] = dec * gj;
+        cur[j] = prev[j];
+      }
+      // the channel's four lanes, in a fixed order
+      gb += __shfl_xor_sync(0xffffffffu, gb, 1, kLanes);
+      gb += __shfl_xor_sync(0xffffffffu, gb, 2, kLanes);
+      gha += __shfl_xor_sync(0xffffffffu, gha, 1, kLanes);
+      gha += __shfl_xor_sync(0xffffffffu, gha, 2, kLanes);
+      if (on && q == 0) {
+        store_f(dx + xo, dtv * gb);
+        store_f(ddt + xo, fmaf(xv, gb, gha));
+      }
+      // the warp's 8 channels (lanes of one q, 4 apart), in a fixed order
+#pragma unroll
+      for (int j = 0; j < KPER; ++j) {
+#pragma unroll
+        for (int o = kLanes; o < 32; o <<= 1) {
+          pb[j] += __shfl_xor_sync(0xffffffffu, pb[j], o);
+          pc[j] += __shfl_xor_sync(0xffffffffu, pc[j], o);
+        }
+      }
+      if (lane < kLanes) {
+#pragma unroll
+        for (int j = 0; j < KPER; ++j) {
+          red[0][tt][warp][n0 + j] = pb[j];
+          red[1][tt][warp][n0 + j] = pc[j];
+        }
+      }
+    }
+    __syncthreads();
+    // the block's partials of this chunk, the warps summed in order
+    for (int i = tid; i < tc * N; i += kThreads) {
+      const int tt = i / N, n = i % N;
+      float sb = 0.f, sc = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        sb += red[0][tt][w][n];
+        sc += red[1][tt][w][n];
+      }
+      const long long po = ((lane_base * S) + t0 + tt) * N + n;
+      pdb[po] = sb;
+      pdc[po] = sc;
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int j = 0; j < KPER; ++j) {
+    if (j < live) {
+      dh0[hoff + j] = g[j];
+      pda[hoff + j] = dav[j];
+    }
+  }
+}
+
+// dB, dC (B, S, N) = the per-block partials summed over the blocks in
+// block order; dA (D, N) = the per-row partials summed over B in order
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+mamba_scan_bwd_sum_kernel(const float* __restrict__ pdb,
+                          const float* __restrict__ pdc,
+                          const float* __restrict__ pda, T* __restrict__ db,
+                          T* __restrict__ dc, float* __restrict__ da, int B,
+                          int S, int D, int N, int nblk) {
+  const long long sn = static_cast<long long>(S) * N;
+  const long long n_bc = B * sn, n_a = static_cast<long long>(D) * N;
+  for (long long i = blockIdx.x * static_cast<long long>(kThreads) +
+                     threadIdx.x;
+       i < n_bc + n_a; i += static_cast<long long>(gridDim.x) * kThreads) {
+    if (i < n_bc) {
+      const long long b = i / sn, r = i % sn;
+      float sb = 0.f, sc = 0.f;
+      for (int k = 0; k < nblk; ++k) {
+        const long long po = (b * nblk + k) * sn + r;
+        sb += pdb[po];
+        sc += pdc[po];
+      }
+      store_f(db + i, sb);
+      store_f(dc + i, sc);
+    } else {
+      const long long r = i - n_bc;
+      float s = 0.f;
+      for (int b = 0; b < B; ++b) s += pda[b * n_a + r];
+      da[r] = s;
+    }
+  }
+}
+
+template <typename T, int KPER>
+int launch_bwd(const void* x, const void* dt, const void* bm, const void* cm,
+               const void* a, const void* h0, const void* dy,
+               const void* dhf, void* hs, void* traj, void* dx, void* ddt,
+               void* pdb, void* pdc, void* pda, void* db, void* dc, void* da,
+               void* dh0, int B, int S, int D, int N, cudaStream_t stream) {
+  const int nblk = (D + kChannels - 1) / kChannels;
+  mamba_scan_bwd_kernel<T, KPER><<<dim3(nblk, B), kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dt),
+      static_cast<const T*>(bm), static_cast<const T*>(cm),
+      static_cast<const float*>(a), static_cast<const float*>(h0),
+      static_cast<const float*>(dy), static_cast<const float*>(dhf),
+      static_cast<float*>(hs), static_cast<float*>(traj),
+      static_cast<T*>(dx), static_cast<T*>(ddt), static_cast<float*>(pdb),
+      static_cast<float*>(pdc), static_cast<float*>(pda),
+      static_cast<float*>(dh0), S, D, N);
+  int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  const long long total = static_cast<long long>(B) * S * N +
+                          static_cast<long long>(D) * N;
+  const long long want = (total + kThreads - 1) / kThreads;
+  const int grid = static_cast<int>(want < 132 * 8 ? want : 132 * 8);
+  mamba_scan_bwd_sum_kernel<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(pdb), static_cast<const float*>(pdc),
+      static_cast<const float*>(pda), static_cast<T*>(db),
+      static_cast<T*>(dc), static_cast<float*>(da), B, S, D, N, nblk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_bwd(const void* x, const void* dt, const void* bm,
+                 const void* cm, const void* a, const void* h0,
+                 const void* dy, const void* dhf, void* hs, void* traj,
+                 void* dx, void* ddt, void* pdb, void* pdc, void* pda,
+                 void* db, void* dc, void* da, void* dh0, int B, int S,
+                 int D, int N, int kper, cudaStream_t st) {
+  if (kper == 4)
+    return launch_bwd<T, 4>(x, dt, bm, cm, a, h0, dy, dhf, hs, traj, dx, ddt,
+                            pdb, pdc, pda, db, dc, da, dh0, B, S, D, N, st);
+  return launch_bwd<T, 16>(x, dt, bm, cm, a, h0, dy, dhf, hs, traj, dx, ddt,
+                           pdb, pdc, pda, db, dc, da, dh0, B, S, D, N, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -384,6 +690,34 @@ int mamba_scan(int dtype, const void* x, const void* dt, const void* bm,
   if (dtype == 0)
     return dispatch<float>(x, dt, bm, cm, a, h0, y, hout, B, S, D, N, kper,
                            st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward of mamba_scan (two kernels, one call).  x, dt, B, C, a and
+// h0 as the forward's (h0 may be null: zeros); dy (B, S, D) f32; dhf (B,
+// D, N) f32 or null (zeros).  Scratch, f32, from the wrapper's plan: hs
+// (B, blocks, chunks, 256 x kper), traj (B, blocks, 128 / kper, 256 x
+// kper), pdb/pdc (B, blocks, S, N), pda (B, D, N).  Writes dx, ddt (B, S,
+// D) and db, dc (B, S, N) in the input type, da (D, N) and dh0 (B, D, N)
+// f32.  Returns a cudaError_t, as mamba_scan.
+int mamba_scan_bwd(int dtype, const void* x, const void* dt, const void* bm,
+                   const void* cm, const void* a, const void* h0,
+                   const void* dy, const void* dhf, void* hs, void* traj,
+                   void* dx, void* ddt, void* pdb, void* pdc, void* pda,
+                   void* db, void* dc, void* da, void* dh0, int B, int S,
+                   int D, int N, int kper, void* stream) {
+  if (B < 1 || B > 65535 || S < 1 || D < 1 || N < 1 || N > kMaxN ||
+      (kper != 4 && kper != 16) || N > kLanes * kper)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return dispatch_bwd<__nv_bfloat16>(x, dt, bm, cm, a, h0, dy, dhf, hs,
+                                       traj, dx, ddt, pdb, pdc, pda, db, dc,
+                                       da, dh0, B, S, D, N, kper, st);
+  if (dtype == 0)
+    return dispatch_bwd<float>(x, dt, bm, cm, a, h0, dy, dhf, hs, traj, dx,
+                               ddt, pdb, pdc, pda, db, dc, da, dh0, B, S, D,
+                               N, kper, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -42,12 +42,9 @@ from repro_torch.kernels import build
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# head dims the forward takes (80 on tiles of 128, zero columns past 80),
-# and the backward (whose dK/dV pass already holds 255 registers a thread
-# at D 128: D 256 needs its accumulators split anew; D 80 comes with
-# training the hybrid trunk)
+# head dims the kernels take, forward and backward (80 on tiles of 128,
+# zero columns past 80; 256 in two blocks a head, half of D each)
 _HEAD_DIMS = (64, 80, 128, 256)
-_BWD_HEAD_DIMS = (64, 128)
 _FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                  + [ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 12
@@ -71,7 +68,6 @@ def _lib() -> ctypes.CDLL:
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            causal: bool, window: int,
-           head_dims: Tuple[int, ...] = _HEAD_DIMS,
            q_pos: Optional[torch.Tensor] = None,
            k_pos: Optional[torch.Tensor] = None,
            **others: torch.Tensor) -> Tuple[int, int, int, int, int, int]:
@@ -97,10 +93,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          " or with positions")
     if hkv == 0 or hq % hkv:
         raise ValueError(f"Hq {hq} is no multiple of Hkv {hkv}")
-    if d not in head_dims:
-        later = (" (the backward at D 80 and D 256 comes with slice 10,"
-                 " ROADMAP queue 2)" if head_dims == _BWD_HEAD_DIMS else "")
-        raise ValueError(f"head_dim {d} not in {head_dims}{later}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {_HEAD_DIMS}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: one of"
                         " float32 or bfloat16")
@@ -173,10 +167,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradients (dq, dk, dv) of ``flash_attention_fwd``'s output
     against ``dout``, from the forward's inputs, output and ``lse`` (and
     its positions); in the inputs' dtype: dq of q's shape, dk/dv of k's.
-    D 64 or 128: D 80 and 256 raise."""
-    b, sq, skv, hq, hkv, d = _check(q, k, v, causal, window, _BWD_HEAD_DIMS,
-                                    q_pos=q_pos, k_pos=k_pos, out=out,
-                                    dout=dout)
+    D 64, 80, 128 or 256, as the forward."""
+    b, sq, skv, hq, hkv, d = _check(q, k, v, causal, window, q_pos=q_pos,
+                                    k_pos=k_pos, out=out, dout=dout)
     if lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, sq) \
             or not lse.is_contiguous() or lse.device != q.device:
         raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}: expected"

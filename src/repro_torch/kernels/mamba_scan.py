@@ -2,7 +2,10 @@
 CUDA kernel in ``csrc/mamba_scan.cu``.
 
 ``mamba_scan`` replaces ``repro/kernels/mamba_scan.py:49``, and takes a
-carried-in state ``h0``, which the TPU kernel did not.  The wrapper checks
+carried-in state ``h0``, which the TPU kernel did not.  ``mamba_scan_bwd``
+is the scan's gradient, which the TPU kernel never had (XLA
+differentiates the reference's associative scan): a second kernel and a
+fixed-order sum of its per-block partials, one call.  The wrapper checks
 device, dtypes, shapes and contiguity, plans the launch from the shape
 (``_plan``), allocates y and the final state, launches the kernel on
 PyTorch's current stream and counts the launch in ``LAUNCHES``.  It takes
@@ -21,12 +24,14 @@ import torch
 from repro_torch.kernels import build
 
 # launches since the last reset (the caller resets)
-LAUNCHES = {"mamba_scan": 0}
+LAUNCHES = {"mamba_scan": 0, "mamba_scan_bwd": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_STATE = 64            # the kernel's largest N (4 lanes x 16 states)
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
              + [ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 19
+                 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 # the kernel's constants (csrc/mamba_scan.cu): lanes a channel, threads a
 # block, and the steps a staged chunk holds (64 bytes of each column)
@@ -64,8 +69,15 @@ def chunk_ranges(p: Plan, s: int) -> List[Tuple[int, int]]:
     return [(t0, min(s, t0 + p.chunk)) for t0 in range(0, s, p.chunk)]
 
 
+def bwd_steps(kper: int) -> int:
+    """The steps of a backward chunk (``bwd_steps`` in the source): the
+    trajectory a thread keeps, ``kper`` floats a step."""
+    return 128 // kper
+
+
 def reset_launches() -> None:
-    LAUNCHES["mamba_scan"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -73,6 +85,8 @@ def _lib() -> ctypes.CDLL:
     if lib.mamba_scan.argtypes is None:
         lib.mamba_scan.argtypes = _ARGTYPES
         lib.mamba_scan.restype = ctypes.c_int
+        lib.mamba_scan_bwd.argtypes = _BWD_ARGTYPES
+        lib.mamba_scan_bwd.restype = ctypes.c_int
     return lib
 
 
@@ -138,3 +152,53 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, b_mat: torch.Tensor,
                            f" (B, S, D, N = {bsz}, {s}, {d}, {n})")
     LAUNCHES["mamba_scan"] += 1
     return y, h_final
+
+
+def mamba_scan_bwd(x: torch.Tensor, dt: torch.Tensor, b_mat: torch.Tensor,
+                   c_mat: torch.Tensor, a: torch.Tensor,
+                   h0: Optional[torch.Tensor], dy: torch.Tensor,
+                   dh_final: Optional[torch.Tensor]
+                   ) -> Tuple[torch.Tensor, ...]:
+    """The gradients of ``mamba_scan`` against ``dy`` (B, S, D) f32 and
+    ``dh_final`` (B, D, N) f32 or None (zeros), from the forward's inputs
+    (as ``mamba_scan`` takes them).  Returns (dx, ddt, dB, dC) in x's
+    dtype and (dA (D, N), dh0 (B, D, N)) in f32, within rounding of
+    ``ref.mamba_scan_bwd_ref``; the same bits on every run."""
+    bsz, s, d, n = _check(x, dt, b_mat, c_mat, a, h0)
+    dev = x.device
+    for name, t, want in (("dy", dy, (bsz, s, d)),
+                          ("dh_final", dh_final, (bsz, d, n))):
+        if t is None:
+            continue
+        if tuple(t.shape) != want or t.dtype != torch.float32 \
+                or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} on"
+                             f" {t.device}: expected contiguous float32"
+                             f" {want} on {dev}")
+    p = _plan(bsz, s, d, n, x.element_size())
+    nblk, tb = p.grid[0], bwd_steps(p.kper)
+    lanes = THREADS * p.kper
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    hs = f32(bsz, nblk, _cdiv(s, tb), lanes)
+    traj = f32(bsz, nblk, tb, lanes)
+    pdb, pdc = f32(bsz, nblk, s, n), f32(bsz, nblk, s, n)
+    pda = f32(bsz, d, n)
+    dx, ddt = torch.empty_like(x), torch.empty_like(x)
+    db, dc = torch.empty_like(b_mat), torch.empty_like(c_mat)
+    da, dh0 = f32(d, n), f32(bsz, d, n)
+    rc = _lib().mamba_scan_bwd(
+        _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), b_mat.data_ptr(),
+        c_mat.data_ptr(), a.data_ptr(), None if h0 is None else h0.data_ptr(),
+        dy.data_ptr(), None if dh_final is None else dh_final.data_ptr(),
+        hs.data_ptr(), traj.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+        pdb.data_ptr(), pdc.data_ptr(), pda.data_ptr(), db.data_ptr(),
+        dc.data_ptr(), da.data_ptr(), dh0.data_ptr(), bsz, s, d, n, p.kper,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"mamba_scan_bwd kernel launch failed: CUDA error"
+                           f" {rc} (B, S, D, N = {bsz}, {s}, {d}, {n})")
+    LAUNCHES["mamba_scan_bwd"] += 1
+    return dx, ddt, db, dc, da, dh0

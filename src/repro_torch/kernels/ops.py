@@ -292,7 +292,9 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, b_mat: torch.Tensor,
     """Selective scan: x/dt (B, S, D) and b_mat/c_mat (B, S, N) in the
     activation dtype, a (D, N) f32, h0 (B, D, N) f32 or None (zeros) ->
     (y (B, S, D) f32, h_final (B, D, N) f32).  ``dt == 0`` steps leave the
-    state exactly as it was."""
+    state exactly as it was.  Differentiable in every input: the backward
+    is ``repro_torch::mamba_scan_bwd`` (the kernel on the card, the plain
+    reverse sweep on the CPU); the forward stays one node."""
     return _mamba_scan(x, dt, b_mat, c_mat, a, h0)
 
 
@@ -313,5 +315,53 @@ def _mamba_scan_cuda(x, dt, b_mat, c_mat, a, h0):
 @_mamba_scan.register_fake
 def _mamba_scan_fake(x, dt, b_mat, c_mat, a, h0):
     bsz, s, d = x.shape
-    return (x.new_empty((bsz, s, d), dtype=torch.float32),
-            x.new_empty((bsz, d, b_mat.shape[-1]), dtype=torch.float32))
+    wide = torch.promote_types(x.dtype, torch.float32)
+    return (x.new_empty((bsz, s, d), dtype=wide),
+            x.new_empty((bsz, d, b_mat.shape[-1]), dtype=wide))
+
+
+@custom_op("repro_torch::mamba_scan_bwd", mutates_args=(), device_types="cpu",
+           schema="(Tensor x, Tensor dt, Tensor b_mat, Tensor c_mat,"
+                  " Tensor a, Tensor? h0, Tensor dy, Tensor? dh_final) ->"
+                  " (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)")
+def _mamba_scan_bwd(x, dt, b_mat, c_mat, a, h0, dy, dh_final):
+    return ref.mamba_scan_bwd_ref(x, dt, b_mat, c_mat, a, h0, dy, dh_final)
+
+
+@_mamba_scan_bwd.register_kernel("cuda")
+def _mamba_scan_bwd_cuda(x, dt, b_mat, c_mat, a, h0, dy, dh_final):
+    return ms.mamba_scan_bwd(
+        x.contiguous(), dt.contiguous(), b_mat.contiguous(),
+        c_mat.contiguous(), a.float().contiguous(),
+        None if h0 is None else h0.contiguous(), dy.float().contiguous(),
+        None if dh_final is None else dh_final.float().contiguous())
+
+
+@_mamba_scan_bwd.register_fake
+def _mamba_scan_bwd_fake(x, dt, b_mat, c_mat, a, h0, dy, dh_final):
+    bsz, _, d = x.shape
+    wide = torch.promote_types(x.dtype, torch.float32)
+    return (torch.empty_like(x), torch.empty_like(x), torch.empty_like(b_mat),
+            torch.empty_like(c_mat), a.new_empty(a.shape, dtype=wide),
+            x.new_empty((bsz, d, b_mat.shape[-1]), dtype=wide))
+
+
+def _mamba_scan_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _mamba_scan_backward(ctx, dy, dh_final):
+    """A gradient nobody asks for (h_final in training, y of a state
+    hand-off) comes as None or zeros: None is taken as zeros."""
+    x, dt, b_mat, c_mat, a, h0 = ctx.saved_tensors
+    if dy is None:
+        dy = x.new_zeros(x.shape,
+                         dtype=torch.promote_types(x.dtype, torch.float32))
+    dx, ddt, db, dc, da, dh0 = _mamba_scan_bwd(x, dt, b_mat, c_mat, a, h0,
+                                               dy, dh_final)
+    return (dx, ddt, db, dc, da.to(a.dtype),
+            None if h0 is None else dh0.to(h0.dtype))
+
+
+_mamba_scan.register_autograd(_mamba_scan_backward,
+                              setup_context=_mamba_scan_setup)

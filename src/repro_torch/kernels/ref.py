@@ -327,6 +327,11 @@ def mel_frontend_ref(frames: torch.Tensor, window: torch.Tensor,
 # ---------------------------------------------------------------------------
 # selective scan (mamba1-style diagonal SSM)
 # ---------------------------------------------------------------------------
+def _widen(t: torch.Tensor) -> torch.Tensor:
+    """f32 for bf16 and f32, f64 left as it is."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def mamba_scan_ref(x: torch.Tensor, dt: torch.Tensor, b_mat: torch.Tensor,
                    c_mat: torch.Tensor, a: torch.Tensor,
                    h0: Optional[torch.Tensor] = None
@@ -339,16 +344,66 @@ def mamba_scan_ref(x: torch.Tensor, dt: torch.Tensor, b_mat: torch.Tensor,
         y[t] = sum_n h[t, :, n] * c[t, n]
 
     Returns (y (B, S, D) f32, h_final (B, D, N) f32).  ``dt == 0`` leaves
-    the state exactly as it was (``exp(0) == 1``, input term 0)."""
+    the state exactly as it was (``exp(0) == 1``, input term 0).  Float64
+    inputs stay float64 (``gradcheck``)."""
     bsz, s, d = x.shape
     n = b_mat.shape[-1]
-    xf, dtf, bf, cf = (t.float() for t in (x, dt, b_mat, c_mat))
-    af = a.float()
-    h = (torch.zeros((bsz, d, n), dtype=torch.float32, device=x.device)
-         if h0 is None else h0.float())
+    xf, dtf, bf, cf, af = (_widen(t) for t in (x, dt, b_mat, c_mat, a))
+    h = (torch.zeros((bsz, d, n), dtype=xf.dtype, device=x.device)
+         if h0 is None else _widen(h0))
     ys = []
     for t in range(s):
         decay = torch.exp(dtf[:, t, :, None] * af)
         h = decay * h + (dtf[:, t] * xf[:, t])[:, :, None] * bf[:, t, None, :]
         ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]))
     return torch.stack(ys, dim=1), h
+
+
+def mamba_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor,
+                       b_mat: torch.Tensor, c_mat: torch.Tensor,
+                       a: torch.Tensor, h0: Optional[torch.Tensor],
+                       dy: torch.Tensor, dh_final: Optional[torch.Tensor]
+                       ) -> Tuple[torch.Tensor, ...]:
+    """The gradients of ``mamba_scan_ref`` against ``dy`` (B, S, D) f32
+    and ``dh_final`` (B, D, N) f32 (zeros when None), as an explicit
+    reverse sweep over t.  With decay[t] = exp(dt[t] a) and g the
+    gradient of h[t], carried from g = dh_final at t = S:
+
+        g[t]   = decay[t+1] g[t+1] + dy[t] ⊗ C[t]
+        dC[t]  = sum_d dy[t] h[t]
+        dB[t]  = sum_d g[t] (dt[t] x[t])
+        dx[t]  = dt[t] sum_n g[t] B[t]
+        ddt[t] = x[t] sum_n g[t] B[t] + sum_n g[t] h[t-1] decay[t] a
+        dA     = sum_{b,t} g[t] h[t-1] decay[t] dt[t]
+        dh0    = decay[0] g[0]
+
+    h[t-1] comes from the forward recurrence, run first; nothing divides
+    by a decay (exp(dt a) underflows to 0).  Returns (dx, ddt, dB, dC) in
+    x's dtype and (dA (D, N), dh0 (B, D, N)) in f32 (f64 for f64 inputs)."""
+    bsz, s, d = x.shape
+    n = b_mat.shape[-1]
+    xf, dtf, bf, cf, af, dyf = (_widen(t)
+                                for t in (x, dt, b_mat, c_mat, a, dy))
+    h = (torch.zeros((bsz, d, n), dtype=xf.dtype, device=x.device)
+         if h0 is None else _widen(h0))
+    hs = [h]                                   # hs[t] = h[t-1]
+    for t in range(s):
+        h = torch.exp(dtf[:, t, :, None] * af) * h \
+            + (dtf[:, t] * xf[:, t])[:, :, None] * bf[:, t, None, :]
+        hs.append(h)
+    g = torch.zeros_like(h) if dh_final is None else _widen(dh_final)
+    dx, ddt, db, dc = (torch.empty_like(t) for t in (xf, xf, bf, bf))
+    da = torch.zeros_like(af)
+    for t in reversed(range(s)):
+        dec = torch.exp(dtf[:, t, :, None] * af)
+        g = g + dyf[:, t, :, None] * cf[:, t, None, :]
+        dc[:, t] = torch.einsum("bdn,bd->bn", hs[t + 1], dyf[:, t])
+        db[:, t] = torch.einsum("bdn,bd->bn", g, dtf[:, t] * xf[:, t])
+        gb = (g * bf[:, t, None, :]).sum(-1)
+        gh = g * hs[t] * dec
+        dx[:, t] = dtf[:, t] * gb
+        ddt[:, t] = xf[:, t] * gb + (gh * af).sum(-1)
+        da += (gh * dtf[:, t, :, None]).sum(0)
+        g = dec * g
+    return (dx.to(x.dtype), ddt.to(x.dtype), db.to(x.dtype), dc.to(x.dtype),
+            da, g)

@@ -23,7 +23,7 @@ import torch
 from repro_torch import configs, resolve_device
 from repro_torch.data.synthetic import lm_batches, token_stream
 from repro_torch.models.params import init_params
-from repro_torch.models.transformer import forward_train
+from repro_torch.models.transformer import REMAT_POLICIES, forward_train
 from repro_torch.train.compression import init_residual
 from repro_torch.train.optimizer import AdamWConfig, adamw_init
 from repro_torch.train.train_step import make_train_step
@@ -82,7 +82,7 @@ def main() -> None:
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--micro", type=int, default=1)
     ap.add_argument("--lr", type=float, default=3e-4)
-    ap.add_argument("--remat", default="none")
+    ap.add_argument("--remat", default="none", choices=REMAT_POLICIES)
     ap.add_argument("--grad-compression", default=None)
     ap.add_argument("--ckpt-dir", default="checkpoints/train")
     ap.add_argument("--ckpt-every", type=int, default=50)

@@ -16,8 +16,13 @@ mamba2: one scalar decay a head, so a chunk's recurrence is the SSD
 "matmulization": dense (L x L) products inside each chunk and a short
 scan over chunk summary states.  The JAX package writes it as einsums
 outside any Pallas kernel; here it is the same einsums in PyTorch
-(``mamba2_layer``), and the one-token step is the recurrence itself
-(``mamba2_decode``).
+(``mamba2_layer``, which trains by autograd through them), and the
+one-token step is the recurrence itself (``mamba2_decode``).
+
+Training: ``mamba1_layer`` is differentiable through the scan's custom
+operator (its backward is the ``mamba_scan_bwd`` kernel on the card), and
+nothing on either layer's path writes in place into a tensor autograd
+keeps.
 
 Each layer returns its final recurrent state (``SSMState``), so that
 chunked prefill hands off to decode steps.
@@ -223,8 +228,11 @@ def mamba2_layer(p: dict, x: torch.Tensor, cfg: ArchConfig,
     rel = l_cum[:, :, :, None, :] - l_cum[:, :, None, :, :]    # (B,n,L,L,nh)
     tril = torch.ones(size, size, dtype=torch.bool,
                       device=x.device).tril()
-    decay = torch.where(tril[None, None, :, :, None], torch.exp(rel),
-                        rel.new_zeros(()))
+    # exp of -inf above the diagonal: the same zeros as the reference's
+    # where() after the exp, and a zero gradient there where exp(rel)
+    # could overflow (0 x inf)
+    decay = torch.exp(torch.where(tril[None, None, :, :, None], rel,
+                                  rel.new_full((), float("-inf"))))
     att = g[..., None] * decay * dt_c[:, :, None, :, :]
     y_diag = torch.einsum("bnlsh,bnshp->bnlhp", att, xh)
     # the chunks' summary states and the scan over them; the chunk's

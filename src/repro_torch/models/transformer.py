@@ -2,19 +2,19 @@
 of the uniform dense trunk, the uniform MoE trunk (each block's SwiGLU
 replaced by routed experts, ``models/moe.py``) and the local:global
 (sliding-window) trunk,
-and the serving and prefill entry points of the uniform mamba1 trunk and
-of the hybrid trunk (zamba2: groups of mamba2 blocks, each closed by one
-shared attention block).
+and the uniform mamba1 trunk and the hybrid trunk (zamba2: groups of
+mamba2 blocks, each closed by one shared attention block).
 
 The PyTorch counterpart of ``repro.models.transformer`` on the port's
 paths: ``forward_prefill_chunk`` (one prompt chunk against a live slot
 cache), ``forward_decode`` (one token per slot), ``forward_prefill`` (a
 whole prompt in one pass, building the decode cache; ``grow_cache`` makes
 room to decode into it) and ``forward_train`` (the whole sequence and the
-LM loss, differentiable; attention trunks only).  Depth is a Python loop
-over per-layer views of the stacked ``(L, ...)`` weights (the local
-layers' ``(groups, ratio, ...)``), where the JAX package scans; remat
-wraps each block in ``torch.utils.checkpoint``.
+LM loss, differentiable on every trunk).  Depth is a Python loop over
+per-layer views of the stacked ``(L, ...)`` weights (the local layers'
+``(groups, ratio, ...)``), where the JAX package scans; remat wraps each
+block (each mamba block, and the hybrid trunk's shared block at each of
+its applications) in ``torch.utils.checkpoint``.
 
 The dense (and MoE) cache is the dict ``{"k", "v": (L, B, S, Hkv, D),
 "full_pos": (B, S) int32}`` of ``serve/kvcache.py``, or its paged form
@@ -45,7 +45,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.arch import ArchConfig
 from repro_torch.core.quantize import Int8KV, PrecisionPolicy, maybe_quant_kv
@@ -61,25 +62,45 @@ from repro_torch.models.ssm import (SSMState, mamba1_decode, mamba1_layer,
 
 Cache = Dict[str, object]
 
-# remat policies of the JAX package (``transformer.py:59``); "dots" and
-# "dots_no_batch" save the matmul outputs and come with a later slice
+# remat policies of the JAX package (``transformer.py:59``)
 REMAT_POLICIES = ("none", "full", "dots", "dots_no_batch")
+_aten = torch.ops.aten
+# the products whose outputs "dots_no_batch" (the JAX package's
+# ``checkpoint_dots_with_no_batch_dims``) keeps: the 2-D ones, every
+# projection; "dots" (``checkpoint_dots``) keeps the batched ones too (the
+# MoE expert banks, the SSD einsums)
+_SAVED_PRODUCTS = {
+    "dots_no_batch": frozenset((_aten.mm.default, _aten.addmm.default)),
+    "dots": frozenset((_aten.mm.default, _aten.addmm.default,
+                       _aten.bmm.default, _aten.baddbmm.default))}
+
+
+def _saving(products: frozenset) -> Callable:
+    """A selective-checkpoint context that keeps the outputs of
+    ``products`` and recomputes everything else."""
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in products
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
 def _maybe_remat(fn: Callable, policy: Optional[str]) -> Callable:
-    """``fn`` as it is (``None``/"none"), or recomputed in the backward
-    from its inputs alone ("full", the JAX package's ``nothing_saveable``):
-    ``torch.utils.checkpoint`` without re-entry, so every kernel of the
-    block, attention included, runs again in the backward."""
+    """``fn`` as it is (``None``/"none"), or under ``torch.utils.checkpoint``
+    without re-entry: "full" (the JAX package's ``nothing_saveable``)
+    recomputes the whole block in the backward from its inputs; "dots" and
+    "dots_no_batch" keep the outputs of ``_SAVED_PRODUCTS`` and recompute
+    the rest.  The attention kernel (``FlashAttention``, a launch inside an
+    ``autograd.Function``) holds no score matrix to keep, so it runs again
+    under every policy, as under "full"."""
     if policy is None or policy == "none":
         return fn
     if policy == "full":
         return functools.partial(checkpoint, fn, use_reentrant=False,
                                  preserve_rng_state=False)
-    if policy in REMAT_POLICIES:
-        raise NotImplementedError(
-            f"remat policy {policy!r} (save the matmul outputs) is not ported"
-            " yet; it comes with slice 10 (ROADMAP queue 1)")
+    if policy in _SAVED_PRODUCTS:
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 preserve_rng_state=False,
+                                 context_fn=_saving(_SAVED_PRODUCTS[policy]))
     raise ValueError(f"unknown remat policy {policy!r}")
 
 
@@ -330,28 +351,16 @@ def trunk_forward(cfg: ArchConfig, params, x, positions, *,
     their temporal stream, where given, else by index.  Returns (x, caches): with
     ``collect_cache``, each layer's roped K/V (stacked as the decode
     cache's leaves) or, for the mamba1 trunk, its final ``SSMState``;
-    else None.
-
-    The mamba1 and hybrid trunks run only without autograd (one-shot
-    prefill): training the mamba1 trunk needs the scan's gradient, the
-    hybrid trunk the SSD layer's and ``flash_attention``'s backward at
-    D 80."""
+    else None."""
     kind = _pattern(cfg)
-    if kind in ("uniform_ssm", "hybrid") and torch.is_grad_enabled():
-        what = ("the mamba1 trunk needs the scan's gradient"
-                if kind == "uniform_ssm" else "the hybrid trunk needs the"
-                " SSD layer's gradient and flash_attention's backward at"
-                f" D {cfg.resolved_head_dim}")
-        raise NotImplementedError(
-            f"{cfg.name}: training {what}, which is not ported yet; it"
-            " comes with slice 10 (ROADMAP queue 1)")
     if kind == "hybrid":
         return _hybrid_forward(cfg, params, x, positions, collect_cache,
-                               policy, mask_pos)
+                               policy, mask_pos, remat)
     if kind == "uniform_ssm":
+        body = _maybe_remat(functools.partial(mamba_block, cfg), remat)
         states = []
         for p in params["blocks"].unstack():
-            x, st = mamba_block(cfg, p, x)
+            x, st = body(p, x)
             states.append(st)
         caches = {"ssm": _stack_states(states, (len(states),))}
         return rms_norm(params["final_norm"], x, cfg.norm_eps), \
@@ -387,20 +396,24 @@ def _stack_states(states, lead) -> SSMState:
 
 
 def _hybrid_forward(cfg: ArchConfig, params, x, positions, collect_cache,
-                    policy, mask_pos=None):
+                    policy, mask_pos=None, remat: str = "none"):
     """The hybrid trunk over a whole sequence: each group's mamba2 blocks,
-    then the shared attention block.  The caches, with
-    ``collect_cache``: the final states stacked (n_groups, group, ...)
-    and each application's roped K/V as ``attn_k``/``attn_v``."""
+    then the shared attention block, each block (the shared one at each of
+    its applications) rematerialized under ``remat``, as the reference's.
+    The caches, with ``collect_cache``: the final states stacked
+    (n_groups, group, ...) and each application's roped K/V as
+    ``attn_k``/``attn_v``."""
     shared = params["shared_attn"]
+    mamba = _maybe_remat(functools.partial(mamba_block, cfg), remat)
+    attend = _maybe_remat(functools.partial(
+        dense_block, cfg, policy=policy, mask_pos=mask_pos), remat)
     states, ks, vs = [], [], []
     groups = params["groups"].unstack(2)
     for group in groups:
         for p in group:
-            x, st = mamba_block(cfg, p, x)
+            x, st = mamba(p, x)
             states.append(st)
-        x, (k, v) = dense_block(cfg, shared, x, positions, policy=policy,
-                                mask_pos=mask_pos)
+        x, (k, v) = attend(shared, x, positions)
         ks.append(k)
         vs.append(v)
     caches = None

@@ -4,8 +4,8 @@ kernels (``flash_decode``, ``flash_chunk_prefill``) at head dim 256
 (gemma3: G 2), on a contiguous cache, a paged pool and the ring layout
 ``[ring ∥ chunk]`` whose positions are out of index order, float and
 int8; the serving kernels at G 3 and G 4 (llama3.2, granite: D 128); and
-``flash_attention``'s forward at D 256, causal, windowed and full, whose
-backward refuses D 256.  Skipped without a GPU (marker ``cuda``); run
+``flash_attention``'s forward at D 256, causal, windowed and full, and
+its backward.  Skipped without a GPU (marker ``cuda``); run
 there with
 
     python -m pytest -q -m cuda tests/test_torch_d256_cuda.py
@@ -278,12 +278,25 @@ def test_flash_attention_forward_at_d256(cuda_device, dtype, case):
 
 
 @pytest.mark.cuda
-def test_flash_attention_backward_refuses_d256(cuda_device):
-    """The backward keeps refusing D 256 (its dK/dV pass already holds 255
-    registers at D 128): the wrapper's own error, never a plain path."""
-    q, k, v = (torch.zeros(1, 8, 2, 256, dtype=torch.bfloat16,
-                           device=cuda_device, requires_grad=True)
-               for _ in range(3))
-    out = tops.flash_attention(q, k, v)
-    with pytest.raises(ValueError, match="head_dim 256"):
-        out.sum().backward()
+def test_flash_attention_backward_d256(cuda_device):
+    """The backward at D 256 (once refused, named one for one): gemma3's
+    8/4 heads, bf16, causal and with its window, two blocks a head each
+    with half of the columns, against the plain backward within the
+    output's rounding plus 2^-10 of each gradient's median."""
+    rng = np.random.RandomState(37)
+    for window in (0, 96):
+        q, do = (torch.from_numpy(rng.randn(1, 300, 8, 256)
+                                  .astype(np.float32))
+                 .to(cuda_device, torch.bfloat16) for _ in range(2))
+        k, v = (torch.from_numpy(rng.randn(1, 300, 4, 256)
+                                 .astype(np.float32))
+                .to(cuda_device, torch.bfloat16) for _ in range(2))
+        out, lse = tfa.flash_attention_fwd(q, k, v, window=window)
+        grads = tfa.flash_attention_bwd(q, k, v, out, lse, do, window=window)
+        want = tref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                            out.float(), do.float(), True,
+                                            window)
+        for g, w in zip(grads, want):
+            assert g.shape[-1] == 256 and bool(g.isfinite().all())
+            lim = 2.0 ** -8 * w.abs() + 2.0 ** -10 * w.abs().median()
+            assert bool(((g.float() - w).abs() <= lim).all())

@@ -3,7 +3,7 @@ heads on 32 KV heads, G 1), against their plain PyTorch versions, on the
 card: the serving kernels (``flash_decode``, ``flash_chunk_prefill``) on a
 contiguous cache and on a paged pool whose unmapped blocks are poisoned,
 float and int8 K/V, and ``flash_attention``'s forward, causal, windowed
-and full, whose backward refuses D 80.  The kernels compute on tiles of
+and full, and its backward at D 80.  The kernels compute on tiles of
 128 columns and read the cache's 80; the softmax scale is 1/sqrt(80).
 Skipped without a GPU (marker ``cuda``); run there with
 
@@ -244,12 +244,20 @@ def test_flash_attention_forward_at_d80(cuda_device, dtype, case):
 
 
 @pytest.mark.cuda
-def test_flash_attention_backward_refuses_d80(cuda_device):
-    """The backward refuses D 80 and names the slice that brings it: the
-    wrapper's own error, never a plain path."""
-    q, k, v = (torch.zeros(1, 8, 2, D, dtype=torch.bfloat16,
-                           device=cuda_device, requires_grad=True)
-               for _ in range(3))
-    out = tops.flash_attention(q, k, v)
-    with pytest.raises(ValueError, match="slice 10"):
-        out.sum().backward()
+def test_flash_attention_backward_d80(cuda_device):
+    """The backward at D 80 (once refused, named one for one): zamba2's
+    32/32 heads, bf16, causal, against the plain backward within the
+    output's rounding plus 2^-10 of each gradient's median (the plain
+    backward at the scale 1/sqrt(80))."""
+    rng = np.random.RandomState(31)
+    q, k, v, do = _to(cuda_device, torch.bfloat16,
+                      *(rng.randn(1, 256, 32, D).astype(np.float32)
+                        for _ in range(4)))
+    out, lse = tfa.flash_attention_fwd(q, k, v)
+    grads = tfa.flash_attention_bwd(q, k, v, out, lse, do)
+    want = tref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                        out.float(), do.float())
+    for g, w in zip(grads, want):
+        assert g.shape[-1] == D and bool(g.isfinite().all())
+        lim = 2.0 ** -8 * w.abs() + 2.0 ** -10 * w.abs().median()
+        assert bool(((g.float() - w).abs() <= lim).all())

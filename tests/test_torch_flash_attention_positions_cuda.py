@@ -229,21 +229,32 @@ def test_keys_of_another_length_by_position(cuda_device, dtype):
 @pytest.mark.parametrize("d", [80, 256])
 def test_forward_by_position_d80_d256(cuda_device, d):
     """The forward at zamba2's and gemma3's head dims takes positions
-    (image ties with pads, bf16 and f32); the backward still refuses the
-    head dim."""
+    (image ties with pads, bf16 and f32), and so does the backward (once
+    refused there): each gradient against the plain backward by position,
+    f32 within 2^-16 of its largest magnitude, bf16 within its rounding
+    plus 2^-10 of its median (``chip_smoke.py``'s ``FA_WIDE_GRAD_ATOL``)."""
     for dt in (torch.bfloat16, torch.float32):
         rng = np.random.RandomState(d)
-        q, k, v = _rand(cuda_device, dt, rng, (2, 257, 4, d),
-                        (2, 257, 2, d), (2, 257, 2, d))
+        q, k, v, do = _rand(cuda_device, dt, rng, (2, 257, 4, d),
+                            (2, 257, 2, d), (2, 257, 2, d), (2, 257, 4, d))
         pos = _positions("image_pads", 2, 257, cuda_device)
-        out, lse = tfa.flash_attention_fwd(q, k, v, causal=True, window=64,
-                                           q_pos=pos, k_pos=pos)
+        kw = dict(causal=True, window=64, q_pos=pos, k_pos=pos)
+        out, lse = tfa.flash_attention_fwd(q, k, v, **kw)
         want = tref.flash_attention_ref(q.float(), k.float(), v.float(),
                                         True, 64, pos, pos)
         assert bool(out.isfinite().all())
         assert _within(out, want, *OUT_TOL[dt]) <= 1
-    with pytest.raises(ValueError, match=f"head_dim {d}"):
-        tfa.flash_attention_bwd(q, k, v, out, lse, out, q_pos=pos, k_pos=pos)
+        grads = tfa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        wants = tref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                             out.float(), do.float(), True,
+                                             64, pos, pos)
+        for g, w in zip(grads, wants):
+            assert bool(g.isfinite().all())
+            if dt == torch.float32:
+                lim = 2.0 ** -16 * w.abs().max()
+            else:
+                lim = 2.0 ** -8 * w.abs() + 2.0 ** -10 * w.abs().median()
+            assert bool(((g.float() - w).abs() <= lim).all())
 
 
 @pytest.mark.cuda

@@ -11,8 +11,8 @@ and 16 and ``forward_decode`` within ``ATOL`` (float32 sums in another
 order); and the smoke config in float32 served through the continuous,
 static and paged engines, float, int8 and int8 with calibrated
 activations on the shared block, and from the deployment artifact,
-token-exact against the JAX engines.  Training under autograd
-raises and names slice 10.
+token-exact against the JAX engines.  Training: ``forward_train``'s
+loss and gradients against ``jax.value_and_grad`` of the reference's.
 """
 import dataclasses
 import sys
@@ -35,6 +35,7 @@ from repro.serve.server import PagedBatchServer as JaxPaged
 from repro.serve.server import StaticBatchServer as JaxStatic
 from repro_torch import configs as tconfigs
 from repro_torch.core import quantize as tq
+from repro_torch.core.tree import leaves
 from repro_torch.launch import serve as tlaunch
 from repro_torch.models import api as tapi
 from repro_torch.models import params as tparams
@@ -279,18 +280,32 @@ def test_prefill_grow_decode_equals_chunked(setup):
     assert out == req.tokens
 
 
-def test_training_raises_slice_10(setup):
-    """Under autograd the hybrid trunk raises and names slice 10 (the SSD
-    layer's gradient, ``flash_attention``'s backward at D 80); without it
+def test_training_runs_and_matches_jax(setup):
+    """Under autograd the hybrid trunk trains (the SSD layer by autograd,
+    the shared block through the attention's backward): loss (atol 1e-5)
+    and every gradient (rtol 1e-4, atol 1e-6) against ``jax.value_and_grad``
+    of the reference's ``forward_train``, remat "full"; without autograd
     the same forward runs (one-shot prefill)."""
-    _, tcfg, _, _ = setup
-    tp = tparams.init_params(tcfg, torch.Generator().manual_seed(0), "cpu",
-                             trainable=True)
-    tok = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        ttr.forward_train(tcfg, tp, {"tokens": tok, "labels": tok})
+    jcfg, tcfg, jp, _ = setup
+    tok = np.random.RandomState(3).randint(0, tcfg.vocab_size, (1, 8)) \
+        .astype(np.int32)
+    jb = {"tokens": jnp.asarray(tok), "labels": jnp.asarray(tok)}
+    (jloss, _), jgrads = jax.value_and_grad(
+        lambda p: jtr.forward_train(jcfg, p, jb, remat="full"),
+        has_aux=True)(jp)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu",
+                           trainable=True)
+    tt = torch.from_numpy(tok)
+    loss, _ = ttr.forward_train(tcfg, tp, {"tokens": tt, "labels": tt})
+    grads = torch.autograd.grad(loss, leaves(tp.tree()))
+    np.testing.assert_allclose(loss.item(), float(jloss), atol=1e-5)
+    want = leaves(jax.tree.map(np.asarray, jgrads))
+    assert len(grads) == len(want)
+    for a, b in zip(grads, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
+                                   atol=1e-6)
     with torch.no_grad():
-        x, _ = ttr.trunk_forward(tcfg, tp, ttr.embed_tokens(tp, tok, tcfg),
+        x, _ = ttr.trunk_forward(tcfg, tp, ttr.embed_tokens(tp, tt, tcfg),
                                  ttr.default_positions(1, 8))
     assert x.shape == (1, 8, tcfg.d_model)
 

@@ -23,7 +23,8 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
-EXAMPLES = ("torch_quickstart.py", "torch_eon_tuner_kws.py")
+EXAMPLES = ("torch_quickstart.py", "torch_eon_tuner_kws.py",
+            "torch_train_lm.py")
 
 
 def _port_files():
@@ -57,13 +58,20 @@ def test_port_imports_neither_jax_nor_repro():
     assert not bad, "port modules import the JAX side:\n" + "\n".join(bad)
 
 
-@pytest.mark.parametrize("name,expect", [
-    ("torch_quickstart.py", "deploy artifact: "),
-    ("torch_eon_tuner_kws.py", "pass the nano33ble RAM/flash/latency")])
-def test_examples_run_on_the_cpu(name, expect):
+@pytest.mark.parametrize("name,expect,extra", [
+    ("torch_quickstart.py", "deploy artifact: ", ()),
+    ("torch_eon_tuner_kws.py", "pass the nano33ble RAM/flash/latency", ()),
+    # a few steps of a small LM, its files in the test's directory
+    ("torch_train_lm.py", '"final_loss"',
+     ("--steps", "3", "--d-model", "128", "--layers", "2", "--vocab", "512",
+      "--batch", "2", "--seq", "16", "--micro", "2"))])
+def test_examples_run_on_the_cpu(name, expect, extra, tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    if name == "torch_train_lm.py":
+        extra += ("--ckpt-dir", str(tmp_path / "ck"),
+                  "--out", str(tmp_path / "out.json"))
     proc = subprocess.run([sys.executable, str(ROOT / "examples" / name),
-                           "--device", "cpu"], cwd=ROOT, env=env,
+                           "--device", "cpu", *extra], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert expect in proc.stdout

@@ -181,8 +181,9 @@ def test_prefill_step_and_refusals():
     by position; once refused, named for that refusal): the default
     positions brought by the caller give the logits of none, embeddings
     of the tokens the logits of the tokens, shifted positions stamp the
-    cache; training the mamba1 trunk raises naming slice 10, while its
-    prefill runs (without autograd)."""
+    cache; the mamba1 trunk both trains (``forward_train`` under autograd
+    gives the reference's loss, and gradients reach its weights) and
+    prefills (without autograd)."""
     jcfg, tcfg, jp, tp = _setup("internlm2-1.8b")
     tok = torch.from_numpy(_tokens(tcfg.vocab_size, 2, 5))
     nxt, logits, cache = make_prefill_step(tcfg)(tp, {"tokens": tok})
@@ -201,10 +202,18 @@ def test_prefill_step_and_refusals():
         "positions": jnp.asarray(shifted.numpy())})
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
     _assert_cache_close(jcache, scache)
-    _, mcfg, _, mp = _setup("falcon-mamba-7b")
+    jmcfg, mcfg, jmp, mp = _setup("falcon-mamba-7b")
     mtok = torch.from_numpy(_tokens(mcfg.vocab_size, 1, 8))
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        ttr.forward_train(mcfg, mp, {"tokens": mtok, "labels": mtok})
+    jloss, _ = jtr.forward_train(jmcfg, jmp, {
+        "tokens": jnp.asarray(mtok.numpy()),
+        "labels": jnp.asarray(mtok.numpy())})
+    trainable = params_from_numpy(jax.tree.map(np.asarray, jmp),
+                                  device="cpu", trainable=True)
+    loss, _ = ttr.forward_train(mcfg, trainable, {"tokens": mtok,
+                                                  "labels": mtok})
+    np.testing.assert_allclose(loss.item(), float(jloss), atol=ATOL)
+    loss.backward()
+    assert float(trainable["blocks"]["mamba"]["a_log"].grad.abs().max()) > 0
     _, mcache = ttr.forward_prefill(mcfg, mp, {"tokens": mtok})
     assert tuple(mcache["ssm"].h.shape) == (mcfg.n_layers, 1, mcfg.d_inner,
                                             mcfg.ssm_state)
