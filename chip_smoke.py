@@ -7,7 +7,9 @@ Phases, each a hard failure (non-zero exit, no result line):
 
 1. Build the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
    one ``nvcc`` per source, all started together, and print the build time
-   and ptxas' register/shared-memory report.
+   and ptxas' register/shared-memory report; phase 17's dry-run matrix is
+   traced meanwhile.  Every phase's title goes to stderr too, after the
+   seconds since the script's imports.
 2. Hold each kernel against its plain PyTorch version on the card at the
    shapes of the path that runs it (serving internlm2-1.8b: Hkv 8, G 2,
    D 128; the KWS Impulse; training; serving falcon-mamba-7b):
@@ -93,7 +95,7 @@ Phases, each a hard failure (non-zero exit, no result line):
    ``int8_matmul`` rows stand the timing floor (a kernel that writes one
    float) and the kernel's time after a flush that leaves the L2 clean.
 3. Serve eight requests through ``ContinuousBatchServer`` at the full
-   width of internlm2-1.8b and 12 of its 24 layers (``SERVE_LAYERS``: a
+   width of internlm2-1.8b and 3 of its 24 layers (``SERVE_LAYERS``: a
    depth cut for the script's time, which phases 3, 4, 5 and their
    artifact runs share; d_model 2048, 16/8 heads, d_ff 8192, vocab 92544
    padded to 94208), bf16, random weights from a seeded
@@ -163,7 +165,10 @@ Phases, each a hard failure (non-zero exit, no result line):
    the CPU from the same weights: history within ``FIT_LOSS_RTOL``,
    logits within ``FIT_LOGIT_ATOL``, labels equal where the CPU's top-two
    gap clears it, weights within the Adam bound.
-7. Full-width training of internlm2-1.8b: f32 masters, bf16 activations,
+7. Full-width training of internlm2-1.8b at 12 of its 24 layers
+   (``TRAIN_LAYERS``: a depth cut for the script's time and for the bytes
+   its checkpoint writes; phase 17's train cell runs all 24): f32
+   masters, bf16 activations,
    ``make_train_step`` with remat "full" and AdamW (lr 3e-4) through
    ``Trainer`` for 8 steps of batch 4 x seq 2048 from the Markov token
    stream over its first 4,096 ids, checkpointing to a temporary
@@ -172,7 +177,8 @@ Phases, each a hard failure (non-zero exit, no result line):
    step's batch and a held-out batch from the stream's tail (never trained
    on), both scored by ``forward_train`` before the first step and after
    the last; each attention kernel's launches must equal what the path
-   implies (24 forward + 24 recomputed forward + 24 backward a step).
+   implies (a forward, a recomputed forward and a backward a layer and
+   step).
    Step ms (median of steps 3 to 8), tokens/s, MFU, peak device memory,
    then a profile (one step outside the timed range, the mean of two
    steps inside it): the attention kernels' share of the device time,
@@ -183,7 +189,7 @@ Phases, each a hard failure (non-zero exit, no result line):
    trained 3 steps on the card and on the CPU from the same weights must
    agree (``TRAIN_TOL``).
 8. Full-width mamba1 serving: falcon-mamba-7b (d_model 4096, d_inner
-   8192, state 16, dt_rank 256, vocab 65024 padded to 65536) at 16 of its
+   8192, state 16, dt_rank 256, vocab 65024 padded to 65536) at 8 of its
    64 layers (``MAMBA_LAYERS``: depth cut so that the script keeps within
    its time as phases 10 to 14 join it), bf16,
    random weights from a seeded generator on the card, through
@@ -217,7 +223,8 @@ kernels without a wrapper: the kernels a run executed are the wrappers'
 count in it plus the capture's count times the replays, and they must
 equal the eager run's launches, one replay a decode step (or call).
 10. One-shot prefill at full width (``make_prefill_step``): internlm2-1.8b
-   at B 4, S 512 and gemma3-4b at B 1, S 2,048 (past its window, so the
+   (``SERVE_LAYERS`` deep) at B 4, S 512 and gemma3-4b (``GEMMA_LAYERS``
+   deep; depth cut for the script's time) at B 1, S 2,048 (past its window, so the
    rings come from ``_ring_select``), each against the chunked path on
    the same prompts: the last-token logits within ``PREFILL_LOGIT_ATOL``,
    every cache entry within ``PREFILL_CACHE_ATOL``, the positions equal,
@@ -227,27 +234,27 @@ equal the eager run's launches, one replay a decode step (or call).
    ``PREFILL_GREEDY_EQUAL_MIN``.  The exact oracle: a float32 gemma3 of
    smoke widths with heads of 256 (13 layers, window 8) served and
    prefilled on the card gives the CPU's greedy tokens.
-11. gemma3-4b at full width and 22 of its 34 layers (``GEMMA_LAYERS``:
-   3 of its 5 groups of 5 windowed layers and a global one, and its tail
-   of 4 windowed layers; a depth cut for the script's time; d_model
+11. gemma3-4b at full width and 6 of its 34 layers (``GEMMA_LAYERS``:
+   1 of its 5 groups of 5 windowed layers and a global one; a depth cut
+   for the script's time; d_model
    2560, 8/4 heads of 256, window 1,024, vocab 262,144), bf16, seeded
    weights: four prompts of
    900 to 1,500 tokens (every ring wraps) with 32 new tokens, 4 slots,
    chunks of 64, max_prompt 1,536, through ``ContinuousBatchServer``
    (float) and ``PagedBatchServer`` (int8): every request returns 32
-   tokens, each kernel's launches equal 22 x the steps; the logits
+   tokens, each kernel's launches equal 6 x the steps; the logits
    against the plain path on copies of the cache as in phase 3 (two
    seeds, slots filled past the window), at ``GEMMA_LOGIT_ATOL`` and
    ``GEMMA_INT8_LOGIT_ATOL``.  Then granite-3-8b at full width (40 layers,
    G 4), float, phase 3's requests, with its launch counts.
-12. zamba2-2.7b at full width and 18 of its 54 layers (``ZAMBA_LAYERS``:
-   3 of its 9 groups of 6 mamba2 blocks, each closed by one shared
+12. zamba2-2.7b at full width and 6 of its 54 layers (``ZAMBA_LAYERS``:
+   1 of its 9 groups of 6 mamba2 blocks, each closed by one shared
    attention block of 32/32 heads of 80; a depth cut for the script's
    time; d_model 2560, 80 SSM heads of 64, state 64, vocab 32,000 padded
-   to 32,768; 906,728,160 parameters), bf16, seeded weights: phase 3's
+   to 32,768; 428,076,960 parameters), bf16, seeded weights: phase 3's
    eight requests through ``ContinuousBatchServer`` (float) and
    ``PagedBatchServer`` (int8), every request 32 tokens, each serving
-   kernel launched 3 times a step and ``int8_matmul`` 21 times a step
+   kernel launched once a step and ``int8_matmul`` 7 times a step
    (int8); the logits against the plain path on copies of the cache as
    in phase 3, at ``ZAMBA_LOGIT_ATOL`` and ``ZAMBA_INT8_LOGIT_ATOL``; a
    profile of its decode and chunk steps; one-shot prefill at B 1, S
@@ -265,9 +272,9 @@ equal the eager run's launches, one replay a decode step (or call).
    eager int8 logits within ``KWS_LOGIT_ATOL``.
 
 13. The MoE decoders at full width, bf16, seeded weights, depth cut to
-   fit the card (``MOE_LAYERS``): phi3.5-moe-42b-a6.6b at 24 of its 32
-   layers (d_model 4096, 32/8 heads of 128, 16 experts of d_ff 6400, top
-   2; 31,475,830,784 parameters, 58.6 GiB) serves phase 3's requests
+   fit the card and the script's time (``MOE_LAYERS``): phi3.5-moe-42b-a6.6b
+   at 6 of its 32 layers (d_model 4096, 32/8 heads of 128, 16 experts of
+   d_ff 6400, top 2; 8,070,287,360 parameters, 15.0 GiB) serves phase 3's requests
    through ``ContinuousBatchServer`` (float) and phase 5's shared-prefix
    requests through ``PagedBatchServer`` (int8, a pool of 16 blocks; the
    prefix cache must hit), each held to its launch counts (``int8_matmul``
@@ -291,9 +298,10 @@ equal the eager run's launches, one replay a decode step (or call).
    projections (K 4,096 and 6,144) and both training attention kernels at
    B 1, S 2,048, 32/8 and 48/8 heads.
 14. The encoder-decoder backbone: seamless-m4t-large-v2 at full width
-   and depth (24 encoder and 24 decoder layers, d_model 1024, 16/16 heads
-   of 64, d_ff 8192, vocab 256,206 padded to 258,048; 2,038,556,672
-   parameters), bf16, seeded weights.  Four rows, each an encoder pass
+   and 6 of its 24 encoder and 6 of its 24 decoder layers
+   (``SEAMLESS_LAYERS``: a depth cut for the script's time; d_model 1024,
+   16/16 heads of 64, d_ff 8192, vocab 256,206 padded to 258,048;
+   906,002,432 parameters), bf16, seeded weights.  Four rows, each an encoder pass
    over 512 frames (the stub frontend's embeddings from
    ``api.synthetic_inputs``) and a decoder prompt of 64 tokens: one-shot
    (``forward_prefill``, ``grow_cache`` by 64, 64 greedy decode steps) and
@@ -310,9 +318,9 @@ equal the eager run's launches, one replay a decode step (or call).
    one-shot prefill attends the unquantized K/V, the chunks the quantized
    cross entries, as in the reference).  The decode loop's tokens/s, the
    encoder pass's ms and one decode step's profile.  Then training at
-   full depth: f32 masters, AdamW, remat "full", 3 steps of B 2 x S 2,048
-   (S_enc 512): losses, step ms, peak memory, 144 forward and 72 backward
-   attention launches a step.  The exact oracle: the smoke config at
+   the same depth: f32 masters, AdamW, remat "full", 3 steps of B 2 x S
+   2,048 (S_enc 512): losses, step ms, peak memory, 36 forward and 18
+   backward attention launches a step.  The exact oracle: the smoke config at
    d_model 256 (head dim 64) in float32 on the card gives the CPU's
    greedy tokens, one-shot and chunked.  Phase 2 holds both training
    attention kernels with keys of another length (B 2, Sq 2,048 on Skv
@@ -322,7 +330,7 @@ equal the eager run's launches, one replay a decode step (or call).
    and ``int8_matmul`` at K 1,024 and 8,192 (M 4, 64 and 2,048).
 15. The VLM: qwen2-vl-72b at full width (d_model 8,192, 64/8 heads of
    128, d_ff 29,568, vocab 152,064 padded to 153,600, M-RoPE sections
-   (16, 24, 24)) and 16 of its 80 layers (``QWEN_LAYERS``: 33.1 GB of
+   (16, 24, 24)) and 8 of its 80 layers (``QWEN_LAYERS``: 19.1 GB of
    bf16 weights; depth cut for the card's memory and the script's time),
    seeded weights.  Two rows of 1,200 patch and text embeddings (the stub
    frontend's) at Qwen2-VL's three-stream positions (text, an image whose
@@ -357,21 +365,57 @@ equal the eager run's launches, one replay a decode step (or call).
    against the plain path's loss and gradients (``BREADTH_GRAD_RTOL``,
    ``BREADTH_LOSS_ATOL``).
 
-Phases 10 to 16 run before phase 9.  Each main path (phases 3, 5
+17. The dry run against the card (``launch/dryrun.py``, resource
+   estimation before touching the hardware).  The matrix, every arch of
+   ``ALIASES`` x ``SHAPES`` on the one-card mesh, is traced on the
+   ``meta`` device by ``repro_torch.launch.dryrun`` in three processes of
+   their own (no card: ``CUDA_VISIBLE_DEVICES`` empty; one a group of
+   shapes, ``DRYRUN_MATRIX_GROUPS``) while phase 1's
+   ``nvcc`` compiles; phase 1 waits for them, so that no timed phase has
+   them beside it, and phase 17 prints one line a cell (status, ``fits_hbm``,
+   bottleneck, ``roofline_fraction``, HBM GiB, trace seconds): no
+   ``error``, ``DRYRUN_MATRIX`` skipped and ok.  Then ``DRYRUN_CELLS``,
+   four cut cells that the card runs in seconds, each traced on ``meta``
+   and run on the card through the same entry point under the same
+   ``StepCounter``: internlm2-1.8b ``train_4k`` cut to one microbatch (B
+   2 x 4,096, remat "full", AdamW), its ``prefill_32k`` cut to B 1, its
+   ``decode_32k`` cut to B 8 on a full cache of 32,768 entries (random
+   K/V, every position valid), and falcon-mamba-7b's ``prefill_32k`` at B
+   1 at all 64 layers, in a process of its own (``chip_smoke.py
+   --dryrun-cell``) whose allocator grows its segments
+   (``DRYRUN_APART_ALLOC``: with the default allocator the cell runs the
+   card out of memory, even in a fresh process), f32 weights as the dry
+   run's: the counted FLOPs of the trace and of
+   the card run must be equal; the predicted ``per_device_hbm_bytes``
+   against ``torch.cuda.max_memory_allocated`` after a reset, less what
+   earlier phases still held, within ``DRYRUN_MEM_RTOL``; the step's ms (median of ``DRYRUN_REPS``
+   uncounted runs) beside the roofline's time and the measured fraction
+   of the H100's peak on the useful FLOPs; the kernels' launches of the
+   counted run, which must equal the counter's calls.  ``H100.hbm_bytes``
+   must equal the card's ``total_memory``.  ``PodConfigTuner`` on
+   internlm2-1.8b x ``train_4k`` (``DRYRUN_TUNER_SAMPLES``): the ranked
+   rows, the best fitting the card's memory.  Last the elastic cycle:
+   the trained weights saved, ``plan_rescale({"data": 1, "model": 1},
+   1)``, ``build_mesh`` and ``elastic_restore`` onto the card, bitwise
+   equal.
+
+Phases 10 to 17 run before phase 9.  Each main path (phases 3, 5
 paged and calibrated, 6 inference and fit, 7, 8, their artifact runs, 9,
-10, 11, 12, 13, 14, 15 and 16) runs with every launch count set to 0 just
-before it and read just after.  Prints the kernels' JSON line, the card's
-name and power limit, and last ``{"ok": true, "device": {...}}``.  Needs
-one GPU; exits non-zero without one, or without the rest of the
-repository beside it.
+10, 11, 12, 13, 14, 15, 16 and 17's card runs) runs with every launch
+count set to 0 just before it and read just after.  Prints the kernels'
+JSON line, the card's name and power limit, and last ``{"ok": true,
+"device": {...}}``.  Needs one GPU; exits non-zero without one, or
+without the rest of the repository beside it.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import copy
 import dataclasses
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -385,6 +429,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+T_START = time.perf_counter()              # after the imports
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
             torch.int8: 1979e12}
@@ -412,10 +457,11 @@ SOURCES = {"flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
            "mamba_scan_bwd": "src/repro_torch/kernels/csrc/mamba_scan.cu"}
 HKV, G, D = 8, 2, 128
 DEV = "cuda"
-# phases 3 to 5 (and their artifact runs) serve internlm2-1.8b at 12 of its
-# 24 layers: PR 20 cut their depth so that the script keeps within its
-# time as phase 14 joins it; phase 7 trains all 24
-SERVE_LAYERS = 12
+# phases 3 to 5 (and their artifact runs) serve internlm2-1.8b at 3 of its
+# 24 layers, and phase 7 trains it at 12: depth cut (from 12 and 24) so
+# that the script keeps within half its time; phase 7's checkpoint (f32
+# masters and AdamW's two moments, 12 bytes a parameter) halves with it
+SERVE_LAYERS, TRAIN_LAYERS = 3, 12
 # A bf16 output may differ from the f32 plain value by its own rounding,
 # at most 2^-8 of its size, plus the f32 summation-order slack (below 1e-6
 # in the f32 check); an f32 output by that slack alone.
@@ -543,11 +589,24 @@ MAMBA_LIBRARY = "none: no single PyTorch call computes a selective scan"
 # 96.1% of the rows there, so at least 90% is required.  64 bf16 layers
 # carry single-ulp differences of the scan's f32 output onward.
 MAMBA_LOGIT_ATOL = 1.0
-# phase 8's depth: 16 of falcon-mamba-7b's 64 layers (PR 17 cut it to 32
-# and PR 20 to 16, so that the script keeps within its time as phases 10
-# to 14 join it)
-MAMBA_LAYERS, MAMBA_PARAMS = 16, 2_221_871_104
+# phase 8's depth: 8 of falcon-mamba-7b's 64 layers (cut from 64 to 32,
+# 16 and then 8 as later phases joined, so that the script keeps within
+# half its time)
+MAMBA_LAYERS, MAMBA_PARAMS = 8, 1_379_373_056
 MAMBA_GREEDY_EQUAL_MIN = 0.9
+
+
+def stamp(label: str) -> None:
+    """``label`` on stderr after the seconds since the script's imports,
+    so that the end of stderr says how far a run got."""
+    print(f"[{time.perf_counter() - T_START:.1f} s] {label}",
+          file=sys.stderr, flush=True)
+
+
+def phase(title: str) -> None:
+    """Print a phase's title, and stamp it on stderr."""
+    print(title, flush=True)
+    stamp(title)
 
 
 def fail(msg: str) -> None:
@@ -767,6 +826,13 @@ def make_ring_case(gen, Int8KV, int8, b, c, w, fills, reals, dtype,
         + (qpos, pos, kvl, None)
 
 
+def work():
+    """The kernels' operation counts (``repro_torch/roofline/collect.py``),
+    which the dry run's counter uses too: one definition of each."""
+    from repro_torch.roofline import collect
+    return collect
+
+
 def layout_bound_ms(q, k, qpos, pos, kvl, table, window=0) -> tuple:
     """Least time for one call: each input read once (the live K/V rows and
     their int8 scales, their positions, the block-table entries, q and the
@@ -790,7 +856,7 @@ def layout_bound_ms(q, k, qpos, pos, kvl, table, window=0) -> tuple:
              & (idx[None, None, :] < kvl[:, None, None]))
     if window > 0:
         valid &= lpos[:, None, :] > qpos[:, :, None] - window
-    ops = 4 * d * int(valid.sum()) * hkv * g
+    ops = work().attention_flops(d, int(valid.sum()), hkv * g)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[q.dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -1153,7 +1219,8 @@ def check_int8_matmul(ops, ref, im, only=None):
         lib_ms = time_ms(lambda: torch._int_mm(xp, wt))
         nbytes = m * k + n * k + 4 * (m + n) + 4 * m * n
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = 2 * m * n * k / PEAK_OPS[torch.int8] * 1e3
+        t_ops = work().int8_matmul_ops(m, n, k) / PEAK_OPS[torch.int8] \
+            * 1e3
         bound = max(t_bytes, t_ops)
         rows[f"M{m}_K{k}_N{n}"] = {
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
@@ -1196,7 +1263,7 @@ def mel_bound_ms(frames, nbins: int, n_mels: int) -> tuple:
     n_frames = nb * nf
     nbytes = 4 * (nb * span + l + 2 * l * nbins + nbins * n_mels
                   + n_frames * n_mels)
-    ops = n_frames * (4 * l * nbins + 2 * nbins * n_mels)
+    ops = work().mel_frontend_flops(n_frames, l, nbins, n_mels)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / TF32_OPS * 1e3
     t_f32 = max(t_bytes, ops / PEAK_OPS[torch.float32] * 1e3)
@@ -1314,10 +1381,7 @@ def check_mel_frontend(port, clips):
 
 def fa_pairs(s: int, causal: bool, window: int) -> int:
     """The (query, key) pairs the mask keeps in one (batch, head)."""
-    i = np.arange(s)
-    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros(s, int)
-    hi = i + 1 if causal else np.full(s, s)
-    return int((hi - lo).sum())
+    return work().attention_pairs(s, causal, window)
 
 
 def fa_bounds(b, s, hq, hkv, d, causal, window, skv=None) -> dict:
@@ -1329,13 +1393,13 @@ def fa_bounds(b, s, hq, hkv, d, causal, window, skv=None) -> dict:
     another length than the S queries (every pair kept)."""
     pairs = s * skv if skv is not None else fa_pairs(s, causal, window)
     skv = s if skv is None else skv
-    ops = 4 * d * pairs * b * hq
+    ops = work().attention_flops(d, pairs, b * hq)
     q_bytes, kv_bytes = 2 * b * s * hq * d, 2 * 2 * b * skv * hkv * d
     lse = 4 * b * hq * s
     out = {}
     for name, n_ops, n_bytes in (
             ("flash_attention", ops, 2 * q_bytes + kv_bytes + lse),
-            ("flash_attention_bwd", 2.5 * ops,
+            ("flash_attention_bwd", work().ATTENTION_BWD_FACTOR * ops,
              4 * q_bytes + 2 * kv_bytes + lse)):
         t_ops = n_ops / PEAK_OPS[torch.bfloat16] * 1e3
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -1688,13 +1752,13 @@ def fa_pos_bounds(b, s, hq, hkv, d, pairs) -> dict:
     """``fa_bounds`` for the position masks: operations on the visible
     (query, key) pairs these positions give (``pairs``, over the batch),
     bytes as there plus the positions (int32, queries and keys)."""
-    ops = 4 * d * pairs * hq
+    ops = work().attention_flops(d, pairs, hq)
     q_bytes, kv_bytes = 2 * b * s * hq * d, 2 * 2 * b * s * hkv * d
     lse, pos = 4 * b * hq * s, 2 * 4 * b * s
     out = {}
     for name, n_ops, n_bytes in (
             ("flash_attention", ops, 2 * q_bytes + kv_bytes + lse + pos),
-            ("flash_attention_bwd", 2.5 * ops,
+            ("flash_attention_bwd", work().ATTENTION_BWD_FACTOR * ops,
              4 * q_bytes + 2 * kv_bytes + lse + pos)):
         t_ops = n_ops / PEAK_OPS[torch.bfloat16] * 1e3
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -1870,7 +1934,7 @@ def scan_bound_ms(b, s, d, n, dtype, with_h0) -> tuple:
     es = torch.tensor([], dtype=dtype).element_size()
     nbytes = (es * 2 * b * s * (d + n) + 4 * d * n
               + 4 * b * d * n * (2 if with_h0 else 1) + 4 * b * s * d)
-    ops = 7 * b * s * d * n + b * s * d
+    ops = work().mamba_scan_flops(b, s, d, n)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[torch.float32] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -1971,7 +2035,7 @@ def scan_bwd_bound_ms(b, s, d, n, dtype, carried) -> tuple:
     es = torch.tensor([], dtype=dtype).element_size()
     nbytes = (es * 4 * b * s * (d + n) + 4 * b * s * d + 4 * 2 * d * n
               + 4 * b * d * n * (3 if carried else 1))
-    ops = 20 * b * s * d * n
+    ops = work().mamba_scan_bwd_flops(b, s, d, n)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[torch.float32] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -3131,8 +3195,8 @@ def train_full(port, cfg):
     want.update(flash_attention=2 * layers * TRAIN_STEPS,
                 flash_attention_bwd=layers * TRAIN_STEPS)
     check(launches == want, f"training launches {launches} != {want}")
-    print(f"  launches {launches}: 24 forward + 24 recomputed forward and"
-          f" 24 backward a step")
+    print(f"  launches {launches}: {layers} forward + {layers} recomputed"
+          f" forward and {layers} backward a step")
 
     step_s = float(np.median([h["step_time_s"] for h in hist[2:]]))
     tokens_step = TRAIN_BATCH * TRAIN_SEQ
@@ -3724,9 +3788,9 @@ def serve_run(port, cfg, srv, lens, prompts=None):
 GEMMA_LENS = [900, 1100, 1300, 1500]
 GEMMA_KW = dict(slots=4, prefill_chunk=64, max_new_tokens=32,
                 max_prompt=1536, device=DEV)
-# phase 11's depth: 22 of gemma3-4b's 34 layers (3 of its 5 groups and
-# the tail; PR 20 cut it so that the script keeps within its time)
-GEMMA_LAYERS, GEMMA_PARAMS = 22, 2_747_384_320
+# phase 11's depth (and phase 10's): 6 of gemma3-4b's 34 layers, 1 of its
+# 5 groups (cut from 22 so that the script keeps within half its time)
+GEMMA_LAYERS, GEMMA_PARAMS = 6, 1_237_352_960
 # Twice the largest of the float and int8 paged readings on the H100 (the
 # rule of LOGIT_ATOL), rounded up to a power of two; PERF.md gives them.
 GEMMA_LOGIT_ATOL = 0.5
@@ -4046,13 +4110,15 @@ def small_gemma_vs_cpu(port):
 
 
 def prefill_phase(port):
-    """One-shot prefill at full width: internlm2-1.8b at B 4, S 512 and
-    gemma3-4b at B 1, S 2,048 (past the window: the rings come from
-    ``_ring_from_prefill``), each against the chunked path.  Returns each
-    model's launches and readings."""
+    """One-shot prefill at full width: internlm2-1.8b (``SERVE_LAYERS``
+    deep) at B 4, S 512 and gemma3-4b (``GEMMA_LAYERS`` deep) at B 1, S
+    2,048 (past the window: the rings come from ``_ring_from_prefill``),
+    each against the chunked path.  Returns each model's launches and
+    readings."""
     out = {}
-    for arch, b, s in (("internlm2-1.8b", 4, 512), ("gemma3-4b", 1, 2048)):
-        cfg = port.configs.get(arch)
+    for cfg, b, s in ((full_config(port), 4, 512),
+                      (gemma_config(port), 1, 2048)):
+        arch = cfg.name
         params = init_full(port, cfg)
         rng = np.random.RandomState(5)
         prompts = [rng.randint(0, cfg.vocab_size, s).astype(np.int32)
@@ -4090,9 +4156,9 @@ def serve_granite(port):
 ZAMBA_LENS = [9, 37, 64, 128, 200, 301, 450, 512]
 ZAMBA_KW = dict(slots=4, prefill_chunk=64, max_new_tokens=32,
                 max_prompt=512, device=DEV)
-# phase 12's depth: 18 of zamba2-2.7b's 54 layers, 3 of its 9 groups
-# (PR 20 cut it so that the script keeps within its time)
-ZAMBA_LAYERS, ZAMBA_PARAMS = 18, 906_728_160
+# phase 12's depth: 6 of zamba2-2.7b's 54 layers, 1 of its 9 groups (cut
+# from 18 so that the script keeps within half its time)
+ZAMBA_LAYERS, ZAMBA_PARAMS = 6, 428_076_960
 # The rule of LOGIT_ATOL: twice the largest of the float (and of the int8
 # paged) readings on the H100 (0.2734 and 0.3223), rounded up to a power
 # of two; PERF.md gives them.  Greedy tokens equal on 90.4% of the rows
@@ -4243,10 +4309,11 @@ PHI, DBRX = "phi3.5-moe-42b-a6.6b", "dbrx-132b"
 # Depth cuts, widths untouched: phi3.5-moe takes 2.42 GiB of bf16 weights
 # a layer (16 experts of 4096 x 6400, three banks), so all 32 layers (77.5
 # GiB and 0.5 GiB of embeddings) leave no room for a cache on an 80 GB
-# card: 24 layers, 58.6 GiB.  dbrx-132b takes 6.07 GiB a layer and 2.3 GiB
-# of embeddings: 8 of its 40 layers, 50.9 GiB.
-MOE_LAYERS = {PHI: 24, DBRX: 8}
-MOE_PARAMS = {PHI: 31_475_830_784, DBRX: 27_305_809_920}
+# card; 24 layers (58.6 GiB) fit, and 6 (15.0 GiB) keep the script within
+# half its time.  dbrx-132b takes 6.07 GiB a layer and 2.3 GiB of
+# embeddings: 8 of its 40 layers, 50.9 GiB.
+MOE_LAYERS = {PHI: 6, DBRX: 8}
+MOE_PARAMS = {PHI: 8_070_287_360, DBRX: 27_305_809_920}
 # (layers, d_model, heads, KV heads, d_ff, experts, top-k) of the full
 # configs
 MOE_WIDTHS = {PHI: (32, 4096, 32, 8, 6400, 16, 2),
@@ -4302,7 +4369,7 @@ def routing_summary(readings) -> dict:
 
 
 def serve_phi(port):
-    """phi3.5-moe at full width and 24 layers, bf16: phase 3's requests
+    """phi3.5-moe at full width and ``MOE_LAYERS``, bf16: phase 3's requests
     through ``ContinuousBatchServer`` (float) and phase 5's shared-prefix
     requests through ``PagedBatchServer`` (int8, a pool of 16 blocks),
     each held to its launch counts, its logits against the plain path on
@@ -4517,10 +4584,12 @@ def moe_phase(port):
 # Phase 14: slice 9 part 2 (the encoder-decoder backbone)
 # ---------------------------------------------------------------------------
 SEAMLESS = "seamless-m4t-large-v2"
-SEAMLESS_PARAMS = 2_038_556_672
 # (decoder layers, encoder layers, d_model, heads, KV heads, head dim,
-# d_ff, padded vocab) of the full config, run at full depth
+# d_ff, padded vocab) of the full config
 SEAMLESS_WIDTHS = (24, 24, 1024, 16, 16, 64, 8192, 258048)
+# phase 14's depth: 6 of the 24 decoder and 6 of the 24 encoder layers
+# (cut from all of them so that the script keeps within half its time)
+SEAMLESS_LAYERS, SEAMLESS_PARAMS = (6, 6), 906_002_432
 # 4 rows, each an encoder pass over 512 frames (the stub frontend's
 # embeddings, B 4 x S_enc 512 x 1,024) and a decoder prompt of 64 tokens,
 # then 64 greedy decode steps; the chunked path in chunks of 16 into a
@@ -4544,7 +4613,8 @@ ENCDEC_PLAIN_CHUNKED_STEPS = 16
 ENCDEC_LOGIT_ATOL = {"float": 0.5, "int8": 2.0}
 ENCDEC_GREEDY_EQUAL_MIN = {"float": 0.85, "int8": 0.5}
 ENCDEC_CHUNKED_LIMITS = dict(logit=0.25, greedy=0.9)
-# Training at full depth: B 2 x S 2,048 (S_enc 512), remat "full", 3 steps
+# Training at phase 14's depth: B 2 x S 2,048 (S_enc 512), remat "full",
+# 3 steps
 ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ, ENCDEC_TRAIN_STEPS = 2, 2048, 3
 # The small float32 config (D 64) on the card against the CPU: greedy
 # tokens equal, logits within twice the largest reading on the H100
@@ -4559,7 +4629,8 @@ def encdec_config(port):
            cfg.padded_vocab())
     check(got == SEAMLESS_WIDTHS and cfg.is_encdec, f"unexpected config"
           f" {cfg}")
-    return cfg
+    return dataclasses.replace(cfg, n_layers=SEAMLESS_LAYERS[0],
+                               n_enc_layers=SEAMLESS_LAYERS[1])
 
 
 def plain_flash_attention(ref, dtype=torch.float32):
@@ -4692,8 +4763,8 @@ def time_encoder(port, cfg, params, enc, policy) -> float:
 
 
 def serve_encdec(port, cfg):
-    """seamless-m4t-large-v2 at full width and depth, bf16, seeded
-    weights: the one-shot and the chunked paths in float, then in native
+    """seamless-m4t-large-v2 at full width and ``SEAMLESS_LAYERS``, bf16,
+    seeded weights: the one-shot and the chunked paths in float, then in native
     int8, each held to its launch counts and, teacher-forced with the
     float one-shot run's tokens, to the same path through the plain
     kernels; the float one-shot against the float chunked path (the int8
@@ -4812,13 +4883,14 @@ def profile_encdec_decode(port, cfg, params, enc, prompts) -> dict:
 
 
 def train_encdec(port, cfg):
-    """seamless-m4t-large-v2 at full width and depth: f32 masters from a
+    """seamless-m4t-large-v2 at full width and ``SEAMLESS_LAYERS``: f32
+    masters from a
     seeded generator on the card, bf16 activations, ``make_train_step``
     (remat "full", AdamW) for 3 steps of B 2 x S 2,048 (S_enc 512, the
     stub frontend's frame embeddings from ``api.synthetic_inputs``):
-    finite losses; ``flash_attention`` launched 2 x 72 a step (the
-    encoder's 24 and the decoder's self and cross 48, and each recomputed)
-    and its backward 72.  Step ms, losses, peak memory."""
+    finite losses; ``flash_attention`` launched 2 x 18 a step (the
+    encoder's 6 and the decoder's self and cross 12, and each recomputed)
+    and its backward 18.  Step ms, losses, peak memory."""
     params = port.init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
                               DEV, trainable=True)
     n = sum(p.numel() for p in params.parameters())
@@ -4928,7 +5000,8 @@ def small_encdec_vs_cpu(port) -> dict:
 
 def encdec_phase(port):
     """Phase 14: seamless-m4t-large-v2 served in one shot and in chunks,
-    float and int8, then trained, at full width and depth; then the small
+    float and int8, then trained, at full width and ``SEAMLESS_LAYERS``;
+    then the small
     float32 oracle.  Returns the readings by part."""
     t0 = time.perf_counter()
     cfg = encdec_config(port)
@@ -4960,13 +5033,13 @@ QWEN = "qwen2-vl-72b"
 # (layers, d_model, heads, KV heads, head dim, d_ff, padded vocab, M-RoPE
 # sections) of the full config
 QWEN_WIDTHS = (80, 8192, 64, 8, 128, 29568, 153600, (16, 24, 24))
-# Depth cut for the card's memory and the script's time: 16 of 80 layers
+# Depth cut for the card's memory and the script's time: 8 of 80 layers
 # (877,674,496 parameters a layer, 1.755 GB in bf16, and the embedding and
-# the unembedding 1,258,291,200 each): 33.1 GB of bf16 weights; the int8
+# the unembedding 1,258,291,200 each): 19.1 GB of bf16 weights; the int8
 # tree is made from them and the float tree freed.  Training: 1 layer and
 # the two tables (3.39 B parameters at 16 bytes each: f32 masters, their
 # gradients and AdamW's two moments, 54 GB) at B 1 x S 2,048, S not cut.
-QWEN_LAYERS, QWEN_PARAMS = 16, 16_559_382_528
+QWEN_LAYERS, QWEN_PARAMS = 8, 9_537_986_560
 QWEN_TRAIN_LAYERS, QWEN_TRAIN_PARAMS = 1, 3_394_265_088
 # Two rows of 1,200: 64 text tokens, an image of 1 x 32 x 32 patches on
 # one temporal position (its h/w grid on the other two streams), 112 text
@@ -5547,6 +5620,337 @@ def breadth_phase(port) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the dry run against the card
+# ---------------------------------------------------------------------------
+# the one-card matrix: 10 archs x 4 shapes, long_500k only sub-quadratic
+DRYRUN_MATRIX = {"ok": 33, "skipped": 7, "error": 0}
+# (name, arch, layers (None: all), seq_len, global_batch, kind): the cut
+# cells the card runs
+DRYRUN_CELLS = (("train_4k_b2", "internlm2-1.8b", None, 4096, 2, "train"),
+                ("prefill_32k_b1", "internlm2-1.8b", None, 32768, 1,
+                 "prefill"),
+                ("decode_32k_b8", "internlm2-1.8b", None, 32768, 8,
+                 "decode"),
+                ("mamba_prefill_32k_b1", "falcon-mamba-7b", None, 32768, 1,
+                 "prefill"))
+# falcon-mamba's one-shot prefill of 32,768 tokens at all 64 layers makes
+# 38 GiB of temporaries beside 29 GiB of f32 weights; the default
+# caching allocator then holds 22.7 GiB reserved but unusable and runs the
+# card out of memory, even in a fresh process.  So that cell runs in a
+# process of its own whose allocator maps its blocks into segments that
+# grow (PYTORCH_CUDA_ALLOC_CONF, a setting of that process alone)
+DRYRUN_APART = "mamba_prefill_32k_b1"
+DRYRUN_APART_ALLOC = "expandable_segments:True"
+DRYRUN_CELL_TIMEOUT_S = 300
+DRYRUN_REPS = {"train": 2, "prefill": 2, "decode": 5}
+# |max_memory_allocated - what earlier phases held - predicted| /
+# predicted: twice the largest reading (+8.49e-4, the train cell: cuBLAS'
+# workspace made in the step; prefill 0, decode 960 bytes, falcon-mamba
+# +4.78e-4 at 64 layers in its own process, whose step makes the 32 MiB
+# workspace; PERF.md) rounded up to a power of two
+DRYRUN_MEM_RTOL = 2.0 ** -9
+DRYRUN_TUNER_SAMPLES = 6
+# the matrix's processes, one a group of shapes: long_500k (zamba2-2.7b's
+# cell alone is 38 s of the matrix's 101 s on the H100's host), train_4k
+# (40 s) and the serving shapes (21 s); PERF.md gives the trace seconds
+DRYRUN_MATRIX_GROUPS = (("long_500k",), ("train_4k",),
+                        ("decode_32k", "prefill_32k"))
+DRYRUN_MATRIX_TIMEOUT_S = 300
+
+
+def start_dryrun_matrix(port, out: Path) -> list:
+    """The dry-run matrix, every arch of ``ALIASES`` x ``SHAPES`` traced on
+    the ``meta`` device by ``repro_torch.launch.dryrun``, in one process a
+    group of ``DRYRUN_MATRIX_GROUPS``, none of which sees the card.  Each
+    writes one JSON a cell under ``out`` and its lines to
+    ``out/matrix-<i>.log``.  Started before the build, they trace while
+    ``nvcc`` compiles, and ``finish_dryrun_matrix`` waits for them before
+    phase 2: no timed phase has them beside it."""
+    src = Path(__file__).resolve().parent / "src"
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=str(src))
+    code = ("import sys\n"
+            "from repro_torch.launch import dryrun\n"
+            "for shape in sys.argv[2:]:\n"
+            "    dryrun.main(['--shape', shape, '--out', sys.argv[1]])\n")
+    shapes = [s for group in DRYRUN_MATRIX_GROUPS for s in group]
+    check(sorted(shapes) == sorted(port.dryrun.SHAPES), f"the matrix's"
+          f" groups {DRYRUN_MATRIX_GROUPS} are not the shapes"
+          f" {list(port.dryrun.SHAPES)}")
+    procs = []
+    for i, group in enumerate(DRYRUN_MATRIX_GROUPS):
+        with open(out / f"matrix-{i}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, str(out), *group], env=env,
+                stdout=log, stderr=subprocess.STDOUT))
+    atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
+    return procs
+
+
+def finish_dryrun_matrix(procs: list, out: Path) -> float:
+    """Wait for the matrix's processes; each must exit 0.  Returns the
+    seconds waited."""
+    t0 = time.perf_counter()
+    for i, proc in enumerate(procs):
+        left = DRYRUN_MATRIX_TIMEOUT_S - (time.perf_counter() - t0)
+        try:
+            rc = proc.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            fail(f"the dry-run matrix took more than"
+                 f" {DRYRUN_MATRIX_TIMEOUT_S} s past the build")
+        tail = (out / f"matrix-{i}.log").read_text()[-2000:]
+        check(rc == 0, f"the dry-run matrix's process {i} exited {rc}:"
+              f" {tail}")
+    return time.perf_counter() - t0
+
+
+def dryrun_matrix(out: Path, waited: float) -> dict:
+    """The matrix's cells, traced before phase 2 (``waited`` the seconds
+    that phase 1 waited for them): a line a cell, its statuses
+    checked."""
+    status, rows = {}, []
+    for path in sorted(out.glob("*_single.json")):
+        row = json.loads(path.read_text())
+        status[row["status"]] = status.get(row["status"], 0) + 1
+        if row["status"] == "ok":
+            r = row["roofline"]
+            print(f"  {row['arch']:22s} {row['shape']:12s} ok  fits_hbm"
+                  f" {r['fits_hbm']!s:5s} {r['bottleneck']:7s} roofline"
+                  f" {r['roofline_fraction']:.4f}  HBM"
+                  f" {row['memory']['per_device_hbm_gib']:9.3f} GiB  trace"
+                  f" {row['t_trace_s']:.2f} s")
+            rows.append({k: row[k] for k in ("arch", "shape", "t_trace_s")}
+                        | {k: r[k] for k in ("fits_hbm", "bottleneck",
+                                             "roofline_fraction",
+                                             "hbm_gib")})
+        else:
+            print(f"  {row['arch']:22s} {row['shape']:12s}"
+                  f" {row['status']}: {row.get('why', row.get('error'))}")
+    status = {k: status.get(k, 0) for k in DRYRUN_MATRIX}
+    check(status == DRYRUN_MATRIX, f"dry-run matrix {status} !="
+          f" {DRYRUN_MATRIX}")
+    print(f"  matrix {status}; traced during the build, which then waited"
+          f" {waited:.1f} s for it")
+    return {"status": status, "rows": rows, "waited_s": waited}
+
+
+def full_cache(port, cfg, shape, gen):
+    """The decode cell's cache on the card: the abstract prefill cache's
+    leaves, K/V random (0.5 x N(0, 1)) and every position valid."""
+    def fill(path, t):
+        if "pos" in path:
+            return torch.arange(t.shape[-1], dtype=t.dtype, device=DEV
+                                ).expand(t.shape).contiguous()
+        # drawn in the leaf's dtype, scaled in place: a float32 draw of
+        # a 12 GiB bf16 leaf would take 24 GiB more
+        return torch.randn(t.shape, generator=gen, device=DEV,
+                           dtype=t.dtype).mul_(0.5)
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + "/" + k) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return type(tree)(*(walk(v, path + f"/{i}")
+                                for i, v in enumerate(tree)))
+        return fill(path, tree)
+    return walk(port.api.abstract_cache(cfg, shape), "")
+
+
+def dryrun_cell(port, arch, layers, seq, batch, kind) -> tuple:
+    """One cut cell: the meta trace's prediction, then the same step on
+    the card under the same counter (memory, FLOPs, launches), then
+    ``DRYRUN_REPS`` uncounted runs for its time.  Returns (launches,
+    row, the card's weights)."""
+    cfg = port.configs.get(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    shape = port.core_arch.ShapeConfig(kind, seq, batch, kind)
+    meta = port.collect.StepCounter()
+    t0 = time.perf_counter()
+    args, outs = port.dryrun.trace_step(cfg, shape, meta)
+    t_trace = time.perf_counter() - t0
+    pred = port.dryrun.step_memory(args, outs, meta.peak_bytes)
+    del args, outs
+    rep = port.roofline.RooflineReport(
+        arch=arch, shape=kind, mesh="1x1", n_chips=1,
+        hlo_flops=meta.costs.flops, hlo_bytes=meta.costs.bytes_accessed,
+        hlo_bytes_min=meta.costs.bytes_min, collective_bytes=0.0,
+        collective_detail={}, per_device_hbm=pred["per_device_hbm_bytes"],
+        model_flops=port.roofline.model_flops(cfg, shape)).finalize()
+    free_card()
+    # what earlier phases still hold (cuBLAS' workspace, cached views): not
+    # this step's, so taken off the card's peak
+    other = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=DEV).manual_seed(17)
+    params = port.init_params(cfg, gen, DEV, dtype=torch.float32,
+                              trainable=kind == "train")
+    if kind == "decode":
+        inputs = {"cache": full_cache(port, cfg, shape, gen),
+                  "token": torch.zeros(batch, dtype=torch.int32, device=DEV),
+                  "position": torch.full((batch,), seq - 1,
+                                         dtype=torch.int32, device=DEV)}
+    else:
+        inputs = port.api.synthetic_inputs(cfg, batch, seq, gen,
+                                           train=kind == "train", device=DEV)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(port)
+    card = port.collect.StepCounter()
+    port.dryrun.trace_step(cfg, shape, card, params=params, inputs=inputs)
+    torch.cuda.synchronize()
+    launches = read_counts(port)
+    peak = torch.cuda.max_memory_allocated()
+    check(card.costs.flops == meta.costs.flops,
+          f"{arch} {kind}: the card run counted {card.costs.flops} FLOPs,"
+          f" the meta trace {meta.costs.flops}")
+    check({k: v for k, v in launches.items() if v}
+          == {k: v for k, v in card.launches.items()},
+          f"{arch} {kind}: launches {launches} != the counter's calls"
+          f" {dict(card.launches)}")
+    times = []
+    for _ in range(DRYRUN_REPS[kind]):
+        t0 = time.perf_counter()
+        port.dryrun.trace_step(cfg, shape, None, params=params,
+                               inputs=inputs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = float(np.median(times))
+    t_roof = max(rep.t_compute, rep.t_memory_min, rep.t_collective) * 1e3
+    gap = (peak - other - pred["per_device_hbm_bytes"]) \
+        / pred["per_device_hbm_bytes"]
+    row = {"predicted_hbm_bytes": pred["per_device_hbm_bytes"],
+           "argument_bytes": pred["argument_bytes"],
+           "other_allocated_bytes": other, "allocated_before_bytes": base,
+           "max_memory_allocated": peak,
+           "memory_gap": gap, "counted_flops": card.costs.flops,
+           "meta_flops": meta.costs.flops, "model_flops": rep.model_flops,
+           "step_ms": ms, "step_ms_runs": times, "roofline_ms": t_roof,
+           "bottleneck": rep.bottleneck,
+           "roofline_fraction": rep.roofline_fraction,
+           "measured_fraction_of_peak":
+               rep.model_flops / (ms / 1e3) / port.hw.H100.peak_flops_bf16,
+           "trace_s": t_trace, "launches": {k: v for k, v in
+                                            launches.items() if v}}
+    print(f"  {arch} ({cfg.n_layers} layers) {kind} B {batch} x {seq}:"
+          f" FLOPs {card.costs.flops:.6e}"
+          f" (meta {meta.costs.flops:.6e})  HBM predicted"
+          f" {pred['per_device_hbm_bytes'] / 2**30:.3f} GiB, max allocated"
+          f" {peak / 2**30:.3f} less {other / 2**30:.3f} held before (gap"
+          f" {gap:+.5f}; allocated before the step {base / 2**30:.3f},"
+          f" arguments {pred['argument_bytes'] / 2**30:.3f})  step"
+          f" {ms:.2f} ms,"
+          f" roofline {t_roof:.2f} ms ({rep.bottleneck}), measured"
+          f" {row['measured_fraction_of_peak']:.4f} of peak  launches"
+          f" {row['launches']}")
+    check(abs(gap) <= DRYRUN_MEM_RTOL, f"{arch} {kind}: max allocated"
+          f" {peak} less {other} against the predicted"
+          f" {pred['per_device_hbm_bytes']}: gap {gap:+.5f}, limit"
+          f" {DRYRUN_MEM_RTOL}")
+    del inputs
+    return launches, row, params
+
+
+def dryrun_cell_apart(name: str) -> tuple:
+    """One of ``DRYRUN_CELLS`` in a process of its own (this script with
+    ``--dryrun-cell``) whose allocator takes ``DRYRUN_APART_ALLOC``: its
+    lines printed, and its (launches, row)."""
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF=DRYRUN_APART_ALLOC)
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--dryrun-cell",
+           name]
+    try:
+        run = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                             timeout=DRYRUN_CELL_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"dry-run cell {name} took more than {DRYRUN_CELL_TIMEOUT_S}"
+             f" s")
+    lines = run.stdout.splitlines()
+    for line in lines[:-1]:
+        print(line)
+    check(run.returncode == 0 and lines, f"dry-run cell {name} exited"
+          f" {run.returncode}: {run.stderr[-3000:]}")
+    got = json.loads(lines[-1])
+    return got["launches"], got["row"]
+
+
+def dryrun_cell_main(name: str) -> None:
+    """``chip_smoke.py --dryrun-cell NAME``: that cell of ``DRYRUN_CELLS``
+    alone, its (launches, row) as the last line."""
+    port = load_port()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cells = {c[0]: c[1:] for c in DRYRUN_CELLS}
+    check(name in cells, f"no dry-run cell {name}")
+    launches, row, _ = dryrun_cell(port, *cells[name])
+    row["allocator"] = os.environ.get("PYTORCH_CUDA_ALLOC_CONF", "")
+    print(json.dumps({"launches": launches, "row": row}))
+
+
+def elastic_cycle(port, cfg, params) -> dict:
+    """Save the trained weights, rescale to the one-card mesh and restore
+    them onto the card: bitwise equal."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        ck = port.Checkpointer(Path(d))
+        ck.save(1, params)
+        plan = port.elastic.plan_rescale({"data": 1, "model": 1}, 1)
+        mesh = port.elastic.build_mesh(plan.new_shape)
+        restored, _ = port.elastic.elastic_restore(
+            ck, params, port.sharding.make_rules("tp"),
+            port.params.logical_axes(cfg), mesh)
+    want, got = port.tree.leaves(params.tree()), port.tree.leaves(restored)
+    check(len(got) == len(want), "elastic_restore: another set of leaves")
+    for i, (t, w) in enumerate(zip(got, want)):
+        check(t.device.type == "cuda" and t.dtype == w.dtype
+              and torch.equal(t, w), f"elastic_restore: leaf {i} differs")
+    print(f"  elastic cycle: {plan.note}; {len(got)} leaves restored onto"
+          f" {mesh.device} bitwise in {time.perf_counter() - t0:.1f} s")
+    return {"plan": plan.new_shape, "leaves": len(got), "bitwise": True}
+
+
+def dryrun_phase(port, out: Path, waited: float) -> dict:
+    """Phase 17: the matrix, the four cut cells against the card, the
+    pod tuner and the elastic cycle."""
+    t_phase = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(port.hw.H100.hbm_bytes == total, f"H100.hbm_bytes"
+          f" {port.hw.H100.hbm_bytes} != the card's total_memory {total}")
+    matrix = dryrun_matrix(out, waited)
+    cells, launches = {}, {}
+    for name, arch, layers, seq, batch, kind in DRYRUN_CELLS:
+        if name == DRYRUN_APART:
+            launches[name], cells[name] = dryrun_cell_apart(name)
+            continue
+        launches[name], cells[name], params = dryrun_cell(
+            port, arch, layers, seq, batch, kind)
+        if kind == "train":
+            elastic = elastic_cycle(port, port.configs.get(arch), params)
+        del params
+        free_card()
+    t0 = time.perf_counter()
+    ranked = port.tuner.PodConfigTuner(
+        port.dryrun.run_cell, arch="internlm2-1.8b",
+        shape="train_4k").search(n_samples=DRYRUN_TUNER_SAMPLES)
+    rows = [{"strategy": c.strategy, "n_micro": c.report["n_micro"],
+             "remat": c.remat,
+             "roofline_fraction": c.report["roofline"]["roofline_fraction"],
+             "bottleneck": c.report["roofline"]["bottleneck"],
+             "hbm_gib": c.report["memory"]["per_device_hbm_gib"]}
+            for c in ranked]
+    for r in rows:
+        print(f"  tuner {r}")
+    check(rows and rows[0]["hbm_gib"] <= total / 2**30,
+          f"the tuner's best row does not fit the card: {rows[:1]}")
+    print(f"  tuner {len(rows)} of {DRYRUN_TUNER_SAMPLES} fit, part"
+          f" {time.perf_counter() - t0:.1f} s; phase"
+          f" {time.perf_counter() - t_phase:.1f} s")
+    return {"matrix": matrix, "cells": cells, "tuner": rows,
+            "elastic": elastic, "launches": launches}
+
+
 def gpu_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                           "--format=csv,noheader"], capture_output=True,
@@ -5571,7 +5975,13 @@ def load_port():
     from repro_torch.kernels import int8_matmul as im
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import mel_frontend as mf
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.core import arch as core_arch
+    from repro_torch.launch import dryrun, elastic
     from repro_torch.launch import train as launch_train
+    from repro_torch.roofline import collect, hw
+    from repro_torch.roofline import model as roofline
+    from repro_torch.sharding import policy as sharding
     from repro_torch.models import api, encdec, kws, layers, moe
     from repro_torch.models import params as model_params
     from repro_torch.models import transformer
@@ -5594,22 +6004,30 @@ def load_port():
                            Impulse=Impulse, synthetic=synthetic,
                            dsp_blocks=dsp_blocks, kws=kws,
                            estimator=estimator, eon=eon, tuner=tuner,
-                           project=project)
+                           project=project, Checkpointer=Checkpointer,
+                           core_arch=core_arch, dryrun=dryrun,
+                           elastic=elastic, collect=collect, hw=hw,
+                           roofline=roofline, sharding=sharding)
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: the port's smoke run needs one GPU")
+    if sys.argv[1:2] == ["--dryrun-cell"]:
+        dryrun_cell_main(sys.argv[2])
+        return
     port = load_port()
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
 
-    print("phase 1: build (one nvcc per source, all at once)")
+    phase("phase 1: build (one nvcc per source, all at once), the dry-run"
+          " matrix traced meanwhile")
     t0 = time.perf_counter()
+    dryrun_dir = tempfile.TemporaryDirectory()
+    matrix_procs = start_dryrun_matrix(port, Path(dryrun_dir.name))
     logs = port.build.build_all()
     wide_spills = []
     for name, log in logs.items():
@@ -5637,60 +6055,73 @@ def main() -> None:
     port.fa._lib()
     port.ms._lib()
     print(f"  build phase {time.perf_counter() - t0:.1f} s")
+    matrix_waited = finish_dryrun_matrix(matrix_procs,
+                                         Path(dryrun_dir.name))
+    print(f"  dry-run matrix traced; waited {matrix_waited:.1f} s for it")
 
     t0 = time.perf_counter()
     clips, labels = keyword_clips(port, KWS_CLIPS, 12, 16_000, seed=0)
     print(f"  {KWS_CLIPS} keyword clips of 1 s made in"
           f" {time.perf_counter() - t0:.1f} s")
 
-    print("phase 2: kernels against their plain versions")
+    phase("phase 2: kernels against their plain versions")
     layout_rows = check_layouts(port.ops, port.ref, port.quantize.Int8KV)
+    stamp("phase 2: serving attention layouts checked")
     mm_rows = check_int8_matmul(port.ops, port.ref, port.im)
+    stamp("phase 2: int8_matmul checked")
     mel_rows = check_mel_frontend(port, clips)
+    stamp("phase 2: mel_frontend checked")
     fa_rows = check_flash_attention(port)
+    stamp("phase 2: flash_attention checked")
     scan_rows = check_mamba_scan(port)
+    stamp("phase 2: mamba_scan checked")
     print("  slices 7 and 8: D 256 (gemma3), G 3 and G 4 (llama3.2,"
           " granite), D 80 (zamba2)")
     for name, rows in check_slice_attention(port.ops, port.ref,
                                             port.quantize.Int8KV).items():
         layout_rows[name].update(rows)
+    stamp("phase 2: slices 7 and 8 checked")
     print("  slices 8 and 10: flash_attention forward and backward at D 256"
           " (gemma3) and D 80 (zamba2)")
     for cases in (FA_D256_CASES, FA_D80_CASES):
         for name, rows in check_flash_attention_wide(port, cases).items():
             fa_rows[name].update(rows)
+    stamp("phase 2: flash_attention at D 256 and D 80 checked")
     print("  slice 10: the mamba_scan backward (falcon-mamba's training)")
     scan_bwd_rows = check_mamba_scan_bwd(port)
+    stamp("phase 2: the mamba_scan backward checked")
     print("  slice 9 part 2: keys of another length (seamless-m4t: D 64,"
           " 16/16 heads, causal=False)")
     for name, rows in check_flash_attention_cross(port).items():
         fa_rows[name].update(rows)
+    stamp("phase 2: keys of another length checked")
     print("  slice 9 part 3: masks by position (qwen2-vl: 64/8 heads of"
           " 128, an image's positions, packed rows with pads)")
     for name, rows in check_flash_attention_positions(port).items():
         fa_rows[name].update(rows)
 
-    print(f"phase 3: full-width serving, internlm2-1.8b bf16 at"
+    phase(f"phase 3: full-width serving, internlm2-1.8b bf16 at"
           f" {SERVE_LAYERS} of its 24 layers")
     cfg = full_config(port)
     params, launches, metrics, run3 = serve_full(port, cfg)
     logits_vs_plain(port, cfg, params, LOGIT_ATOL, GREEDY_EQUAL_MIN,
                     attention_paths(port))
     serve_small_vs_cpu(port)
-    print("phase 4: where a step's time goes")
+    phase("phase 4: where a step's time goes")
     profile_steps(port, cfg, params)
     print(f"  tokens_per_s {metrics['tokens_per_s']:.2f}  ttft_p50_s "
           f"{metrics['ttft_p50_s']:.4f}  ttft_p95_s {metrics['ttft_p95_s']:.4f}"
           f"  kv_cache_bytes {metrics['kv_cache_bytes']}")
-    print("phase 3 from the artifact")
+    phase("phase 3 from the artifact")
     launches_a3, _, art3, asrv = artifact_serving(
         port, "float continuous", cfg, run3)
     art3["decode"] = decode_side_by_side(port, "float continuous", asrv, 257)
     del asrv
 
-    print(f"phase 5: full-width int8 paged serving, internlm2-1.8b bf16 at"
+    phase(f"phase 5: full-width int8 paged serving, internlm2-1.8b bf16 at"
           f" {SERVE_LAYERS} of its 24 layers")
     srv, launches8, metrics8, run5 = serve_int8_paged(port, cfg, params)
+    stamp("phase 5: int8 paged served")
     int8 = port.quantize.INT8
     logits_vs_plain(port, cfg, srv.params, INT8_LOGIT_ATOL,
                     INT8_GREEDY_EQUAL_MIN, attention_paths(port), int8, True)
@@ -5702,11 +6133,13 @@ def main() -> None:
           f" {metrics8['kv_cache_bytes']}  preemptions"
           f" {metrics8['preemptions']}  prefix_hit_blocks"
           f" {metrics8['prefix_hit_blocks']}")
+    stamp("phase 5: int8 paged logits, oracle and profile checked")
     print("  int8 paged from the artifact")
     launches_a5, _, art5, asrv = artifact_serving(port, "int8 paged", cfg,
                                                   run5)
     art5["decode"] = decode_side_by_side(port, "int8 paged", asrv, 129)
     del asrv
+    stamp("phase 5: int8 paged artifact run")
     print("  calibrated int8 activations, continuous")
     t0 = time.perf_counter()
     serve_small_calibrated_vs_cpu(port)
@@ -5720,6 +6153,7 @@ def main() -> None:
           f" {metrics_cal['ttft_p95_s']:.4f}  greedy agreement with the"
           f" dynamic run {cal_agree:.4f}  part"
           f" {time.perf_counter() - t0:.1f} s")
+    stamp("phase 5: calibrated int8 served and checked")
     print("  calibrated int8 from the artifact")
     launches_a5c, _, art5c, asrv = artifact_serving(
         port, "int8 calibrated", cfg, run5c)
@@ -5727,7 +6161,7 @@ def main() -> None:
     del asrv
     del cal_srv, run5c
 
-    print("phase 6: full-width KWS Impulse, DS-CNN on MFE, f32 and PTQ int8")
+    phase("phase 6: full-width KWS Impulse, DS-CNN on MFE, f32 and PTQ int8")
     t0 = time.perf_counter()
     launches_kws, kws_metrics, kws_prof, kws_imp = kws_impulse(port, clips)
     print(f"  clips_per_s {kws_metrics['clips_per_s']:.1f}  batch-1 p50"
@@ -5753,12 +6187,14 @@ def main() -> None:
           f" {fit_metrics['heldout_f32_acc']:.4f})  part"
           f" {time.perf_counter() - t0:.1f} s")
 
-    print("phase 7: full-width training, internlm2-1.8b f32 masters, bf16")
+    phase(f"phase 7: full-width training, internlm2-1.8b at {TRAIN_LAYERS}"
+          f" of its 24 layers, f32 masters, bf16")
     del params, srv, run3, run5
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     launches_train, train_metrics, train_prof = train_full(
-        port, full_config(port, 24))
+        port, full_config(port, TRAIN_LAYERS))
+    stamp("phase 7: trained, profiled, remat policies run")
     train_small_vs_cpu(port)
     print(f"  step_ms {train_metrics['step_ms']:.1f}  tokens_per_s"
           f" {train_metrics['tokens_per_s']:.1f}  mfu"
@@ -5768,7 +6204,7 @@ def main() -> None:
           f" {train_prof['idle_share']:.3f}  phase"
           f" {time.perf_counter() - t0:.1f} s")
 
-    print(f"phase 8: full-width mamba1 serving, falcon-mamba-7b bf16 at"
+    phase(f"phase 8: full-width mamba1 serving, falcon-mamba-7b bf16 at"
           f" {MAMBA_LAYERS} of its 64 layers")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -5786,7 +6222,7 @@ def main() -> None:
           f" {metrics_ssm['ttft_p95_s']:.4f}  state bytes"
           f" {metrics_ssm['kv_cache_bytes']}  phase"
           f" {time.perf_counter() - t0:.1f} s")
-    print("phase 8 from the artifact")
+    phase("phase 8 from the artifact")
     launches_a8, _, art8, asrv = artifact_serving(port, "falcon-mamba", mcfg,
                                                   run8)
     art8["decode"] = decode_side_by_side(port, "falcon-mamba", asrv, 257)
@@ -5794,11 +6230,11 @@ def main() -> None:
     del mparams, run8
     torch.cuda.empty_cache()
 
-    print("phase 10: one-shot prefill at full width, and its exact oracle")
+    phase("phase 10: one-shot prefill at full width, and its exact oracle")
     t0 = time.perf_counter()
     prefill = prefill_phase(port)
     print(f"  phase {time.perf_counter() - t0:.1f} s")
-    print(f"phase 11: gemma3-4b (the sliding-window ring, D 256; full"
+    phase(f"phase 11: gemma3-4b (the sliding-window ring, D 256; full"
           f" width, {GEMMA_LAYERS} of 34 layers) and granite-3-8b (G 4)"
           f" served")
     t0 = time.perf_counter()
@@ -5812,36 +6248,45 @@ def main() -> None:
           f" {metrics_g['ttft_p50_s']:.4f} / {metrics_g8['ttft_p50_s']:.4f},"
           f" granite {metrics_gr['ttft_p50_s']:.4f}  gemma3 part"
           f" {t1 - t0:.1f} s, granite part {time.perf_counter() - t1:.1f} s")
-    print(f"phase 12: zamba2-2.7b (mamba2 groups and a shared attention"
+    phase(f"phase 12: zamba2-2.7b (mamba2 groups and a shared attention"
           f" block of D 80) served and prefilled at full width, {ZAMBA_LAYERS}"
           f" of 54 layers")
     (launches_z, metrics_z, launches_z8, metrics_z8, prefill_z,
      prof_z) = zamba_phase(port)
-    print("phase 13: the MoE decoders, phi3.5-moe-42b-a6.6b (24 of 32"
-          " layers) and dbrx-132b (8 of 40), served, prefilled and trained"
-          " at full width")
+    phase(f"phase 13: the MoE decoders, phi3.5-moe-42b-a6.6b"
+          f" ({MOE_LAYERS[PHI]} of 32 layers) and dbrx-132b"
+          f" ({MOE_LAYERS[DBRX]} of 40), served, prefilled and trained at"
+          f" full width")
     moe = moe_phase(port)
     phi, dbrx, (launches_mt, metrics_mt) = moe["phi"], moe["dbrx"], \
         moe["train"]
-    print("phase 14: the encoder-decoder backbone, seamless-m4t-large-v2 at"
-          " full width and depth, served in one shot and in chunks (float"
-          " and int8) and trained")
+    phase(f"phase 14: the encoder-decoder backbone, seamless-m4t-large-v2"
+          f" at full width and {SEAMLESS_LAYERS[0]} + {SEAMLESS_LAYERS[1]}"
+          f" of its 24 + 24 layers, served in one shot and in chunks (float"
+          f" and int8) and trained")
     encdec = encdec_phase(port)
     enc_l = encdec["serve"]["launches"]
     launches_et, metrics_et = encdec["train"]
-    print(f"phase 15: the VLM, qwen2-vl-72b at full width and {QWEN_LAYERS}"
+    phase(f"phase 15: the VLM, qwen2-vl-72b at full width and {QWEN_LAYERS}"
           f" of its 80 layers: an image batch prefilled in one shot and"
           f" decoded, text one-shot against chunked (float and int8);"
           f" trained at {QWEN_TRAIN_LAYERS} layer")
     vlm = qwen_phase(port)
     vlm_l = vlm["serve"]["launches"]
     launches_qt, metrics_qt = vlm["train"]
-    print("phase 16: training breadth at full width: falcon-mamba-7b (24 of"
+    phase("phase 16: training breadth at full width: falcon-mamba-7b (24 of"
           " 64 layers), zamba2-2.7b (54), gemma3-4b (18 of 34)")
     breadth = breadth_phase(port)
     breadth_l = {arch: r["launches"] for arch, r in breadth.items()}
+    phase("phase 17: the dry run against the card (the matrix traced on"
+          " meta, four cut cells run on the card, the pod tuner, the"
+          " elastic cycle)")
+    free_card()
+    dry = dryrun_phase(port, Path(dryrun_dir.name), matrix_waited)
+    dryrun_dir.cleanup()
+    dry_l = dry["launches"]
 
-    print("phase 9: the EON tuner and the Project API on the card")
+    phase("phase 9: the EON tuner and the Project API on the card")
     t0 = time.perf_counter()
     launches_tuner, launches_project, tp_summary = tuner_and_project(port)
     print(f"  phase {time.perf_counter() - t0:.1f} s")
@@ -5873,6 +6318,8 @@ def main() -> None:
     print("  slice 9 part 3 " + json.dumps({
         "qwen2vl": vlm["serve"]["metrics"], "qwen2vl_training": metrics_qt,
         "qwen2vl_small_f32": vlm["small"]}))
+    print("  slice 11 " + json.dumps({k: dry[k] for k in (
+        "matrix", "cells", "tuner", "elastic")}))
     print("  slice 10 " + json.dumps({
         "lm_training_remat": train_metrics["remat"],
         **{f"{arch}_training": {k: r[k] for k in ("metrics", "grads")}
@@ -5915,12 +6362,14 @@ def main() -> None:
                          for key, n in vlm_l.items()},
                       "qwen2vl_training": launches_qt[name],
                       **{f"{arch}_training": n[name]
-                         for arch, n in breadth_l.items()}}
+                         for arch, n in breadth_l.items()},
+                      **{f"dryrun_{cell}": n[name]
+                         for cell, n in dry_l.items()}}
                for name in REPLACES}
     serving = (launches, launches8, launches_g, launches_g8, launches_gr,
                launches_z, launches_z8, phi["launches"], phi["launches8"],
                dbrx["launches"]) + tuple(enc_l.values()) \
-        + tuple(vlm_l.values())
+        + tuple(vlm_l.values()) + (dry_l["decode_32k_b8"],)
     kernels = []
     for name in ("flash_decode", "flash_chunk_prefill"):
         kernels.append(dict(
@@ -5954,14 +6403,16 @@ def main() -> None:
             + dbrx["prefill"][0][name] + launches_mt[name]
             + sum(n[name] for n in enc_l.values()) + launches_et[name]
             + sum(n[name] for n in vlm_l.values()) + launches_qt[name]
-            + sum(n[name] for n in breadth_l.values()),
+            + sum(n[name] for n in breadth_l.values())
+            + sum(n[name] for n in dry_l.values()),
             launches_by_path=by_path[name],
             **fa_rows[name]["train_b4_s2048"], shapes=fa_rows[name]))
     kernels.append(dict(
         name="mamba_scan", route="cuda", source=SOURCES["mamba_scan"],
         replaces=REPLACES["mamba_scan"],
         launches=launches_ssm["mamba_scan"]
-        + breadth_l["falcon-mamba-7b"]["mamba_scan"],
+        + breadth_l["falcon-mamba-7b"]["mamba_scan"]
+        + dry_l["mamba_prefill_32k_b1"]["mamba_scan"],
         launches_by_path=by_path["mamba_scan"],
         **scan_rows["chunk_b1_s64"], shapes=scan_rows))
     kernels.append(dict(

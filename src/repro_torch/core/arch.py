@@ -193,3 +193,13 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
 }
+
+
+def shape_applicable(arch: ArchConfig, shape: ShapeConfig
+                     ) -> Tuple[bool, str]:
+    """Whether an (arch, shape) cell runs: ``long_500k`` only for a
+    sub-quadratic arch (``repro.core.arch.shape_applicable``)."""
+    if shape.name == "long_500k" and not arch.sub_quadratic:
+        return False, ("skipped_by_design: pure full-attention arch,"
+                       " long_500k needs sub-quadratic")
+    return True, ""

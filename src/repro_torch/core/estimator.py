@@ -16,8 +16,9 @@ device work) under a ``TorchDispatchMode`` that sees every ATen operation.
 A convolution counts ``out.numel() x prod(w.shape[1:])`` MACs, ``w`` being
 (out, in / groups, *k), so a grouped (depthwise) convolution counts its
 ``k`` MACs per output.  (The JAX package divides by the groups a second
-time and counts no depthwise MACs at all.)  The TPU-pod adapter
-(``pod_estimate_from_report``) is not ported.
+time and counts no depthwise MACs at all.)  ``pod_estimate_from_report``
+adapts a dry-run row (``launch/dryrun.py``: the card's roofline) into the
+same ``ResourceEstimate``.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core import tree
+from repro_torch.roofline.hw import H100, ChipModel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,3 +222,20 @@ def estimate_impulse(impulse, target: str, *, engine: str = "eon",
     return estimate_mcu(target, macs=counter.macs, dsp_samples=n_samples,
                         weight_bytes=wb, act_bytes=act, engine=engine,
                         int8=int8)
+
+
+def pod_estimate_from_report(report_row: Dict[str, Any],
+                             chip: ChipModel = H100) -> ResourceEstimate:
+    """Adapt a dry-run roofline row (``launch/dryrun.py``) into the common
+    interface; the target is named by the chip model and the mesh
+    (``h100-1x1``)."""
+    t_total = max(report_row["t_compute_s"],
+                  report_row.get("t_memory_min_s",
+                                 report_row["t_memory_s"]),
+                  report_row["t_collective_s"])
+    return ResourceEstimate(
+        target=f"{chip.name}-{report_row['mesh']}",
+        dsp_latency_ms=0.0, nn_latency_ms=t_total * 1e3,
+        ram_kb=report_row["hbm_gib"] * 1024 * 1024,
+        flash_kb=0.0, fits=report_row["fits_hbm"],
+        detail=dict(report_row))

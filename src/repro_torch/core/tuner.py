@@ -11,14 +11,22 @@ seeds: ``build`` takes the same ``randrange(2 ** 31)`` from the tuner's
 with it, so a seed samples, screens and builds the same candidates in
 both packages (the weights differ: torch's generator is not
 ``jax.random``).  The survivors train with ``Impulse.fit`` on the card,
-through the ``mel_frontend`` kernel.  The pod-scale ``PodConfigTuner``
-comes with port slice 11.
+through the ``mel_frontend`` kernel.
+
+``PodConfigTuner`` runs the same loop over distribution knobs (sharding
+strategy x microbatches x remat) for one (arch x shape) cell, scored by
+the dry run's roofline (``launch/dryrun.py::run_cell``) under the card's
+memory.  On one card a strategy changes no layout, so candidates that
+differ only in it tie; the sort is stable, so they keep the shuffle's
+order.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import random as pyrandom
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import (Any, Callable, Dict, List, Optional, Sequence,
+                    Union)
 
 import torch
 
@@ -26,6 +34,7 @@ from repro_torch import resolve_device
 from repro_torch.core import estimator as est
 from repro_torch.core.blocks import make_dsp_block, make_learn_block
 from repro_torch.core.impulse import Impulse
+from repro_torch.roofline.hw import H100
 
 
 @dataclasses.dataclass
@@ -136,3 +145,64 @@ class EONTuner:
         cands = self.sample(n_samples)
         survivors = self.screen(cands)
         return self.evaluate(survivors, train_data, val_data, epochs=epochs)
+
+
+# ---------------------------------------------------------------------------
+# Pod-scale instantiation: the same loop over distribution knobs
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class PodCandidate:
+    strategy: str
+    n_micro: Optional[int]
+    remat: str
+    report: Optional[Dict[str, Any]] = None
+
+    def key(self):
+        return (self.strategy, self.n_micro, self.remat)
+
+
+class PodConfigTuner:
+    """Random search + screen over (strategy x microbatch x remat) for one
+    (arch x shape) cell on ``mesh`` (None: the dry run's one-card mesh),
+    scored by ``roofline_fraction`` under the memory constraint
+    (``hbm_gib``: the H100 model's).  ``evaluator`` is
+    ``launch.dryrun.run_cell``; the shuffle is the reference's
+    ``random.Random(seed)``, so a seed gives its candidate order."""
+
+    def __init__(self, evaluator: Callable, *, arch: str, shape: str,
+                 mesh=None, hbm_gib: float = H100.hbm_bytes / 2**30,
+                 seed: int = 0):
+        self.evaluator = evaluator
+        self.arch = arch
+        self.shape = shape
+        self.mesh = mesh
+        self.hbm_gib = hbm_gib
+        self.rng = pyrandom.Random(seed)
+
+    def space(self, train: bool) -> List[PodCandidate]:
+        strategies = ["tp", "tp_sp", "cp"]
+        micros = [None, 8, 16, 32] if train else [None]
+        remats = ["full", "dots"] if train else ["none"]
+        cands = [PodCandidate(s, m, r) for s, m, r
+                 in itertools.product(strategies, micros, remats)]
+        self.rng.shuffle(cands)
+        return cands
+
+    def search(self, *, n_samples: int = 8) -> List[PodCandidate]:
+        train = self.shape.startswith("train")
+        cands = self.space(train)[:n_samples]
+        scored = []
+        for c in cands:
+            try:
+                res = self.evaluator(self.arch, self.shape, mesh=self.mesh,
+                                     strategy=c.strategy, n_micro=c.n_micro,
+                                     remat=c.remat)
+            except Exception as e:   # an illegal combination is a miss
+                res = {"status": "error", "error": str(e)[:300]}
+            c.report = res
+            scored.append(c)
+        ok = [c for c in scored
+              if c.report.get("status") == "ok"
+              and c.report["memory"]["per_device_hbm_gib"] <= self.hbm_gib]
+        return sorted(
+            ok, key=lambda c: -c.report["roofline"]["roofline_fraction"])

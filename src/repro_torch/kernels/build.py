@@ -27,6 +27,18 @@ SOURCES: Dict[str, str] = {"flash_decode": "flash_decode.cu",
                            "mamba_scan": "mamba_scan.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# The two long builds run nvcc's optimizer on every core, which cuts
+# flash_decode.cu's build, the longest, by more than half; ptxas reports
+# the same registers, stack and spills for every kernel of both.
+# int8_matmul.cu is left out: one of its kernels takes 64 registers there
+# instead of 62.  scripts/chip_build_times.py measures both (PERF.md).
+SPLIT_COMPILE = ("flash_decode", "flash_attention")
+
+
+def nvcc_flags(name: str) -> tuple:
+    """The flags that build ``name``'s source."""
+    split = ("--split-compile=0",) if name in SPLIT_COMPILE else ()
+    return NVCC_FLAGS + split
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -45,7 +57,8 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    tag = hashlib.sha256(src + " ".join(nvcc_flags(name)).encode()
+                         ).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
@@ -55,7 +68,8 @@ def _start(name: str):
     # build under a private name, publish with an atomic rename: two
     # processes building at once never load a half-written library
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+    cmd = [nvcc(), *nvcc_flags(name), "-o", str(tmp),
+           str(CSRC / SOURCES[name])]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
     return proc, tmp, out

@@ -4,10 +4,11 @@ hand-written CUDA kernels in ``csrc/flash_attention.cu``.
 ``flash_attention_fwd`` replaces ``repro/kernels/flash_attention.py:83``
 (causal, sliding-window or full attention with online softmax);
 ``flash_attention_bwd`` is the gradient the TPU kernel never had (the JAX
-package lets XLA differentiate its jnp attention).  ``FlashAttention``, an
-``autograd.Function``, ties the two together: the forward saves q, k, v,
-the output and the rows' log-sum-exp, the backward launches the gradient
-kernel on them.
+package lets XLA differentiate its jnp attention).  ``kernels/ops.py``
+registers the two as the operators ``repro_torch::flash_attention`` and
+``repro_torch::flash_attention_bwd`` and ties them together with
+``register_autograd``: the forward saves q, k, v, the output and the
+rows' log-sum-exp, the backward launches the gradient kernel on them.
 
 Layouts are the model's: q ``(B, Sq, Hq, D)``, k/v ``(B, Skv, Hkv, D)``,
 with query head ``h`` reading KV head ``h // (Hq // Hkv)`` in place, so
@@ -191,32 +192,3 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv
 
-
-class FlashAttention(torch.autograd.Function):
-    """Attention whose forward and backward are the two kernels."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int, q_pos, k_pos):
-        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                       q_pos=q_pos, k_pos=k_pos)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
-        ctx.q_pos, ctx.k_pos = q_pos, k_pos
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(
-            q, k, v, out, lse, dout.contiguous(), causal=ctx.causal,
-            window=ctx.window, q_pos=ctx.q_pos, k_pos=ctx.k_pos)
-        return dq, dk, dv, None, None, None, None
-
-
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0,
-                    q_pos: Optional[torch.Tensor] = None,
-                    k_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Differentiable attention through the kernels (CUDA tensors); masks
-    by position where ``q_pos``/``k_pos`` are given."""
-    return FlashAttention.apply(q, k, v, causal, window, q_pos, k_pos)

@@ -14,20 +14,23 @@ quantized per row (dynamically or against a calibrated amax), through
 attention wrappers take the cache as float tensors or ``Int8KV`` pairs,
 contiguous or paged (``block_table``).  ``mel_frontend`` is the DSP
 blocks' fused frontend.  ``flash_attention`` is the training path's
-whole-sequence attention, differentiable on either device: on the card
-through the forward and backward kernels (``FlashAttention``), on the CPU
-through autograd of the plain version.  ``mamba_scan`` is the selective
-scan of the mamba1 layers, from a carried-in state.
+whole-sequence attention, differentiable on either device through its
+forward and backward operators.  ``mamba_scan`` is the selective scan of
+the mamba1 layers, from a carried-in state.
 
-The four kernels a deployed step runs (``flash_decode``, ``int8_matmul``,
-``mel_frontend``, ``mamba_scan``) are registered as custom operators
-(``torch.ops.repro_torch.*``) at the level of their tensor arguments: the
-``cpu`` implementation is the plain version, the ``cuda`` one the
-kernel's launch (which counts ``LAUNCHES``), and a fake implementation
-gives the output shapes, so that ``torch.export`` traces each one as one
-node instead of reaching into the ``ctypes`` launch.  The dispatcher
-picks the implementation by the tensors' device, as before.  The
-wrappers below unpack ``Int8KV`` and ``QTensor`` before the call.
+The kernels (``flash_decode``, ``int8_matmul``, ``mel_frontend``,
+``mamba_scan`` and ``flash_attention``, the last two with their
+backward) are registered as custom operators (``torch.ops.repro_torch.*``)
+at the level of their tensor arguments: the ``cpu`` implementation is the
+plain version, the ``cuda`` one the kernel's launch (which counts
+``LAUNCHES``), and a fake implementation gives the output shapes, so
+that ``torch.export`` traces each one as one node instead of reaching
+into the ``ctypes`` launch, and a trace on the ``meta`` device (the dry
+run, ``launch/dryrun.py``) sees each kernel as one node with none of the
+plain versions' temporaries.  The dispatcher picks the implementation by
+the tensors' device.  The wrappers below unpack ``Int8KV`` and
+``QTensor`` before the call.  ``chunk_attention`` is no operator (the
+serving step that runs it is not traced on meta): on meta it raises.
 """
 from __future__ import annotations
 
@@ -54,7 +57,12 @@ def launch_counts() -> dict:
 
 
 def _on_card(x: torch.Tensor) -> bool:
-    if x.device.type == "cuda":
+    """Whether ``x`` takes the kernels' route: a CUDA tensor launches
+    them, and a ``meta`` tensor (the dry run's shapes, no data) goes to
+    the registered operators, whose fake implementations give the output
+    shapes, so a trace on meta follows the path the card runs.  A CPU
+    tensor takes the plain version; any other device raises."""
+    if x.device.type in ("cuda", "meta"):
         return True
     if x.device.type == "cpu":
         return False
@@ -121,17 +129,88 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     With ``q_pos`` (B, Sq) and ``k_pos`` (B, Skv) int32 the masks are by
     position instead (the reference's ``full_attention``: ``k_pos >= 0``,
     ``k_pos <= q_pos``, ``k_pos > q_pos - window``), for any Sq and Skv.
-    GQA is read in place by the kernel (query head h on KV head h // G)."""
-    if not _on_card(q):
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       q_pos=q_pos, k_pos=k_pos)
+    GQA is read in place by the kernel (query head h on KV head h // G).
+    Differentiable: the backward is ``repro_torch::flash_attention_bwd``;
+    the forward stays one node."""
+    _on_card(q)                       # any device but cuda, cpu, meta raises
     if q_pos is not None:
         q_pos = q_pos.to(torch.int32).contiguous()
     if k_pos is not None:
         k_pos = k_pos.to(torch.int32).contiguous()
-    return fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              causal=causal, window=window, q_pos=q_pos,
-                              k_pos=k_pos)
+    out, _ = _flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              q_pos, k_pos, bool(causal), int(window))
+    return out
+
+
+@custom_op("repro_torch::flash_attention", mutates_args=(),
+           device_types="cpu",
+           schema="(Tensor q, Tensor k, Tensor v, Tensor? q_pos,"
+                  " Tensor? k_pos, bool causal, int window)"
+                  " -> (Tensor, Tensor)")
+def _flash_attention(q, k, v, q_pos, k_pos, causal, window):
+    """(out (B, Sq, Hq, D) in q's dtype, lse (B, Hq, Sq) f32), contiguous
+    as the kernel writes them."""
+    out, lse = ref.flash_attention_fwd_ref(q, k, v, causal, window, q_pos,
+                                           k_pos)
+    return out.contiguous(), lse
+
+
+@_flash_attention.register_kernel("cuda")
+def _flash_attention_cuda(q, k, v, q_pos, k_pos, causal, window):
+    return fa.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                  q_pos=q_pos, k_pos=k_pos)
+
+
+@_flash_attention.register_fake
+def _flash_attention_fake(q, k, v, q_pos, k_pos, causal, window):
+    b, sq, hq, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, hq, sq),
+                                            dtype=torch.float32)
+
+
+@custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
+           device_types="cpu",
+           schema="(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse,"
+                  " Tensor dout, Tensor? q_pos, Tensor? k_pos, bool causal,"
+                  " int window) -> (Tensor, Tensor, Tensor)")
+def _flash_attention_bwd(q, k, v, out, lse, dout, q_pos, k_pos, causal,
+                         window):
+    """(dq, dk, dv) in the inputs' dtype, contiguous as the kernel writes
+    them.  The plain version is autograd's gradient through the plain
+    forward, bit for bit (``ref.flash_attention_vjp_ref``): it rebuilds P
+    from q and k and reads neither ``out`` nor ``lse``."""
+    return tuple(t.contiguous() for t in ref.flash_attention_vjp_ref(
+        q, k, v, dout, causal, window, q_pos, k_pos))
+
+
+@_flash_attention_bwd.register_kernel("cuda")
+def _flash_attention_bwd_cuda(q, k, v, out, lse, dout, q_pos, k_pos, causal,
+                              window):
+    return fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                  window=window, q_pos=q_pos, k_pos=k_pos)
+
+
+@_flash_attention_bwd.register_fake
+def _flash_attention_bwd_fake(q, k, v, out, lse, dout, q_pos, k_pos, causal,
+                              window):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _flash_attention_setup(ctx, inputs, output):
+    q, k, v, q_pos, k_pos, causal, window = inputs
+    ctx.save_for_backward(q, k, v, output[0], output[1], q_pos, k_pos)
+    ctx.causal, ctx.window = causal, window
+
+
+def _flash_attention_backward(ctx, dout, dlse):
+    q, k, v, out, lse, q_pos, k_pos = ctx.saved_tensors
+    dq, dk, dv = _flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
+                                      q_pos, k_pos, ctx.causal, ctx.window)
+    return dq, dk, dv, None, None, None, None
+
+
+_flash_attention.register_autograd(_flash_attention_backward,
+                                   setup_context=_flash_attention_setup)
 
 
 def _split(cache):

@@ -14,6 +14,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import flags
+
 NEG_INF = -1e30
 
 
@@ -78,14 +80,37 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with a window, any Sq and Skv.  A masked score is the finite −1e30, as
     there, so a row that sees no key (a pad query at −1) gets the mean of V
     over all Skv keys.  Autograd through it is the plain backward."""
+    return flash_attention_fwd_ref(q, k, v, causal, window, q_pos, k_pos,
+                                   lse=False)[0]
+
+
+def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool = True,
+                            window: int = 0,
+                            q_pos: Optional[torch.Tensor] = None,
+                            k_pos: Optional[torch.Tensor] = None,
+                            lse: bool = True
+                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The plain version of the forward kernel: ``flash_attention_ref``'s
+    output and (``lse``) the rows' log-sum-exp of the masked, scaled
+    scores (B, Hq, Sq) f32, as the kernel writes it for its backward.
+
+    Under the flag ``bf16_attn_p`` (``flags.py``) P is taken in V's dtype
+    for the PV product, as the reference's jnp chunked attention takes it
+    (``repro/models/layers.py:211``); the sum stays f32."""
     g = q.shape[2] // k.shape[2]
     if g > 1:
         k = k.repeat_interleave(g, dim=2)
         v = v.repeat_interleave(g, dim=2)
-    p, _ = _attention_probs(q.float(), k.float(), causal, window, q_pos,
-                            k_pos)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
-    return out.to(q.dtype)
+    scores, _ = _attention_scores(q.float(), k.float(), causal, window,
+                                  q_pos, k_pos)
+    p = torch.softmax(scores, dim=-1)
+    if flags.get("bf16_attn_p") and v.dtype != torch.float32:
+        out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v).float()
+    else:
+        out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return out.to(q.dtype), (torch.logsumexp(scores, dim=-1) if lse
+                             else None)
 
 
 def attention_mask(sq: int, skv: int, causal: bool, window: int,
@@ -115,17 +140,25 @@ def attention_mask(sq: int, skv: int, causal: bool, window: int,
     return mask
 
 
-def _attention_probs(q: torch.Tensor, k: torch.Tensor, causal: bool,
-                     window: int, q_pos: Optional[torch.Tensor] = None,
-                     k_pos: Optional[torch.Tensor] = None):
-    """softmax(q·kᵀ·D^-1/2) under ``attention_mask``'s masks, (B, H, Sq,
-    Skv), and the mask (None: every key visible); q (B, Sq, H, D) and k
-    (B, Skv, H, D) with the KV heads expanded."""
+def _attention_scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                      window: int, q_pos: Optional[torch.Tensor] = None,
+                      k_pos: Optional[torch.Tensor] = None):
+    """q·kᵀ·D^-1/2, a masked score −1e30 under ``attention_mask``'s masks,
+    (B, H, Sq, Skv), and the mask (None: every key visible); q (B, Sq, H,
+    D) and k (B, Skv, H, D) with the KV heads expanded."""
     sq, skv, d = q.shape[1], k.shape[1], q.shape[3]
     mask = attention_mask(sq, skv, causal, window, q_pos, k_pos, q.device)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * (d ** -0.5)
     if mask is not None:
         scores = torch.where(mask, scores, NEG_INF)
+    return scores, mask
+
+
+def _attention_probs(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                     window: int, q_pos: Optional[torch.Tensor] = None,
+                     k_pos: Optional[torch.Tensor] = None):
+    """softmax of ``_attention_scores``, and the mask."""
+    scores, mask = _attention_scores(q, k, causal, window, q_pos, k_pos)
     return torch.softmax(scores, dim=-1), mask
 
 
@@ -164,6 +197,50 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
     dk, dv = (t.reshape(b, skv, hkv, g, d).sum(3) for t in (dk, dv))
     return tuple(t.to(q.dtype) for t in (dq, dk, dv))
+
+
+def flash_attention_vjp_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, dout: torch.Tensor,
+                            causal: bool = True, window: int = 0,
+                            q_pos: Optional[torch.Tensor] = None,
+                            k_pos: Optional[torch.Tensor] = None):
+    """(dq, dk, dv) of ``flash_attention_ref``'s output against ``dout``
+    as autograd forms them through it, bit for bit: P rebuilt as the
+    forward builds it, the softmax's own backward (``dS = P ∘ (dP −
+    rowsum(dP ∘ P))``), the mask, the scale, the products, and the
+    expanded KV heads' gradients cast to the inputs' dtype before their
+    groups are summed.  The CPU implementation of the backward operator
+    (``ops.py``), where autograd cannot record; unlike
+    ``flash_attention_bwd_ref`` (the kernel's contract) it reads neither
+    the forward's output nor its lse.
+
+    Under the flag ``bf16_attn_p`` it differentiates the forward's cast as
+    autograd does: dV from P in V's dtype, and dP = dO Vᵀ in V's dtype."""
+    b, _, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+    if g > 1:
+        kf, vf = kf.repeat_interleave(g, dim=2), vf.repeat_interleave(g, dim=2)
+    scores, mask = _attention_scores(qf, kf, causal, window, q_pos, k_pos)
+    p = torch.softmax(scores, dim=-1)
+    if flags.get("bf16_attn_p") and v.dtype != torch.float32:
+        vb = v.repeat_interleave(g, dim=2) if g > 1 else v
+        dob = dout.to(v.dtype)
+        dv = torch.einsum("bhqk,bqhd->bkhd", p.to(v.dtype), dob)
+        dp = torch.einsum("bqhd,bkhd->bhqk", dob, vb).float()
+    else:
+        dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+        dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = torch.ops.aten._softmax_backward_data(dp, p, -1, torch.float32)
+    if mask is not None:
+        ds = torch.where(mask, ds, 0.0)
+    ds = ds * (d ** -0.5)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dk, dv = (t.to(q.dtype).reshape(b, skv, hkv, g, d).sum(3)
+              for t in (dk, dv))
+    return dq.to(q.dtype), dk, dv
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

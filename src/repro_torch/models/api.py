@@ -2,16 +2,19 @@
 
 The counterpart of ``repro.models.api.ModelFns`` on the port's paths:
 training, one-shot prefill, decode and chunk prefill, in the JAX order,
-for the uniform dense and MoE decoders, the local:global sliding-window trunk
-(gemma3), (prefill and serving only) the mamba1 trunk of the ``ssm``
-family and the hybrid trunk (zamba2), and the encoder-decoder backbone
-(seamless-m4t, ``models/encdec.py``).  ``input_shapes`` and
-``synthetic_inputs`` are the counterparts of ``train_input_specs``,
-``prefill_input_specs`` and ``synthetic_inputs``: an enc-dec batch
-brings the audio frontend's stand-in, precomputed frame embeddings of
-(B, S // ``enc_seq_divisor``, d); a frontend decoder's (qwen2-vl) brings
-the vision frontend's, precomputed patch embeddings (B, S, d) in place
-of tokens, and under M-RoPE its (B, S, 3) position streams.
+for every trunk: the uniform dense and MoE decoders, the local:global
+sliding-window trunk (gemma3), the mamba1 trunk of the ``ssm`` family,
+the hybrid trunk (zamba2) and the encoder-decoder backbone (seamless-m4t,
+``models/encdec.py``).  ``input_shapes`` and ``synthetic_inputs`` give a
+batch's shapes and random values: an enc-dec batch brings the audio
+frontend's stand-in, precomputed frame embeddings of (B, S //
+``enc_seq_divisor``, d); a frontend decoder's (qwen2-vl) brings the vision
+frontend's, precomputed patch embeddings (B, S, d) in place of tokens,
+and under M-RoPE its (B, S, 3) position streams.  ``input_specs``
+(``train_input_specs``, ``prefill_input_specs``, ``decode_input_specs``)
+and ``abstract_cache`` give a shape cell's inputs as tensors on the
+``meta`` device for the dry run, and ``input_logical_axes`` their
+logical axis names.
 """
 from __future__ import annotations
 
@@ -20,8 +23,9 @@ from typing import Callable, Dict, NamedTuple, Sequence, Tuple, Union
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.arch import ArchConfig
+from repro_torch.core.arch import ArchConfig, ShapeConfig
 from repro_torch.models import encdec, transformer
+from repro_torch.models.params import abstract_params
 
 
 class ModelFns(NamedTuple):
@@ -60,6 +64,75 @@ def input_shapes(cfg: ArchConfig, batch: int, seq: int, train: bool = True
         return shapes
     shapes["tokens"] = ((batch, seq), torch.int32)
     return shapes
+
+
+# ---------------------------------------------------------------------------
+# Abstract inputs of a shape cell (tensors on the ``meta`` device: shapes
+# and dtypes, no memory), as the reference's ShapeDtypeStructs
+# ---------------------------------------------------------------------------
+def _sds(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def train_input_specs(cfg: ArchConfig, shape: ShapeConfig
+                      ) -> Dict[str, torch.Tensor]:
+    return {name: _sds(s, dt) for name, (s, dt) in input_shapes(
+        cfg, shape.global_batch, shape.seq_len, train=True).items()}
+
+
+def prefill_input_specs(cfg: ArchConfig, shape: ShapeConfig
+                        ) -> Dict[str, torch.Tensor]:
+    return {name: _sds(s, dt) for name, (s, dt) in input_shapes(
+        cfg, shape.global_batch, shape.seq_len, train=False).items()}
+
+
+def decode_input_specs(cfg: ArchConfig, shape: ShapeConfig
+                       ) -> Dict[str, object]:
+    """Decode is one new token against a cache of ``seq_len``: {"cache":
+    the abstract cache, "token": (B,) int32, "position": (B,) int32}."""
+    b = shape.global_batch
+    return {"cache": abstract_cache(cfg, shape),
+            "token": _sds((b,), torch.int32),
+            "position": _sds((b,), torch.int32)}
+
+
+def abstract_cache(cfg: ArchConfig, shape: ShapeConfig, policy=None):
+    """The cache the one-shot prefill of ``shape`` builds, traced on the
+    ``meta`` device (the reference's ``jax.eval_shape`` of its prefill):
+    the same leaves and structure as a real prefill's, no memory.  Under
+    an int8 ``policy`` the K/V leaves are ``Int8KV`` pairs; the weights
+    stay float."""
+    fns = model_fns(cfg)
+    _, cache = fns.forward_prefill(cfg, abstract_params(cfg),
+                                   prefill_input_specs(cfg, shape), policy)
+    return cache
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, object]:
+    if shape.kind == "train":
+        return train_input_specs(cfg, shape)
+    if shape.kind == "prefill":
+        return prefill_input_specs(cfg, shape)
+    if shape.kind == "decode":
+        return decode_input_specs(cfg, shape)
+    raise ValueError(shape.kind)
+
+
+def input_logical_axes(cfg: ArchConfig, shape: ShapeConfig):
+    """Each input's logical axis names, for the sharding rules; None for a
+    decode cell (its cache is placed by ``launch/dryrun.py``'s
+    ``cache_shardings``)."""
+    if shape.kind == "decode":
+        return None
+    axes = {}
+    for name in input_shapes(cfg, 1, 1, train=shape.kind == "train"):
+        if name in ("tokens", "labels"):
+            axes[name] = ("act_batch", "act_seq")
+        elif name == "positions":
+            axes[name] = ("act_batch", "act_seq", None)
+        elif name in ("embeddings", "enc_embeddings"):
+            axes[name] = ("act_batch", "act_seq", "act_dmodel")
+    return axes
 
 
 def synthetic_inputs(cfg: ArchConfig, batch: int, seq: int,

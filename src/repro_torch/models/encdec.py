@@ -39,7 +39,8 @@ from repro_torch.models.transformer import (_attn_kwargs, _layer,
                                             _maybe_remat, _write_pos,
                                             _write_pos_chunk,
                                             default_positions, dense_block,
-                                            embed_tokens, lm_loss, unembed)
+                                            embed_tokens, lm_loss,
+                                            maybe_cast_params, unembed)
 
 Cache = Dict[str, object]
 # the cache's K/V leaves: the decoder's self-attention, the cross-attention
@@ -133,6 +134,7 @@ def forward_train(cfg: ArchConfig, params, inputs: Dict[str, torch.Tensor],
     (−1 ignored), on the weights' device.  Returns ``lm_loss``'s (loss,
     metrics); the loss is differentiable in every weight, the encoder's
     through the cross-attention's K/V."""
+    params = maybe_cast_params(params, cfg)
     enc_out = encode(cfg, params, inputs["enc_embeddings"], remat=remat,
                      policy=policy)
     x, _, _ = _decoder(cfg, params, inputs["tokens"], enc_out, remat=remat,
@@ -156,6 +158,7 @@ def forward_prefill(cfg: ArchConfig, params, inputs: Dict[str, torch.Tensor],
     ``transformer.grow_cache`` adds room to decode into).  The prompt
     attends the unquantized self and cross K/V; the cache takes the
     policy's representation afterwards, as in the reference."""
+    params = maybe_cast_params(params, cfg)
     enc_out = encode(cfg, params, inputs["enc_embeddings"], policy=policy)
     x, positions, kvs = _decoder(cfg, params, inputs["tokens"], enc_out,
                                  collect_cache=True, policy=policy)
@@ -177,6 +180,7 @@ def init_chunk_cache(cfg: ArchConfig, params, enc_embeddings: torch.Tensor,
     the self-attention K/V are zeros with positions −1.  The cross K/V
     take the policy's representation here, so the chunks attend the
     quantized entries (unlike ``forward_prefill``)."""
+    params = maybe_cast_params(params, cfg)
     enc_out = encode(cfg, params, enc_embeddings, policy=policy)
     b, s_enc = enc_out.shape[:2]
     xkvs = [cross_kv(cfg, p, enc_out, policy)
@@ -206,6 +210,7 @@ def forward_decode(cfg: ArchConfig, params, cache: Cache,
     read nor written); the cross-attention reads the whole encoder and
     writes nothing.  Returns (logits (B, V_pad), cache) with the cache
     updated in place."""
+    params = maybe_cast_params(params, cfg)
     _no_paging(block_table)
     x = embed_tokens(params, token[:, None], cfg)
     widx = position if write_idx is None else write_idx
@@ -241,6 +246,7 @@ def forward_prefill_chunk(cfg: ArchConfig, params, cache: Cache,
     cross-attention reads the fixed encoder K/V, its pad queries
     (position −1) attending nothing.  Returns (logits (B, C, V_pad),
     cache) with the cache updated in place."""
+    params = maybe_cast_params(params, cfg)
     _no_paging(block_table)
     x = embed_tokens(params, tokens, cfg)
     write_full = positions[:, 0]

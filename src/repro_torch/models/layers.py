@@ -82,7 +82,8 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     freqs = rope_freqs(d, theta, x.device)                        # (D/2,)
     sec_ids = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.tensor(tuple(sections), device=x.device))           # (D/2,)
+        torch.tensor(tuple(sections), device=x.device),
+        output_size=d // 2)                                       # (D/2,)
     pos = positions.float()[..., sec_ids]                         # (..., S, D/2)
     angles = (pos * freqs)[..., None, :]                          # (..., S, 1, D/2)
     sin, cos = torch.sin(angles), torch.cos(angles)

@@ -1,7 +1,8 @@
 """Parameter specs and the model's weights as an ``nn.Module``.
 
-Every backbone weight is declared once as a ``ParamSpec`` (shape and
-initializer), in the layout of ``repro.models.params``: projection
+Every backbone weight is declared once as a ``ParamSpec`` (shape,
+logical axis names and initializer), in the layout of
+``repro.models.params``: projection
 weights ``(d_in, d_out)`` applied as ``x @ w``, and per-layer leaves
 stacked along a leading ``(L, ...)`` axis.  The uniform dense decoder, the
 uniform MoE decoder (phi3.5-moe, dbrx: each block's experts a (d, E)
@@ -13,8 +14,11 @@ dense encoder blocks ``enc_blocks`` with ``enc_final_norm``, and decoder
 ``blocks`` that add a cross-attention ``xattn`` and its ``xattn_norm``)
 are declared.  ``init_params``
 draws them from a ``torch.Generator`` on the target device;
-``params_from_numpy`` carries a tree of numpy arrays (for example the JAX package's own
-``init_params``) across leaf for leaf.
+``params_from_numpy`` carries a tree of numpy arrays (for example the JAX
+package's own ``init_params``) across leaf for leaf.  For the dry run,
+``abstract_params`` gives the float32 masters on the ``meta`` device (no
+memory), ``logical_axes`` each leaf's logical names (the sharding rules'
+input) and ``param_count`` the number of weights.
 
 Both return a ``ParamTree``: an ``nn.Module`` whose leaves are
 ``nn.Parameter``s, indexed like the JAX params dict (``p["blocks"]["attn"]
@@ -46,54 +50,67 @@ from repro_torch.core.tree import map_tree
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
+    # the logical axis names the sharding rules map (``sharding/policy.py``)
+    logical: Tuple[Optional[str], ...]
     init: str = "normal"          # normal|zeros|ones|a_log|dt_bias|conv
     scale: float = 0.02
 
-    def stack(self, n: int) -> "ParamSpec":
-        return dataclasses.replace(self, shape=(n,) + self.shape)
+    def stack(self, n: int, axis_name: str = "layers") -> "ParamSpec":
+        return dataclasses.replace(self, shape=(n,) + self.shape,
+                                   logical=(axis_name,) + self.logical)
 
 
 SpecTree = Dict[str, object]  # nested dict of ParamSpec
 
 
 def _norm(d: int) -> ParamSpec:
-    return ParamSpec((d,), init="zeros")
+    return ParamSpec((d,), (None,), init="zeros")
 
 
 def attn_specs(cfg: ArchConfig) -> SpecTree:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    return {"wq": ParamSpec((d, nq)), "wk": ParamSpec((d, nkv)),
-            "wv": ParamSpec((d, nkv)), "wo": ParamSpec((nq, d))}
+    return {"wq": ParamSpec((d, nq), ("p_dmodel", "p_heads")),
+            "wk": ParamSpec((d, nkv), ("p_dmodel", "p_kv_heads")),
+            "wv": ParamSpec((d, nkv), ("p_dmodel", "p_kv_heads")),
+            "wo": ParamSpec((nq, d), ("p_heads", "p_dmodel"))}
 
 
 def mlp_specs(cfg: ArchConfig) -> SpecTree:
     d, f = cfg.d_model, cfg.d_ff
-    return {"w_gate": ParamSpec((d, f)), "w_up": ParamSpec((d, f)),
-            "w_down": ParamSpec((f, d))}
+    return {"w_gate": ParamSpec((d, f), ("p_dmodel", "p_ff")),
+            "w_up": ParamSpec((d, f), ("p_dmodel", "p_ff")),
+            "w_down": ParamSpec((f, d), ("p_ff", "p_ff_in"))}
 
 
 def moe_specs(cfg: ArchConfig) -> SpecTree:
     """The experts of an MoE block: the (d, E) router and the (E, d, f) /
     (E, f, d) SwiGLU banks."""
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
-    return {"router": ParamSpec((d, e)), "w_gate": ParamSpec((e, d, f)),
-            "w_up": ParamSpec((e, d, f)), "w_down": ParamSpec((e, f, d))}
+    return {"router": ParamSpec((d, e), ("p_dmodel", None)),
+            "w_gate": ParamSpec((e, d, f), ("p_experts", "p_dmodel", "p_ff")),
+            "w_up": ParamSpec((e, d, f), ("p_experts", "p_dmodel", "p_ff")),
+            "w_down": ParamSpec((e, f, d),
+                                ("p_experts", "p_ff", "p_ff_in"))}
 
 
 def mamba1_specs(cfg: ArchConfig) -> SpecTree:
     d, di, ds, k = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.d_conv
     dt_rank = max(d // 16, 1)
-    return {"in_proj": ParamSpec((d, 2 * di)),
-            "conv_w": ParamSpec((k, di), init="conv"),
-            "conv_b": ParamSpec((di,), init="zeros"),
-            "x_dt": ParamSpec((di, dt_rank)),
-            "dt_proj": ParamSpec((dt_rank, di), scale=0.1),
-            "dt_bias": ParamSpec((di,), init="dt_bias"),
-            "wb": ParamSpec((di, ds)), "wc": ParamSpec((di, ds)),
-            "a_log": ParamSpec((di, ds), init="a_log"),
-            "d_skip": ParamSpec((di,), init="ones"),
-            "out_proj": ParamSpec((di, d))}
+    return {"in_proj": ParamSpec((d, 2 * di), ("p_dmodel", "p_dinner")),
+            "conv_w": ParamSpec((k, di), ("p_conv", "p_dinner"),
+                                init="conv"),
+            "conv_b": ParamSpec((di,), ("p_dinner",), init="zeros"),
+            "x_dt": ParamSpec((di, dt_rank), ("p_dinner", None)),
+            "dt_proj": ParamSpec((dt_rank, di), (None, "p_dinner"),
+                                 scale=0.1),
+            "dt_bias": ParamSpec((di,), ("p_dinner",), init="dt_bias"),
+            "wb": ParamSpec((di, ds), ("p_dinner", "p_state")),
+            "wc": ParamSpec((di, ds), ("p_dinner", "p_state")),
+            "a_log": ParamSpec((di, ds), ("p_dinner", "p_state"),
+                               init="a_log"),
+            "d_skip": ParamSpec((di,), ("p_dinner",), init="ones"),
+            "out_proj": ParamSpec((di, d), ("p_dinner", "p_dmodel"))}
 
 
 def mamba2_specs(cfg: ArchConfig) -> SpecTree:
@@ -103,16 +120,18 @@ def mamba2_specs(cfg: ArchConfig) -> SpecTree:
     norm scale ``gate_norm``."""
     d, di, ds, k = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.d_conv
     nh = cfg.resolved_ssm_heads
-    return {"in_proj": ParamSpec((d, 2 * di)),
-            "conv_w": ParamSpec((k, di), init="conv"),
-            "conv_b": ParamSpec((di,), init="zeros"),
-            "wb": ParamSpec((d, ds)), "wc": ParamSpec((d, ds)),
-            "dt_w": ParamSpec((d, nh)),
-            "dt_bias": ParamSpec((nh,), init="dt_bias"),
-            "a_log": ParamSpec((nh,), init="a_log"),
-            "d_skip": ParamSpec((nh,), init="ones"),
-            "gate_norm": ParamSpec((di,), init="zeros"),
-            "out_proj": ParamSpec((di, d))}
+    return {"in_proj": ParamSpec((d, 2 * di), ("p_dmodel", "p_dinner")),
+            "conv_w": ParamSpec((k, di), ("p_conv", "p_dinner"),
+                                init="conv"),
+            "conv_b": ParamSpec((di,), ("p_dinner",), init="zeros"),
+            "wb": ParamSpec((d, ds), ("p_dmodel", "p_state")),
+            "wc": ParamSpec((d, ds), ("p_dmodel", "p_state")),
+            "dt_w": ParamSpec((d, nh), ("p_dmodel", None)),
+            "dt_bias": ParamSpec((nh,), (None,), init="dt_bias"),
+            "a_log": ParamSpec((nh,), (None,), init="a_log"),
+            "d_skip": ParamSpec((nh,), (None,), init="ones"),
+            "gate_norm": ParamSpec((di,), ("p_dinner",), init="zeros"),
+            "out_proj": ParamSpec((di, d), ("p_dinner", "p_dmodel"))}
 
 
 def dense_block_specs(cfg: ArchConfig) -> SpecTree:
@@ -236,12 +255,44 @@ def build_specs(cfg: ArchConfig) -> SpecTree:
             " (the port has the uniform dense, uniform MoE, uniform mamba1,"
             " local:global and hybrid trunks, and the dense enc-dec)")
     d, vpad = cfg.d_model, cfg.padded_vocab()
-    specs: SpecTree = {"embed": ParamSpec((vpad, d)), "final_norm": _norm(d)}
+    specs: SpecTree = {"embed": ParamSpec((vpad, d), ("p_vocab", "p_dmodel")),
+                       "final_norm": _norm(d)}
     if not cfg.tie_embeddings:
-        specs["unembed"] = ParamSpec((vpad, d))
+        specs["unembed"] = ParamSpec((vpad, d), ("p_vocab", "p_dmodel"))
     specs.update(encdec_specs(cfg) if cfg.is_encdec
                  else _BLOCK_SPECS[pat["kind"]](cfg, pat))
     return specs
+
+
+def _map_specs(fn, tree: SpecTree) -> Dict[str, object]:
+    # sorted keys: the leaf order of jax.tree.flatten
+    return {k: (_map_specs(fn, tree[k]) if isinstance(tree[k], dict)
+                else fn(tree[k])) for k in sorted(tree)}
+
+
+def logical_axes(cfg: ArchConfig) -> Dict[str, object]:
+    """The tree of each weight's logical axis names (``layers`` on a
+    stacked axis), the input of ``sharding.policy.params_pspecs``."""
+    return _map_specs(lambda spec: spec.logical, build_specs(cfg))
+
+
+def param_count(cfg: ArchConfig) -> int:
+    """The number of weights the spec tree declares."""
+    specs = []
+    _map_specs(specs.append, build_specs(cfg))
+    return sum(int(np.prod(spec.shape)) for spec in specs)
+
+
+def abstract_params(cfg: ArchConfig, trainable: bool = False
+                    ) -> "ParamTree":
+    """The weights' shapes and dtypes without memory: a ``ParamTree`` of
+    float32 tensors on the ``meta`` device (the port's
+    ``ShapeDtypeStruct``), every leaf float32 as the reference's masters
+    (``ParamSpec.dtype``); ``trainable`` leaves take gradients, so a train
+    step traces on them (``launch/dryrun.py``)."""
+    return ParamTree(_map_specs(
+        lambda spec: torch.empty(spec.shape, dtype=torch.float32,
+                                 device="meta"), build_specs(cfg)), trainable)
 
 
 # ---------------------------------------------------------------------------

@@ -48,15 +48,18 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import flags
 from repro_torch.core.arch import ArchConfig
-from repro_torch.core.quantize import Int8KV, PrecisionPolicy, maybe_quant_kv
+from repro_torch.core.quantize import (Int8KV, PrecisionPolicy, QTensor,
+                                       maybe_quant_kv)
+from repro_torch.core.tree import as_tree
 from repro_torch.models.layers import (attention_chunk_layer,
                                        attention_decode_layer,
                                        attention_layer, ring_scatter,
                                        ring_scatter_idx, rms_norm,
                                        swiglu_mlp, write_pages, write_rows)
 from repro_torch.models.moe import moe_layer
-from repro_torch.models.params import layer_pattern
+from repro_torch.models.params import TreeView, layer_pattern
 from repro_torch.models.ssm import (SSMState, mamba1_decode, mamba1_layer,
                                     mamba2_decode, mamba2_layer)
 
@@ -89,9 +92,9 @@ def _maybe_remat(fn: Callable, policy: Optional[str]) -> Callable:
     without re-entry: "full" (the JAX package's ``nothing_saveable``)
     recomputes the whole block in the backward from its inputs; "dots" and
     "dots_no_batch" keep the outputs of ``_SAVED_PRODUCTS`` and recompute
-    the rest.  The attention kernel (``FlashAttention``, a launch inside an
-    ``autograd.Function``) holds no score matrix to keep, so it runs again
-    under every policy, as under "full"."""
+    the rest.  The attention (the operator ``repro_torch::flash_attention``
+    on either device) is no product and holds no score matrix to keep, so
+    it runs again under every policy, as under "full"."""
     if policy is None or policy == "none":
         return fn
     if policy == "full":
@@ -102,6 +105,28 @@ def _maybe_remat(fn: Callable, policy: Optional[str]) -> Callable:
                                  preserve_rng_state=False,
                                  context_fn=_saving(_SAVED_PRODUCTS[policy]))
     raise ValueError(f"unknown remat policy {policy!r}")
+
+
+def maybe_cast_params(params, cfg: ArchConfig):
+    """Under the ``bf16_params`` flag (``flags.py``), the weights with the
+    float32 masters of two or more dimensions cast to the activation dtype
+    once at the entry point (a ``TreeView``; the casts are differentiable,
+    so gradients still reach the masters); 1-D scales, the SSM dynamics
+    that are 1-D and ``QTensor`` leaves stay as they are.  Without the flag,
+    ``params`` itself.  The reference's barrier (``transformer.py:52-57``)
+    keeps XLA from sinking the cast into its layer scan; eager PyTorch
+    casts where it is asked to and needs none."""
+    if not flags.get("bf16_params"):
+        return params
+    dt = cfg.activation_dtype
+
+    def cast(tree):
+        return {k: (cast(v) if isinstance(v, dict)
+                    else v if isinstance(v, QTensor)
+                    else v.to(dt) if v.dim() >= 2 and v.dtype == torch.float32
+                    else v)
+                for k, v in tree.items()}
+    return TreeView(cast(as_tree(params)))
 
 
 # ---------------------------------------------------------------------------
@@ -576,6 +601,7 @@ def forward_train(cfg: ArchConfig, params, inputs: Dict[str, torch.Tensor],
     (packed rows, an image's patches); tensors on the weights' device.
     Returns ``lm_loss``'s (loss, metrics); the loss is differentiable in
     the weights (and in the embeddings where they require it)."""
+    params = maybe_cast_params(params, cfg)
     x, positions, mask_pos = _trunk_inputs(cfg, params, inputs)
     x, _ = trunk_forward(cfg, params, x, positions, remat=remat,
                          policy=policy, mask_pos=mask_pos)
@@ -601,6 +627,7 @@ def forward_decode(cfg: ArchConfig, params, cache: Cache,
     required.  Returns (logits (B, V_pad), cache) with the cache updated
     in place.
     """
+    params = maybe_cast_params(params, cfg)
     x = embed_tokens(params, token[:, None], cfg)
     w = cfg.sliding_window
     write_full = position if write_idx is None else write_idx
@@ -660,6 +687,7 @@ def forward_prefill_chunk(cfg: ArchConfig, params, cache: Cache,
     (B, C, V_pad), cache) with the cache updated in place; the caller
     reads the next token from the last real row.
     """
+    params = maybe_cast_params(params, cfg)
     x = embed_tokens(params, tokens, cfg)
     write_full = positions[:, 0]
     if "pool_pos" in cache:
@@ -692,6 +720,7 @@ def forward_prefill(cfg: ArchConfig, params, inputs: Dict[str, torch.Tensor],
     temporal stream, its K/V in the ``policy``'s representation
     (``Int8KV`` under native int8, their quantize-dequantize round trip
     under fake-quant), quantized after the cache is built."""
+    params = maybe_cast_params(params, cfg)
     x, positions, mask_pos = _trunk_inputs(cfg, params, inputs)
     x, caches = trunk_forward(cfg, params, x, positions, collect_cache=True,
                               policy=policy, mask_pos=mask_pos)

@@ -21,6 +21,9 @@ the uniform mamba1 trunk and the hybrid trunk (zamba2):
   admission reset) and ``release_slot`` invalidates a row's positions, both
   in place.
 * ``decode_cache_nbytes`` — device bytes of a cache.
+* ``abstract_decode_cache`` / ``slot_batch_axes`` / ``paged_slot_axes`` —
+  the prefill's cache on the ``meta`` device and each leaf's slot axis
+  (−1: none, a pool leaf), as the reference derives them.
 * ``alloc_paged_cache`` / ``abstract_paged_cache`` / ``kv_pool_block_bytes``
   — the paged layout: K/V leaves (L, NB, BS, Hkv, D) pools of fixed-size
   blocks and an (NB, BS) ``pool_pos`` position pool, addressed through a
@@ -232,6 +235,66 @@ def _full_leaves(cfg: ArchConfig, outer: int, rows: int, device, policy,
     leaves[pos_key] = torch.full((outer, rows), -1, dtype=torch.int32,
                                  device=device)
     return leaves
+
+
+def abstract_decode_cache(cfg: ArchConfig, slots: int, capacity: int,
+                          policy: Optional[PrecisionPolicy] = None) -> Cache:
+    """The decode cache of ``slots`` x ``capacity`` as the one-shot
+    prefill builds it, on the ``meta`` device (``api.abstract_cache`` of a
+    prefill cell of that batch and length), as the reference derives its
+    own; with an int8 ``policy`` the K/V leaves are ``Int8KV`` pairs."""
+    from repro_torch.core.arch import ShapeConfig
+    from repro_torch.models.api import abstract_cache
+    shape = ShapeConfig("serve_alloc", seq_len=capacity, global_batch=slots,
+                        kind="prefill")
+    return abstract_cache(cfg, shape, policy)
+
+
+def _map_leaves(fn, tree, *rest):
+    """``fn`` over the tensors of a cache tree (dicts, and the fields of
+    ``Int8KV`` and ``SSMState``), keeping its structure."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    if isinstance(tree, tuple):
+        return type(tree)(*(_map_leaves(fn, *xs)
+                            for xs in zip(tree, *rest)))
+    return fn(tree, *rest)
+
+
+def _first_diff_axis(big: torch.Tensor, small: torch.Tensor) -> int:
+    """The axis where a batch-1 cache's leaf differs from the full one's
+    (the batch axis: it precedes any length difference); −1 for none."""
+    for i, (b, s) in enumerate(zip(big.shape, small.shape)):
+        if b != s:
+            return i
+    return -1
+
+
+def slot_batch_axes(cfg: ArchConfig, slots: int, capacity: int,
+                    policy: Optional[PrecisionPolicy] = None):
+    """Each leaf's batch axis in the decode cache, found by comparing the
+    ``slots``-row abstract cache with its batch-1 twin (the reference's
+    rule, robust to every layout); −1 marks a leaf with no batch axis
+    (only where ``slots == 1``)."""
+    big = abstract_decode_cache(cfg, slots, capacity, policy)
+    small = abstract_decode_cache(cfg, 1, capacity, policy)
+    return _map_leaves(_first_diff_axis, big, small)
+
+
+def paged_slot_axes(cfg: ArchConfig, slots: int, capacity: int,
+                    num_blocks: int,
+                    policy: Optional[PrecisionPolicy] = None,
+                    block_size: Optional[int] = None):
+    """``slot_batch_axes`` of the paged cache: a slot-addressed leaf keeps
+    its batch axis, a pool leaf (and ``pool_pos``) has −1, no slot axis."""
+    cache = abstract_paged_cache(cfg, slots, capacity, num_blocks, policy,
+                                 block_size)
+    small = abstract_decode_cache(cfg, 1, capacity, policy)
+    shared = set(paged_cache_keys(cfg)) | {"pool_pos"}
+    return {key: (_map_leaves(lambda _: -1, leaf) if key in shared
+                  else _map_leaves(_first_diff_axis, leaf, small[key]))
+            for key, leaf in cache.items()}
 
 
 def _tensors(leaf) -> Tuple[torch.Tensor, ...]:

@@ -2,8 +2,8 @@
 and one-token decode over every slot, on the contiguous or the paged
 cache.
 
-The counterparts of ``repro.serve.serve_step``'s prefill, slot and paged
-steps.
+The counterparts of ``repro.serve.serve_step``'s prefill, contiguous
+decode, slot and paged steps.
 Each step closes over its ``PrecisionPolicy``, runs under
 ``torch.no_grad`` and updates the cache in place.  Greedy next tokens are
 the argmax over the **padded** vocabulary, as in the JAX package.
@@ -39,6 +39,23 @@ def make_prefill_step(cfg: ArchConfig,
         return logits.argmax(dim=-1).to(torch.int32), logits, cache
 
     return prefill_step
+
+
+def make_decode_step(cfg: ArchConfig,
+                     policy: Optional[PrecisionPolicy] = None):
+    """One-token decode over the contiguous cache of every row:
+    ``step(params, cache, token (B,), position (B,)) -> (next_token (B,),
+    logits (B, V_pad), cache)``, the cache updated in place (every row
+    read and written, as the reference's ``make_decode_step``)."""
+    fns = model_fns(cfg)
+
+    @torch.no_grad()
+    def decode_step(params, cache, token, position):
+        logits, cache = fns.forward_decode(cfg, params, cache, token,
+                                           position, policy=policy)
+        return logits.argmax(dim=-1).to(torch.int32), logits, cache
+
+    return decode_step
 
 
 def make_chunk_prefill_step(cfg: ArchConfig,

@@ -107,3 +107,12 @@ def sgd_update(grads, state, params, lr: float):
     for p, g in zip(leaves(as_tree(params)), leaves(grads)):
         p.copy_((p.float() - lr * g.float()).to(p.dtype))
     return params, state, {"grad_norm": global_norm(grads)}
+
+
+def abstract_opt_state(abstract_params) -> Dict[str, Any]:
+    """The AdamW state of ``abstract_params`` (meta tensors) on the
+    ``meta`` device: moments of each leaf's shape and dtype, the step."""
+    tree = as_tree(abstract_params)
+    like = lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta")
+    return {"m": map_tree(like, tree), "v": map_tree(like, tree),
+            "step": torch.empty((), dtype=torch.int32, device="meta")}

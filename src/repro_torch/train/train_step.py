@@ -28,6 +28,33 @@ def _on(x, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+def loss_and_grads(cfg: ArchConfig, params, plist, micro, remat: str):
+    """The loss of one (micro)batch and its gradients in the weights
+    ``plist`` (``leaves(params.tree())``)."""
+    loss, _ = model_fns(cfg).forward_train(cfg, params, micro, remat=remat)
+    # a weight the batch does not reach (the token table under an
+    # embedding batch) gets zeros, as jax.grad gives it
+    grads = torch.autograd.grad(loss, plist, allow_unused=True,
+                                materialize_grads=True)
+    return loss.detach(), grads
+
+
+def apply_grads(params, opt_state: Dict[str, Any], grads, opt: AdamWConfig,
+                grad_compression: Optional[str] = None):
+    """(Compressed) gradients, a list in the order of ``leaves(params.
+    tree())``, into one AdamW step, in place; returns (params, opt_state,
+    the optimizer's metrics)."""
+    grads = unflatten(params.tree(), list(grads))
+    residual = None
+    if grad_compression and grad_compression != "none":
+        grads, residual = comp.compress_grads(
+            grads, opt_state["residual"], grad_compression)
+    _, opt_state, om = adamw_update(grads, opt_state, params, opt)
+    if residual is not None:
+        opt_state["residual"] = residual
+    return params, opt_state, om
+
+
 def make_train_step(cfg: ArchConfig, *, n_microbatch: int = 1,
                     remat: str = "full", opt: AdamWConfig = AdamWConfig(),
                     grad_compression: Optional[str] = None):
@@ -39,19 +66,9 @@ def make_train_step(cfg: ArchConfig, *, n_microbatch: int = 1,
     axis and go to the weights' device.  With ``grad_compression`` the
     caller puts the error-feedback residual in ``opt_state["residual"]``
     (``compression.init_residual``)."""
-    fns = model_fns(cfg)
-
-    def loss_and_grads(params, plist, micro):
-        loss, _ = fns.forward_train(cfg, params, micro, remat=remat)
-        # a weight the batch does not reach (the token table under an
-        # embedding batch) gets zeros, as jax.grad gives it
-        grads = torch.autograd.grad(loss, plist, allow_unused=True,
-                                    materialize_grads=True)
-        return loss.detach(), grads
 
     def train_step(params, opt_state: Dict[str, Any], batch):
-        ptree = params.tree()
-        plist = leaves(ptree)
+        plist = leaves(params.tree())
         dev = plist[0].device
         batch = {k: _on(v, dev) for k, v in batch.items()}
         if n_microbatch > 1:
@@ -65,23 +82,17 @@ def make_train_step(cfg: ArchConfig, *, n_microbatch: int = 1,
             for i in range(n_microbatch):
                 micro = {k: v.reshape(n_microbatch, -1, *v.shape[1:])[i]
                          for k, v in batch.items()}
-                loss, grads = loss_and_grads(params, plist, micro)
+                loss, grads = loss_and_grads(cfg, params, plist, micro,
+                                             remat)
                 for a, g in zip(acc, grads):
                     a.add_(g)
                 loss_sum = loss_sum + loss
             grads = [a / n_microbatch for a in acc]
             loss = loss_sum / n_microbatch
         else:
-            loss, grads = loss_and_grads(params, plist, batch)
-        grads = unflatten(ptree, list(grads))
-
-        residual = None
-        if grad_compression and grad_compression != "none":
-            grads, residual = comp.compress_grads(
-                grads, opt_state["residual"], grad_compression)
-        _, opt_state, om = adamw_update(grads, opt_state, params, opt)
-        if residual is not None:
-            opt_state["residual"] = residual
+            loss, grads = loss_and_grads(cfg, params, plist, batch, remat)
+        params, opt_state, om = apply_grads(params, opt_state, grads, opt,
+                                            grad_compression)
         return params, opt_state, {"loss": loss, **om}
 
     return train_step

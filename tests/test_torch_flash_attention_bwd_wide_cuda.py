@@ -90,7 +90,8 @@ def test_backward_against_plain(cuda_device, d, dtype, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [80, 256])
 def test_autograd_through_the_kernels(cuda_device, d):
-    """``ops.flash_attention`` under autograd (``FlashAttention``) launches
+    """``ops.flash_attention`` under autograd (the operator
+    ``repro_torch::flash_attention`` with its registered backward) launches
     the forward once and the backward once, and gives the backward
     kernel's gradients."""
     rng = np.random.RandomState(1)

@@ -12,7 +12,7 @@ kept, not what is computed: the port's four policies give the same loss
 and gradients bit for bit, and a count of the products the backward runs
 shows what each keeps (every 2-D product recomputed under "full", none
 under "dots_no_batch"; the batched ones recomputed under "dots_no_batch",
-none under "dots").
+none under "dots"; the attention operator's forward under all three).
 """
 import dataclasses
 
@@ -103,9 +103,10 @@ def test_policies_change_what_is_kept_not_the_result(setups, arch):
 
 
 class _Products(TorchDispatchMode):
-    """Counts the products dispatched while it is active."""
+    """Counts the products, and the attention operator's forward calls,
+    dispatched while it is active."""
 
-    NAMES = ("mm", "addmm", "bmm", "baddbmm")
+    NAMES = ("mm", "addmm", "bmm", "baddbmm", "flash_attention")
 
     def __init__(self):
         super().__init__()
@@ -126,13 +127,18 @@ def _backward_products(tcfg, params, tb, remat):
 
 
 def test_what_each_policy_recomputes(setups):
-    """The products the backward runs: "full" recomputes every product of
-    each block; "dots_no_batch" keeps the 2-D ones (every projection) and
-    recomputes the batched ones (the plain attention's on the CPU);
-    "dots" keeps both, so its backward runs the products "none" runs."""
+    """The products the backward runs, on phi3.5-moe (its expert banks are
+    batched products): "full" recomputes every product of each block;
+    "dots_no_batch" keeps the 2-D ones (every projection) and recomputes
+    the batched ones; "dots" keeps both, so its backward runs the products
+    "none" runs.  The attention is one operator on either device
+    (``repro_torch::flash_attention``; on the CPU its plain version runs
+    inside it), holds no product to keep, and runs again once a layer
+    under every policy but "none", as the kernel does on the card."""
     cfgs, tokens = setups
-    _, tcfg, jp = cfgs["internlm2-1.8b"]
-    _, tb = _batch(tokens, "internlm2-1.8b", seed=6)
+    arch = "phi3.5-moe-42b-a6.6b"
+    _, tcfg, jp = cfgs[arch]
+    _, tb = _batch(tokens, arch, seed=6)
     params = _carry(jp)
     n = {p: _backward_products(tcfg, params, tb, p)
          for p in ttr.REMAT_POLICIES}
@@ -143,6 +149,9 @@ def test_what_each_policy_recomputes(setups):
     assert flat["dots_no_batch"][1] > flat["none"][1]
     assert flat["full"][0] > flat["none"][0]
     assert flat["full"][1] == flat["dots_no_batch"][1]
+    assert n["none"]["flash_attention"] == 0
+    for policy in ("full", "dots", "dots_no_batch"):
+        assert n[policy]["flash_attention"] == tcfg.n_layers, policy
 
 
 def test_policy_names_and_refusal(setups):
