@@ -61,7 +61,8 @@ Phases, each a hard failure (non-zero exit, no result line):
      D 8,192, bf16 from zeros; B 2, S 1,000 with h0 and a final state's
      gradient; the smoke width in f32) against ``mamba_scan_bwd_ref``
      within ``MAMBA_BWD_TOL``, two runs bitwise equal, planted faults
-     failing.
+     failing (``split_without_carry`` among them: two calls cut at a
+     segment boundary that carry nothing across).
    - slices 7 and 8 (``SLICE_LAYOUTS``): both serving kernels at
      gemma3-4b's heads (Hkv 4, G 2, D 256) on a contiguous cache of 1,600
      and on the ring layout (decode over a ring of 1,024 that has
@@ -363,7 +364,8 @@ equal the eager run's launches, one replay a decode step (or call).
    memory, and the launches of the scan's backward and of
    ``flash_attention``'s at D 80 and D 256; a two-layer run of each
    against the plain path's loss and gradients (``BREADTH_GRAD_RTOL``,
-   ``BREADTH_LOSS_ATOL``).
+   ``BREADTH_LOSS_ATOL``); one more falcon-mamba step profiled, the
+   scan backward's device ms and share.
 
 17. The dry run against the card (``launch/dryrun.py``, resource
    estimation before touching the hardware).  The matrix, every arch of
@@ -2041,14 +2043,34 @@ def scan_bwd_bound_ms(b, s, d, n, dtype, carried) -> tuple:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def scan_bwd_split(ms_, args, cut) -> list:
+    """The planted fault ``split_without_carry``: the backward of the
+    same inputs as two independent calls cut at step ``cut``, with no
+    state carried into the second nor gradient into the first; their
+    gradients joined (dA summed, dh0 from the first)."""
+    x, dt, bm, cm, a, h0, dy, dhf = args
+
+    def part(t, lo, hi):
+        return t[:, lo:hi].contiguous()
+    s = x.shape[1]
+    first = ms_.mamba_scan_bwd(*(part(t, 0, cut) for t in (x, dt, bm, cm)),
+                               a, h0, part(dy, 0, cut), None)
+    second = ms_.mamba_scan_bwd(*(part(t, cut, s) for t in (x, dt, bm, cm)),
+                                a, None, part(dy, cut, s), dhf)
+    return ([torch.cat([u, v], dim=1) for u, v in zip(first[:4], second[:4])]
+            + [first[4] + second[4], first[5]])
+
+
 def check_mamba_scan_bwd(port):
     """``mamba_scan_bwd`` against ``mamba_scan_bwd_ref`` at
     ``MAMBA_BWD_CASES`` (dy ~ N(0, 1) and, where carried, h0 and dh_final
     ~ N(0, 1)), within ``MAMBA_BWD_TOL``; two runs give the same bits
-    (fixed-order sums); three planted faults must fail: the final
-    state's gradient dropped, the last backward chunk's dy dropped (a
-    kernel that skips its last chunk), each gradient 10% too large on
-    the second half of the sequence.  Returns the timed rows by case."""
+    (fixed-order sums); four planted faults must fail: the final state's
+    gradient dropped, the last segment's dy dropped (a kernel that skips
+    its last segment), each gradient 10% too large on the second half of
+    the sequence, and the sequence cut at a segment boundary into two
+    calls that carry nothing across (``scan_bwd_split``).  Returns the
+    timed rows by case."""
     ms_, ref = port.ms, port.ref
     gen = torch.Generator(device=DEV).manual_seed(31)
     rows, readings = {}, {}
@@ -2082,19 +2104,22 @@ def check_mamba_scan_bwd(port):
         check(max(read.values()) <= MAMBA_BWD_TOL, f"mamba_scan_bwd"
               f" disagrees with its plain version at {name}: {read}")
         if carried:
-            tb = ms_.bwd_steps(ms_._plan(b, s, d, n, x.element_size()).kper)
+            segments = ms_.segment_ranges(s)
             dy_cut = dy.clone()
-            dy_cut[:, -tb:] = 0
+            dy_cut[:, segments[-1][0]:] = 0
             late = [g.clone() for g in got]
             for g in late[:4]:
                 g[:, s // 2:] *= 1.1
+            split = scan_bwd_split(ms_, args, segments[len(segments) // 2][0])
             faults = {
                 "drop_dh_final": max(scan_bwd_readings(ms_.mamba_scan_bwd(
                     *args[:7], None), want).values()),
                 "skip_last_chunk": max(scan_bwd_readings(ms_.mamba_scan_bwd(
                     *args[:6], dy_cut, dhf), want).values()),
                 **{f"late_half_x1.1_{k}": scan_bwd_readings(late, want)[k]
-                   for k in MAMBA_BWD_NAMES[:4]}}
+                   for k in MAMBA_BWD_NAMES[:4]},
+                "split_without_carry": max(scan_bwd_readings(
+                    split, want).values())}
             faults = {k: v / MAMBA_BWD_TOL for k, v in faults.items()}
             print(f"  planted faults at {name}, shares of the limit:"
                   f" {json.dumps(faults)}")
@@ -2721,22 +2746,31 @@ def profile_steps(port, cfg, params, policy=None, paged=False):
             for name, (step, n) in calls.items()}
 
 
+KERNEL_FAMILIES = ("attention", "int8_matmul", "mamba_scan",
+                   "mamba_scan_bwd", "gemm", "other")
+
+
+def kernel_family(name: str) -> str:
+    """A profiled kernel's family by its name: every kernel of the scan's
+    backward (summary, combine, main, sum) names ``mamba_scan_bwd``."""
+    low = name.lower()
+    return ("attention" if "attn_kernel" in low else
+            "int8_matmul" if "int8_mm_kernel" in low else
+            "mamba_scan_bwd" if "mamba_scan_bwd" in low else
+            "mamba_scan" if "mamba_scan_kernel" in low else
+            "gemm" if any(w in low for w in GEMM_NAMES) else "other")
+
+
 def profile_step(name: str, step, n: int, quiet: bool = False) -> dict:
     """``step(i)`` once to warm, then ``trace_calls`` over ``n`` calls,
     each ending in a host read of its tokens: host wall, device busy, idle
     share, kernels a step and device time by kernel family."""
     step(0)[0].cpu()
     wall_ms, kernels, _ = trace_calls(lambda i: step(i)[0].cpu(), n)
-    fam = {"attention": 0.0, "int8_matmul": 0.0, "mamba_scan": 0.0,
-           "gemm": 0.0, "other": 0.0}
+    fam = dict.fromkeys(KERNEL_FAMILIES, 0.0)
     by_name = {}
     for e in kernels:
-        low = e["name"].lower()
-        key = ("attention" if "attn_kernel" in low else
-               "int8_matmul" if "int8_mm_kernel" in low else
-               "mamba_scan" if "mamba_scan_kernel" in low else
-               "gemm" if any(w in low for w in GEMM_NAMES) else "other")
-        fam[key] += e["dur"] / 1e3 / n
+        fam[kernel_family(e["name"])] += e["dur"] / 1e3 / n
         by_name[e["name"][:60]] = by_name.get(e["name"][:60], 0.0) \
             + e["dur"] / 1e3 / n
     busy = _merged_us([(e["ts"], e["dur"]) for e in kernels]) / 1e3 / n
@@ -5584,9 +5618,34 @@ def breadth_train(port, arch, layers) -> tuple:
                    peak_memory_bytes=peak, setup_s=setup_s,
                    launches={k: v for k, v in launches.items() if v})
     print(f"  {arch} at {layers} layers: " + json.dumps(metrics))
+    if cfg.family == "ssm":
+        metrics["profile"] = breadth_profile(step, params, opt_state,
+                                             next(batches))
     del params, opt_state, step
     torch.cuda.empty_cache()
     return cfg, launches, metrics
+
+
+def breadth_profile(step, params, opt_state, batch) -> dict:
+    """One more training step under ``torch.profiler`` (after the launch
+    counts are read): device busy ms and each kernel family's ms, the
+    scan's backward's share of the busy time."""
+    def one(i):
+        float(step(params, opt_state, batch)[2]["loss"])
+    wall_ms, kernels, _ = trace_calls(one, 1)
+    fam = dict.fromkeys(KERNEL_FAMILIES, 0.0)
+    for e in kernels:
+        fam[kernel_family(e["name"])] += e["dur"] / 1e3
+    busy = _merged_us([(e["ts"], e["dur"]) for e in kernels]) / 1e3
+    check(busy > 0 and fam["mamba_scan_bwd"] > 0, f"the profile of a"
+          f" training step saw {len(kernels)} kernels, none of the scan's"
+          f" backward")
+    prof = dict(host_wall_ms=wall_ms, device_busy_ms=busy,
+                idle_share=1 - busy / wall_ms, kernels_per_step=len(kernels),
+                scan_bwd_share=fam["mamba_scan_bwd"] / busy,
+                **{f"{k}_ms": v for k, v in fam.items()})
+    print("  profile of a step: " + json.dumps(prof))
+    return prof
 
 
 def breadth_phase(port) -> dict:
@@ -6029,7 +6088,7 @@ def main() -> None:
     dryrun_dir = tempfile.TemporaryDirectory()
     matrix_procs = start_dryrun_matrix(port, Path(dryrun_dir.name))
     logs = port.build.build_all()
-    wide_spills = []
+    wide_spills, scan_bwd_spills = [], []
     for name, log in logs.items():
         print(f"  {name}:")
         entry = ""
@@ -6044,11 +6103,19 @@ def main() -> None:
                 if ("Li256E" in entry or "Li80E" in entry) and spill \
                         and int(spill.group(1)) > cap:
                     wide_spills.append(f"{entry} ({spill.group(1)} bytes)")
+                if "mamba_scan_bwd" in entry and spill \
+                        and int(spill.group(1)) > 0:
+                    scan_bwd_spills.append(f"{entry} ({spill.group(1)}"
+                                           f" bytes)")
     # the D 256 and D 80 instantiations of the forward, serving and dQ
     # kernels were chosen so that none spills; their dK/dV passes spill a
     # little, as that pass does at every head dim (PERF.md gives the bytes)
     check(not wide_spills, f"a D 256 or D 80 kernel spills more than its"
           f" cap: {wide_spills}")
+    # the scan backward keeps a sub-chunk's decays and states in registers:
+    # none of its kernels may spill
+    check(not scan_bwd_spills, f"a kernel of the scan backward spills:"
+          f" {scan_bwd_spills}")
     port.fd._lib()
     port.im._lib()
     port.mf._lib()

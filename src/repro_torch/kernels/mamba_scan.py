@@ -4,13 +4,13 @@ CUDA kernel in ``csrc/mamba_scan.cu``.
 ``mamba_scan`` replaces ``repro/kernels/mamba_scan.py:49``, and takes a
 carried-in state ``h0``, which the TPU kernel did not.  ``mamba_scan_bwd``
 is the scan's gradient, which the TPU kernel never had (XLA
-differentiates the reference's associative scan): a second kernel and a
-fixed-order sum of its per-block partials, one call.  The wrapper checks
-device, dtypes, shapes and contiguity, plans the launch from the shape
-(``_plan``), allocates y and the final state, launches the kernel on
-PyTorch's current stream and counts the launch in ``LAUNCHES``.  It takes
-CUDA tensors only: ``kernels/ops.py`` sends CPU tensors to
-``kernels/ref.py::mamba_scan_ref``.
+differentiates the reference's associative scan): four kernels a call
+over segments of ``SEGMENT`` steps (``_bwd_plan``), counted as one
+launch.  The wrapper checks device, dtypes, shapes and contiguity, plans
+the launch from the shape (``_plan``), allocates y and the final state,
+launches the kernel on PyTorch's current stream and counts the launch in
+``LAUNCHES``.  It takes CUDA tensors only: ``kernels/ops.py`` sends CPU
+tensors to ``kernels/ref.py::mamba_scan_ref``.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_STATE = 64            # the kernel's largest N (4 lanes x 16 states)
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
              + [ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 19
+_BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 17
                  + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 # the kernel's constants (csrc/mamba_scan.cu): lanes a channel, threads a
@@ -69,10 +69,48 @@ def chunk_ranges(p: Plan, s: int) -> List[Tuple[int, int]]:
     return [(t0, min(s, t0 + p.chunk)) for t0 in range(0, s, p.chunk)]
 
 
-def bwd_steps(kper: int) -> int:
-    """The steps of a backward chunk (``bwd_steps`` in the source): the
-    trajectory a thread keeps, ``kper`` floats a step."""
-    return 128 // kper
+# the backward's constants (csrc/mamba_scan.cu): steps a segment (kSeg),
+# which start at fixed multiples of it from t = 0, and states a lane (kSt)
+SEGMENT = 128
+BWD_STATES = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """The backward's launch: ``lanes`` lanes a channel of ``BWD_STATES``
+    states each, ``channels`` channels a block, and a grid of (channel
+    blocks, segments, batch rows), the same for its summary and main
+    kernels."""
+    lanes: int
+    channels: int
+    grid: Tuple[int, int, int]
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_plan(b: int, s: int, d: int, n: int) -> BwdPlan:
+    """The backward's launch for a (B, S, D) scan of N states: 4 lanes a
+    channel up to N 16, 16 up to N 64 (the forward's ``kper``, which the
+    kernel is given, picks them)."""
+    lanes = 4 if n <= 16 else 16
+    ch = THREADS // lanes
+    return BwdPlan(lanes, ch, (_cdiv(d, ch), _cdiv(s, SEGMENT), b))
+
+
+def segment_ranges(s: int) -> List[Tuple[int, int]]:
+    """The steps [lo, hi) of each segment of the backward: fixed multiples
+    of ``SEGMENT``, the last one cut at S."""
+    return [(t0, min(s, t0 + SEGMENT)) for t0 in range(0, s, SEGMENT)]
+
+
+def bwd_scratch(p: BwdPlan, s: int, d: int, n: int) -> dict:
+    """The f32 scratch shapes of a backward call: ``seg`` (3, B, segments,
+    D, N), each segment's local end state, gradient from a zero carry and
+    product of decays (then the state and the gradient entering it, and
+    its dA partial); ``pdb`` and ``pdc`` (B, channel blocks, S, N), the
+    per-block partials of dB and dC."""
+    nblk, nseg, bsz = p.grid
+    return {"seg": (3, bsz, nseg, d, n), "pdb": (bsz, nblk, s, n),
+            "pdc": (bsz, nblk, s, n)}
 
 
 def reset_launches() -> None:
@@ -163,7 +201,14 @@ def mamba_scan_bwd(x: torch.Tensor, dt: torch.Tensor, b_mat: torch.Tensor,
     ``dh_final`` (B, D, N) f32 or None (zeros), from the forward's inputs
     (as ``mamba_scan`` takes them).  Returns (dx, ddt, dB, dC) in x's
     dtype and (dA (D, N), dh0 (B, D, N)) in f32, within rounding of
-    ``ref.mamba_scan_bwd_ref``; the same bits on every run."""
+    ``ref.mamba_scan_bwd_ref``; the same bits on every run.
+
+    The sequence is cut into segments of ``SEGMENT`` steps
+    (``segment_ranges``) and scanned in two levels: each segment's
+    summaries from zeros, a combine over the segments for the state and
+    the gradient entering each, then each segment's gradients from them
+    (``csrc/mamba_scan.cu`` gives the design).  The scratch follows
+    ``bwd_scratch``."""
     bsz, s, d, n = _check(x, dt, b_mat, c_mat, a, h0)
     dev = x.device
     for name, t, want in (("dy", dy, (bsz, s, d)),
@@ -175,17 +220,12 @@ def mamba_scan_bwd(x: torch.Tensor, dt: torch.Tensor, b_mat: torch.Tensor,
             raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} on"
                              f" {t.device}: expected contiguous float32"
                              f" {want} on {dev}")
-    p = _plan(bsz, s, d, n, x.element_size())
-    nblk, tb = p.grid[0], bwd_steps(p.kper)
-    lanes = THREADS * p.kper
 
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    hs = f32(bsz, nblk, _cdiv(s, tb), lanes)
-    traj = f32(bsz, nblk, tb, lanes)
-    pdb, pdc = f32(bsz, nblk, s, n), f32(bsz, nblk, s, n)
-    pda = f32(bsz, d, n)
+    scratch = {name: f32(*shape) for name, shape in
+               bwd_scratch(_bwd_plan(bsz, s, d, n), s, d, n).items()}
     dx, ddt = torch.empty_like(x), torch.empty_like(x)
     db, dc = torch.empty_like(b_mat), torch.empty_like(c_mat)
     da, dh0 = f32(d, n), f32(bsz, d, n)
@@ -193,9 +233,10 @@ def mamba_scan_bwd(x: torch.Tensor, dt: torch.Tensor, b_mat: torch.Tensor,
         _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), b_mat.data_ptr(),
         c_mat.data_ptr(), a.data_ptr(), None if h0 is None else h0.data_ptr(),
         dy.data_ptr(), None if dh_final is None else dh_final.data_ptr(),
-        hs.data_ptr(), traj.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
-        pdb.data_ptr(), pdc.data_ptr(), pda.data_ptr(), db.data_ptr(),
-        dc.data_ptr(), da.data_ptr(), dh0.data_ptr(), bsz, s, d, n, p.kper,
+        scratch["seg"].data_ptr(), scratch["pdb"].data_ptr(),
+        scratch["pdc"].data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+        db.data_ptr(), dc.data_ptr(), da.data_ptr(), dh0.data_ptr(), bsz, s,
+        d, n, _plan(bsz, s, d, n, x.element_size()).kper,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mamba_scan_bwd kernel launch failed: CUDA error"

@@ -197,11 +197,102 @@ def test_wrapper_refuses_cpu_tensors():
 
 
 def test_backward_scratch_plan():
-    """The scratch the backward asks for: chunks of ``bwd_steps`` steps
-    (32 at 4 states a lane, 8 at 16), the trajectory of one chunk a
-    thread, KPER floats a step."""
-    assert tms.bwd_steps(4) == 32 and tms.bwd_steps(16) == 8
-    p = tms._plan(1, 2048, 8192, 16, 2)
-    assert p.kper == 4 and p.grid == (128, 1)
-    assert tms.bwd_steps(p.kper) * p.kper * tms.THREADS * 4 == 128 * 1024
+    """The backward's plan: segments of ``SEGMENT`` steps at fixed
+    multiples from t = 0 cover [0, S) once, the last one cut at S; the
+    grid at falcon-mamba's training shape; the scratch the wrapper
+    allocates (``bwd_scratch``), 4 lanes of 4 states a channel up to N 16
+    and 16 lanes up to N 64."""
+    L = tms.SEGMENT
+    assert L == 128 and tms.BWD_STATES == 4
+    for s in (1, L - 1, L, L + 1, 2048):
+        ranges = tms.segment_ranges(s)
+        assert [lo for lo, _ in ranges] == list(range(0, s, L))
+        assert all(0 < hi - lo <= L for lo, hi in ranges)
+        assert all(h == lo for (_, h), (lo, _) in zip(ranges, ranges[1:]))
+        assert ranges[0][0] == 0 and ranges[-1][1] == s
+    p = tms._bwd_plan(1, 2048, 8192, 16)
+    assert (p.lanes, p.channels, p.grid) == (4, 64, (128, 16, 1))
+    assert p.lanes * tms.BWD_STATES >= 16
+    assert p.lanes == tms._plan(1, 2048, 8192, 16, 2).kper
+    scratch = tms.bwd_scratch(p, 2048, 8192, 16)
+    assert scratch == {"seg": (3, 1, 16, 8192, 16),
+                       "pdb": (1, 128, 2048, 16), "pdc": (1, 128, 2048, 16)}
+    # 25.2 MB of summaries, 33.6 MB of per-block partials
+    assert [4 * int(np.prod(v)) for v in scratch.values()] == [
+        25_165_824, 16_777_216, 16_777_216]
+    wide = tms._bwd_plan(3, L + 1, 100, 64)
+    assert (wide.lanes, wide.channels, wide.grid) == (16, 16, (7, 2, 3))
+    assert wide.lanes * tms.BWD_STATES == tms.MAX_STATE
+    assert tms.bwd_scratch(wide, L + 1, 100, 64)["seg"] == (3, 3, 2, 100, 64)
     assert "mamba_scan_bwd" in tms.LAUNCHES
+
+
+def test_two_level_decomposition_f64():
+    """The backward's two levels written out in float64 over the plan's
+    segments: each segment's summaries from zeros (local end state, the
+    product of its decays, the gradient sent out of its start from a zero
+    carry, as forward sums), the combine over the segments (the state and
+    the gradient entering each), then each segment's forward sweep from
+    its state and reverse sweep from its gradient.  At a ragged S of three
+    segments, with a carried state, a final state's gradient and dt = 0
+    pad steps (dy = 0 on them) that straddle a segment boundary, it gives
+    ``mamba_scan_bwd_ref``'s gradients (1e-12 of each one's largest)."""
+    L = tms.SEGMENT
+    b, s, d, n, pad = 2, 2 * L + 37, 6, 5, 40
+    arrays, dy, dhf = _inputs(b, s, d, n, dtype=np.float64, pad=pad, seed=9)
+    dy[:, s - pad:] = 0
+    x, dt, bm, cm, a, h0 = (torch.from_numpy(v.astype(np.float64))
+                            for v in arrays)
+    dy, dhf = torch.from_numpy(dy).double(), torch.from_numpy(dhf).double()
+    assert s - pad < 2 * L < s        # the pads cross a boundary
+    dec = torch.exp(dt[..., None] * a)                 # (B, S, D, N)
+    inp = (dt * x)[..., None] * bm[:, :, None, :]
+    dyc = dy[..., None] * cm[:, :, None, :]
+    segs = tms.segment_ranges(s)
+    assert len(segs) == 3
+    # 1. summaries from zeros
+    summ = []
+    for lo, hi in segs:
+        h, q, gl = (torch.zeros(b, d, n, dtype=torch.float64),
+                    torch.ones(b, d, n, dtype=torch.float64),
+                    torch.zeros(b, d, n, dtype=torch.float64))
+        for t in range(lo, hi):
+            h = dec[:, t] * h + inp[:, t]
+            q = q * dec[:, t]
+            gl = gl + q * dyc[:, t]
+        summ.append((h, q, gl))
+    # 2. the combine
+    hin, gin = [h0], [None] * len(segs)
+    for hl, p, _ in summ[:-1]:
+        hin.append(p * hin[-1] + hl)
+    gin[-1] = dhf
+    for k in range(len(segs) - 1, 0, -1):
+        gin[k - 1] = summ[k][1] * gin[k] + summ[k][2]
+    # 3. each segment's sweeps
+    dx, ddt = torch.zeros(b, s, d, dtype=torch.float64), \
+        torch.zeros(b, s, d, dtype=torch.float64)
+    db, dc = torch.zeros(b, s, n, dtype=torch.float64), \
+        torch.zeros(b, s, n, dtype=torch.float64)
+    da, dh0 = torch.zeros(d, n, dtype=torch.float64), None
+    for k, (lo, hi) in enumerate(segs):
+        hs = [hin[k]]
+        for t in range(lo, hi):
+            hs.append(dec[:, t] * hs[-1] + inp[:, t])
+        g = gin[k]
+        for t in reversed(range(lo, hi)):
+            g = g + dyc[:, t]
+            gb = (g * bm[:, t, None, :]).sum(-1)
+            gh = g * hs[t - lo] * dec[:, t]
+            dx[:, t] = dt[:, t] * gb
+            ddt[:, t] = x[:, t] * gb + (gh * a).sum(-1)
+            db[:, t] = torch.einsum("bdn,bd->bn", g, dt[:, t] * x[:, t])
+            dc[:, t] = torch.einsum("bdn,bd->bn", hs[t - lo + 1], dy[:, t])
+            da += (gh * dt[:, t, :, None]).sum(0)
+            g = dec[:, t] * g
+        if k == 0:
+            dh0 = g
+    want = tref.mamba_scan_bwd_ref(x, dt, bm, cm, a, h0, dy, dhf)
+    for name, got, w in zip(NAMES, (dx, ddt, db, dc, da, dh0), want):
+        assert got.dtype == w.dtype == torch.float64, name
+        err = float((got - w).abs().max())
+        assert err <= 1e-12 * float(w.abs().max()), (name, err)

@@ -1,8 +1,9 @@
 """The selective scan's backward kernel against its plain PyTorch version
 (``mamba_scan_bwd_ref``), on the card: bf16 and f32, with and without a
 carried-in state and a final state's gradient, ragged channel counts, N
-up to 64 (16 states a lane), ``dt == 0`` pad steps.  Skipped without a
-GPU (marker ``cuda``); run there with
+up to 64 (16 lanes a channel), S around the segment length (1, L - 1,
+L + 1, 3 L + 5) and B 3, ``dt == 0`` pad steps, also across a segment
+boundary.  Skipped without a GPU (marker ``cuda``); run there with
 
     python -m pytest -q -m cuda tests/test_torch_mamba_scan_bwd_cuda.py
 
@@ -27,6 +28,7 @@ from repro_torch.kernels import ref as tref
 
 MAMBA_BWD_TOL = 2.0 ** -18
 NAMES = ("dx", "ddt", "dB", "dC", "dA", "dh0")
+L = tms.SEGMENT
 
 
 @pytest.fixture
@@ -76,6 +78,11 @@ def _readings(got, want) -> dict:
     (2, 64, 128, 8, torch.float32, True),        # the smoke width, f32
     (1, 50, 96, 64, torch.float32, True),        # 16 states a lane
     (1, 40, 64, 33, torch.float32, True),        # N of no whole lane
+    (2, 1, 256, 16, torch.bfloat16, True),       # one step
+    (3, L - 1, 192, 16, torch.bfloat16, True),   # one segment, B 3
+    (2, L + 1, 96, 64, torch.float32, True),     # a one-step segment, N 64
+    (3, 3 * L + 5, 200, 16, torch.bfloat16, True),   # four segments
+    (1, 3 * L + 5, 48, 64, torch.bfloat16, False),   # N 64 in bf16
 ])
 def test_backward_against_plain(cuda_device, b, s, d, n, dtype, carried):
     args, dy, dhf = _inputs(cuda_device, b, s, d, n, dtype, carried)
@@ -90,12 +97,16 @@ def test_backward_against_plain(cuda_device, b, s, d, n, dtype, carried):
 
 
 @pytest.mark.cuda
-def test_pad_steps_and_the_same_bits(cuda_device):
+@pytest.mark.parametrize("real,pad", [
+    (70, 26),                  # inside one segment
+    (L - 30, 60),              # across a segment boundary
+    (2 * L - 5, L + 10),       # one step short of a boundary, two past
+])
+def test_pad_steps_and_the_same_bits(cuda_device, real, pad):
     """``dt == 0`` pad steps with no output gradient leave the prefix's
     gradients bit for bit as the prefix alone gives them (the pads pass
-    the state's gradient on exactly and add exact zeros to dA), and two
-    runs give the same bits."""
-    real, pad = 70, 26
+    the state's gradient on exactly and add exact zeros to dA, and the
+    segments start at the same steps), and two runs give the same bits."""
     args, dy, dhf = _inputs(cuda_device, 2, real + pad, 256, 16,
                             torch.bfloat16, True, pad=pad, seed=1)
     dy[:, real:] = 0
