@@ -7,8 +7,10 @@ Phases, each a hard failure (non-zero exit, no result line):
 
 1. Build the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
    one ``nvcc`` per source, all started together, and print the build time
-   and ptxas' register/shared-memory report; phase 17's dry-run matrix is
-   traced meanwhile.  Every phase's title goes to stderr too, after the
+   and ptxas' register/shared-memory report (no attention kernel on a
+   tile of 128 or 256 may spill, a dK/dV pass up to
+   ``FA_DKDV_SPILL_CAP``; no scan backward kernel); phase 17's dry-run
+   matrix is traced meanwhile.  Every phase's title goes to stderr too, after the
    seconds since the script's imports.
 2. Hold each kernel against its plain PyTorch version on the card at the
    shapes of the path that runs it (serving internlm2-1.8b: Hkv 8, G 2,
@@ -78,6 +80,16 @@ Phases, each a hard failure (non-zero exit, no result line):
      poisoned) and with all four slots full, float and int8, bf16 and
      f32; the forward and backward at B 1, S 2,048 and S 1,000, 32/32
      heads of 80, causal (``FA_D80_CASES``, bf16 and f32).
+   - slice 13: both serving kernels at head dims 16, 32, 96 and 192
+     (``HEAD_DIM_LAYOUTS``: internlm2-1.8b's 16/8 heads over phase 3's
+     cache of 576, contiguous and paged with blocks of 64, float and int8,
+     bf16 and f32), the training kernels' forward and backward at the
+     same head dims and the training shape (``FA_HEAD_DIM_CASES``, bf16
+     and f32, the gradients' term ``FA_WIDE_GRAD_ATOL``), and
+     ``mel_frontend`` at the 48 kHz blocks (``MFE_48K``: L 1,536 with
+     1,025 bins and L 3,072 with 2,049, 40 mels; 512 clips and one),
+     within ``MEL_ATOL``, two runs bitwise equal; each bf16 or batch row
+     timed as above.
    Attention tolerance, elementwise against the plain version computed in
    f32 from the same inputs (int8 dequantized and rounded as the kernel
    rounds): in bf16, the output's own rounding (2^-8 of its size) plus
@@ -264,6 +276,21 @@ equal the eager run's launches, one replay a decode step (or call).
    exact oracle: a float32 zamba2 of smoke depth with heads of 80 served
    (continuous; int8 paged, preempting) and prefilled on the card gives
    the CPU's greedy tokens.
+18. The repo's smoke configs with attention (head dim 16, float32) on
+   the card's kernels: internlm2-1.8b, granite-3-8b, gemma3-4b,
+   llama3.2-3b, dbrx-132b, phi3.5-moe and zamba2-2.7b served through
+   ``ContinuousBatchServer`` (float) and ``PagedBatchServer`` (int8) give
+   the same engine's greedy tokens on the CPU; seamless-m4t and qwen2-vl
+   prefilled in one shot and decoded (float and int8) give the CPU's
+   tokens, logits within ``ENCDEC_SMALL_LOGIT_ATOL`` and
+   ``QWEN_SMALL_LOGIT_ATOL``; internlm2-1.8b's smoke config trains 3
+   steps through ``flash_attention``'s backward within ``TRAIN_TOL`` of
+   the CPU.
+19. The KWS Impulse on the 48 kHz MFE blocks (``MFE_48K``; DS-CNN at the
+   repo's defaults, seeded weights): 512 one-second clips in one batch,
+   f32 and PTQ int8, against the CPU on 8 clips as phase 6; from the
+   artifact (a CUDA graph) within ``KWS_LOGIT_ATOL`` of eager; one fit
+   step on 64 clips; ``mel_frontend`` launched once a features call.
 9. The EON tuner (``EONTuner.search``: 8 candidates sampled, screened by
    the MCU estimator for the nano33ble, trained 1 epoch each on 384
    seeded one-second keyword clips of 4 classes and ranked on 128) and a
@@ -370,9 +397,9 @@ equal the eager run's launches, one replay a decode step (or call).
 17. The dry run against the card (``launch/dryrun.py``, resource
    estimation before touching the hardware).  The matrix, every arch of
    ``ALIASES`` x ``SHAPES`` on the one-card mesh, is traced on the
-   ``meta`` device by ``repro_torch.launch.dryrun`` in three processes of
+   ``meta`` device by ``repro_torch.launch.dryrun`` in four processes of
    their own (no card: ``CUDA_VISIBLE_DEVICES`` empty; one a group of
-   shapes, ``DRYRUN_MATRIX_GROUPS``) while phase 1's
+   cells, ``DRYRUN_MATRIX_GROUPS``) while phase 1's
    ``nvcc`` compiles; phase 1 waits for them, so that no timed phase has
    them beside it, and phase 17 prints one line a cell (status, ``fits_hbm``,
    bottleneck, ``roofline_fraction``, HBM GiB, trace seconds): no
@@ -401,9 +428,10 @@ equal the eager run's launches, one replay a decode step (or call).
    1)``, ``build_mesh`` and ``elastic_restore`` onto the card, bitwise
    equal.
 
-Phases 10 to 17 run before phase 9.  Each main path (phases 3, 5
-paged and calibrated, 6 inference and fit, 7, 8, their artifact runs, 9,
-10, 11, 12, 13, 14, 15, 16 and 17's card runs) runs with every launch
+Phase 18 runs after phase 2, phase 19 after phase 6, phases 10 to 17
+before phase 9.  Each main path (phases 3, 5 paged and calibrated, 6
+inference and fit, 7, 8, their artifact runs, 9, 10, 11, 12, 13, 14, 15,
+16, 17's card runs, 18's and 19's card runs) runs with every launch
 count set to 0 just before it and read just after.  Prints the kernels'
 JSON line, the card's name and power limit, and last ``{"ok": true,
 "device": {...}}``.  Needs one GPU; exits non-zero without one, or
@@ -534,10 +562,15 @@ FA_GRAD_ATOL = 2.0 ** -12
 # kernel 1.7e-4 (scripts/chip_fa_grad_readings.py, PERF.md); twice the
 # largest, rounded up to a power of two
 FA_WIDE_GRAD_ATOL = 2.0 ** -10
-# the spill stores ptxas may report for a dK/dV pass at D 80 or D 256
-# (bf16 and f32, index and position masks): 8 to 16 bytes read on the
-# H100's build (PERF.md §7), with room for a few more
+# the spill stores ptxas may report for a dK/dV pass on a tile of 128 or
+# 256 (bf16 and f32, index and position masks): 0 to 32 bytes read on the
+# H100's build (PERF.md §7)
 FA_DKDV_SPILL_CAP = 32
+# the sources of the attention kernels, and the tile widths that phase 1
+# holds to no spill (to FA_DKDV_SPILL_CAP for a dK/dV pass): the template
+# argument D of each kernel, as the mangled name spells it
+ATTENTION_SOURCES = ("flash_decode", "flash_attention")
+WIDE_TILES = ("Li128E", "Li256E")
 # name: (B, S, Hq, Hkv, D, causal, window)
 FA_CASES = {"train_b4_s2048": (4, 2048, 16, 8, 128, True, 0),
             "ragged_s1000": (4, 1000, 16, 8, 128, True, 0),
@@ -3324,14 +3357,14 @@ def remat_policies(port, cfg, params, opt_state, batch) -> dict:
     return out
 
 
-def train_small_vs_cpu(port):
-    """A small float32 config (2 layers, d_model 128, 2/1 heads of 64)
-    trained 3 steps (remat "full", AdamW lr 1e-3) on the card and on the
-    CPU from the same weights and batches: loss and grad norm each step,
-    and every weight after, within ``TRAIN_TOL``."""
-    cfg = dataclasses.replace(port.configs.get_smoke("internlm2-1.8b"),
-                              d_model=128, n_heads=2, n_kv_heads=1,
-                              dtype="float32")
+def train_small_vs_cpu(port, cfg=None):
+    """A small float32 config (2 layers, d_model 128, 2/1 heads of 64, or
+    ``cfg``) trained 3 steps (remat "full", AdamW lr 1e-3) on the card and
+    on the CPU from the same weights and batches: loss and grad norm each
+    step, and every weight after, within ``TRAIN_TOL``."""
+    cfg = cfg or dataclasses.replace(
+        port.configs.get_smoke("internlm2-1.8b"), d_model=128, n_heads=2,
+        n_kv_heads=1, dtype="float32")
     tokens = port.synthetic.token_stream(20_000, cfg.vocab_size, seed=1)
     runs = {}
     for dev in ("cpu", DEV):
@@ -3355,7 +3388,8 @@ def train_small_vs_cpu(port):
                           for a, b in zip(m_card, m_cpu)),
         param_abs=max(float((a - b).abs().max())
                       for a, b in zip(p_card, p_cpu)))
-    print(f"  small float32 training, card vs cpu over 3 steps:"
+    print(f"  small float32 training (D {cfg.resolved_head_dim}), card vs"
+          f" cpu over 3 steps:"
           f" {json.dumps(read)} (limits {json.dumps(TRAIN_TOL)});"
           f" losses card {[m[0] for m in m_card]}")
     check(read["loss_rel"] <= TRAIN_TOL["loss_rtol"]
@@ -4965,21 +4999,19 @@ def train_encdec(port, cfg):
 
 
 def small_encdec_config(port):
-    """The smoke config in float32 at d_model 256 (4 heads of 64, the
-    kernels' least head dim; the smoke config's 16 runs only the plain
-    versions)."""
+    """The smoke config in float32 at d_model 256 (4 heads of 64; phase 18
+    runs the smoke config's own 16)."""
     return dataclasses.replace(port.configs.get_smoke(SEAMLESS),
                                d_model=256, dtype="float32")
 
 
-def small_encdec_vs_cpu(port) -> dict:
-    """The exact oracle: the small float32 config on the card gives the
-    CPU plain path's greedy tokens, in float and in native int8 (the same
-    quantized weights), one-shot (prefill, ``grow_cache``, 8 decode
-    steps) and chunked (chunks of 4), logits within
+def small_encdec_vs_cpu(port, cfg=None) -> dict:
+    """The exact oracle: the small float32 config (or ``cfg``) on the card
+    gives the CPU plain path's greedy tokens, in float and in native int8
+    (the same quantized weights), one-shot (prefill, ``grow_cache``, 8
+    decode steps) and chunked (chunks of 4), logits within
     ``ENCDEC_SMALL_LOGIT_ATOL``."""
-    cfg = small_encdec_config(port)
-    check(cfg.resolved_head_dim == 64, f"head dim {cfg.resolved_head_dim}")
+    cfg = cfg or small_encdec_config(port)
     host = port.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     inputs = port.api.synthetic_inputs(cfg, 2, 24, torch.Generator()
                                        .manual_seed(1), train=False,
@@ -5027,8 +5059,8 @@ def small_encdec_vs_cpu(port) -> dict:
               f" {runs['cpu'][1].tolist()}")
         check(gap <= ENCDEC_SMALL_LOGIT_ATOL[precision],
               f"small enc-dec {precision} logits: {gap}")
-    print("  small float32 enc-dec (D 64), card against cpu: "
-          + json.dumps(readings))
+    print(f"  small float32 enc-dec (D {cfg.resolved_head_dim}), card"
+          f" against cpu: " + json.dumps(readings))
     return readings
 
 
@@ -5400,22 +5432,20 @@ def train_qwen(port):
 
 
 def small_qwen_config(port):
-    """The smoke config in float32 at d_model 256: 4/2 heads of 64 (the
-    kernels' least head dim; the smoke config's 16 runs only the plain
-    versions), M-RoPE sections (8, 12, 12)."""
+    """The smoke config in float32 at d_model 256: 4/2 heads of 64 (phase
+    18 runs the smoke config's own 16), M-RoPE sections (8, 12, 12)."""
     return dataclasses.replace(port.configs.get_smoke(QWEN), d_model=256,
                                n_heads=4, n_kv_heads=2, head_dim=64,
                                mrope_sections=(8, 12, 12), dtype="float32")
 
 
-def small_qwen_vs_cpu(port) -> dict:
-    """The exact oracle: the small float32 config on the card gives the
-    CPU plain path's greedy tokens on an embedding batch at image
-    positions (one row left-padded), one-shot prefill, ``grow_cache`` and
-    8 decode steps, in float and native int8, logits within
-    ``QWEN_SMALL_LOGIT_ATOL``."""
-    cfg = small_qwen_config(port)
-    check(cfg.resolved_head_dim == 64, f"head dim {cfg.resolved_head_dim}")
+def small_qwen_vs_cpu(port, cfg=None) -> dict:
+    """The exact oracle: the small float32 config (or ``cfg``) on the card
+    gives the CPU plain path's greedy tokens on an embedding batch at
+    image positions (one row left-padded), one-shot prefill,
+    ``grow_cache`` and 8 decode steps, in float and native int8, logits
+    within ``QWEN_SMALL_LOGIT_ATOL``."""
+    cfg = cfg or small_qwen_config(port)
     host = port.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     pos_cpu = mrope_rows(port, QWEN_SMALL_SEGMENTS, QWEN_SMALL_PADS, "cpu")
     b, s = pos_cpu.shape[:2]
@@ -5457,8 +5487,8 @@ def small_qwen_vs_cpu(port) -> dict:
               f" {runs['cpu'][1].tolist()}")
         check(gap <= QWEN_SMALL_LOGIT_ATOL[precision],
               f"small qwen2-vl {precision} logits: {gap}")
-    print("  small float32 qwen2-vl (D 64, image positions), card against"
-          " cpu: " + json.dumps(readings))
+    print(f"  small float32 qwen2-vl (D {cfg.resolved_head_dim}, image"
+          f" positions), card against cpu: " + json.dumps(readings))
     return readings
 
 
@@ -5710,10 +5740,16 @@ DRYRUN_REPS = {"train": 2, "prefill": 2, "decode": 5}
 # workspace; PERF.md) rounded up to a power of two
 DRYRUN_MEM_RTOL = 2.0 ** -9
 DRYRUN_TUNER_SAMPLES = 6
-# the matrix's processes, one a group of shapes: long_500k (zamba2-2.7b's
-# cell alone is 38 s of the matrix's 101 s on the H100's host), train_4k
-# (40 s) and the serving shapes (21 s); PERF.md gives the trace seconds
-DRYRUN_MATRIX_GROUPS = (("long_500k",), ("train_4k",),
+# the matrix's processes, one a group of cells: "shape@arch" one cell,
+# "shape" every arch that no other group names for it.  The trace seconds
+# on a slow host of the card (PERF.md): long_500k 66 s, zamba2-2.7b's
+# cell 49 of it; train_4k 66, internlm2-1.8b's 17 and zamba2's 9; the
+# serving shapes 49.  Four groups of 40 to 50 s end with phase 1's build
+# (three by shape waited 29 s for the longest)
+DRYRUN_MATRIX_GROUPS = (("long_500k@zamba2-2.7b",),
+                        ("long_500k", "train_4k@internlm2-1.8b",
+                         "train_4k@zamba2-2.7b"),
+                        ("train_4k",),
                         ("decode_32k", "prefill_32k"))
 DRYRUN_MATRIX_TIMEOUT_S = 300
 
@@ -5731,14 +5767,24 @@ def start_dryrun_matrix(port, out: Path) -> list:
                PYTHONPATH=str(src))
     code = ("import sys\n"
             "from repro_torch.launch import dryrun\n"
-            "for shape in sys.argv[2:]:\n"
-            "    dryrun.main(['--shape', shape, '--out', sys.argv[1]])\n")
-    shapes = [s for group in DRYRUN_MATRIX_GROUPS for s in group]
-    check(sorted(shapes) == sorted(port.dryrun.SHAPES), f"the matrix's"
-          f" groups {DRYRUN_MATRIX_GROUPS} are not the shapes"
-          f" {list(port.dryrun.SHAPES)}")
+            "for cell in sys.argv[2:]:\n"
+            "    shape, arch = cell.split('@')\n"
+            "    dryrun.main(['--shape', shape, '--arch', arch, '--out',"
+            " sys.argv[1]])\n")
+    archs = list(port.configs.ALIASES)
+    named = {item for group in DRYRUN_MATRIX_GROUPS for item in group
+             if "@" in item}
+    groups = [[cell for item in group for cell in (
+        [item] if "@" in item else
+        [f"{item}@{a}" for a in archs if f"{item}@{a}" not in named])]
+        for group in DRYRUN_MATRIX_GROUPS]
+    cells = sorted(cell for group in groups for cell in group)
+    check(cells == sorted(f"{s}@{a}" for s in port.dryrun.SHAPES
+                          for a in archs), f"the matrix's groups"
+          f" {DRYRUN_MATRIX_GROUPS} do not cover each cell of"
+          f" {list(port.dryrun.SHAPES)} x the archs once")
     procs = []
-    for i, group in enumerate(DRYRUN_MATRIX_GROUPS):
+    for i, group in enumerate(groups):
         with open(out / f"matrix-{i}.log", "w") as log:
             procs.append(subprocess.Popen(
                 [sys.executable, "-c", code, str(out), *group], env=env,
@@ -6010,6 +6056,283 @@ def dryrun_phase(port, out: Path, waited: float) -> dict:
             "elastic": elastic, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Slice 13: every head dim that is a multiple of 16 (phase 2's rows, phase
+# 18's smoke configs) and any bin count (phase 2's rows, phase 19's 48 kHz
+# Impulse)
+# ---------------------------------------------------------------------------
+# the head dims off the tile widths, at internlm2-1.8b's serving shapes (16
+# query heads on 8 KV heads, phase 3's cache of 576; contiguous, and paged
+# with blocks of 64 whose unmapped blocks are poisoned; float and int8 as
+# ``check_slice_attention`` runs every layout): D 16 and 32 on tiles of 64,
+# 96 on 128, 192 on the tile of 256
+HEAD_DIMS = (16, 32, 96, 192)
+HEAD_DIM_LAYOUTS = {
+    f"d{d}_g2{suffix}": ((8, 2, d), 576, kind) for d in HEAD_DIMS
+    for suffix, kind in (("", "contiguous"), ("_paged_bs64", "paged64"))}
+# and at its training shape (B 4, S 2,048, 16/8 heads, causal), bf16 and
+# f32, the gradients within FA_WIDE_GRAD_ATOL as at D 80 (the padded
+# columns' arithmetic is the tile's, as at D 80 on tiles of 128)
+FA_HEAD_DIM_CASES = {f"d{d}_s2048": (4, 2048, 16, 8, d, True, 0)
+                     for d in HEAD_DIMS}
+# the 48 kHz MFE blocks (phase 19 and phase 2's rows): 32 ms frames on
+# n_fft 2048 (L 1,536, 1,025 bins) and 64 ms frames on n_fft 4096 (L
+# 3,072, 2,049 bins), a hop of 16 ms, 40 mels; 512 one-second clips
+MFE_48K = {"n2048": dict(frame_s=0.032, n_fft=2048),
+           "n4096": dict(frame_s=0.064, n_fft=4096)}
+MFE_48K_RATE, MFE_48K_HOP_S = 48_000, 0.016
+# the repo's smoke configs with attention (head dim 16: d_model 64 over 4
+# heads), float32: the decoder-only ones through the engines, the
+# enc-dec and the VLM through one-shot prefill and decode
+SMOKE_DECODERS = ("internlm2-1.8b", "granite-3-8b", "gemma3-4b",
+                  "llama3.2-3b", "dbrx-132b", PHI, "zamba2-2.7b")
+SMOKE_HEAD_DIM = 16
+
+
+def check_mel_bins(port, clips48):
+    """``mel_frontend`` past one cluster pass (more than 1,024 bins): the
+    48 kHz blocks' frames of 512 one-second clips (``MFE_48K``: L 1,536
+    with 1,025 bins, L 3,072 with 2,049, 40 mels) as the unfold view,
+    and one clip of each, against the plain version within ``MEL_ATOL``,
+    two runs bitwise equal; the batch rows timed as phase 2's (the plain
+    version, the rfft chain, the bound).  Returns the timed rows."""
+    blocks = port.dsp_blocks
+    sig = torch.from_numpy(clips48[:KWS_BATCH]).to(DEV)
+    rows = {}
+    for key, kw in MFE_48K.items():
+        blk = blocks.MFEBlock(sample_rate=MFE_48K_RATE,
+                              stride_s=MFE_48K_HOP_S, n_mels=40, **kw)
+        tables = blk.tables(DEV)
+        for n in (KWS_BATCH, 1):
+            frames = blocks.frame_signal(sig[:n], blk.frame_len, blk.stride)
+            name = f"mfe48k_{key}_{n}x{frames.shape[1]}"
+            out = port.ops.mel_frontend(frames, *tables)
+            again = port.ops.mel_frontend(frames, *tables)
+            torch.cuda.synchronize()
+            want = port.ref.mel_frontend_ref(frames, *tables)
+            err = float((out - want).abs().max())
+            plan = port.mf._plan(frames.shape[0] * frames.shape[1],
+                                 blk.frame_len, tables[1].shape[1], 40)
+            print(f"  mel_frontend {name:26s} L {blk.frame_len}, bins"
+                  f" {tables[1].shape[1]}: max|err| {err:.3g}, two runs"
+                  f" bitwise {torch.equal(out, again)} ({plan})")
+            check(out.shape == want.shape and bool(out.isfinite().all()),
+                  f"mel_frontend {name}: shape or non-finite")
+            check(err <= MEL_ATOL, f"mel_frontend disagrees with its plain"
+                  f" version at {name}: {err} > {MEL_ATOL}")
+            check(torch.equal(out, again), f"mel_frontend {name}: two runs"
+                  " differ")
+            if n != KWS_BATCH:
+                continue
+            window, cos, sin, mel = tables
+            ms = time_ms(lambda: port.ops.mel_frontend(frames, *tables),
+                         reps=10)
+            plain_ms = time_ms(lambda: port.ref.mel_frontend_ref(
+                frames, *tables), reps=10)
+            lib = rfft_call(frames, window, mel, blk.n_fft)
+            lib_err = float((lib() - want).abs().max())
+            lib_ms = time_ms(lib, reps=10)
+            b_ms, b_by, f32_ms = mel_bound_ms(frames, cos.shape[1], 40)
+            rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": b_ms, "bound_by": b_by,
+                          "bound_f32_ms": f32_ms, "library_ms": lib_ms,
+                          "library_max_abs_err": lib_err,
+                          "passes": plan.passes, "groups": plan.groups}
+            print(f"  mel_frontend {name:26s} kernel {ms:.4f} ms  plain"
+                  f" {plain_ms:.4f} ms  rfft {lib_ms:.4f} ms (max|err|"
+                  f" {lib_err:.3g})  {ms / lib_ms:.2f}x rfft  bound"
+                  f" {b_ms:.5f} ms ({b_by}; {f32_ms:.5f} at the f32 rate)")
+            del frames, out, again, want
+    return rows
+
+
+def smoke_config(port, arch):
+    """The repo's own smoke config of ``arch`` in float32."""
+    cfg = dataclasses.replace(port.configs.get_smoke(arch), dtype="float32")
+    check(cfg.resolved_head_dim == SMOKE_HEAD_DIM,
+          f"{arch} smoke head dim {cfg.resolved_head_dim}")
+    return cfg
+
+
+def smoke_serve_vs_cpu(port, arch) -> dict:
+    """The exact oracle at the smoke config: served through
+    ``ContinuousBatchServer`` (float, chunks of 4) and ``PagedBatchServer``
+    (int8 weights, activations and KV cache; blocks of 8) on the card, the
+    greedy tokens equal the same engine's on the CPU.  Returns the card
+    runs' launches by engine (the counts set to 0 just before each and
+    read just after)."""
+    cfg = smoke_config(port, arch)
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (3, 11, 7, 21)]
+    budgets = [5, 12, 6, 3]
+    host = port.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    engines = {
+        "continuous": (port.server.ContinuousBatchServer,
+                       dict(slots=2, max_prompt=24, prefill_chunk=4,
+                            max_new_tokens=12)),
+        "int8_paged": (port.server.PagedBatchServer,
+                       dict(slots=3, max_prompt=24, prefill_chunk=4,
+                            max_new_tokens=12, block_size=8, pool_blocks=9,
+                            precision="int8")),
+    }
+    launches, served = {}, {}
+    for name, (engine, kw) in engines.items():
+        tokens = {}
+        for dev in ("cpu", DEV):
+            srv = engine(cfg, host.to(dev), device=dev, **kw)
+            reqs = srv.submit(prompts, max_new_tokens=budgets)
+            reset_counts(port)
+            torch.cuda.synchronize()
+            srv.run()
+            torch.cuda.synchronize()
+            if dev == DEV:
+                launches[name] = read_counts(port)
+            tokens[dev] = [r.tokens for r in reqs]
+        check(tokens[DEV] == tokens["cpu"], f"smoke {arch} {name}: card"
+              f" {tokens[DEV]} != cpu {tokens['cpu']}")
+        check(launches[name]["flash_decode"] > 0
+              and launches[name]["flash_chunk_prefill"] > 0
+              and (name != "int8_paged"
+                   or launches[name]["int8_matmul"] > 0),
+              f"smoke {arch} {name}: the card run missed a kernel:"
+              f" {launches[name]}")
+        served[name] = tokens[DEV]
+    print(f"  smoke {arch} (D {cfg.resolved_head_dim}, {cfg.n_layers}"
+          f" layers), card == cpu tokens: continuous {served['continuous']},"
+          f" int8 paged {served['int8_paged']}")
+    return launches
+
+
+def smoke_phase(port) -> dict:
+    """Phase 18: the repo's nine smoke configs with attention run on the
+    card's kernels at head dim 16, each against the CPU's plain path:
+    the decoder-only ones served (``smoke_serve_vs_cpu``), seamless-m4t
+    and qwen2-vl prefilled in one shot and decoded (float and int8,
+    ``small_encdec_vs_cpu`` and ``small_qwen_vs_cpu`` on the smoke
+    configs), and internlm2-1.8b's smoke config trained 3 steps through
+    ``flash_attention``'s backward (``train_small_vs_cpu``).  Returns the
+    card runs' launches by path."""
+    t0 = time.perf_counter()
+    launches = {}
+    for arch in SMOKE_DECODERS:
+        for engine, n in smoke_serve_vs_cpu(port, arch).items():
+            launches[f"smoke_{arch}_{engine}"] = n
+    for key, fn, arch in (("smoke_seamless_m4t", small_encdec_vs_cpu,
+                           SEAMLESS),
+                          ("smoke_qwen2vl", small_qwen_vs_cpu, QWEN),
+                          ("smoke_internlm2_training", train_small_vs_cpu,
+                           "internlm2-1.8b")):
+        reset_counts(port)
+        torch.cuda.synchronize()
+        fn(port, smoke_config(port, arch))
+        torch.cuda.synchronize()
+        launches[key] = read_counts(port)
+    check(launches["smoke_internlm2_training"]["flash_attention_bwd"] > 0
+          and launches["smoke_seamless_m4t"]["flash_attention"] > 0
+          and launches["smoke_qwen2vl"]["flash_attention"] > 0,
+          f"phase 18 missed flash_attention: {launches}")
+    print("  launches by path " + json.dumps(
+        {path: {k: v for k, v in n.items() if v}
+         for path, n in launches.items()})
+          + f"; phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def kws_48k(port, clips48, labels48, key) -> dict:
+    """The KWS Impulse on a 48 kHz MFE block (``MFE_48K[key]``): DS-CNN at
+    the repo's defaults, seeded weights on the card, the 512 clips in one
+    batch in f32 and, after PTQ on 16 clips, in int8; the card against
+    the CPU's plain path on 8 clips (logits within ``KWS_LOGIT_ATOL``,
+    labels where the CPU's top-two gap exceeds it, the PTQ trees bitwise);
+    the batch again from the artifact (``compile_impulse``, a CUDA graph:
+    logits within ``KWS_LOGIT_ATOL`` of eager, one ``mel_frontend``
+    captured, no wrapper launch on replay); one ``fit`` step on 64 clips.
+    Returns the launches of the eager run, the artifact's replays and the
+    fit step, and the metrics."""
+    cb = port.core_blocks
+    imp = port.Impulse(
+        cb.make_dsp_block("mfe", sample_rate=MFE_48K_RATE,
+                          stride_s=MFE_48K_HOP_S, n_mels=40,
+                          **MFE_48K[key]),
+        cb.make_learn_block("ds-cnn"), input_shape=MFE_48K_RATE, device=DEV)
+    imp.init(torch.Generator(device=DEV).manual_seed(0))
+    frames, n_mels = imp.dsp.feature_shape(MFE_48K_RATE)
+    nbins = imp.dsp.impl.n_fft // 2 + 1
+    batch = clips48[:KWS_BATCH]
+    imp.logits(batch).cpu()                              # warm up
+    reset_counts(port)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels = imp.logits(batch).argmax(-1).cpu()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    imp.quantize(batch[:16])
+    labels8 = imp.logits_int8(batch).argmax(-1).cpu()
+    torch.cuda.synchronize()
+    eager = read_counts(port)
+    check(eager == dict({k: 0 for k in eager}, mel_frontend=2),
+          f"48 kHz {key} launches {eager}: one mel_frontend a features"
+          " call")
+    check(int(labels.max()) < 12 and int(labels8.max()) < 12,
+          "48 kHz labels out of range")
+    gaps = card_vs_cpu(port, imp, batch[:8], f"DS-CNN + 48 kHz MFE {key}")
+
+    art = port.eon.compile_impulse(imp, batch_size=KWS_BATCH)
+    fn = art.rehydrate()
+    fn(torch.from_numpy(batch))                          # capture
+    torch.cuda.synchronize()
+    replays0 = fn.replays
+    reset_counts(port)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = fn(torch.from_numpy(batch)).clone()
+    torch.cuda.synchronize()
+    art_ms = (time.perf_counter() - t0) * 1e3
+    host = read_counts(port)
+    gap = float((got - imp.logits(batch)).abs().max())
+    check(gap <= KWS_LOGIT_ATOL, f"48 kHz {key} artifact logits differ from"
+          f" eager by {gap}")
+    check(all(n == 0 for n in host.values())
+          and fn.captured_launches == dict({k: 0 for k in host},
+                                           mel_frontend=1),
+          f"48 kHz {key} artifact: launches {host}, captured"
+          f" {fn.captured_launches}")
+    replayed = {k: fn.captured_launches[k] * (fn.replays - replays0)
+                for k in host}
+
+    reset_counts(port)
+    torch.cuda.synchronize()
+    hist = imp.fit((clips48[:64], labels48[:64]), epochs=1, batch_size=64,
+                   lr=FIT_LR, generator=torch.Generator(device=DEV)
+                   .manual_seed(0))["history"]
+    torch.cuda.synchronize()
+    fit = read_counts(port)
+    check(fit == dict({k: 0 for k in fit}, mel_frontend=1)
+          and np.isfinite(hist[-1]["loss"]),
+          f"48 kHz {key} fit step: launches {fit}, history {hist}")
+    metrics = dict(frames=frames, bins=nbins, n_mels=n_mels,
+                   batch512_ms=batch_ms, artifact_batch512_ms=art_ms,
+                   artifact_logit_gap=gap, fit_loss=hist[-1]["loss"],
+                   int8_labels_equal_share=float(
+                       (labels8 == labels).float().mean()),
+                   card_vs_cpu={k: v["max_abs_gap"] for k, v in gaps.items()})
+    print(f"  48 kHz {key}: " + json.dumps(metrics))
+    return {"eager": eager, "artifact": replayed, "fit": fit}, metrics
+
+
+def kws_48k_phase(port, clips48, labels48) -> tuple:
+    """Phase 19: ``kws_48k`` on both 48 kHz blocks.  Returns the launches
+    by path and the metrics by block."""
+    t0 = time.perf_counter()
+    launches, metrics = {}, {}
+    for key in MFE_48K:
+        runs, metrics[key] = kws_48k(port, clips48, labels48, key)
+        for path, n in runs.items():
+            launches[f"kws48k_{key}_{path}"] = n
+    print(f"  phase {time.perf_counter() - t0:.1f} s")
+    return launches, metrics
+
+
 def gpu_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                           "--format=csv,noheader"], capture_output=True,
@@ -6100,18 +6423,20 @@ def main() -> None:
                 print("   " + line.strip())
                 spill = re.search(r"(\d+) bytes spill stores", line)
                 cap = FA_DKDV_SPILL_CAP if "dkdv" in entry else 0
-                if ("Li256E" in entry or "Li80E" in entry) and spill \
+                if name in ATTENTION_SOURCES and spill \
+                        and any(t in entry for t in WIDE_TILES) \
                         and int(spill.group(1)) > cap:
                     wide_spills.append(f"{entry} ({spill.group(1)} bytes)")
                 if "mamba_scan_bwd" in entry and spill \
                         and int(spill.group(1)) > 0:
                     scan_bwd_spills.append(f"{entry} ({spill.group(1)}"
                                            f" bytes)")
-    # the D 256 and D 80 instantiations of the forward, serving and dQ
-    # kernels were chosen so that none spills; their dK/dV passes spill a
-    # little, as that pass does at every head dim (PERF.md gives the bytes)
-    check(not wide_spills, f"a D 256 or D 80 kernel spills more than its"
-          f" cap: {wide_spills}")
+    # the attention kernels' instantiations on tiles of 128 and 256 (D 80
+    # to 128 and 144 to 256, the head dim a runtime argument) were chosen
+    # so that the forward, serving and dQ kernels do not spill; their dK/dV
+    # passes spill a little (PERF.md gives the bytes)
+    check(not wide_spills, f"an attention kernel on a tile of 128 or 256"
+          f" spills more than its cap: {wide_spills}")
     # the scan backward keeps a sub-chunk's decays and states in registers:
     # none of its kernels may spill
     check(not scan_bwd_spills, f"a kernel of the scan backward spills:"
@@ -6122,14 +6447,16 @@ def main() -> None:
     port.fa._lib()
     port.ms._lib()
     print(f"  build phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    clips, labels = keyword_clips(port, KWS_CLIPS, 12, 16_000, seed=0)
+    clips48, labels48 = keyword_clips(port, KWS_BATCH, 12, MFE_48K_RATE,
+                                      seed=1)
+    print(f"  {KWS_CLIPS} keyword clips of 1 s at 16 kHz and {KWS_BATCH} at"
+          f" 48 kHz made in {time.perf_counter() - t0:.1f} s, while the"
+          f" dry-run matrix traces")
     matrix_waited = finish_dryrun_matrix(matrix_procs,
                                          Path(dryrun_dir.name))
     print(f"  dry-run matrix traced; waited {matrix_waited:.1f} s for it")
-
-    t0 = time.perf_counter()
-    clips, labels = keyword_clips(port, KWS_CLIPS, 12, 16_000, seed=0)
-    print(f"  {KWS_CLIPS} keyword clips of 1 s made in"
-          f" {time.perf_counter() - t0:.1f} s")
 
     phase("phase 2: kernels against their plain versions")
     layout_rows = check_layouts(port.ops, port.ref, port.quantize.Int8KV)
@@ -6166,6 +6493,25 @@ def main() -> None:
           " 128, an image's positions, packed rows with pads)")
     for name, rows in check_flash_attention_positions(port).items():
         fa_rows[name].update(rows)
+    stamp("phase 2: masks by position checked")
+    print("  slice 13: head dims 16, 32, 96 and 192 (internlm2-1.8b's heads;"
+          " tiles of 64, 128 and 256), and more bins than a cluster's pass"
+          " (48 kHz MFE, 1,025 and 2,049 bins)")
+    for name, rows in check_slice_attention(port.ops, port.ref,
+                                            port.quantize.Int8KV,
+                                            HEAD_DIM_LAYOUTS).items():
+        layout_rows[name].update(rows)
+    stamp("phase 2: slice 13's serving rows checked")
+    for name, rows in check_flash_attention_wide(
+            port, FA_HEAD_DIM_CASES).items():
+        fa_rows[name].update(rows)
+    stamp("phase 2: slice 13's training rows checked")
+    mel_rows.update(check_mel_bins(port, clips48))
+    stamp("phase 2: slice 13 checked")
+
+    phase("phase 18: the repo's smoke configs (head dim 16) on the card's"
+          " kernels, against the CPU")
+    smoke_l = smoke_phase(port)
 
     phase(f"phase 3: full-width serving, internlm2-1.8b bf16 at"
           f" {SERVE_LAYERS} of its 24 layers")
@@ -6253,6 +6599,10 @@ def main() -> None:
           f" {fit_metrics['heldout_int8_acc']:.4f} (float"
           f" {fit_metrics['heldout_f32_acc']:.4f})  part"
           f" {time.perf_counter() - t0:.1f} s")
+
+    phase("phase 19: the KWS Impulse on 48 kHz MFE blocks (n_fft 2048 and"
+          " 4096), f32 and PTQ int8, eager, from the artifact, a fit step")
+    k48_l, k48_metrics = kws_48k_phase(port, clips48, labels48)
 
     phase(f"phase 7: full-width training, internlm2-1.8b at {TRAIN_LAYERS}"
           f" of its 24 layers, f32 masters, bf16")
@@ -6387,12 +6737,14 @@ def main() -> None:
         "qwen2vl_small_f32": vlm["small"]}))
     print("  slice 11 " + json.dumps({k: dry[k] for k in (
         "matrix", "cells", "tuner", "elastic")}))
+    print("  slice 13 " + json.dumps({"kws_48k": k48_metrics}))
     print("  slice 10 " + json.dumps({
         "lm_training_remat": train_metrics["remat"],
         **{f"{arch}_training": {k: r[k] for k in ("metrics", "grads")}
            for arch, r in breadth.items()}}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
+    slice13 = {**smoke_l, **k48_l}
     by_path = {name: {"float_continuous": launches[name],
                       "int8_paged": launches8[name],
                       "int8_continuous_calibrated": launches_cal[name],
@@ -6431,8 +6783,12 @@ def main() -> None:
                       **{f"{arch}_training": n[name]
                          for arch, n in breadth_l.items()},
                       **{f"dryrun_{cell}": n[name]
-                         for cell, n in dry_l.items()}}
+                         for cell, n in dry_l.items()},
+                      **{path: n[name] for path, n in slice13.items()}}
                for name in REPLACES}
+    # the launches of phases 18 and 19, kernel by kernel
+    added = {name: sum(n[name] for n in slice13.values())
+             for name in REPLACES}
     serving = (launches, launches8, launches_g, launches_g8, launches_gr,
                launches_z, launches_z8, phi["launches"], phi["launches8"],
                dbrx["launches"]) + tuple(enc_l.values()) \
@@ -6442,7 +6798,7 @@ def main() -> None:
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name],
-            launches=sum(n[name] for n in serving),
+            launches=sum(n[name] for n in serving) + added[name],
             launches_by_path=by_path[name], **layout_rows[name]["float"],
             layouts=layout_rows[name]))
     kernels.append(dict(
@@ -6452,13 +6808,15 @@ def main() -> None:
         + launches_g8["int8_matmul"] + launches_z8["int8_matmul"]
         + phi["launches8"]["int8_matmul"]
         + sum(n["int8_matmul"] for n in enc_l.values())
-        + sum(n["int8_matmul"] for n in vlm_l.values()),
+        + sum(n["int8_matmul"] for n in vlm_l.values())
+        + added["int8_matmul"],
         launches_by_path=by_path["int8_matmul"],
         **mm_rows["M4_K2048_N8192"], shapes=mm_rows))
     kernels.append(dict(
         name="mel_frontend", route="cuda", source=SOURCES["mel_frontend"],
         replaces=REPLACES["mel_frontend"],
-        launches=launches_kws["mel_frontend"] + launches_fit["mel_frontend"],
+        launches=launches_kws["mel_frontend"] + launches_fit["mel_frontend"]
+        + added["mel_frontend"],
         launches_by_path=by_path["mel_frontend"],
         **mel_rows["full_width_512x99"], shapes=mel_rows))
     for name in ("flash_attention", "flash_attention_bwd"):
@@ -6471,7 +6829,7 @@ def main() -> None:
             + sum(n[name] for n in enc_l.values()) + launches_et[name]
             + sum(n[name] for n in vlm_l.values()) + launches_qt[name]
             + sum(n[name] for n in breadth_l.values())
-            + sum(n[name] for n in dry_l.values()),
+            + sum(n[name] for n in dry_l.values()) + added[name],
             launches_by_path=by_path[name],
             **fa_rows[name]["train_b4_s2048"], shapes=fa_rows[name]))
     kernels.append(dict(

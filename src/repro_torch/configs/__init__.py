@@ -7,9 +7,23 @@ package, all ported.
 from __future__ import annotations
 
 import importlib
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 from repro_torch.core.arch import ArchConfig
+
+# the module names of the assigned architectures, in the JAX package's order
+ARCH_IDS: List[str] = [
+    "internlm2_1_8b",
+    "granite_3_8b",
+    "gemma3_4b",
+    "llama3_2_3b",
+    "seamless_m4t_large_v2",
+    "dbrx_132b",
+    "phi3_5_moe_42b",
+    "zamba2_2_7b",
+    "falcon_mamba_7b",
+    "qwen2_vl_72b",
+]
 
 # canonical dashed ids (CLI --arch) -> module names
 ALIASES: Dict[str, str] = {
@@ -60,3 +74,7 @@ def get(arch_id: str) -> ArchConfig:
 
 def get_smoke(arch_id: str) -> ArchConfig:
     return _module(arch_id).SMOKE
+
+
+def all_archs() -> List[str]:
+    return list(ARCH_IDS)

@@ -158,6 +158,14 @@ def quant_dynamic(x: torch.Tensor, amax: Optional[torch.Tensor] = None):
     return q, scale.contiguous()
 
 
+def fake_quant_dynamic(x: torch.Tensor,
+                       amax: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Quantize -> dequantize round trip of ``quant_dynamic`` in float:
+    bit-faithful simulation of the int8 activation path."""
+    q, scale = quant_dynamic(x, amax)
+    return q.float() * scale[..., None]
+
+
 # ---------------------------------------------------------------------------
 # KV-cache quantization (per-entry, per-head vector scales)
 # ---------------------------------------------------------------------------

@@ -82,32 +82,37 @@
 //   of T) at a time and added to its accumulator in f32 on the CUDA cores
 //   (gemm_split_add): one wgmma accumulator carried along a whole causal
 //   row drifted beyond the limit.
-//   ptxas (-Xptxas -v, CUDA 12.9, sm_90a), registers at D 128 / D 64, and
-//   the dynamic shared memory: fa_fwd_wgmma_kernel 220 / 170, no spills,
-//   82,944 / 41,984 bytes (D 256: 225, no spills, 132,096 bytes, two
-//   blocks a head, each with half of the output's columns);
-//   fa_dkdv_wgmma_kernel 255 with 116 bytes of spill stores and loads (68
-//   before Sq and Skv were split) / 226, no spills, 100,352 / 51,200
-//   bytes; fa_dq_wgmma_kernel 199 / 143, no spills, 99,328 / 50,176
-//   bytes; fa_rowdot_kernel 24.
+//   ptxas (-Xptxas -v, sm_90a), registers on tiles of 128 / 64,
+//   and the dynamic shared memory: fa_fwd_wgmma_kernel 197 / 159, no
+//   spills, 82,944 / 41,984 bytes (tile 256: 201, no spills, 132,096
+//   bytes, two blocks a head, each with half of the output's columns);
+//   fa_dkdv_wgmma_kernel 237 / 211, no spills (by position 255 with 28
+//   bytes of spill stores at 128, 32 at 256; 116 and 168 before the
+//   thread index went opaque in its loads), 100,352 / 51,200 bytes;
+//   fa_dq_wgmma_kernel 160 / 128, no spills, 99,328 / 50,176 bytes;
+//   fa_rowdot_kernel 32.
 //
-// Head dim 80 (zamba2's shared block).  Every kernel, forward and
-// backward, computes on tiles of D 128 and reads the tensors' rows of DG
-// 80: the 10 real 16-byte chunks of a row are loaded (cp.async, or the f32
-// kernels' 16-byte loads), the 6 past them are zeros read from nowhere,
-// the output (dQ, dK, dV) columns past 80 are never written, and the
-// softmax scale is 1/sqrt(80).  Bytes stay D 80's; the products pay 128 /
-// 80 = 1.6 times (a 64 + 16 split of the K-major blocks and m64n80k16 for
-// P V would not, a later redesign).
+// Head dims.  Any head dim dg that is a multiple of 16 from 16 to 256, in
+// both types, with either mask kind.  Every kernel, forward and backward,
+// computes on a tile width D, the least of 64, 128 and 256 that holds dg
+// (the template's D; dg is a runtime argument, so the three widths are the
+// only instantiations), and reads the tensors' rows of dg: the real
+// 16-byte chunks of a row are loaded (cp.async, or the f32 kernels'
+// 16-byte loads), the chunks past them are zeros read from nowhere, the
+// output (dQ, dK, dV) columns past dg are never written, and the softmax
+// scale is 1/sqrt(dg).  Bytes stay dg's; the products pay D / dg (D 16 on
+// 64: 4 times; D 80 on 128: 1.6).  A narrower tile for dg <= 32, or a 64 +
+// 16 split of the K-major blocks for D 80, is a later redesign.
 //
-// Head dim 256 (gemma3), bf16: two blocks a head in every kernel, each
-// with half of the output's columns (fwd_cols), the scores (S, dP)
+// Tile 256 (gemma3's D 256; 144 to 240), bf16: two blocks a head in every
+// kernel, each with half of the output's columns (fwd_cols) and of them
+// its share of the real ones, dg - 128 for the second, the scores (S, dP)
 // recomputed by both over the whole of D: the forward's output, the dK/dV
 // pass's dK and dV, the dQ pass's dQ.  A thread then holds 128
 // accumulators, as at D 128; the whole 256 columns of dK and dV would be
 // 256 registers before S and dP.  The tiles are twice D 128's: 198,656
 // bytes of shared memory in the dK/dV pass, 197,632 in the dQ pass (one
-// block an SM).  The f32 kernels take D 256 whole.
+// block an SM).  The f32 kernels take the tile of 256 whole.
 //
 // Position masks (every kernel, a second instantiation: POS = true).
 // Given q_pos (B, Sq) and k_pos (B, Skv) int32, the masks are the JAX
@@ -188,19 +193,18 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Stage rows [row0, row0 + ROWS) of one head of a (B, S, H, DG) tensor
+// Stage rows [row0, row0 + ROWS) of one head of a (B, S, H, dg) tensor
 // into shared memory as f32 times `mul`: dst[r * LD + d], D columns.
 // `src` points at (b, 0, h, 0); consecutive rows are `rs` elements apart.
-// Rows at index >= S, and the columns past DG (DG < D: head dim 80 on
-// tiles of 128), are zeros.  16-byte loads, neighbouring threads on
-// neighbouring addresses.
-template <typename T, int D, int LD, int ROWS, int DG = D>
+// Rows at index >= S, and the columns past dg (dg <= D, a multiple of 16),
+// are zeros.  16-byte loads, neighbouring threads on neighbouring
+// addresses.
+template <typename T, int D, int LD, int ROWS>
 __device__ __forceinline__ void stage_rows(float* dst, const T* src,
                                            long long rs, int row0, int S,
-                                           float mul, int tid) {
+                                           float mul, int tid, int dg) {
   constexpr int N = Vec<T>::N;
   constexpr int VPR = D / N;   // 16-byte loads per row
-  static_assert(DG <= D && DG % N == 0, "rows of whole loads");
   // at D 256 the loads' offsets, invariant in the caller's loop over key
   // tiles, would be hoisted out of it and held (the f32 forward then
   // spilled at 255 registers), as in load_tile
@@ -208,7 +212,7 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src,
   for (int i = tid; i < ROWS * VPR; i += kThreads) {
     const int r = i / VPR, c = (i % VPR) * N;
     float f[N];
-    if (row0 + r < S && (DG == D || c < DG)) {
+    if (row0 + r < S && c < dg) {
       const uint4 raw =
           *reinterpret_cast<const uint4*>(src + (row0 + r) * rs + c);
       Vec<T>::unpack(raw, f);
@@ -250,16 +254,16 @@ __device__ __forceinline__ int pos_at(const int* __restrict__ pos, int r,
 // ty*8 .. ty*8+7 of the tile; in the score phase keys tx + 16 j of the key
 // tile, in the P.V phase output columns cg*64 + tx*4 .. +3.
 // ---------------------------------------------------------------------------
-// D is the width the block computes on, DG the tensors' head dim (DG < D:
-// the columns past DG are zeros and never written); POS: the position
+// D is the width the block computes on, dg the tensors' head dim (dg <= D:
+// the columns past dg are zeros and never written); POS: the position
 // masks from q_pos/k_pos (else null, unread)
-template <typename T, int D, int BK, int DG = D, bool POS = false>
+template <typename T, int D, int BK, bool POS = false>
 __global__ void __launch_bounds__(kThreads)
 fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, T* __restrict__ out,
            float* __restrict__ lse, const int* __restrict__ q_pos,
            const int* __restrict__ k_pos, int Sq, int Skv, int Hq, int Hkv,
-           int causal, int window, float scale) {
+           int dg, int causal, int window, float scale) {
   constexpr int LD = D + 4;        // f32 row stride of the staged tiles
   constexpr int LDP = kBQ + 4;     // row stride of the transposed P tile
   constexpr int KPT = BK / 16;     // keys a thread scores
@@ -274,11 +278,11 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const long long q_rs = (long long)Hq * DG, k_rs = (long long)Hkv * DG;
-  const long long q_base = (long long)b * Sq * q_rs + (long long)h * DG;
-  const long long k_base = (long long)b * Skv * k_rs + (long long)hk * DG;
+  const long long q_rs = (long long)Hq * dg, k_rs = (long long)Hkv * dg;
+  const long long q_base = (long long)b * Sq * q_rs + (long long)h * dg;
+  const long long k_base = (long long)b * Skv * k_rs + (long long)hk * dg;
 
-  stage_rows<T, D, LD, kBQ, DG>(q_s, q + q_base, q_rs, q0, Sq, scale, tid);
+  stage_rows<T, D, LD, kBQ>(q_s, q + q_base, q_rs, q0, Sq, scale, tid, dg);
 
   float m[8], l[8], acc[8][4 * CG];
 #pragma unroll
@@ -297,8 +301,8 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int* kp_b = POS ? k_pos + (long long)b * Skv : nullptr;
   for (int k0 = (k_lo / BK) * BK; k0 < k_hi; k0 += BK) {
     __syncthreads();   // the previous tile is consumed; q_s is ready
-    stage_rows<T, D, LD, BK, DG>(k_s, k + k_base, k_rs, k0, Skv, 1.f, tid);
-    stage_rows<T, D, LD, BK, DG>(v_s, v + k_base, k_rs, k0, Skv, 1.f, tid);
+    stage_rows<T, D, LD, BK>(k_s, k + k_base, k_rs, k0, Skv, 1.f, tid, dg);
+    stage_rows<T, D, LD, BK>(v_s, v + k_base, k_rs, k0, Skv, 1.f, tid, dg);
     // the position masks of this thread's 8 rows x KPT keys, bit i KPT + j,
     // folded before the products: one register stays live across them (the
     // positions themselves spilled the D 80 forward)
@@ -414,7 +418,7 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int cg = 0; cg < CG; ++cg)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        if (DG == D || cg * 64 + tx * 4 + e < DG)
+        if (cg * 64 + tx * 4 + e < dg)
           o[cg * 64 + tx * 4 + e] = from_f32<T>(acc[i][cg * 4 + e] * inv);
     // a row with no valid key (none exists for rows < Sq) gets lse = +inf,
     // so the backward's P = exp(s - lse) is 0 there
@@ -426,18 +430,18 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ---------------------------------------------------------------------------
 // Backward 1, either type: Dr[b, h, i] = sum_d dO[b, i, h, d] * o[b, i, h,
-// d], one warp per (b, i, h) row in memory order (S: the queries' length).
+// d], one warp per (b, i, h) row of D values in memory order (S: the
+// queries' length).
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 fa_rowdot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-              float* __restrict__ dr, long long rows, int S, int Hq) {
+              float* __restrict__ dr, long long rows, int S, int Hq, int D) {
   const long long r = (long long)blockIdx.x * (kThreads / 32) +
                       (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (r >= rows) return;
   float sum = 0.f;
-#pragma unroll
   for (int c = lane; c < D; c += 32)
     sum = fmaf(to_f32(dout[r * D + c]), to_f32(o[r * D + c]), sum);
   sum = warp_sum(sum);
@@ -456,14 +460,14 @@ fa_rowdot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 // j), then dV += P^T dO and dK += dS^T (q * scale) as outer products over
 // the rows (thread: keys ty*4 .. +3, columns cg*64 + tx*4 .. +3).
 // ---------------------------------------------------------------------------
-template <typename T, int D, int DG = D, bool POS = false>
+template <typename T, int D, bool POS = false>
 __global__ void __launch_bounds__(kThreads)
 fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const T* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ dr,
             T* __restrict__ dk, T* __restrict__ dv,
             const int* __restrict__ q_pos, const int* __restrict__ k_pos,
-            int Sq, int Skv, int Hq, int Hkv, int causal, int window,
+            int Sq, int Skv, int Hq, int Hkv, int dg, int causal, int window,
             float scale) {
   constexpr int BKV = 32;          // keys per block
   constexpr int LD = D + 4;
@@ -483,11 +487,11 @@ fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = blockIdx.x * BKV, hk = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hkv;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const long long q_rs = (long long)Hq * DG, k_rs = (long long)Hkv * DG;
-  const long long k_base = (long long)b * Skv * k_rs + (long long)hk * DG;
+  const long long q_rs = (long long)Hq * dg, k_rs = (long long)Hkv * dg;
+  const long long k_base = (long long)b * Skv * k_rs + (long long)hk * dg;
 
-  stage_rows<T, D, LD, BKV, DG>(k_s, k + k_base, k_rs, k0, Skv, 1.f, tid);
-  stage_rows<T, D, LD, BKV, DG>(v_s, v + k_base, k_rs, k0, Skv, 1.f, tid);
+  stage_rows<T, D, LD, BKV>(k_s, k + k_base, k_rs, k0, Skv, 1.f, tid, dg);
+  stage_rows<T, D, LD, BKV>(v_s, v + k_base, k_rs, k0, Skv, 1.f, tid, dg);
 
   float dka[4][4 * CG], dva[4][4 * CG];
 #pragma unroll
@@ -512,15 +516,15 @@ fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float inv_skv = 1.f / Skv;
   for (int g = 0; g < G; ++g) {
     const int h = hk * G + g;
-    const long long q_base = (long long)b * Sq * q_rs + (long long)h * DG;
+    const long long q_base = (long long)b * Sq * q_rs + (long long)h * dg;
     const float* lse_h = lse + ((long long)b * Hq + h) * Sq;
     const float* dr_h = dr + ((long long)b * Hq + h) * Sq;
     for (int q0 = q_lo; q0 < q_hi; q0 += kBQ) {
       __syncthreads();   // the previous tile is consumed; k_s/v_s are ready
-      stage_rows<T, D, LD, kBQ, DG>(q_s, q + q_base, q_rs, q0, Sq, scale,
-                                    tid);
-      stage_rows<T, D, LD, kBQ, DG>(do_s, dout + q_base, q_rs, q0, Sq, 1.f,
-                                    tid);
+      stage_rows<T, D, LD, kBQ>(q_s, q + q_base, q_rs, q0, Sq, scale, tid,
+                                dg);
+      stage_rows<T, D, LD, kBQ>(do_s, dout + q_base, q_rs, q0, Sq, 1.f, tid,
+                                dg);
       for (int r = tid; r < kBQ; r += kThreads) {
         lse_s[r] = q0 + r < Sq ? lse_h[q0 + r] : 0.f;
         dr_s[r] = q0 + r < Sq ? dr_h[q0 + r] : 0.f;
@@ -631,7 +635,7 @@ fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int cg = 0; cg < CG; ++cg)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        if (DG < D && cg * 64 + tx * 4 + e >= DG) continue;
+        if (cg * 64 + tx * 4 + e >= dg) continue;
         dko[cg * 64 + tx * 4 + e] = from_f32<T>(dka[i][cg * 4 + e]);
         dvo[cg * 64 + tx * 4 + e] = from_f32<T>(dva[i][cg * 4 + e]);
       }
@@ -643,14 +647,14 @@ fa_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ty*8 .. +7; in the score phase keys tx + 16 j of the key tile, in the
 // dS.K phase columns cg*64 + tx*4 .. +3.
 // ---------------------------------------------------------------------------
-template <typename T, int D, int BK, int DG = D, bool POS = false>
+template <typename T, int D, int BK, bool POS = false>
 __global__ void __launch_bounds__(kThreads)
 fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ dr,
           T* __restrict__ dq, const int* __restrict__ q_pos,
           const int* __restrict__ k_pos, int Sq, int Skv, int Hq, int Hkv,
-          int causal, int window, float scale) {
+          int dg, int causal, int window, float scale) {
   constexpr int LD = D + 4;
   constexpr int LDP = kBQ + 4;
   constexpr int KPT = BK / 16;
@@ -666,13 +670,12 @@ fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const long long q_rs = (long long)Hq * DG, k_rs = (long long)Hkv * DG;
-  const long long q_base = (long long)b * Sq * q_rs + (long long)h * DG;
-  const long long k_base = (long long)b * Skv * k_rs + (long long)hk * DG;
+  const long long q_rs = (long long)Hq * dg, k_rs = (long long)Hkv * dg;
+  const long long q_base = (long long)b * Sq * q_rs + (long long)h * dg;
+  const long long k_base = (long long)b * Skv * k_rs + (long long)hk * dg;
 
-  stage_rows<T, D, LD, kBQ, DG>(q_s, q + q_base, q_rs, q0, Sq, scale, tid);
-  stage_rows<T, D, LD, kBQ, DG>(do_s, dout + q_base, q_rs, q0, Sq, 1.f,
-                                tid);
+  stage_rows<T, D, LD, kBQ>(q_s, q + q_base, q_rs, q0, Sq, scale, tid, dg);
+  stage_rows<T, D, LD, kBQ>(do_s, dout + q_base, q_rs, q0, Sq, 1.f, tid, dg);
   float lse_r[8], dr_r[8], acc[8][4 * CG];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -690,8 +693,8 @@ fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int* kp_b = POS ? k_pos + (long long)b * Skv : nullptr;
   for (int k0 = (k_lo / BK) * BK; k0 < k_hi; k0 += BK) {
     __syncthreads();
-    stage_rows<T, D, LD, BK, DG>(k_s, k + k_base, k_rs, k0, Skv, 1.f, tid);
-    stage_rows<T, D, LD, BK, DG>(v_s, v + k_base, k_rs, k0, Skv, 1.f, tid);
+    stage_rows<T, D, LD, BK>(k_s, k + k_base, k_rs, k0, Skv, 1.f, tid, dg);
+    stage_rows<T, D, LD, BK>(v_s, v + k_base, k_rs, k0, Skv, 1.f, tid, dg);
     int kpos[KPT];
     if constexpr (POS) {
 #pragma unroll
@@ -783,7 +786,7 @@ fa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int cg = 0; cg < CG; ++cg)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        if (DG == D || cg * 64 + tx * 4 + e < DG)
+        if (cg * 64 + tx * 4 + e < dg)
           o[cg * 64 + tx * 4 + e] = from_f32<T>(acc[i][cg * 4 + e] * scale);
   }
 }
@@ -876,28 +879,41 @@ __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
   return gmma_desc(tile + kk * 16 * 128, kTile * 128, kAtom);
 }
 
-// Rows [row0, row0 + kTile) of one head of a (B, S, H, DG) bf16 tensor
+// Rows [row0, row0 + kTile) of one head of a (B, S, H, dg) bf16 tensor
 // into the swizzled tile at `dst` (1024-byte aligned): D / 64 column
 // blocks of kTile rows of 128 bytes; the 16-byte chunk c of row r sits at
 // chunk c ^ (r % 8), wgmma's 128-byte swizzle.  `src` points at (b, 0, h,
-// 0); rows are `rs` elements apart; rows >= S, and the chunks past DG
-// (DG < D: head dim 80 on tiles of 128), are zeros, read from nowhere.
-template <int D, int DG = D>
+// 0); rows are `rs` elements apart; rows >= S, and the chunks from
+// `chunks` on (the row's real ones: the tile is D wide, the tensor's row
+// may be narrower), are zeros, read from nowhere.
+template <int D, bool OPAQUE = (D >= 128)>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
                                           long long rs, int row0, int S,
-                                          int tid) {
+                                          int tid, int chunks) {
   constexpr int CPR = D / 8;   // 16-byte chunks a row
-  static_assert(DG <= D && DG % 8 == 0, "rows of whole chunks");
   static_assert((kTile * CPR) % kWG == 0, "tile / threads");
-  // at D 256 the 16 chunks' offsets, invariant in the caller's loop over
-  // tiles, would be hoisted out of it and held (the forward then spilled
-  // at 255 registers; with the thread index opaque here, 220 and none)
-  if constexpr (D > 128) asm volatile("" : "+r"(tid));
+  // OPAQUE: the chunks' offsets and column predicates, invariant in the
+  // caller's loop over tiles, would be hoisted out of it and held.  The
+  // D 256 forward then spilled at 255 registers (with the thread index
+  // opaque here, 220 and none); the tile-128 dK/dV pass, with the
+  // real-column predicate a runtime value, 196 bytes (216 by position;
+  // opaque: none and 28; 116 and 168 with a compile-time head dim and
+  // the index visible), and the tile-128 dQ pass ran 3% slower.  The
+  // tile-128 forward runs 4% faster with the index visible, so it passes
+  // OPAQUE false.  A thread's chunks lie in one column c, kWG / CPR rows
+  // apart: c, its predicate and the first row are taken once a call,
+  // not a chunk (with them taken a chunk, the tile-256 forward read 0.184
+  // ms at gemma3-4b's prefill shape, with them taken once 0.115; NVIDIA
+  // H100 80GB HBM3, 700.00 W, scripts/chip_head_dim_rows.py; PERF.md)
+  static_assert(kWG % CPR == 0, "a thread's chunks share one column");
+  if constexpr (OPAQUE) asm volatile("" : "+r"(tid));
+  const unsigned u = static_cast<unsigned>(tid);
+  const int c = u % CPR, r0 = u / CPR;
+  const bool col_ok = c < chunks;
 #pragma unroll
   for (int it = 0; it < kTile * CPR / kWG; ++it) {
-    const int i = tid + it * kWG;
-    const int r = i / CPR, c = i % CPR;
-    const bool ok = row0 + r < S && (DG == D || c < DG / 8);
+    const int r = r0 + it * (kWG / CPR);
+    const bool ok = col_ok && row0 + r < S;
     cp_async16(dst + (c >> 3) * (kTile * 128) + r * 128 +
                    (((c & 7) ^ (r & 7)) << 4),
                src + (ok ? (row0 + r) * rs + c * 8 : 0), ok);
@@ -1073,15 +1089,21 @@ __host__ __device__ constexpr int fwd_cols() {
   return D > 128 ? D / 2 : D;
 }
 
-// D is the width the block computes on, DG the tensors' head dim (DG < D:
-// zero columns past DG, never written)
-template <int D, int DG = D, bool POS = false>
+// the real columns of block cb's DO columns when a head has dg of them
+__device__ __forceinline__ int block_cols(int dg, int cb, int DO) {
+  return min(DO, max(0, dg - cb * DO));
+}
+
+// D is the width the block computes on, dg the tensors' head dim (dg <= D:
+// zero columns past dg, never written)
+template <int D, bool POS = false>
 __global__ void __launch_bounds__(kWG, 2)
 fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ out,
                     float* __restrict__ lse, const int* __restrict__ q_pos,
                     const int* __restrict__ k_pos, int Sq, int Skv, int Hq,
-                    int Hkv, int causal, int window, float scale_log2) {
+                    int Hkv, int dg, int causal, int window,
+                    float scale_log2) {
   constexpr int DO = fwd_cols<D>(), NC = D / DO;
   constexpr uint32_t T = kTile * D * 2;     // bytes of a Q or K tile
   constexpr uint32_t TV = kTile * DO * 2;   // bytes of a V tile
@@ -1093,11 +1115,11 @@ fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tid = threadIdx.x, lane = tid & 31;
   const int row = q0 + (tid >> 5) * 16 + (lane >> 2);
   const int c0 = (lane & 3) * 2;
-  const long long q_rs = (long long)Hq * DG, k_rs = (long long)Hkv * DG;
-  const long long q_base = (long long)b * Sq * q_rs + (long long)h * DG;
-  const long long k_base = (long long)b * Skv * k_rs + (long long)hk * DG;
-  // the real columns of the block's DO columns of V (DG < D: one block)
-  constexpr int DOG = DO - (D - DG);
+  const long long q_rs = (long long)Hq * dg, k_rs = (long long)Hkv * dg;
+  const long long q_base = (long long)b * Sq * q_rs + (long long)h * dg;
+  const long long k_base = (long long)b * Skv * k_rs + (long long)hk * dg;
+  // the real columns of the block's DO columns of V
+  const int dog = block_cols(dg, cb, DO);
 
   // live key tiles: below the diagonal (causal), inside the window; with
   // positions every tile
@@ -1112,9 +1134,13 @@ fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   const bf16* v_cols = v + k_base + cb * DO;
-  load_tile<D, DG>(s_q, q + q_base, q_rs, q0, Sq, tid);
-  load_tile<D, DG>(s_q + T, k + k_base, k_rs, t_lo * kTile, Skv, tid);
-  load_tile<DO, DOG>(s_q + 2 * T, v_cols, k_rs, t_lo * kTile, Skv, tid);
+  // the thread index opaque only past D 128 here (OPAQUE in load_tile)
+  constexpr bool OQ = D > 128, OV = DO > 128;
+  load_tile<D, OQ>(s_q, q + q_base, q_rs, q0, Sq, tid, dg / 8);
+  load_tile<D, OQ>(s_q + T, k + k_base, k_rs, t_lo * kTile, Skv, tid,
+                   dg / 8);
+  load_tile<DO, OV>(s_q + 2 * T, v_cols, k_rs, t_lo * kTile, Skv, tid,
+                    dog / 8);
   cp_async_commit();
 
   // the position masks start at the masked score, so that a row that sees
@@ -1132,8 +1158,10 @@ fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();   // tile t has landed; tile t - 1's stage is free
     if (t + 1 < t_hi) {
       const uint32_t n_k = s_q + T + ((t + 1 - t_lo) & 1) * (T + TV);
-      load_tile<D, DG>(n_k, k + k_base, k_rs, (t + 1) * kTile, Skv, tid);
-      load_tile<DO, DOG>(n_k + T, v_cols, k_rs, (t + 1) * kTile, Skv, tid);
+      load_tile<D, OQ>(n_k, k + k_base, k_rs, (t + 1) * kTile, Skv, tid,
+                       dg / 8);
+      load_tile<DO, OV>(n_k + T, v_cols, k_rs, (t + 1) * kTile, Skv, tid,
+                        dog / 8);
     }
     cp_async_commit();
 
@@ -1211,7 +1239,7 @@ fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* og = out + q_base + qp * q_rs + cb * DO + c0;
 #pragma unroll
     for (int j = 0; j < DO / 8; ++j)
-      if (DOG == DO || 8 * j + c0 < DOG)
+      if (8 * j + c0 < dog)
         *reinterpret_cast<uint32_t*>(og + 8 * j) =
             pack_bf16(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
     // a row with no valid key (none exists for rows < Sq) gets lse = +inf,
@@ -1233,10 +1261,10 @@ fa_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // D up to D 128; at D 256 two blocks share a key tile, each computing S^T
 // and dP^T over the whole of D and keeping half of the accumulators (128
 // f32 a thread, as at D 128: the whole 256 would need 256 registers
-// before S and dP).  D 80 computes on tiles of 128 (DG 80: zero columns
-// past 80, never written).
+// before S and dP).  A head dim dg below the tile's D: zero columns past
+// dg, never written.
 // ---------------------------------------------------------------------------
-template <int D, int DG = D, bool POS = false>
+template <int D, bool POS = false>
 __global__ void __launch_bounds__(kWG, 2)
 fa_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v,
@@ -1245,10 +1273,9 @@ fa_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const float* __restrict__ dr, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, const int* __restrict__ q_pos,
                      const int* __restrict__ k_pos, int Sq, int Skv, int Hq,
-                     int Hkv, int causal, int window, float scale,
+                     int Hkv, int dg, int causal, int window, float scale,
                      float scale_log2) {
   constexpr int DO = fwd_cols<D>(), NC = D / DO;
-  constexpr int DOG = DO - (D - DG);   // the real columns of the block's DO
   constexpr uint32_t T = kTile * D * 2;
   // the block's DO columns start this far into a tile
   constexpr uint32_t kCols = (DO / 64) * (kTile * 128);
@@ -1263,8 +1290,9 @@ fa_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tid = threadIdx.x, lane = tid & 31;
   const int key = k0 + (tid >> 5) * 16 + (lane >> 2);
   const int c0 = (lane & 3) * 2;
-  const long long q_rs = (long long)Hq * DG, k_rs = (long long)Hkv * DG;
-  const long long k_base = (long long)b * Skv * k_rs + (long long)hk * DG;
+  const long long q_rs = (long long)Hq * dg, k_rs = (long long)Hkv * dg;
+  const long long k_base = (long long)b * Skv * k_rs + (long long)hk * dg;
+  const int dog = block_cols(dg, cb, DO);   // the real columns of its DO
 
   // live query tiles: rows at or below the tile's keys (causal), rows whose
   // window still reaches them; every one of the Sq rows without either, or
@@ -1285,10 +1313,10 @@ fa_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto load_step = [&](int it, int st) {
     const int h = hk * G + it / nt, q0 = (t_lo + it % nt) * kTile;
-    const long long q_base = (long long)b * Sq * q_rs + (long long)h * DG;
+    const long long q_base = (long long)b * Sq * q_rs + (long long)h * dg;
     const uint32_t s_q = s_k + T * (2 + 2 * st);
-    load_tile<D, DG>(s_q, q + q_base, q_rs, q0, Sq, tid);
-    load_tile<D, DG>(s_q + T, dout + q_base, q_rs, q0, Sq, tid);
+    load_tile<D>(s_q, q + q_base, q_rs, q0, Sq, tid, dg / 8);
+    load_tile<D>(s_q + T, dout + q_base, q_rs, q0, Sq, tid, dg / 8);
     const int r = tid & (kTile - 1);
     const bool ok = q0 + r < Sq;
     const float* src = (tid < kTile ? lse : dr) +
@@ -1296,8 +1324,8 @@ fa_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async4(smem_u32(rows_s + (2 * st + tid / kTile) * kTile + r), src, ok);
   };
 
-  load_tile<D, DG>(s_k, k + k_base, k_rs, k0, Skv, tid);
-  load_tile<D, DG>(s_v, v + k_base, k_rs, k0, Skv, tid);
+  load_tile<D>(s_k, k + k_base, k_rs, k0, Skv, tid, dg / 8);
+  load_tile<D>(s_v, v + k_base, k_rs, k0, Skv, tid, dg / 8);
   load_step(0, 0);
   cp_async_commit();
 
@@ -1384,7 +1412,7 @@ fa_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* dvo = dv + k_base + kp * k_rs + cb * DO + c0;
 #pragma unroll
     for (int j = 0; j < DO / 8; ++j) {
-      if (DOG < DO && 8 * j + c0 >= DOG) continue;
+      if (8 * j + c0 >= dog) continue;
       *reinterpret_cast<uint32_t*>(dko + 8 * j) = pack_bf16(
           dka[4 * j + 2 * i] * scale, dka[4 * j + 2 * i + 1] * scale);
       *reinterpret_cast<uint32_t*>(dvo + 8 * j) =
@@ -1399,7 +1427,7 @@ fa_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // stages; dQ += dS K with dS split into bf16 hi + lo, on the block's DO
 // columns of dQ (two blocks a head at D 256, as the dK/dV pass).
 // ---------------------------------------------------------------------------
-template <int D, int DG = D, bool POS = false>
+template <int D, bool POS = false>
 __global__ void __launch_bounds__(kWG, 2)
 fa_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -1407,10 +1435,9 @@ fa_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const float* __restrict__ dr, bf16* __restrict__ dq,
                    const int* __restrict__ q_pos,
                    const int* __restrict__ k_pos, int Sq, int Skv, int Hq,
-                   int Hkv, int causal, int window, float scale,
+                   int Hkv, int dg, int causal, int window, float scale,
                    float scale_log2) {
   constexpr int DO = fwd_cols<D>(), NC = D / DO;
-  constexpr int DOG = DO - (D - DG);
   constexpr uint32_t T = kTile * D * 2;
   constexpr uint32_t kCols = (DO / 64) * (kTile * 128);
   extern __shared__ uint8_t smem[];
@@ -1422,9 +1449,10 @@ fa_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tid = threadIdx.x, lane = tid & 31;
   const int row = q0 + (tid >> 5) * 16 + (lane >> 2);
   const int c0 = (lane & 3) * 2;
-  const long long q_rs = (long long)Hq * DG, k_rs = (long long)Hkv * DG;
-  const long long q_base = (long long)b * Sq * q_rs + (long long)h * DG;
-  const long long k_base = (long long)b * Skv * k_rs + (long long)hk * DG;
+  const long long q_rs = (long long)Hq * dg, k_rs = (long long)Hkv * dg;
+  const long long q_base = (long long)b * Sq * q_rs + (long long)h * dg;
+  const long long k_base = (long long)b * Skv * k_rs + (long long)hk * dg;
+  const int dog = block_cols(dg, cb, DO);
 
   const int k_hi = causal && !POS ? min(Skv, q0 + kTile) : Skv;
   const int k_lo = window > 0 && !POS ? max(0, q0 - window + 1) : 0;
@@ -1436,10 +1464,11 @@ fa_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     rpos[1] = pos_at(q_pos + (long long)b * Sq, row + 8, Sq);
   }
 
-  load_tile<D, DG>(s_q, q + q_base, q_rs, q0, Sq, tid);
-  load_tile<D, DG>(s_do, dout + q_base, q_rs, q0, Sq, tid);
-  load_tile<D, DG>(s_q + 2 * T, k + k_base, k_rs, t_lo * kTile, Skv, tid);
-  load_tile<D, DG>(s_q + 3 * T, v + k_base, k_rs, t_lo * kTile, Skv, tid);
+  const int cr = dg / 8;   // the real chunks of a row
+  load_tile<D>(s_q, q + q_base, q_rs, q0, Sq, tid, cr);
+  load_tile<D>(s_do, dout + q_base, q_rs, q0, Sq, tid, cr);
+  load_tile<D>(s_q + 2 * T, k + k_base, k_rs, t_lo * kTile, Skv, tid, cr);
+  load_tile<D>(s_q + 3 * T, v + k_base, k_rs, t_lo * kTile, Skv, tid, cr);
   cp_async_commit();
 
   float lse2[2], drr[2];
@@ -1460,9 +1489,8 @@ fa_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
     if (t + 1 < t_hi) {
       const uint32_t n_k = s_q + T * (2 + 2 * ((t + 1 - t_lo) & 1));
-      load_tile<D, DG>(n_k, k + k_base, k_rs, (t + 1) * kTile, Skv, tid);
-      load_tile<D, DG>(n_k + T, v + k_base, k_rs, (t + 1) * kTile, Skv,
-                       tid);
+      load_tile<D>(n_k, k + k_base, k_rs, (t + 1) * kTile, Skv, tid, cr);
+      load_tile<D>(n_k + T, v + k_base, k_rs, (t + 1) * kTile, Skv, tid, cr);
     }
     cp_async_commit();
 
@@ -1513,7 +1541,7 @@ fa_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* o = dq + q_base + qp * q_rs + cb * DO + c0;
 #pragma unroll
     for (int j = 0; j < DO / 8; ++j)
-      if (DOG == DO || 8 * j + c0 < DOG)
+      if (8 * j + c0 < dog)
         *reinterpret_cast<uint32_t*>(o + 8 * j) = pack_bf16(
             dqa[4 * j + 2 * i] * scale, dqa[4 * j + 2 * i + 1] * scale);
   }
@@ -1557,13 +1585,13 @@ struct Pos {
   const int* k;
 };
 
-// D: the width the kernel computes on; DG: the tensors' head dim, which
-// sets the softmax scale
-template <int D, int DG = D, bool POS = false>
+// D: the width the kernel computes on; dg: the tensors' head dim (dg <= D),
+// which sets the softmax scale
+template <int D, bool POS = false>
 int launch_fwd_f32(const void* q, const void* k, const void* v, void* out,
                    void* lse, Pos pos, int B, int Sq, int Skv, int Hq,
-                   int Hkv, int causal, int window, cudaStream_t st) {
-  auto kern = fa_fwd_kernel<float, D, kFwdBK, DG, POS>;
+                   int Hkv, int dg, int causal, int window, cudaStream_t st) {
+  auto kern = fa_fwd_kernel<float, D, kFwdBK, POS>;
   constexpr int smem = fwd_smem<D>();
   int rc = set_smem(kern, smem);
   if (rc != 0) return rc;
@@ -1571,16 +1599,17 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, void* out,
   kern<<<grid, kThreads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out),
-      static_cast<float*>(lse), pos.q, pos.k, Sq, Skv, Hq, Hkv, causal,
-      window, static_cast<float>(scale_of(DG)));
+      static_cast<float*>(lse), pos.q, pos.k, Sq, Skv, Hq, Hkv, dg, causal,
+      window, static_cast<float>(scale_of(dg)));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int DG = D, bool POS = false>
+template <int D, bool POS = false>
 int launch_fwd_bf16(const void* q, const void* k, const void* v, void* out,
                     void* lse, Pos pos, int B, int Sq, int Skv, int Hq,
-                    int Hkv, int causal, int window, cudaStream_t st) {
-  auto kern = fa_fwd_wgmma_kernel<D, DG, POS>;
+                    int Hkv, int dg, int causal, int window,
+                    cudaStream_t st) {
+  auto kern = fa_fwd_wgmma_kernel<D, POS>;
   // Q, two stages of K and of V's fwd_cols<D>() columns
   constexpr int smem = wgmma_smem<D>(3, 0) + 2 * kTile * fwd_cols<D>() * 2;
   int rc = set_smem(kern, smem);
@@ -1589,37 +1618,37 @@ int launch_fwd_bf16(const void* q, const void* k, const void* v, void* out,
   kern<<<grid, kWG, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out),
-      static_cast<float*>(lse), pos.q, pos.k, Sq, Skv, Hq, Hkv, causal,
-      window, static_cast<float>(scale_of(DG) * 1.4426950408889634));
+      static_cast<float*>(lse), pos.q, pos.k, Sq, Skv, Hq, Hkv, dg, causal,
+      window, static_cast<float>(scale_of(dg) * 1.4426950408889634));
   return static_cast<int>(cudaGetLastError());
 }
 
 // Dr = rowsum(dO * o), the first kernel of either backward (S: Sq)
-template <typename T, int D>
+template <typename T>
 int launch_rowdot(const void* o, const void* dout, void* dr, int B, int S,
-                  int Hq, cudaStream_t st) {
+                  int Hq, int dg, cudaStream_t st) {
   const long long rows = (long long)B * S * Hq;
   const int rows_per_block = kThreads / 32;
   const unsigned int n_blocks =
       static_cast<unsigned int>((rows + rows_per_block - 1) / rows_per_block);
-  fa_rowdot_kernel<T, D><<<n_blocks, kThreads, 0, st>>>(
+  fa_rowdot_kernel<T><<<n_blocks, kThreads, 0, st>>>(
       static_cast<const T*>(o), static_cast<const T*>(dout),
-      static_cast<float*>(dr), rows, S, Hq);
+      static_cast<float*>(dr), rows, S, Hq, dg);
   return static_cast<int>(cudaGetLastError());
 }
 
-// D: the width the kernels compute on; DG: the tensors' head dim, which
-// sets the softmax scale
-template <int D, int DG = D, bool POS = false>
+// D: the width the kernels compute on; dg: the tensors' head dim (dg <=
+// D), which sets the softmax scale
+template <int D, bool POS = false>
 int launch_bwd_f32(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const void* lse,
                    void* dr, void* dq, void* dk, void* dv, Pos pos, int B,
-                   int Sq, int Skv, int Hq, int Hkv, int causal, int window,
-                   cudaStream_t st) {
-  int rc = launch_rowdot<float, DG>(o, dout, dr, B, Sq, Hq, st);
+                   int Sq, int Skv, int Hq, int Hkv, int dg, int causal,
+                   int window, cudaStream_t st) {
+  int rc = launch_rowdot<float>(o, dout, dr, B, Sq, Hq, dg, st);
   if (rc != 0) return rc;
-  const float scale = static_cast<float>(scale_of(DG));
-  auto kv_kern = fa_dkdv_kernel<float, D, DG, POS>;
+  const float scale = static_cast<float>(scale_of(dg));
+  auto kv_kern = fa_dkdv_kernel<float, D, POS>;
   constexpr int kv_smem = dkdv_smem<D>();
   rc = set_smem(kv_kern, kv_smem);
   if (rc != 0) return rc;
@@ -1628,11 +1657,11 @@ int launch_bwd_f32(const void* q, const void* k, const void* v,
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dr),
       static_cast<float*>(dk), static_cast<float*>(dv), pos.q, pos.k, Sq,
-      Skv, Hq, Hkv, causal, window, scale);
+      Skv, Hq, Hkv, dg, causal, window, scale);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
 
-  auto q_kern = fa_dq_kernel<float, D, kDqBK, DG, POS>;
+  auto q_kern = fa_dq_kernel<float, D, kDqBK, POS>;
   constexpr int q_smem = dq_smem<D>();
   rc = set_smem(q_kern, q_smem);
   if (rc != 0) return rc;
@@ -1640,25 +1669,25 @@ int launch_bwd_f32(const void* q, const void* k, const void* v,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dr),
-      static_cast<float*>(dq), pos.q, pos.k, Sq, Skv, Hq, Hkv, causal,
+      static_cast<float*>(dq), pos.q, pos.k, Sq, Skv, Hq, Hkv, dg, causal,
       window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int DG = D, bool POS = false>
+template <int D, bool POS = false>
 int launch_bwd_bf16(const void* q, const void* k, const void* v,
                     const void* o, const void* dout, const void* lse,
                     void* dr, void* dq, void* dk, void* dv, Pos pos, int B,
-                    int Sq, int Skv, int Hq, int Hkv, int causal, int window,
-                    cudaStream_t st) {
-  int rc = launch_rowdot<bf16, DG>(o, dout, dr, B, Sq, Hq, st);
+                    int Sq, int Skv, int Hq, int Hkv, int dg, int causal,
+                    int window, cudaStream_t st) {
+  int rc = launch_rowdot<bf16>(o, dout, dr, B, Sq, Hq, dg, st);
   if (rc != 0) return rc;
-  const float scale = static_cast<float>(scale_of(DG));
+  const float scale = static_cast<float>(scale_of(dg));
   const float scale_log2 =
-      static_cast<float>(scale_of(DG) * 1.4426950408889634);
+      static_cast<float>(scale_of(dg) * 1.4426950408889634);
   constexpr int NC = D / fwd_cols<D>();   // blocks a head (two at D 256)
 
-  auto kv_kern = fa_dkdv_wgmma_kernel<D, DG, POS>;
+  auto kv_kern = fa_dkdv_wgmma_kernel<D, POS>;
   // K, V, two stages of Q, dO; two stages of 64 lse and 64 Dr
   constexpr int kv_smem = wgmma_smem<D>(6, 4 * kTile);
   rc = set_smem(kv_kern, kv_smem);
@@ -1669,11 +1698,11 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dr),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), pos.q, pos.k, Sq, Skv,
-      Hq, Hkv, causal, window, scale, scale_log2);
+      Hq, Hkv, dg, causal, window, scale, scale_log2);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
 
-  auto q_kern = fa_dq_wgmma_kernel<D, DG, POS>;
+  auto q_kern = fa_dq_wgmma_kernel<D, POS>;
   constexpr int q_smem = wgmma_smem<D>(6, 0);   // Q, dO, two stages of K, V
   rc = set_smem(q_kern, q_smem);
   if (rc != 0) return rc;
@@ -1681,8 +1710,8 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dr),
-      static_cast<bf16*>(dq), pos.q, pos.k, Sq, Skv, Hq, Hkv, causal, window,
-      scale, scale_log2);
+      static_cast<bf16*>(dq), pos.q, pos.k, Sq, Skv, Hq, Hkv, dg, causal,
+      window, scale, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1691,36 +1720,30 @@ bool lengths_ok(int Sq, int Skv, int causal, int window, Pos pos) {
   return Sq == Skv || (!causal && window <= 0) || pos.q != nullptr;
 }
 
+// the tile width of head dim d (a multiple of 16 from 16 to 256): the
+// least of 64, 128 and 256 that holds it; 0 for any other d
+int tile_dim(int d) {
+  if (d < 16 || d > 256 || d % 16 != 0) return 0;
+  return d <= 64 ? 64 : d <= 128 ? 128 : 256;
+}
+
 // the forward of one type, head dim and mask kind
 template <bool POS>
 int fwd(int dtype, const void* q, const void* k, const void* v, void* out,
-        void* lse, Pos pos, int B, int Sq, int Skv, int Hq, int Hkv, int D,
+        void* lse, Pos pos, int B, int Sq, int Skv, int Hq, int Hkv, int dg,
         int causal, int window, cudaStream_t st) {
-  // head dim 80 (zamba2's shared block) on tiles of 128
-  if (dtype == 1 && D == 80)
-    return launch_fwd_bf16<128, 80, POS>(q, k, v, out, lse, pos, B, Sq, Skv,
-                                         Hq, Hkv, causal, window, st);
-  if (dtype == 0 && D == 80)
-    return launch_fwd_f32<128, 80, POS>(q, k, v, out, lse, pos, B, Sq, Skv,
-                                        Hq, Hkv, causal, window, st);
-  if (dtype == 1 && D == 256)
-    return launch_fwd_bf16<256, 256, POS>(q, k, v, out, lse, pos, B, Sq, Skv,
-                                          Hq, Hkv, causal, window, st);
-  if (dtype == 0 && D == 256)
-    return launch_fwd_f32<256, 256, POS>(q, k, v, out, lse, pos, B, Sq, Skv,
-                                         Hq, Hkv, causal, window, st);
-  if (dtype == 1 && D == 128)
-    return launch_fwd_bf16<128, 128, POS>(q, k, v, out, lse, pos, B, Sq, Skv,
-                                          Hq, Hkv, causal, window, st);
-  if (dtype == 1 && D == 64)
-    return launch_fwd_bf16<64, 64, POS>(q, k, v, out, lse, pos, B, Sq, Skv,
-                                        Hq, Hkv, causal, window, st);
-  if (dtype == 0 && D == 128)
-    return launch_fwd_f32<128, 128, POS>(q, k, v, out, lse, pos, B, Sq, Skv,
-                                         Hq, Hkv, causal, window, st);
-  if (dtype == 0 && D == 64)
-    return launch_fwd_f32<64, 64, POS>(q, k, v, out, lse, pos, B, Sq, Skv,
-                                       Hq, Hkv, causal, window, st);
+  const int tile = tile_dim(dg);
+#define FA_FWD(TILE)                                                       \
+  if (tile == TILE)                                                        \
+    return dtype == 1 ? launch_fwd_bf16<TILE, POS>(q, k, v, out, lse, pos, \
+                                                   B, Sq, Skv, Hq, Hkv,    \
+                                                   dg, causal, window, st) \
+                      : launch_fwd_f32<TILE, POS>(q, k, v, out, lse, pos,  \
+                                                  B, Sq, Skv, Hq, Hkv, dg, \
+                                                  causal, window, st);
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  FA_FWD(64) FA_FWD(128) FA_FWD(256)
+#undef FA_FWD
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1729,40 +1752,20 @@ template <bool POS>
 int bwd(int dtype, const void* q, const void* k, const void* v,
         const void* o, const void* dout, const void* lse, void* dr, void* dq,
         void* dk, void* dv, Pos pos, int B, int Sq, int Skv, int Hq, int Hkv,
-        int D, int causal, int window, cudaStream_t st) {
-  // head dim 80 (zamba2's shared block) on tiles of 128
-  if (dtype == 1 && D == 80)
-    return launch_bwd_bf16<128, 80, POS>(q, k, v, o, dout, lse, dr, dq, dk,
-                                         dv, pos, B, Sq, Skv, Hq, Hkv,
-                                         causal, window, st);
-  if (dtype == 0 && D == 80)
-    return launch_bwd_f32<128, 80, POS>(q, k, v, o, dout, lse, dr, dq, dk,
-                                        dv, pos, B, Sq, Skv, Hq, Hkv, causal,
-                                        window, st);
-  if (dtype == 1 && D == 256)
-    return launch_bwd_bf16<256, 256, POS>(q, k, v, o, dout, lse, dr, dq, dk,
-                                          dv, pos, B, Sq, Skv, Hq, Hkv,
-                                          causal, window, st);
-  if (dtype == 0 && D == 256)
-    return launch_bwd_f32<256, 256, POS>(q, k, v, o, dout, lse, dr, dq, dk,
-                                         dv, pos, B, Sq, Skv, Hq, Hkv,
-                                         causal, window, st);
-  if (dtype == 1 && D == 128)
-    return launch_bwd_bf16<128, 128, POS>(q, k, v, o, dout, lse, dr, dq, dk,
-                                          dv, pos, B, Sq, Skv, Hq, Hkv,
-                                          causal, window, st);
-  if (dtype == 1 && D == 64)
-    return launch_bwd_bf16<64, 64, POS>(q, k, v, o, dout, lse, dr, dq, dk,
-                                        dv, pos, B, Sq, Skv, Hq, Hkv, causal,
-                                        window, st);
-  if (dtype == 0 && D == 128)
-    return launch_bwd_f32<128, 128, POS>(q, k, v, o, dout, lse, dr, dq, dk,
-                                         dv, pos, B, Sq, Skv, Hq, Hkv, causal,
-                                         window, st);
-  if (dtype == 0 && D == 64)
-    return launch_bwd_f32<64, 64, POS>(q, k, v, o, dout, lse, dr, dq, dk, dv,
-                                       pos, B, Sq, Skv, Hq, Hkv, causal,
-                                       window, st);
+        int dg, int causal, int window, cudaStream_t st) {
+  const int tile = tile_dim(dg);
+#define FA_BWD(TILE)                                                        \
+  if (tile == TILE)                                                         \
+    return dtype == 1                                                       \
+               ? launch_bwd_bf16<TILE, POS>(q, k, v, o, dout, lse, dr, dq,  \
+                                            dk, dv, pos, B, Sq, Skv, Hq,    \
+                                            Hkv, dg, causal, window, st)    \
+               : launch_bwd_f32<TILE, POS>(q, k, v, o, dout, lse, dr, dq,   \
+                                           dk, dv, pos, B, Sq, Skv, Hq,     \
+                                           Hkv, dg, causal, window, st);
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  FA_BWD(64) FA_BWD(128) FA_BWD(256)
+#undef FA_BWD
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1770,11 +1773,12 @@ int bwd(int dtype, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  D: 64,
-// 80, 128 or 256, forward and backward.  q/out (B, Sq, Hq, D), k/v (B,
-// Skv, Hkv, D) dense; lse (B, Hq, Sq) f32.  Hq % Hkv == 0.  q_pos (B, Sq)
-// and k_pos (B, Skv) int32, both or neither: the position masks (null:
-// the index masks, Skv != Sq only with causal == 0 and window == 0).
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  D: a
+// multiple of 16 from 16 to 256, forward and backward, computed on tiles
+// of tile_dim(D).  q/out (B, Sq, Hq, D), k/v (B, Skv, Hkv, D) dense; lse
+// (B, Hq, Sq) f32.  Hq % Hkv == 0.  q_pos (B, Sq) and k_pos (B, Skv) int32,
+// both or neither: the position masks (null: the index masks, Skv != Sq
+// only with causal == 0 and window == 0).
 int flash_attention_fwd(int dtype, const void* q, const void* k,
                         const void* v, void* out, void* lse,
                         const void* q_pos, const void* k_pos, int B, int Sq,

@@ -99,24 +99,28 @@
 // launch, the kv_len and table reads, one DRAM round trip for the tiles,
 // the sweep's dependent arithmetic, the merge's two cluster syncs.
 //
-// Head dim 80 (zamba2's shared block).  80 is 2.5 columns a lane and 10
-// (bf16) or 5 (int8) 16-byte chunks a row, which neither the lane layout
-// nor the 8-chunk swizzle takes.  So the kernels separate the width they
-// compute on (D, the template's tile width: 128) from the cache's (DG,
-// 80): each K/V/q row's 80 real columns are loaded with cp.async and the
-// 48 past them zero-filled with a source size of 0 (no global read), the
-// lanes and output columns past DG are never written, the softmax scale is
-// the real D's (1/sqrt(80), from the D the call passes), and the split's
-// merge walks the DG real columns.  Bytes moved stay D 80's; only the
-// arithmetic pays the padding, 128 / 80 = 1.6 times.  A kernel that
-// computes exactly 80 columns (m16n8k16 on 10 column blocks, 5 lanes' worth
-// of K-major chunks) is left for a later redesign.
+// Head dims.  Any D that is a multiple of 16, from 16 to 256.  The kernels
+// separate the width they compute on (D, the template's tile width: 64,
+// 128 or 256, the least that holds the head) from the cache's (Params::DG,
+// a runtime value): each K/V/q row's DG real columns are loaded with
+// cp.async and the columns past them zero-filled with a source size of 0
+// (no global read), the lanes and output columns past DG are never
+// written, the softmax scale is the real D's (1/sqrt(DG)), and the split's
+// merge walks the DG real columns.  A multiple of 16 keeps every row whole
+// 16-byte chunks in every type (16 int8 values, 8 bf16, 4 f32) and every
+// lane's share of the CUDA-core layout whole.  Bytes moved stay DG's; only
+// the arithmetic pays the padding (D 16 on tiles of 64: 4 times, D 80 on
+// 128: 1.6).  The three tile widths are the only instantiations: a
+// template per head dim would multiply the build.  Narrower tiles (a
+// 16- or 32-column layout for D <= 32) are left for a later redesign.
 //
-// ptxas (-Xptxas -v, sm_90a) at D 256, no spills: mma_attn_kernel
-// 199 registers (int8 K/V 185 to 188), simt_attn_kernel 98 to 118 at 2 rows
-// a block and 228 to 244 at 8.
+// ptxas (-Xptxas -v, sm_90a), no kernel spills: on the tile of
+// 256 mma_attn_kernel 178 and 179 registers (int8 K/V 186 to 191),
+// simt_attn_kernel 118 to 122 at 2 rows a block and 232 to 246 at 8; the
+// decode block (2 rows) on tiles of 64 and 128, 78 to 80, three blocks an
+// SM (simt_min_blocks).
 //
-// Left for later PRs: computing D 80 without the padding;
+// Left for later PRs: computing D 16 to 48 and D 80 without the padding;
 // the decode sweep still spends about a microsecond a tile in dependent
 // arithmetic (a layout with a few lanes a key would cut its shuffles);
 // pushing the partials to their owner (one cluster sync, not two); skipping
@@ -245,9 +249,10 @@ struct Params {
   int n_tbl, bs;
   void* out;
   int S, Hkv, R;
+  int DG;             // the head dim of q, the cache and the output
   long long k_ob, v_ob, s_ob;
   int window;
-  float scale_log2;   // softmax scale * log2(e)
+  float scale_log2;   // softmax scale * log2(e) of the head dim DG
 };
 
 // One slot's view of the cache, and this block's tile range in the split.
@@ -281,29 +286,27 @@ struct Sweep {
 // stage: K and V rows (chunk c of row j at chunk_off<SWZ>(j, c)), then the
 // positions and, for int8, the scales (4 bytes each).  Rows at index >=
 // kvl are zero-filled without a read.  The tile's rows are D wide, the
-// cache's DG (DG < D: head dim 80 computed on tiles of 128); the chunks
-// past DG are zero-filled without a read.
-template <typename KV, int D, int BK, int THREADS, bool SWZ, int DG = D>
+// cache's p.DG <= D; the chunks past DG are zero-filled without a read.
+template <typename KV, int D, int BK, int THREADS, bool SWZ>
 __device__ __forceinline__ void load_tile(uint32_t stage, const Params& p,
                                           const Sweep<KV>& sw, int h, int t0,
                                           int tid) {
   constexpr int VEC = 16 / sizeof(KV);   // elements a 16-byte chunk
   constexpr int CPR = D / VEC;           // chunks a tile row
-  constexpr int CPG = DG / VEC;          // chunks of a cache row
   constexpr int RB = D * sizeof(KV);     // bytes a tile row
   constexpr bool INT8 = std::is_same<KV, int8_t>::value;
-  static_assert(DG <= D && DG % VEC == 0, "cache rows of whole chunks");
+  const int cpg = p.DG / VEC;            // chunks of a cache row
   const uint32_t k_dst = stage, v_dst = stage + BK * RB;
   const uint32_t pos_dst = stage + 2 * BK * RB;
-  const long long row_stride = (long long)p.Hkv * DG;
+  const long long row_stride = (long long)p.Hkv * p.DG;
 #pragma unroll 4
   for (int i = tid; i < BK * CPR; i += THREADS) {
     const int j = i / CPR, c = i % CPR, idx = t0 + j;
     const bool live = idx < sw.kvl;
-    const bool ok = live && (DG == D || c < CPG);
+    const bool ok = live && c < cpg;
     int outer = 0, off = 0;
     if (live) sw.at.resolve(idx, outer, off);
-    const long long e = off * row_stride + (long long)h * DG + c * VEC;
+    const long long e = off * row_stride + (long long)h * p.DG + c * VEC;
     const uint32_t so = chunk_off<SWZ>(j, c, RB);
     cp_async16(k_dst + so, ok ? sw.kh + outer * p.k_ob + e : sw.kh, ok);
     cp_async16(v_dst + so, ok ? sw.vh + outer * p.v_ob + e : sw.vh, ok);
@@ -339,20 +342,20 @@ __device__ __forceinline__ bool visible(int idx, int kvl, int pos, int qp,
 // Merge the cluster's partials and write this block's share of the
 // outputs.  Each block's `part` holds acc [cap][D], then m [cap], then l
 // [cap] (f32, base 2) for its rows; block `rank` takes the float4 groups
-// [rank * per, (rank + 1) * per) of the nrows x DG outputs (rows of DG <=
-// D columns).  Every remote load of a group is issued before any is used.
-template <typename T, int D, int SPLIT, int DG>
+// [rank * per, (rank + 1) * per) of the nrows x dg outputs (rows of dg <=
+// D columns, dg a multiple of 16).  Every remote load of a group is issued
+// before any is used.
+template <typename T, int D, int SPLIT>
 __device__ __forceinline__ void merge_split(float* part, int cap, int nrows,
                                             int rank, T* out, int tid,
-                                            int threads) {
-  static_assert(DG % 4 == 0, "float4 groups");
+                                            int threads, int dg) {
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();   // every block's partials are written and visible
-  const int total = nrows * DG / 4;
+  const int total = nrows * dg / 4;
   const int per = (total + SPLIT - 1) / SPLIT;
   const int end = min(total, (rank + 1) * per);
   for (int i = rank * per + tid; i < end; i += threads) {
-    const int r = (4 * i) / DG, c = (4 * i) % DG;
+    const int r = (4 * i) / dg, c = (4 * i) % dg;
     float mi[SPLIT], li[SPLIT];
     float4 ai[SPLIT];
 #pragma unroll
@@ -377,7 +380,7 @@ __device__ __forceinline__ void merge_split(float* part, int cap, int nrows,
       a.w = fmaf(ai[s].w, w, a.w);
     }
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    T* o = out + (long long)r * DG + c;
+    T* o = out + (long long)r * dg + c;
     o[0] = from_f32<T>(a.x * inv);
     o[1] = from_f32<T>(a.y * inv);
     o[2] = from_f32<T>(a.z * inv);
@@ -386,17 +389,18 @@ __device__ __forceinline__ void merge_split(float* part, int cap, int nrows,
   cluster.sync();   // no block leaves while another reads its partials
 }
 
-template <typename T, int D, int DG>
+template <typename T, int D>
 __device__ __forceinline__ void cluster_merge(float* part, int cap,
                                               int nrows, int split, int rank,
-                                              T* out, int tid, int threads) {
+                                              T* out, int tid, int threads,
+                                              int dg) {
   if (split == 2)
-    merge_split<T, D, 2, DG>(part, cap, nrows, rank, out, tid, threads);
+    merge_split<T, D, 2>(part, cap, nrows, rank, out, tid, threads, dg);
   else if (split == 4)
-    merge_split<T, D, 4, DG>(part, cap, nrows, rank, out, tid, threads);
+    merge_split<T, D, 4>(part, cap, nrows, rank, out, tid, threads, dg);
   else
-    merge_split<T, D, kMaxSplit, DG>(part, cap, nrows, rank, out, tid,
-                                     threads);
+    merge_split<T, D, kMaxSplit>(part, cap, nrows, rank, out, tid, threads,
+                                 dg);
 }
 
 // ---------------------------------------------------------------------------
@@ -466,6 +470,17 @@ template <int MR>
 __host__ __device__ constexpr int simt_warps() {
   return MR <= 4 ? 8 : 4;
 }
+// blocks an SM the CUDA-core kernel is built for: three for decode (2 rows
+// a block) up to tiles of 128, so that every cluster of a decode call is
+// resident at once (4 slots x 8 KV heads x a split of 8: 256 blocks).
+// With the head dim a runtime value the 2-row kernel took 96 to 100
+// registers, two blocks an SM, and int8 decode ran 17 to 30% slower than
+// at 64 registers (NVIDIA H100 80GB HBM3, 700.00 W,
+// scripts/chip_head_dim_rows.py; PERF.md)
+template <int D, int MR>
+__host__ __device__ constexpr int simt_min_blocks() {
+  return MR <= 2 && D <= 128 ? 3 : 1;
+}
 // the simt kernel's most rows a block at head dim D: 16, or 8 at D 256
 // (16 rows of 8 columns a lane would hold 256 f32 of q and acc)
 template <int D>
@@ -481,10 +496,12 @@ __host__ __device__ constexpr int simt_smem() {
 }
 
 // MR: the block's query rows (2, 4, or simt_max_rows<D>()), row tile
-// blockIdx.z / split.  D is the width the block computes on, DG the
-// cache's and the query's (DG < D: the lanes past DG hold zeros)
-template <typename T, typename KV, int D, int MR, int DG = D>
-__global__ void __launch_bounds__(simt_warps<MR>() * 32)
+// blockIdx.z / split.  D is the width the block computes on, p.DG the
+// cache's and the query's (DG < D: the lanes past DG hold zeros; DG a
+// multiple of 16, so a lane's VPL columns are all real or all past DG)
+template <typename T, typename KV, int D, int MR>
+__global__ void __launch_bounds__(simt_warps<MR>() * 32,
+                                  simt_min_blocks<D, MR>())
 simt_attn_kernel(const Params p, int split) {
   constexpr int BK = kSimtBK, STAGES = kSimtStages;
   constexpr int NW = simt_warps<MR>(), THREADS = NW * 32;
@@ -493,8 +510,9 @@ simt_attn_kernel(const Params p, int split) {
   constexpr int KB = MR <= 4 ? KPW : 1;  // keys scored at once
   constexpr int SB = stage_bytes<KV, D, BK>();
   constexpr bool INT8 = std::is_same<KV, int8_t>::value;
-  static_assert(KPW % KB == 0 && D % 32 == 0 && DG % VPL == 0,
+  static_assert(KPW % KB == 0 && D % 32 == 0 && 16 % VPL == 0,
                 "tile shape");
+  const int DG = p.DG;
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -512,7 +530,7 @@ simt_attn_kernel(const Params p, int split) {
   int qp[MR];
   const long long row0 = ((long long)b * p.Hkv + h) * p.R + r0;
   const T* qb = static_cast<const T*>(p.q) + row0 * DG + lane * VPL;
-  const bool lane_live = DG == D || lane * VPL < DG;
+  const bool lane_live = lane * VPL < DG;
 #pragma unroll
   for (int r = 0; r < MR; ++r) {
     qp[r] = -1;
@@ -528,8 +546,8 @@ simt_attn_kernel(const Params p, int split) {
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (sw.tb + s < sw.te)
-      load_tile<KV, D, BK, THREADS, false, DG>(ring + s * SB, p, sw, h,
-                                               (sw.tb + s) * BK, tid);
+      load_tile<KV, D, BK, THREADS, false>(ring + s * SB, p, sw, h,
+                                           (sw.tb + s) * BK, tid);
     cp_async_commit();
   }
 
@@ -547,7 +565,7 @@ simt_attn_kernel(const Params p, int split) {
     cp_async_wait<STAGES - 2>();
     __syncthreads();   // tile t is in; every warp is done with tile t - 1
     if (t + STAGES - 1 < sw.te)
-      load_tile<KV, D, BK, THREADS, false, DG>(
+      load_tile<KV, D, BK, THREADS, false>(
           ring + ((i + STAGES - 1) % STAGES) * SB, p, sw, h,
           (t + STAGES - 1) * BK, tid);
     cp_async_commit();
@@ -659,8 +677,7 @@ simt_attn_kernel(const Params p, int split) {
       ls = fmaf(wl[w * MR + r], f, ls);
     }
     if (split == 1) {
-      if (DG == D || c < DG)
-        out[r * DG + c] = from_f32<T>(a / fmaxf(ls, 1e-30f));
+      if (c < DG) out[r * DG + c] = from_f32<T>(a / fmaxf(ls, 1e-30f));
     } else {
       part[i] = a;
       if (c == 0) {
@@ -670,7 +687,7 @@ simt_attn_kernel(const Params p, int split) {
     }
   }
   if (split > 1)
-    cluster_merge<T, D, DG>(part, MR, nrows, split, rank, out, tid, THREADS);
+    cluster_merge<T, D>(part, MR, nrows, split, rank, out, tid, THREADS, DG);
 }
 
 // ---------------------------------------------------------------------------
@@ -770,8 +787,8 @@ __device__ __forceinline__ void dequant_tile(const unsigned char* st,
 
 // NW groups of 16 query rows, mma_dw<D>() warps each (a group's warps
 // split D between them); row tile blockIdx.z / split.  D is the tile
-// width, DG the cache's and the query's (DG < D: zero columns past DG)
-template <typename KV, int D, int NW, int DG = D>
+// width, p.DG the cache's and the query's (DG < D: zero columns past DG)
+template <typename KV, int D, int NW>
 __global__ void __launch_bounds__(NW * mma_dw<D>() * 32)
 mma_attn_kernel(const Params p, int split) {
   using T = __nv_bfloat16;
@@ -782,6 +799,7 @@ mma_attn_kernel(const Params p, int split) {
   constexpr int RB = D * 2;   // bytes of a bf16 row
   constexpr bool INT8 = std::is_same<KV, int8_t>::value;
   static_assert(D % 64 == 0, "the swizzle takes rows of 8 or 16 chunks");
+  const int DG = p.DG;
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -804,7 +822,7 @@ mma_attn_kernel(const Params p, int split) {
   const T* qg = static_cast<const T*>(p.q) + row0 * DG;
   for (int i = tid; i < ROWS * (D / 8); i += THREADS) {
     const int r = i / (D / 8), c = i % (D / 8);
-    const bool ok = r < nrows && (DG == D || c < DG / 8);
+    const bool ok = r < nrows && c < DG / 8;
     cp_async16(smem_u32(q_s) + chunk_off<true>(r, c, RB),
                ok ? qg + (long long)r * DG + c * 8 : qg, ok);
   }
@@ -822,8 +840,8 @@ mma_attn_kernel(const Params p, int split) {
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (sw.tb + s < sw.te)
-      load_tile<KV, D, BK, THREADS, !INT8, DG>(ring + s * SB, p, sw, h,
-                                               (sw.tb + s) * BK, tid);
+      load_tile<KV, D, BK, THREADS, !INT8>(ring + s * SB, p, sw, h,
+                                           (sw.tb + s) * BK, tid);
     cp_async_commit();
   }
 
@@ -855,7 +873,7 @@ mma_attn_kernel(const Params p, int split) {
     cp_async_wait<STAGES - 2>();
     __syncthreads();   // tile t is in; every warp is done with tile t - 1
     if (t + STAGES - 1 < sw.te)
-      load_tile<KV, D, BK, THREADS, !INT8, DG>(
+      load_tile<KV, D, BK, THREADS, !INT8>(
           ring + ((i + STAGES - 1) % STAGES) * SB, p, sw, h,
           (t + STAGES - 1) * BK, tid);
     cp_async_commit();
@@ -975,7 +993,7 @@ mma_attn_kernel(const Params p, int split) {
 #pragma unroll
     for (int n = 0; n < DC / 8; ++n) {
       const int c = dh * DC + n * 8 + 2 * t4;
-      if (DG != D && c >= DG) continue;   // a padded column
+      if (c >= DG) continue;   // a padded column
       if (wr0 < nrows)
         *reinterpret_cast<__nv_bfloat162*>(out + (long long)wr0 * DG + c) =
             __floats2bfloat162_rn(o[n][0] * i0, o[n][1] * i0);
@@ -1000,7 +1018,7 @@ mma_attn_kernel(const Params p, int split) {
     part[ROWS * D + ROWS + wr0] = l0;
     part[ROWS * D + ROWS + wr1] = l1;
   }
-  cluster_merge<T, D, DG>(part, ROWS, nrows, split, rank, out, tid, THREADS);
+  cluster_merge<T, D>(part, ROWS, nrows, split, rank, out, tid, THREADS, DG);
 }
 
 // ---------------------------------------------------------------------------
@@ -1034,77 +1052,78 @@ int launch_kernel(Kern kernel, const Params& p, int B, int gz, int threads,
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-template <typename T, typename KV, int D, int MR, int DG>
+template <typename T, typename KV, int D, int MR>
 int launch_simt(const Params& p, int B, int split, int smem,
                 cudaStream_t st) {
   static int raised = 0;
   if (smem < simt_smem<KV, D, MR>())
     return static_cast<int>(cudaErrorInvalidValue);
   const int gz = (p.R + MR - 1) / MR * split;
-  return launch_kernel(simt_attn_kernel<T, KV, D, MR, DG>, p, B, gz,
+  return launch_kernel(simt_attn_kernel<T, KV, D, MR>, p, B, gz,
                        simt_warps<MR>() * 32, split, smem, &raised, st);
 }
 
-template <typename KV, int D, int NW, int DG>
+template <typename KV, int D, int NW>
 int launch_mma(const Params& p, int B, int split, int smem,
                cudaStream_t st) {
   static int raised = 0;
   if (smem < mma_smem<KV, D, NW>())
     return static_cast<int>(cudaErrorInvalidValue);
   const int gz = (p.R + NW * 16 - 1) / (NW * 16) * split;
-  return launch_kernel(mma_attn_kernel<KV, D, NW, DG>, p, B, gz,
+  return launch_kernel(mma_attn_kernel<KV, D, NW>, p, B, gz,
                        NW * mma_dw<D>() * 32, split, smem, &raised, st);
 }
 
-// D: the tile width the kernels compute on; DG: the head dim of q, the
-// cache and the output (DG < D pads each row with zero columns)
-template <typename T, typename KV, int D, int DG = D>
+// D: the tile width the kernels compute on (p.DG, the head dim of q, the
+// cache and the output, is at most D: the rest of a row is zero columns)
+template <typename T, typename KV, int D>
 int dispatch_rows(bool mma, int rows, const Params& p, int B, int split,
                   int smem, cudaStream_t st) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (mma && rows == 16)
-      return launch_mma<KV, D, 1, DG>(p, B, split, smem, st);
-    if (mma && rows == 32)
-      return launch_mma<KV, D, 2, DG>(p, B, split, smem, st);
-    if (mma && rows == 64)
-      return launch_mma<KV, D, 4, DG>(p, B, split, smem, st);
+    if (mma && rows == 16) return launch_mma<KV, D, 1>(p, B, split, smem, st);
+    if (mma && rows == 32) return launch_mma<KV, D, 2>(p, B, split, smem, st);
+    if (mma && rows == 64) return launch_mma<KV, D, 4>(p, B, split, smem, st);
   }
   if (!mma && rows == 2)
-    return launch_simt<T, KV, D, 2, DG>(p, B, split, smem, st);
+    return launch_simt<T, KV, D, 2>(p, B, split, smem, st);
   if (!mma && rows == 4)
-    return launch_simt<T, KV, D, 4, DG>(p, B, split, smem, st);
+    return launch_simt<T, KV, D, 4>(p, B, split, smem, st);
   if (!mma && rows == simt_max_rows<D>())
-    return launch_simt<T, KV, D, simt_max_rows<D>(), DG>(p, B, split, smem,
-                                                         st);
+    return launch_simt<T, KV, D, simt_max_rows<D>()>(p, B, split, smem, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the tile width of head dim d (a multiple of 16 from 16 to 256): the
+// least of 64, 128 and 256 that holds it; 0 for any other d
+int tile_dim(int d) {
+  if (d < 16 || d > 256 || d % 16 != 0) return 0;
+  return d <= 64 ? 64 : d <= 128 ? 128 : 256;
+}
+
+template <typename T, typename KV>
+int dispatch_tile(int tile, bool mma, int rows, const Params& p, int B,
+                  int split, int smem, cudaStream_t st) {
+  if (tile == 64)
+    return dispatch_rows<T, KV, 64>(mma, rows, p, B, split, smem, st);
+  if (tile == 128)
+    return dispatch_rows<T, KV, 128>(mma, rows, p, B, split, smem, st);
+  if (tile == 256)
+    return dispatch_rows<T, KV, 256>(mma, rows, p, B, split, smem, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
 int dispatch_kv(bool int8, int D, bool mma, int rows, const Params& p, int B,
                 int split, int smem, cudaStream_t st) {
-  // head dim 80 (zamba2) on tiles of 128
-  if (int8 && D == 80)
-    return dispatch_rows<T, int8_t, 128, 80>(mma, rows, p, B, split, smem,
-                                             st);
-  if (!int8 && D == 80)
-    return dispatch_rows<T, T, 128, 80>(mma, rows, p, B, split, smem, st);
-  if (int8 && D == 256)
-    return dispatch_rows<T, int8_t, 256>(mma, rows, p, B, split, smem, st);
-  if (!int8 && D == 256)
-    return dispatch_rows<T, T, 256>(mma, rows, p, B, split, smem, st);
-  if (int8 && D == 128)
-    return dispatch_rows<T, int8_t, 128>(mma, rows, p, B, split, smem, st);
-  if (int8 && D == 64)
-    return dispatch_rows<T, int8_t, 64>(mma, rows, p, B, split, smem, st);
-  if (!int8 && D == 128)
-    return dispatch_rows<T, T, 128>(mma, rows, p, B, split, smem, st);
-  if (!int8 && D == 64)
-    return dispatch_rows<T, T, 64>(mma, rows, p, B, split, smem, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int tile = tile_dim(D);
+  if (int8)
+    return dispatch_tile<T, int8_t>(tile, mma, rows, p, B, split, smem, st);
+  return dispatch_tile<T, T>(tile, mma, rows, p, B, split, smem, st);
 }
 
 // dtype (q, out): 0 = float32, 1 = bfloat16; K/V of that type, or int8
-// when scales are given.  D: 64, 80, 128 or 256.  table null: contiguous.
+// when scales are given.  D: a multiple of 16 from 16 to 256, computed on
+// tiles of tile_dim(D).  table null: contiguous.
 // The plan (tensor_cores, rows, bk, stages, split, smem) is the wrapper's
 // _plan:
 // bk and stages must be the chosen kernel's, split 1, 2, 4 or 8, smem at
@@ -1142,7 +1161,7 @@ Params make_params(const void* q, const void* k, const void* v,
                 static_cast<const int*>(cache_pos), pos_ob,
                 static_cast<const int*>(kv_len),
                 static_cast<const int*>(table), n_tbl, bs, out, S, Hkv, R,
-                k_ob, v_ob, s_ob, window,
+                D, k_ob, v_ob, s_ob, window,
                 static_cast<float>(1.4426950408889634 /
                                    sqrt(static_cast<double>(D)))};
 }

@@ -61,6 +61,25 @@
 //      block rank q of the cluster sums its share of the tile's (frame,
 //      mel) outputs over the G blocks in rank order (distributed shared
 //      memory; a fixed order, no atomics) and writes log(max(sum, 1e-6)).
+//   4. Any bin count.  A group holds ceil(nbins / 8) / G bin tiles, and a
+//      block shape takes at most MAXT of them at once (8 groups of the
+//      widest: 1,024 bins).  A group with more loops: it runs steps 1 to 3
+//      in passes of at most MAXT tiles (its tiles split as evenly as whole
+//      tiles allow), each pass's mel partials added to the block's running
+//      partials in pass order, and the cluster merges once, after the last
+//      pass.  Of the three ways to cover more bins this is the one that
+//      keeps the kernel's one launch and its fixed summation order (bins
+//      in order within a pass, passes in order, groups in rank order: two
+//      runs are bitwise equal) and needs nothing else: a non-portable
+//      cluster of 16 would reach only 2,048 bins, and a second pass over
+//      the partials of several clusters would need a workspace and a second
+//      kernel.  The running partials then lie past the ring (which the
+//      next pass's copies overwrite), not aliased on it: a block of a
+//      multi-pass launch takes TM * n_mels * 4 bytes more shared memory
+//      (the plan's `multi`), so that at L 1,536 (48 kHz, n_fft 2048) a
+//      128-frame block takes 126 KB and runs one block an SM.  The tables
+//      (L, nbins) are read from global memory in place whatever their size
+//      (25 MB each at n_fft 4096 and L 3,072).
 //   No fast math: logf rounds as the plain version's log; silence gives
 //   log(1e-6) exactly and NaN stays NaN.
 //
@@ -70,8 +89,13 @@
 // loop, whose split (each frame sample split once for every bin group,
 // each table value once for every frame tile) and copies outweigh its
 // MMAs; then the mel product and the cluster merge (which waits for the
-// group with one more tile).  Left for later PRs: producer and consumer
-// warps (the split overlapping the MMAs), larger warp tiles.
+// group with one more tile).  Past one pass the same holds a pass: 512
+// one-second 48 kHz clips at 1,025 bins (one group, 17 passes) take 6.2
+// ms, 5.8 times the rfft chain and 1.3 times the plain version's f32
+// GEMM, at 2,049 bins (33 passes) 23.8 ms (NVIDIA H100 80GB HBM3, 700.00
+// W; chip_smoke.py phase 2, PERF.md).  Left for later PRs:
+// producer and consumer warps (the split overlapping the MMAs), larger
+// warp tiles, a frame tile split once for all of a block's passes.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -128,16 +152,33 @@ __host__ __device__ int window_floats(int L) {
   return (L + C::BK - 1) / C::BK * C::BK;
 }
 
-// Bytes of shared memory: the row offsets, the window, the ring (the
-// epilogue's tiles alias it: the group's mel rows, the power tile, the
-// partial mel tile)
+// Float offset of the partial mel tile from the ring's start: after the
+// epilogue's tiles that alias the ring (the group's mel rows, the power
+// tile), and past the ring itself when the group runs in several passes
+// (`multi`), whose copies would overwrite the running partials
 template <typename C>
-size_t smem_bytes(int L, int n_mels) {
-  const long long epi = static_cast<long long>(C::HALF) * n_mels +
-                        C::HALF * C::LDP + C::TM * n_mels;
-  const long long body = epi > C::RING ? epi : C::RING;
+__host__ __device__ long long part_offset(int n_mels, bool multi) {
+  const long long epi =
+      static_cast<long long>(C::HALF) * n_mels + C::HALF * C::LDP;
+  return multi && C::RING > epi ? C::RING : epi;
+}
+
+// Bytes of shared memory: the row offsets, the window, then the ring, the
+// epilogue's tiles and the partial mel tile
+template <typename C>
+size_t smem_bytes(int L, int n_mels, bool multi) {
+  const long long end =
+      part_offset<C>(n_mels, multi) + static_cast<long long>(C::TM) * n_mels;
+  const long long body = end > C::RING ? end : C::RING;
   return sizeof(long long) * C::TM +
          sizeof(float) * (static_cast<size_t>(window_floats<C>(L)) + body);
+}
+
+// more bin tiles in the fullest group than the block shape takes at once
+template <typename C>
+__host__ __device__ bool multi_pass(int nbins, int groups) {
+  const int ntiles = (nbins + 7) / 8;
+  return (ntiles + groups - 1) / groups > C::MAXT;
 }
 
 // Float offset of chunk c (4 samples) of row r of an A tile: the chunk
@@ -215,9 +256,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// What a block works on: TM frames from m0, and the bin tiles [t_lo,
-// t_lo + nbt) of its group, bins [bin0, bin0 + nbg) of them live; the
-// warp's own tiles [w_lo, w_lo + w_nt) of those.
+// What a block works on in one pass: TM frames from m0, and the bin tiles
+// [t_lo, t_lo + nbt) of the pass, bins [bin0, bin0 + nbg) of them live;
+// the warp's own tiles [w_lo, w_lo + w_nt) of those.
 struct Block {
   int m0, nbt, bin0, nbg, w_lo, w_nt;
 };
@@ -414,9 +455,10 @@ __device__ __forceinline__ void dft_power(const Params& p, const Block& bk,
 }
 
 // One block: TM frames x the bin tiles [t_lo, t_hi) of its group (rank
-// q of a cluster of G).  Warp w owns frames 16 (w % WARPS_M) .. + 15 and
-// bin tiles [wn * nbt / WARPS_N, (wn + 1) * nbt / WARPS_N) of the block's
-// nbt, wn = w / WARPS_M: at most NT.
+// q of a cluster of G), in passes of at most MAXT tiles.  In a pass of
+// nbt tiles warp w owns frames 16 (w % WARPS_M) .. + 15 and bin tiles
+// [wn * nbt / WARPS_N, (wn + 1) * nbt / WARPS_N), wn = w / WARPS_M: at
+// most NT.
 template <typename C>
 __global__ void __launch_bounds__(kThreads, C::MINB)
 mel_frontend_kernel(const Params p, int vec) {
@@ -428,22 +470,18 @@ mel_frontend_kernel(const Params p, int vec) {
   const int wn = warp / C::WARPS_M;
   const int ntiles = (p.nbins + 7) >> 3;
   const int t_lo = q * ntiles / G, t_hi = (q + 1) * ntiles / G;
-  Block bk;
-  bk.m0 = (blockIdx.x / G) * C::TM;
-  bk.nbt = t_hi - t_lo;
-  bk.bin0 = 8 * t_lo;
-  bk.nbg = min(p.nbins, 8 * t_hi) - bk.bin0;            // live bins
-  bk.w_lo = wn * bk.nbt / C::WARPS_N;
-  bk.w_nt = (wn + 1) * bk.nbt / C::WARPS_N - bk.w_lo;   // <= NT
-  const int m0 = bk.m0;
+  const int gt = t_hi - t_lo;                            // the group's tiles
+  const int npass = (gt + C::MAXT - 1) / C::MAXT;
+  const int m0 = (blockIdx.x / G) * C::TM;
 
   long long* rowoff = reinterpret_cast<long long*>(smem4);   // [TM]
   float* win_s = reinterpret_cast<float*>(rowoff + C::TM);
   float* ring = win_s + window_floats<C>(p.L);
-  // the epilogue's tiles alias the ring
+  // the epilogue's tiles alias the ring; the partials too in one pass
   float* mel_s = ring;                                  // [HALF][n_mels]
   float* pw_s = mel_s + C::HALF * p.n_mels;             // [HALF][LDP]
-  float* part = pw_s + C::HALF * C::LDP;                // [TM][n_mels]
+  float* part =                                         // [TM][n_mels]
+      ring + part_offset<C>(p.n_mels, multi_pass<C>(p.nbins, G));
 
   for (int i = tid; i < C::TM; i += kThreads) {
     const int r = m0 + i;
@@ -456,42 +494,64 @@ mel_frontend_kernel(const Params p, int vec) {
     win_s[i] = i < p.L ? p.window[i] : 0.f;
   __syncthreads();
 
-  // NT + 1 bodies, one for each tile count a warp can own
   static_assert(C::NT <= 8, "bodies");
   const bool v = vec != 0;
-  switch (bk.w_nt) {
+  for (int pass = 0; pass < npass; ++pass) {
+    Block bk;
+    const int p_lo = t_lo + pass * gt / npass;
+    const int p_hi = t_lo + (pass + 1) * gt / npass;
+    bk.m0 = m0;
+    bk.nbt = p_hi - p_lo;                                 // <= MAXT
+    bk.bin0 = 8 * p_lo;
+    bk.nbg = min(p.nbins, 8 * p_hi) - bk.bin0;            // live bins
+    bk.w_lo = wn * bk.nbt / C::WARPS_N;
+    bk.w_nt = (wn + 1) * bk.nbt / C::WARPS_N - bk.w_lo;   // <= NT
+    // every warp is done with the last pass's mel rows and power tile,
+    // which the ring's first copies overwrite
+    if (pass > 0) __syncthreads();
+    // NT + 1 bodies, one for each tile count a warp can own
+    switch (bk.w_nt) {
 #define MEL_BODY(n)                                                       \
   case n:                                                                 \
     dft_power<C, (n <= C::NT ? n : 0)>(p, bk, v, rowoff, win_s, ring,   \
                                        pw_s);                             \
     break;
-    MEL_BODY(0) MEL_BODY(1) MEL_BODY(2) MEL_BODY(3) MEL_BODY(4)
-    MEL_BODY(5) MEL_BODY(6) MEL_BODY(7) MEL_BODY(8)
+      MEL_BODY(0) MEL_BODY(1) MEL_BODY(2) MEL_BODY(3) MEL_BODY(4)
+      MEL_BODY(5) MEL_BODY(6) MEL_BODY(7) MEL_BODY(8)
 #undef MEL_BODY
-  }
-  // the group's rows of mel (the ring is free: the loop ended in a sync)
-  for (int i = tid; i < bk.nbg * p.n_mels; i += kThreads)
-    mel_s[i] = p.mel[static_cast<long long>(bk.bin0) * p.n_mels + i];
-  __syncthreads();
-  // item (fq, m): mel band m of frames 4 fq .. 4 fq + 3
-  for (int item = tid; item < (C::TM / 4) * p.n_mels; item += kThreads) {
-    const int fq = item / p.n_mels, m = item - fq * p.n_mels;
-    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < bk.nbg; ++k) {
-      const float4 pv =
-          *reinterpret_cast<const float4*>(pw_s + k * C::LDP + 4 * fq);
-      const float w = mel_s[k * p.n_mels + m];
-      s0 = fmaf(pv.x, w, s0);
-      s1 = fmaf(pv.y, w, s1);
-      s2 = fmaf(pv.z, w, s2);
-      s3 = fmaf(pv.w, w, s3);
     }
-    float* pr = part + 4 * fq * p.n_mels + m;
-    pr[0] = s0;
-    pr[p.n_mels] = s1;
-    pr[2 * p.n_mels] = s2;
-    pr[3 * p.n_mels] = s3;
+    // the pass's rows of mel (the ring is free: the loop ended in a sync)
+    for (int i = tid; i < bk.nbg * p.n_mels; i += kThreads)
+      mel_s[i] = p.mel[static_cast<long long>(bk.bin0) * p.n_mels + i];
+    __syncthreads();
+    // item (fq, m): mel band m of frames 4 fq .. 4 fq + 3, the same
+    // thread's in every pass; the pass's sums over its bins in order,
+    // added to the running partials in pass order
+    for (int item = tid; item < (C::TM / 4) * p.n_mels; item += kThreads) {
+      const int fq = item / p.n_mels, m = item - fq * p.n_mels;
+      float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll 8
+      for (int k = 0; k < bk.nbg; ++k) {
+        const float4 pv =
+            *reinterpret_cast<const float4*>(pw_s + k * C::LDP + 4 * fq);
+        const float w = mel_s[k * p.n_mels + m];
+        s0 = fmaf(pv.x, w, s0);
+        s1 = fmaf(pv.y, w, s1);
+        s2 = fmaf(pv.z, w, s2);
+        s3 = fmaf(pv.w, w, s3);
+      }
+      float* pr = part + 4 * fq * p.n_mels + m;
+      if (pass > 0) {
+        s0 += pr[0];
+        s1 += pr[p.n_mels];
+        s2 += pr[2 * p.n_mels];
+        s3 += pr[3 * p.n_mels];
+      }
+      pr[0] = s0;
+      pr[p.n_mels] = s1;
+      pr[2 * p.n_mels] = s2;
+      pr[3 * p.n_mels] = s3;
+    }
   }
 
   // ---- the cluster's partial sums, in rank order, then the log ----
@@ -520,13 +580,12 @@ mel_frontend_kernel(const Params p, int vec) {
 template <typename C>
 int launch(const Params& p, int groups, bool vec, cudaStream_t stream) {
   const int ntiles = (p.nbins + 7) / 8;
-  // the fullest group holds ceil(ntiles / groups) tiles
-  if (groups < 1 || groups > kMaxGroups || groups > ntiles ||
-      (ntiles + groups - 1) / groups > C::MAXT)
+  if (groups < 1 || groups > kMaxGroups || groups > ntiles)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long mtiles = (static_cast<long long>(p.F) + C::TM - 1) / C::TM;
   if (mtiles * groups > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes<C>(p.L, p.n_mels);
+  const size_t smem =
+      smem_bytes<C>(p.L, p.n_mels, multi_pass<C>(p.nbins, groups));
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   static int raised = 0;   // bytes the attribute allows (one card)
   if (smem > 48 * 1024 && static_cast<int>(smem) > raised) {
@@ -559,8 +618,9 @@ extern "C" {
 
 // frames: (nb, nf, L) f32 view with strides (sb, sf, 1) in elements.
 // (config, groups): the wrapper's plan, config 0 (128 frames a block), 1
-// (64) or 2 (16); the bins split into `groups` (<= 8) groups of whole
-// tiles of 8, at most the config's tiles a group.  Returns a cudaError_t:
+// (64) or 2 (16); the bins split into `groups` (<= 8, at most the bin
+// tiles) groups of whole tiles of 8, each run in passes of at most the
+// config's tiles.  Returns a cudaError_t:
 // invalid sizes or plan, shared memory past 227 KB
 // (cudaErrorInvalidValue), or the launch's own error.
 int mel_frontend(const void* frames, long long sb, long long sf, int nb,

@@ -33,23 +33,35 @@ tensors only: ``kernels/ops.py`` sends CPU tensors to
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_decode import check_head_dim, tile_dim
 
 # launches since the last reset (the caller resets)
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# head dims the kernels take, forward and backward (80 on tiles of 128,
-# zero columns past 80; 256 in two blocks a head, half of D each)
-_HEAD_DIMS = (64, 80, 128, 256)
+# head dims: a multiple of 16 from 16 to 256, forward and backward, on
+# tiles of 64, 128 or 256 (``flash_decode.tile_dim``: zero columns past D;
+# the tile of 256 in two blocks a head, half of its columns each)
 _FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                  + [ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 12
                  + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+
+
+def column_blocks(d: int) -> List[Tuple[int, int]]:
+    """The real output columns [lo, hi) that each block of a head writes
+    at head dim ``d``, as the bf16 kernels split their tile
+    (``fwd_cols``): one block up to a tile of 128, two at the tile of 256,
+    each with half of the tile's columns and of them the real ones (the
+    second block's may be fewer than the first's)."""
+    t = tile_dim(d)
+    half = t // 2 if t > 128 else t
+    return [(lo, min(d, lo + half)) for lo in range(0, t, half)]
 
 
 def reset_launches() -> None:
@@ -94,8 +106,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          " or with positions")
     if hkv == 0 or hq % hkv:
         raise ValueError(f"Hq {hq} is no multiple of Hkv {hkv}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {_HEAD_DIMS}")
+    check_head_dim(d)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: one of"
                         " float32 or bfloat16")
@@ -135,11 +146,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         k_pos: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D), float32 or bfloat16,
-    contiguous on one CUDA device, D 64, 80, 128 or 256; Skv != Sq only
-    with ``causal=False`` and ``window == 0``, or with positions ``q_pos``
-    (B, Sq) and ``k_pos`` (B, Skv) int32 (the position masks).  Returns
-    the output (B, Sq, Hq, D) in q's dtype and the rows' log-sum-exp (B,
-    Hq, Sq) float32."""
+    contiguous on one CUDA device, D a multiple of 16 from 16 to 256;
+    Skv != Sq only with ``causal=False`` and ``window == 0``, or with
+    positions ``q_pos`` (B, Sq) and ``k_pos`` (B, Skv) int32 (the position
+    masks).  Returns the output (B, Sq, Hq, D) in q's dtype and the rows'
+    log-sum-exp (B, Hq, Sq) float32."""
     b, sq, skv, hq, hkv, d = _check(q, k, v, causal, window, q_pos=q_pos,
                                     k_pos=k_pos)
     out = torch.empty_like(q)
@@ -168,7 +179,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradients (dq, dk, dv) of ``flash_attention_fwd``'s output
     against ``dout``, from the forward's inputs, output and ``lse`` (and
     its positions); in the inputs' dtype: dq of q's shape, dk/dv of k's.
-    D 64, 80, 128 or 256, as the forward."""
+    Any D the forward takes."""
     b, sq, skv, hq, hkv, d = _check(q, k, v, causal, window, q_pos=q_pos,
                                     k_pos=k_pos, out=out, dout=dout)
     if lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, sq) \

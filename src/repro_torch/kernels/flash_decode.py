@@ -36,10 +36,10 @@ from repro_torch.kernels import build
 LAUNCHES = {"flash_decode": 0, "flash_chunk_prefill": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 80, 128, 256)
-# head dims the kernels compute on a wider tile: 80 on tiles of 128, the
-# columns past 80 zero-filled in shared memory and never written out
-_TILE_DIMS = {80: 128}
+# the tile widths the kernels are built for; a head dim D (a multiple of
+# 16 from 16 to 256) is computed on the least that holds it, the columns
+# past D zero-filled in shared memory and never written out
+TILE_DIMS = (64, 128, 256)
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_void_p])
@@ -84,14 +84,25 @@ def _simt_warps(rows: int) -> int:
     return 8 if rows <= 4 else 4
 
 
+def check_head_dim(d: int) -> None:
+    """Raise unless the kernels take head dim ``d``: a multiple of 16 from
+    16 to 256 (whole 16-byte chunks a row in every type)."""
+    if d % 16 or not 16 <= d <= 256:
+        raise ValueError(f"head_dim {d}: the kernels take a multiple of 16"
+                         " from 16 to 256")
+
+
 def tile_dim(d: int) -> int:
-    """The width the kernels compute a row of head dim ``d`` on."""
-    return _TILE_DIMS.get(d, d)
+    """The width the kernels compute a row of head dim ``d`` on: the least
+    of ``TILE_DIMS`` that holds it."""
+    check_head_dim(d)
+    return next(t for t in TILE_DIMS if d <= t)
 
 
 def simt_max_rows(d: int) -> int:
-    """Most rows a CUDA-core block takes: 16, or 8 at D 256, where 16 rows
-    of 8 columns a lane would hold 256 f32 of q and acc a thread."""
+    """Most rows a CUDA-core block takes: 16, or 8 on the tile of 256,
+    where 16 rows of 8 columns a lane would hold 256 f32 of q and acc a
+    thread."""
     return 8 if tile_dim(d) > 128 else 16
 
 
@@ -124,10 +135,9 @@ def _plan(b: int, hkv: int, r: int, s: int, dtype: torch.dtype, int8: bool,
     tensor-core kernel with 64, 32 or 16 rows a block, the most that
     still gives one block an SM at the largest split; the rest take the
     CUDA-core kernel with 2 or 4 rows a block (decode at G <= 2, at G 3
-    or 4) or 16 (8 at D 256).  The
-    split is the least power of two that gives the grid at least one
-    block an SM, at most 8 (the portable cluster size) and at most the
-    KV tiles of a full slot."""
+    or 4) or 16 (8 on the tile of 256).  The split is the least power of
+    two that gives the grid at least one block an SM, at most 8 (the
+    portable cluster size) and at most the KV tiles of a full slot."""
     mma = dtype == torch.bfloat16 and r > SIMT_MAX_ROWS
     bk, stages = (MMA_BK, MMA_STAGES) if mma else (SIMT_BK, SIMT_STAGES)
     max_split = 1
@@ -212,8 +222,7 @@ def _check(q, k, v, q_pos, cache_pos, kv_len, q_pos_shape, k_scale,
         raise TypeError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: q"
                         " float32 or bfloat16, K/V of q's dtype, or int8"
                         " with scales")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {_HEAD_DIMS}")
+    check_head_dim(d)
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
     outer, rows = k.shape[0], k.shape[1]

@@ -11,7 +11,9 @@ and counts the launch in ``LAUNCHES``.  It takes CUDA tensors only:
 The frames come as a ``(B, NF, L)`` (or ``(F, L)``) view with any outer
 strides and a unit stride along L, such as ``frame_signal``'s ``unfold``
 view of the signal, whose frames overlap: the kernel reads the signal in
-place.  Any frame count works: the last tile is masked.
+place.  Any frame count works: the last tile is masked.  Any bin count
+works: a bin group with more tiles than its block shape takes runs them
+in passes (``pass_tiles``).
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ _ARGTYPES = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
 
 SMS = 132                 # the H100's SMs
 MAX_GROUPS = 8            # the portable cluster size
+MAX_SMEM = 232_448        # bytes of shared memory a block may take
 BK = 16                   # samples of a frame a stage (csrc: Cfg::BK)
 THREADS = 256
 
@@ -59,15 +62,19 @@ class Config:
     def max_tiles(self) -> int:   # bin tiles of 8 a block
         return self.warps_n * self.nt
 
-    def smem(self, l: int, n_mels: int) -> int:
+    def smem(self, l: int, n_mels: int, multi: bool = False) -> int:
         """Bytes of dynamic shared memory: the row offsets, the window
         (whole stages), and the larger of the ring (each stage's frame
         chunks and table values, in hi and lo parts) and the epilogue's
-        tiles, which alias it."""
+        tiles (the mel rows, the power tile, the partial mel tile), which
+        alias it; with several passes (``multi``) the partial mel tile
+        lies past the ring, whose copies would overwrite it."""
         half = 8 * self.max_tiles
         ring = self.depth * (2 * self.tm * BK + 2 * BK * (2 * half + 4))
-        epilogue = half * n_mels + half * (self.tm + 4) + self.tm * n_mels
-        return 8 * self.tm + 4 * (_cdiv(l, BK) * BK + max(ring, epilogue))
+        epilogue = half * n_mels + half * (self.tm + 4)
+        part = max(ring, epilogue) if multi else epilogue
+        body = max(ring, part + self.tm * n_mels)
+        return 8 * self.tm + 4 * (_cdiv(l, BK) * BK + body)
 
 
 # index = the C entry's ``config``: 128, 64 and 16 frames a block
@@ -79,14 +86,15 @@ CONFIGS = (Config(warps_m=8, nt=8, depth=3), Config(warps_m=4, nt=8, depth=2),
 class Plan:
     """One launch: block shape ``config`` (an index into ``CONFIGS``), the
     bins split into ``groups`` groups of whole tiles of 8 (one cluster a
-    frame tile), ``blocks`` blocks and ``smem`` bytes of shared memory
-    each."""
+    frame tile), the fullest group in ``passes`` passes, ``blocks``
+    blocks and ``smem`` bytes of shared memory each."""
     config: int
     tm: int
     groups: int
     frame_tiles: int
     blocks: int
     smem: int
+    passes: int = 1
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -100,36 +108,62 @@ def group_tiles(nbins: int, groups: int) -> List[Tuple[int, int]]:
     return [(q * t // groups, (q + 1) * t // groups) for q in range(groups)]
 
 
+def pass_tiles(tiles: int, max_tiles: int) -> List[Tuple[int, int]]:
+    """A group's bin tiles [lo, hi) of each pass, as the kernel splits its
+    ``tiles``: ceil(tiles / max_tiles) passes, as even as whole tiles
+    allow (none holds more than ``max_tiles``)."""
+    n = max(1, _cdiv(tiles, max_tiles))
+    return [(j * tiles // n, (j + 1) * tiles // n) for j in range(n)]
+
+
 def warp_tiles(tiles: int, warps_n: int) -> List[Tuple[int, int]]:
     """A block's bin tiles [lo, hi) of each warp column, as the kernel
-    splits a group's ``tiles``."""
+    splits a pass's ``tiles``."""
     return [(w * tiles // warps_n, (w + 1) * tiles // warps_n)
             for w in range(warps_n)]
+
+
+def _make(i: int, f: int, l: int, ntiles: int, n_mels: int,
+          groups: int) -> Plan:
+    c = CONFIGS[i]
+    mtiles = _cdiv(f, c.tm)
+    passes = _cdiv(_cdiv(ntiles, groups), c.max_tiles)
+    return Plan(i, c.tm, groups, mtiles, mtiles * groups,
+                c.smem(l, n_mels, passes > 1), passes)
 
 
 @functools.lru_cache(maxsize=None)
 def _plan(f: int, l: int, nbins: int, n_mels: int) -> Plan:
     """The launch for ``f`` frames of ``l`` samples, from the shape alone.
-    The largest block shape (128 frames, then 64) whose fewest groups give
+    Bins that 8 groups of a block shape cover in one pass (up to 1,024):
+    the largest block shape (128 frames, then 64) whose fewest groups give
     at least one block an SM; else the smallest block shape whose bins fit
     8 groups, with as many groups as give one block an SM, at most 8 and
-    at most one a bin tile.  A shape whose bins fit no block shape gets a
-    plan the kernel refuses."""
+    at most one a bin tile.  More bins: the groups loop over passes, so
+    the fewest groups do the least work (each pass streams the frames
+    once); the largest block shape whose frame tiles alone give one block
+    an SM, in one group; else the smallest, with as many groups as give
+    one block an SM (at most 8 and one a tile).  Only block shapes whose
+    shared memory fits are taken; a shape that fits none (thousands of
+    mels) gets a plan the kernel refuses."""
     ntiles = _cdiv(nbins, 8)
-    fits = [i for i, c in enumerate(CONFIGS)
-            if _cdiv(ntiles, c.max_tiles) <= MAX_GROUPS]
-    for i in fits:
+    one_pass = [i for i, c in enumerate(CONFIGS)
+                if _cdiv(ntiles, c.max_tiles) <= MAX_GROUPS
+                and c.smem(l, n_mels) <= MAX_SMEM]
+    shapes = one_pass or [i for i, c in enumerate(CONFIGS)
+                          if c.smem(l, n_mels, True) <= MAX_SMEM] \
+        or [len(CONFIGS) - 1]
+
+    def fewest(c: Config) -> int:
+        return _cdiv(ntiles, c.max_tiles) if one_pass else 1
+    for i in shapes:
         c = CONFIGS[i]
-        groups, mtiles = _cdiv(ntiles, c.max_tiles), _cdiv(f, c.tm)
-        if mtiles * groups >= SMS:
-            break
-    else:
-        i = fits[-1] if fits else len(CONFIGS) - 1
-        c = CONFIGS[i]
-        mtiles = _cdiv(f, c.tm)
-        groups = max(_cdiv(ntiles, c.max_tiles),
-                     min(MAX_GROUPS, ntiles, _cdiv(SMS, mtiles)))
-    return Plan(i, c.tm, groups, mtiles, mtiles * groups, c.smem(l, n_mels))
+        if _cdiv(f, c.tm) * fewest(c) >= SMS:
+            return _make(i, f, l, ntiles, n_mels, fewest(c))
+    c = CONFIGS[shapes[-1]]
+    groups = max(fewest(c),
+                 min(MAX_GROUPS, ntiles, _cdiv(SMS, _cdiv(f, c.tm))))
+    return _make(shapes[-1], f, l, ntiles, n_mels, groups)
 
 
 def reset_launches() -> None:

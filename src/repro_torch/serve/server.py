@@ -778,3 +778,7 @@ class PagedBatchServer(ContinuousBatchServer):
             m["kv_live_bytes_mean"] = float(np.mean(live)) \
                 * self._block_bytes
         return m
+
+
+# the default engine, as the JAX package names it
+BatchServer = ContinuousBatchServer

@@ -116,11 +116,12 @@ def test_backward_matches_plain(cuda_device, case, dtype):
 @pytest.mark.cuda
 def test_refused_shapes_raise(cuda_device):
     """What the kernels do not take raises; it never quietly takes the
-    plain path on a CUDA tensor."""
+    plain path on a CUDA tensor.  Head dims: a multiple of 16 from 16 to
+    256 (D 32 and 96 are taken: ``test_head_dims_off_the_tiles``)."""
     def qkv(d, dtype=torch.bfloat16, hq=2, hkv=2):
         return [torch.zeros(1, 8, h, d, dtype=dtype, device=cuda_device)
                 for h in (hq, hkv, hkv)]
-    for d in (32, 96, 320):
+    for d in (24, 40, 320):
         with pytest.raises(ValueError, match="head_dim"):
             tops.flash_attention(*qkv(d))
     with pytest.raises(ValueError, match="multiple"):
@@ -162,3 +163,35 @@ def test_training_step_launch_counts(cuda_device):
         assert tfa.LAUNCHES == {"flash_attention": fwd,
                                 "flash_attention_bwd": n}
         assert bool(loss.isfinite())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_head_dims_off_the_tiles(cuda_device, dtype):
+    """D 32 (on tiles of 64) and D 96 (on 128), once refused: forward and
+    backward through ``ops.flash_attention`` against the plain versions,
+    causal GQA over a ragged S."""
+    for d in (32, 96):
+        _check_off_the_tiles(cuda_device, d, DTYPES[dtype])
+
+
+def _check_off_the_tiles(cuda_device, d, dt):
+    q, k, v, do = _inputs(cuda_device, 2, 100, 4, 2, d, dt, seed=2)
+    qk = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(tfa.LAUNCHES)
+    out = tops.flash_attention(*qk, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert tfa.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    f32 = [t.float() for t in (q, k, v)]
+    want = tref.flash_attention_ref(*f32, True, 0)
+    assert out.dtype == dt
+    assert _within(out.detach(), want, *OUT_TOL[dt]) <= 1
+    want_g = tref.flash_attention_bwd_ref(*f32, out.detach().float(),
+                                          do.float(), True, 0)
+    for got, w in zip(qk, want_g):
+        g = got.grad
+        assert g.dtype == dt and bool(g.isfinite().all())
+        assert _within(g, w, OUT_TOL[dt][0], _grad_atol(w, dt)) <= 1

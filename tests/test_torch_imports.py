@@ -24,7 +24,8 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
 EXAMPLES = ("torch_quickstart.py", "torch_eon_tuner_kws.py",
-            "torch_train_lm.py")
+            "torch_train_lm.py", "torch_serve_lm.py",
+            "torch_active_learning_demo.py")
 
 
 def _port_files():
@@ -64,7 +65,10 @@ def test_port_imports_neither_jax_nor_repro():
     # a few steps of a small LM, its files in the test's directory
     ("torch_train_lm.py", '"final_loss"',
      ("--steps", "3", "--d-model", "128", "--layers", "2", "--vocab", "512",
-      "--batch", "2", "--seq", "16", "--micro", "2"))])
+      "--batch", "2", "--seq", "16", "--micro", "2")),
+    ("torch_serve_lm.py", "first request generated:", ()),
+    ("torch_active_learning_demo.py", "after active-learning expansion",
+     ())])
 def test_examples_run_on_the_cpu(name, expect, extra, tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     if name == "torch_train_lm.py":

@@ -166,10 +166,21 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         tmf.mel_frontend(frames, tables[0].cpu(), *tables[1:])
     with pytest.raises(ValueError, match="expected"):
         tmf.mel_frontend(frames, tables[0], tables[1][:, :-1], *tables[2:])
-    # 1,025 bins (129 tiles of 8) need more than the 8 groups of 16 tiles
-    # a cluster of the widest block shape holds: refused, not tiled smaller
-    big = torch.zeros(2048, 1025, device=cuda_device)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        tmf.mel_frontend(torch.zeros(4, 2048, device=cuda_device),
-                         torch.zeros(2048, device=cuda_device), big, big,
-                         torch.zeros(1025, 40, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_bins_past_one_cluster_pass(cuda_device):
+    """1,025 bins (129 tiles of 8), more than the 8 groups of 16 tiles a
+    cluster of the widest block shape holds in one pass, once refused:
+    four frames of 2,048 samples against the plain version, the groups
+    looping over passes."""
+    rng = np.random.RandomState(4)
+    l, nbins = 2048, 1025
+    kk = np.arange(nbins)[None, :] * np.arange(l)[:, None] * 2 * np.pi / l
+    frames, *tables = (torch.from_numpy(a.astype(np.float32))
+                       .to(cuda_device)
+                       for a in (rng.randn(4, l) * 0.1, np.hanning(l),
+                                 np.cos(kk), -np.sin(kk),
+                                 rng.rand(nbins, 40)))
+    assert tmf._plan(4, l, nbins, 40).passes > 1
+    _check(frames, tables)

@@ -60,6 +60,35 @@ def test_quant_dynamic_bitwise(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fake_quant_dynamic_bitwise(dtype):
+    """The int8 activation path's round trip, observed and with a
+    calibrated amax per row, bitwise the JAX package's."""
+    rng = np.random.RandomState(6)
+    x = _x(rng, (3, 5, 64))
+    jx = jnp.asarray(x, dtype)
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(
+        getattr(torch, dtype))
+    amax = np.abs(x).max(-1) * 0.5 + 0.25
+    for ja, ta in ((None, None),
+                   (jnp.asarray(amax), torch.from_numpy(amax))):
+        want = np.asarray(jq.fake_quant_dynamic(jx, ja))
+        got = tq.fake_quant_dynamic(tx, ta)
+        assert got.dtype == torch.float32 and got.shape == tx.shape
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_reference_one_liners():
+    """The reference's small public names: the arch list in its order and
+    ``BatchServer`` as the continuous engine."""
+    from repro_torch import configs as tconfigs
+    from repro_torch.serve import server as tserver
+    assert tconfigs.all_archs() == jconfigs.all_archs()
+    assert all(tconfigs.get_smoke(a) is not None
+               for a in tconfigs.all_archs())
+    assert tserver.BatchServer is tserver.ContinuousBatchServer
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_quant_kv_bitwise(dtype):
     rng = np.random.RandomState(1)
     x = _x(rng, (3, 9, 2, 16))

@@ -88,7 +88,7 @@ def test_tile_width_and_merge_buffers():
     assert [fd.tile_dim(d) for d in (64, 80, 128, 256)] == [64, 128, 128,
                                                            256]
     assert fd.simt_max_rows(80) == fd.simt_max_rows(128) == 16
-    assert 80 in fd._HEAD_DIMS
+    fd.check_head_dim(80)   # taken: a multiple of 16 up to 256
     for rows in (2, 16):
         merge = (fd._simt_warps(rows) + 1) * rows * (128 + 2) * 4
         assert fd._smem("simt", rows, D, 2, False) \
